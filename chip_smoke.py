@@ -6,7 +6,8 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Card: name and power limit (nvidia-smi), torch and CUDA versions.
-2. Build: the CUDA kernels from ``horaedb_tpu_torch/ops/csrc`` with nvcc.
+2. Build: the CUDA kernels from ``horaedb_tpu_torch/ops/csrc``, one nvcc
+   per source, started together.
 3. Kernel vs plain: every entry point (direct, cached full, cached
    selective) and arm (single, shared, scatter) against its plain PyTorch
    version on the same CUDA tensors, over every resident layout, all six
@@ -25,6 +26,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel table's max_abs_err comes from here.
 6. Timings: per query cold and warm wall time and the cached kernel's
    time (CUDA events), and peak device memory.
+7. Merge kernels vs plain: the merge-dedup sort of every kind (rk, f32,
+   f64, gen) against its plain version on the same CUDA tensors, at
+   MERGE_SIZES rows, unique and duplicate-heavy keys, dedup on and off,
+   n_valid = 0, and a stress set through the dispatcher (exact duplicates,
+   all-ones real keys, +-2**62 timestamps with a 64-bit seq span) that
+   must reach its kind by the counters. perm and keep bit-equal.
+8. Main path of BASELINE config 5: 64 overlapping L0 SSTs, 100M rows,
+   written through the engine's SstWriter and manifest; the SELECT before
+   compaction (the f32 read merge), ``Compactor.compact()`` (16 rk chunk
+   launches), the SELECT after and a GROUP BY, all checked against an
+   independent numpy merge, as are the L1 SST's rows and order; host
+   stage seconds.
+9. Merge replay and timings: the last f32 and rk main-path calls, kernel
+   against plain (bit-equal); per kind the kernel's time, radix passes,
+   bound, plain and library times, upload and download.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -106,17 +122,27 @@ def phase_card(torch) -> str:
 
 
 def phase_build() -> None:
-    from horaedb_tpu_torch.ops import scan_agg
+    """Both kernel libraries, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
 
+    from horaedb_tpu_torch.ops import merge_dedup, scan_agg
+
+    loaders = {"scan_agg": scan_agg._kernels, "merge_dedup": merge_dedup._kernels}
     t0 = time.perf_counter()
-    lib = scan_agg._kernels()  # builds and loads the library, checks its struct layouts
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        # each builds and loads its library and checks its struct layouts
+        futs = {name: pool.submit(fn) for name, fn in loaders.items()}
+        libs = {name: f.result() for name, f in futs.items()}
     secs = time.perf_counter() - t0
-    say(f"build: scan_agg.cu in {lib.build_seconds:.2f} s of nvcc, {secs:.2f} s with loading")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"  ptxas scan_agg: {line.strip()}")
+    for name, lib in libs.items():
+        say(f"build: {name}.cu in {lib.build_seconds:.2f} s of nvcc")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"  ptxas {name}: {line.strip()}")
+        DETAIL[f"build_log_{name}"] = lib.build_log
+        DETAIL[f"nvcc_seconds_{name}"] = lib.build_seconds
+    say(f"build: {secs:.2f} s for both with loading")
     DETAIL["build_seconds"] = secs
-    DETAIL["build_log"] = lib.build_log
 
 
 # ---- phase 3: kernels against their plain versions ------------------------
@@ -834,6 +860,584 @@ def phase_timings(torch, main, errs, card) -> list:
     return kernels
 
 
+# ---- phase 7: the merge-dedup sort against its plain version ----------------
+
+MERGE_SRC = "horaedb_tpu_torch/ops/csrc/merge_dedup.cu"
+MERGE_REPLACES = {
+    "rk": "horaedb_tpu/ops/merge_dedup.py:132",
+    "f32": "horaedb_tpu/ops/merge_dedup.py:158",
+    "f64": "horaedb_tpu/ops/merge_dedup.py:197",
+    "gen": "horaedb_tpu/ops/merge_dedup.py:225",
+}
+MERGE_SIZES = (1, 2, 4095, 4097, (1 << 20) + 13, (1 << 23) + 5)
+U32 = 0xFFFFFFFF
+
+
+def _distinct(rng, space: int, k: int):
+    """``k`` distinct integers drawn uniformly from [0, space), ascending."""
+    import numpy as np
+
+    if space <= 4 * k:
+        return np.sort(rng.choice(space, k, replace=False))
+    draws = k + k // 8 + 64
+    while True:  # uniform draws, deduped, then a uniform subset of k
+        u = np.unique(rng.integers(0, space, draws, dtype=np.int64))
+        if len(u) >= k:
+            return u[np.sort(rng.choice(len(u), k, replace=False))]
+        draws += draws // 2
+
+
+def _kind_words(rng, kind, n, dup=False):
+    """Key word columns of ``kind`` for ``n`` real rows in random order,
+    with the kind's pad fills and dedup masks. ``dup`` draws each word from
+    three values (rk: composites that differ mostly in their 6 seq bits),
+    so most keys repeat and many rows tie on every word."""
+    import numpy as np
+
+    def word():
+        w = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+        return rng.choice(w[:3], n) if dup and n else w
+
+    if kind == "rk":
+        # unique composites below 2**63: the kind's precondition
+        comp = rng.permutation(_distinct(rng, 2 * n + 64 if dup else 1 << 36, n))
+        comp = comp.astype(np.uint64)
+        return ((comp >> np.uint64(32)).astype(np.uint32), comp.astype(np.uint32)), \
+            (U32, U32), (U32, U32 ^ 63)
+    if kind == "f32":
+        return (word(), word(), word()), (U32,) * 3, (U32, U32, U32 ^ 63)
+    if kind == "f64":
+        return (word(), word(), word(), word()), (U32,) * 4, (U32, U32, U32, U32 ^ 63)
+    return ((np.zeros(n, np.uint32),) + tuple(word() for _ in range(6)),
+            (1, 0, 0, 0, 0, 0, 0), (0, U32, U32, U32, U32, 0, 0))
+
+
+def _upload_words(torch, cols, fills, n):
+    from horaedb_tpu_torch.ops import merge_dedup as md
+
+    host = md.stage(cols, fills, n, pinned=DEV == "cuda")
+    return host.to(DEV).unbind(0)
+
+
+def _merge_check(torch, kind, words, masks, n_valid, dedup, what) -> int:
+    """The kernel of ``kind`` once and its plain version once on the same
+    tensors; perm and keep must be bit-equal. Returns the radix passes the
+    kernel took (0 on the CPU)."""
+    from horaedb_tpu_torch.ops import merge_dedup as md
+
+    if DEV == "cuda":
+        out = md._launch(kind, words, masks, n_valid, dedup)
+        perm, keep, passes = md.unpack(out, words[0].shape[0])
+    else:
+        perm, keep = md.sort_dedup(kind, words, masks, n_valid, dedup)
+        passes = torch.zeros(0)
+    _sync(torch)
+    want = md._plain(kind, words, masks, n_valid, dedup)
+    check(torch.equal(perm.cpu(), want[0].cpu()), f"{what}: perm differs from plain")
+    check(torch.equal(keep.cpu(), want[1].cpu()), f"{what}: keep differs from plain")
+    return int(passes.sum())
+
+
+def _routing_cases(rng):
+    """(name, tsid, ts, seq, kwargs, the kind the spans route to): the
+    stress set, built as a merge builds it."""
+    import numpy as np
+
+    pool = np.sort(np.unique(rng.integers(0, 2**64, 1100, dtype=np.uint64))[:1000])
+    n = 5003
+    rank = rng.integers(0, 1000, n)
+    cases = []
+    key3 = rng.permutation(_distinct(rng, 1000 * (1 << 16) * 64, n))
+    r3 = key3 // ((1 << 16) * 64)
+    cases.append(("rk unique runs", pool[r3], (key3 // 64) % (1 << 16), (key3 % 64 + 1)
+                  .astype(np.uint64), dict(tsid_rank=r3.astype(np.uint64), n_ranks=1000,
+                                           unique=True), "rk"))
+    for kind, ts_scale in (("f32", 1), ("f64", 2**31), ("gen", 2**62)):
+        # heavy duplicate keys, and exact (key, seq) duplicates: 3 series,
+        # 3 timestamps, 2 sequences
+        tsid = pool[rng.integers(0, 3, n)]
+        ts = rng.integers(-1, 2, n).astype(np.int64) * ts_scale
+        seq = rng.integers(7, 9, n).astype(np.uint64)
+        cases.append((f"{kind} duplicates", tsid, ts, seq, {}, kind))
+    cases.append(("f32 wide", pool[rank], rng.integers(0, 2**20, n), rng.integers(
+        1, 65, n).astype(np.uint64), {}, "f32"))
+    cases.append(("f64 wide", pool[rank], rng.integers(0, 2**40, n), rng.integers(
+        1, 65, n).astype(np.uint64), {}, "f64"))
+    cases.append(("gen +-2**62, 64-bit seq", pool[rank], rng.integers(
+        -(2**62), 2**62, n), rng.integers(0, 2**64, n, dtype=np.uint64), {}, "gen"))
+    # a real row whose key words are all ones ties with the pads
+    cases.append(("f32 all-ones row", np.array([5, 2**64 - 1, 9, 2**64 - 1], np.uint64),
+                  np.array([3, 2**28 - 1, 0, 7]), np.array([15, 0, 1, 4], np.uint64), {},
+                  "f32"))
+    cases.append(("f64 all-ones row", np.array([5, 2**64 - 1, 9], np.uint64),
+                  np.array([3, 2**60 - 1, 0]), np.array([15, 0, 1], np.uint64), {}, "f64"))
+    cases.append(("gen extremes", np.array([0, 2**64 - 1, 2**63], np.uint64),
+                  np.array([-(2**62), 2**62, 0]), np.array([1, 2, 3], np.uint64), {},
+                  "gen"))
+    return cases
+
+
+def phase_merge_kernels(torch) -> None:
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import merge_dedup as md
+
+    rng = np.random.default_rng(SEED)
+    n_cases = 0
+    passes: dict = {}
+    for kind in md.KINDS:
+        for n in MERGE_SIZES:
+            for dup in (False, True):
+                cols, fills, masks = _kind_words(rng, kind, n, dup)
+                words = _upload_words(torch, cols, fills, n)
+                for dedup in (True, False):
+                    p = _merge_check(torch, kind, words, masks, n, dedup,
+                                     f"merge {kind} n={n} dup={dup} dedup={dedup}")
+                    passes[f"{kind}/{n}/{'dup' if dup else 'uniq'}"] = p
+                    n_cases += 1
+        # n_valid 0: every row a pad
+        cols, fills, masks = _kind_words(rng, kind, 0)
+        words = _upload_words(torch, cols, fills, 0)
+        _merge_check(torch, kind, words, masks, 0, True, f"merge {kind} n_valid=0")
+        n_cases += 1
+    # the stress set through the dispatcher: it reaches the kind its spans
+    # route to (the counters), and agrees with the plain version
+    counts = md.LAUNCHES if DEV == "cuda" else md.PLAIN_CALLS
+    for name, tsid, ts, seq, kw, want_kind in _routing_cases(rng):
+        ts = np.asarray(ts, np.int64)
+        for dedup in (True, False):
+            before = dict(counts)
+            perm, keep = md.merge_dedup_dispatch(tsid, ts, seq, dedup=dedup, device=DEV,
+                                                 **kw).get()
+            ran = [k for k in md.KINDS if counts[k] != before[k]]
+            check(ran == [want_kind], f"{name}: routed to {ran}, expected {want_kind}")
+            kind, cols, fills, masks = md.pack_inputs(tsid, ts, seq, **kw)
+            words = _upload_words(torch, cols, fills, len(tsid))
+            want = md._plain(kind, words, masks, len(tsid), dedup)
+            n = len(tsid)
+            check(np.array_equal(perm, want[0][:n].cpu().numpy()), f"{name}: perm differs")
+            check(np.array_equal(keep, want[1][:n].cpu().numpy()), f"{name}: keep differs")
+            if dedup and "all-ones" in name:
+                check(keep.all(), f"{name}: the all-ones row lost to a pad")
+            n_cases += 1
+    _sync(torch)
+    say(f"merge kernels vs plain: {n_cases} cases bit-equal; radix passes taken at "
+        f"n={MERGE_SIZES[-1]}: " + ", ".join(
+            f"{k} {passes[f'{k}/{MERGE_SIZES[-1]}/uniq']}/{passes[f'{k}/{MERGE_SIZES[-1]}/dup']}"
+            for k in md.KINDS) + " (unique/dup)")
+    DETAIL["merge_cases"] = n_cases
+    DETAIL["merge_case_passes"] = passes
+
+
+# ---- phase 8: the main path of BASELINE config 5 -------------------------------
+
+# BASELINE.json config 5: "analytic_engine L0->L1 compaction: 64 overlapping
+# SSTs, 100M rows, k-way merge-dedup"; the table of bench.py's compaction
+# config (1000 series in one 2 h segment window, seed 7).
+COMPACTION_SSTS = 64
+COMPACTION_ROWS = 100_000_000
+COMPACTION_SERIES = 1000
+COMPACTION_SEED = 7
+
+
+class MergeRecorder:
+    """Wraps the merge kernel's launch to keep the last main-path call of
+    each kind (its device words, masks, n_valid and dedup), so the replay
+    and the timings run the kernel on exactly the main path's inputs."""
+
+    def __init__(self, md):
+        self.md = md
+        self.calls: dict = {}
+        # the dispatcher launches on a card, and runs sort_dedup (the
+        # plain version) on the CPU
+        self.orig = {"_launch": md._launch, "sort_dedup": md.sort_dedup}
+        for name, fn in self.orig.items():
+            setattr(md, name, self._recording(fn))
+
+    def _recording(self, fn):
+        def call(kind, words, masks, n_valid, dedup):
+            self.calls[kind] = (words, masks, n_valid, dedup)
+            return fn(kind, words, masks, n_valid, dedup)
+
+        return call
+
+    def restore(self) -> None:
+        for name, fn in self.orig.items():
+            setattr(self.md, name, fn)
+
+
+class Timers:
+    """Inclusive wall seconds of the host stages of a merge, by patching
+    the functions that do them; ``restore`` puts the originals back."""
+
+    def __init__(self):
+        self.seconds: dict = {}
+        self._undo = []
+
+    def wrap(self, owner, name: str, label: str) -> None:
+        raw = owner.__dict__[name] if isinstance(owner, type) else getattr(owner, name)
+        fn = raw.__func__ if isinstance(raw, staticmethod) else raw
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds[label] = self.seconds.get(label, 0.0) + time.perf_counter() - t
+
+        setattr(owner, name, staticmethod(timed) if isinstance(raw, staticmethod) else timed)
+        self._undo.append((owner, name, raw))
+
+    def take(self) -> dict:
+        out, self.seconds = self.seconds, {}
+        return out
+
+    def restore(self) -> None:
+        for owner, name, raw in reversed(self._undo):
+            setattr(owner, name, raw)
+        self._undo = []
+
+
+def _merge_timers():
+    from horaedb_tpu_torch.common_types import RowGroup
+    from horaedb_tpu_torch.engine.compaction import Compactor
+    from horaedb_tpu_torch.engine.sst.reader import SstReader
+    from horaedb_tpu_torch.engine.sst.writer import SstStreamWriter
+    from horaedb_tpu_torch.ops import merge_dedup as md
+
+    t = Timers()
+    t.wrap(SstReader, "read", "sst_read")
+    t.wrap(RowGroup, "concat", "concat")
+    t.wrap(Compactor, "_rank_tsids", "key_pack")
+    t.wrap(md, "pack_ranked_key", "key_pack")
+    t.wrap(md, "pack_composite", "key_pack")
+    t.wrap(md, "pack_inputs", "key_pack")
+    t.wrap(md, "stage", "stage_pinned")
+    t.wrap(md, "_dispatch", "dispatch")
+    t.wrap(md.MergeHandle, "get", "wait_device")
+    t.wrap(RowGroup, "take", "take")
+    t.wrap(SstStreamWriter, "append", "sst_encode")
+    t.wrap(SstStreamWriter, "finalize", "sst_encode")
+    t.wrap(SstStreamWriter, "upload", "sst_write")
+    return t
+
+
+def _build_compaction_table(rows_total: int):
+    """BASELINE config 5's table (bench.py's _build_compaction_db, with
+    each SST's (series, ts) keys drawn WITHOUT replacement, as a flushed
+    SST holds them): COMPACTION_SSTS overlapping L0 runs in one window,
+    written through the port's SstWriter and manifest. Returns the
+    connection, the table and the generated rows (series index, ts step
+    index, value; run i carries sequence i + 1)."""
+    import numpy as np
+
+    import horaedb_tpu_torch
+    from horaedb_tpu_torch.common_types import RowGroup
+    from horaedb_tpu_torch.common_types.dict_column import DictColumn
+    from horaedb_tpu_torch.common_types.schema import compute_tsid
+    from horaedb_tpu_torch.engine.instance import EngineConfig
+    from horaedb_tpu_torch.engine.manifest import AddFile, Flushed
+    from horaedb_tpu_torch.engine.sst.manager import FileHandle
+    from horaedb_tpu_torch.engine.sst.writer import SstWriter, WriteOptions
+
+    db = horaedb_tpu_torch.connect(None, device=DEV, engine_config=EngineConfig(
+        compaction_l0_trigger=10**9, compaction_interval_s=0))
+    db.execute("CREATE TABLE demo (name string TAG, value double, t timestamp KEY) "
+               "ENGINE=Analytic WITH (segment_duration='2h')")
+    table = db.catalog.open("demo").physical_datas()[0]
+    seg_ms = table.options.segment_duration_ms
+    n_per = rows_total // COMPACTION_SSTS
+    rng = np.random.default_rng(COMPACTION_SEED)
+    writer = SstWriter(table.store, WriteOptions(
+        num_rows_per_row_group=table.options.num_rows_per_row_group,
+        compression=table.options.compression))
+    names_pool = np.array([f"host_{i}" for i in range(COMPACTION_SERIES)], dtype=object)
+    tsid_pool = compute_tsid([names_pool])
+    # the series in unsigned tsid order: keys drawn as (tsid rank, ts)
+    # slots in ascending order are the (tsid, t) order an SST holds
+    by_rank = np.argsort(tsid_pool)
+    # ts from a pool sized so ~1/3 of keys collide across runs
+    ts_space = max(1, (rows_total // COMPACTION_SERIES) * 3 // 4)
+    ts_step = max(1, seg_ms // ts_space)
+    check(ts_space * ts_step <= seg_ms, "the ts pool leaves the window")
+    gen = {"sidx": np.empty(n_per * COMPACTION_SSTS, np.int32),
+           "tsx": np.empty(n_per * COMPACTION_SSTS, np.int32),
+           "value": np.empty(n_per * COMPACTION_SSTS, np.float64)}
+    edits = []
+    for i in range(COMPACTION_SSTS):
+        keys = _distinct(rng, COMPACTION_SERIES * ts_space, n_per)
+        sidx, tsx = by_rank[keys // ts_space].astype(np.int32), keys % ts_space
+        value = rng.normal(10.0, 3.0, n_per)
+        at = slice(i * n_per, (i + 1) * n_per)
+        gen["sidx"][at], gen["tsx"][at], gen["value"][at] = sidx, tsx, value
+        # already (tsid, t)-sorted; the tag as the engine holds it (codes
+        # into the names), which parquet writes without per-row objects
+        rows = RowGroup(table.schema, {
+            "tsid": tsid_pool[sidx], "t": (tsx * ts_step).astype(np.int64),
+            "name": DictColumn(sidx, names_pool), "value": value,
+        })
+        fid = table.alloc_file_id()
+        path = table.sst_object_path(fid)
+        meta = writer.write(path, fid, rows, max_sequence=i + 1)
+        edits.append(AddFile(0, meta, path))
+        table.version.levels.add_file(0, FileHandle(meta, path, 0))
+    edits.append(Flushed(COMPACTION_SSTS))
+    table.manifest.append_edits(edits)
+    table.version.flushed_sequence = COMPACTION_SSTS
+    gen.update(tsid_pool=tsid_pool, ts_space=ts_space, ts_step=ts_step, n_per=n_per)
+    return db, table, gen
+
+
+def _expected_merge(gen) -> dict:
+    """Independent merge of the generated rows: a dense table over every
+    (series, ts) key written run by run (later runs overwrite), read in
+    (tsid, t) order. The survivors' series, ts and value."""
+    import numpy as np
+
+    tsid_pool, ts_space, n_per = gen["tsid_pool"], gen["ts_space"], gen["n_per"]
+    # unsigned tsid order of the series
+    rank = np.empty(COMPACTION_SERIES, np.int64)
+    rank[np.argsort(tsid_pool)] = np.arange(COMPACTION_SERIES)
+    slot = rank[gen["sidx"]] * ts_space + gen["tsx"]
+    winner = np.full(COMPACTION_SERIES * ts_space, -1, np.int64)
+    for i in range(COMPACTION_SSTS):
+        at = slice(i * n_per, (i + 1) * n_per)
+        winner[slot[at]] = np.arange(at.start, at.stop)
+    surv = winner[winner >= 0]
+    sidx = gen["sidx"][surv]
+    return {"tsid": tsid_pool[sidx], "t": gen["tsx"][surv].astype(np.int64) * gen["ts_step"],
+            "value": gen["value"][surv], "sidx": sidx}
+
+
+def _check_select(name, got, exp) -> None:
+    import numpy as np
+
+    check(len(got) == 1 and got[0]["c"] == len(exp["value"]),
+          f"{name}: count {got} vs {len(exp['value'])}")
+    v = exp["value"].astype(np.float32).astype(np.float64)
+    mean, scale = v.mean(), np.abs(v).mean()
+    check(abs(got[0]["v"] - mean) <= SUM_RTOL * scale, f"{name}: avg {got[0]['v']} vs {mean}")
+
+
+def phase_compaction(torch, rows_total: int) -> dict:
+    """BASELINE config 5 through the port's entry points: the read merge
+    of 64 overlapping SSTs (SELECT), Compactor.compact(), the SELECT again,
+    and a GROUP BY, each checked against the independent merge."""
+    import numpy as np
+
+    from horaedb_tpu_torch.engine.compaction import Compactor, merge_chunk_count
+    from horaedb_tpu_torch.engine.sst.reader import SstReader
+    from horaedb_tpu_torch.ops import merge_dedup as md
+
+    t0 = time.perf_counter()
+    db, table, gen = _build_compaction_table(rows_total)
+    t_build = time.perf_counter() - t0
+    n_input = sum(h.meta.num_rows for h in table.version.levels.files_at(0))
+    check(n_input == rows_total, f"{n_input} input rows")
+    t = time.perf_counter()
+    exp = _expected_merge(gen)
+    t_exp = time.perf_counter() - t
+    del gen
+    n_surv = len(exp["value"])
+    say(f"config 5: {COMPACTION_SSTS} L0 SSTs x {rows_total // COMPACTION_SSTS} rows "
+        f"built in {t_build:.1f} s; independent merge {t_exp:.1f} s: {n_surv} survivors")
+    Compactor(table).warm_device_merge()
+    rec = MergeRecorder(md)
+    timers = _merge_timers()
+    _sync(torch)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    md.reset_counts()  # the main path's merge launches start here
+    out = {"rows": rows_total, "ssts": COMPACTION_SSTS, "survivors": n_surv}
+    sql = "SELECT count(1) AS c, avg(value) AS v FROM demo"
+    try:
+        t = time.perf_counter()
+        got = db.execute(sql).to_pylist()
+        out["select_before_s"] = time.perf_counter() - t
+        out["select_before_split_s"] = timers.take()
+        _check_select("select before compaction", got, exp)
+        out["launches_read"] = dict(md.LAUNCHES if DEV == "cuda" else md.PLAIN_CALLS)
+        read_calls = dict(rec.calls)
+        rec.calls = {}
+        t = time.perf_counter()
+        res = Compactor(table).compact()
+        out["compact_s"] = time.perf_counter() - t
+        out["compact_split_s"] = timers.take()
+        launches = dict(md.LAUNCHES if DEV == "cuda" else md.PLAIN_CALLS)
+        out["launches"] = launches
+        out["launches_compact"] = {k: launches[k] - out["launches_read"][k] for k in md.KINDS}
+        compact_calls = dict(rec.calls)
+        t = time.perf_counter()
+        got = db.execute(sql).to_pylist()
+        out["select_after_s"] = time.perf_counter() - t
+        _check_select("select after compaction", got, exp)
+        got = db.execute("SELECT name, count(1) AS c, max(t) AS m FROM demo "
+                         "GROUP BY name").to_pylist()
+        timers.take()
+    finally:
+        timers.restore()
+        rec.restore()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    check(out["launches_read"]["f32"] >= 1, f"the read merge never ran f32: {out['launches_read']}")
+    n_chunks = merge_chunk_count(rows_total)
+    check(out["launches_compact"]["rk"] == n_chunks and sum(out["launches_compact"].values())
+          == n_chunks, f"compaction launches {out['launches_compact']}, expected {n_chunks} rk")
+    if DEV == "cuda":
+        check(not any(md.PLAIN_CALLS.values()), f"plain versions ran on the card: {md.PLAIN_CALLS}")
+    # GROUP BY name against the survivors
+    cnt = np.bincount(exp["sidx"], minlength=COMPACTION_SERIES)
+    mx = np.full(COMPACTION_SERIES, -1, np.int64)
+    np.maximum.at(mx, exp["sidx"], exp["t"])
+    check(len(got) == int((cnt > 0).sum()), f"group by: {len(got)} groups")
+    for r in got:
+        i = int(r["name"][5:])
+        check(r["c"] == cnt[i] and r["m"] == mx[i], f"group by {r['name']}: {r}")
+    # the L1 SSTs: rows_written survivors, globally (tsid, t)-sorted, equal
+    # to the independent merge
+    check(res.rows_written == n_surv, f"rows_written {res.rows_written} vs {n_surv}")
+    files = table.version.levels.files_at(1)
+    check(len(table.version.levels.files_at(0)) == 0 and len(files) == 1,
+          f"L0 {len(table.version.levels.files_at(0))} files, L1 {len(files)} files")
+    back = SstReader(table.store, files[0].path).read(table.schema,
+                                                      projection=["tsid", "t", "value"])
+    tsid, ts, value = back.columns["tsid"], back.timestamps, back.columns["value"]
+    check(np.array_equal(tsid, exp["tsid"]) and np.array_equal(ts, exp["t"]),
+          "L1 (tsid, t) differ from the independent merge")
+    check(np.array_equal(value, exp["value"]), "L1 values differ from the independent merge")
+    out["input_rows_per_s"] = rows_total / out["compact_s"]
+    say(f"config 5: select before {out['select_before_s']:.2f} s, compact "
+        f"{out['compact_s']:.2f} s ({out['input_rows_per_s']:.0f} input rows/s), "
+        f"select after {out['select_after_s']:.2f} s; launches read {out['launches_read']}, "
+        f"compaction {out['launches_compact']}; peak device memory {out['peak_bytes']} B")
+    say(f"  select split (inclusive host s): {_rounded(out['select_before_split_s'])}")
+    say(f"  compact split (inclusive host s): {_rounded(out['compact_split_s'])}")
+    DETAIL["compaction"] = out
+    db.close()
+    return {"out": out, "read_calls": read_calls, "compact_calls": compact_calls}
+
+
+def _rounded(d: dict) -> dict:
+    return {k: round(v, 3) for k, v in d.items()}
+
+
+# ---- phase 9: merge replay and timings ----------------------------------------
+
+
+def phase_merge_replay(torch, comp) -> dict:
+    """The last main-path call of each kind that ran (the read merge's
+    f32, the last compaction chunk's rk), the kernel against its plain
+    version on the same tensors: bit-equal."""
+    calls = {**comp["compact_calls"], **comp["read_calls"]}
+    passes = {}
+    for kind, (words, masks, n_valid, dedup) in calls.items():
+        passes[kind] = _merge_check(torch, kind, words, masks, n_valid, dedup,
+                                    f"main path {kind} replay")
+        say(f"main path {kind} ({words[0].shape[0]} rows, {n_valid} real): kernel = plain, "
+            f"{passes[kind]} radix passes")
+    DETAIL["merge_replay_passes"] = passes
+    return passes
+
+
+def _merge_device_ms(torch, fn, reps=5):
+    """Mean device ms of one merge launch: the sum of its kernels on the
+    profiler's device timeline, or None without CUPTI tracing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("init_hist", "plan_passes", "tile_hist", "digit_scan", "tile_scatter", "epilogue")
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:
+        say(f"profiler unavailable ({e}); merge times from CUDA events")
+        return None
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.name.split("(")[0].split(" ")[-1] in names]
+    return sum(us) / reps / 1e3 if us else None
+
+
+def _merge_bound(words, n_valid, kind) -> tuple[float, int]:
+    """Least time of the function: the real rows' key words read once,
+    perm (4 B) and keep (1 B) of every row written once, over HBM."""
+    n = words[0].shape[0]
+    n_sort = n if kind == "gen" else n_valid
+    nbytes = 4 * len(words) * n_sort + 5 * n
+    return nbytes / PEAK_BYTES_S * 1e3, nbytes
+
+
+def phase_merge_timings(torch, comp, replay_passes, card) -> list:
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import merge_dedup as md
+
+    out = comp["out"]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    calls = {**comp["compact_calls"], **comp["read_calls"]}
+    # f64 and gen do not run on this path (its spans fit f32 and rk):
+    # time them at a compaction chunk's shape
+    rng = np.random.default_rng(SEED + 1)
+    chunk_rows = calls["rk"][2]
+    for kind in ("f64", "gen"):
+        cols, fills, masks = _kind_words(rng, kind, chunk_rows)
+        calls[kind] = (_upload_words(torch, cols, fills, chunk_rows), masks, chunk_rows, True)
+        replay_passes[kind] = _merge_check(torch, kind, *calls[kind], f"{kind} at chunk shape")
+    kernels = []
+    for kind in md.KINDS:
+        words, masks, n_valid, dedup = calls[kind]
+        n = words[0].shape[0]
+        launch = lambda k=kind, w=words, m=masks, v=n_valid, d=dedup: md._launch(k, w, m, v, d)  # noqa: E731
+        plain = lambda k=kind, w=words, m=masks, v=n_valid, d=dedup: md._plain(k, w, m, v, d)  # noqa: E731
+        events_ms = _time_launch(torch, launch, reps=5, flush=flush)
+        device_ms = _merge_device_ms(torch, launch)
+        ms = device_ms if device_ms is not None else events_ms
+        plain_ms = _time_launch(torch, plain, reps=2, flush=flush)
+        lib_ms = None
+        if kind == "rk":
+            # one library call computes rk: a stable sort of the int64
+            # composite of the real rows (below 2**63), then the compare
+            comp64 = ((words[0][:n_valid].long() & U32) << 32) | (words[1][:n_valid].long() & U32)
+            mask64 = (int(masks[0]) << 32) | int(masks[1])
+            mask64 -= (1 << 64) if mask64 >= 1 << 63 else 0  # the same bits as int64
+
+            def lib(c=comp64, m=mask64):
+                s = torch.sort(c, stable=True)
+                k = s.values & m
+                return s.indices, torch.cat([k[:1] == k[:1], k[1:] != k[:-1]])
+
+            lib_ms = _time_launch(torch, lib, reps=5, flush=flush)
+        bound_ms, nbytes = _merge_bound(words, n_valid, kind)
+        # H2D of the words and D2H of the packed result, pinned, as the
+        # dispatcher moves them
+        host_in = torch.empty((len(words), n), dtype=torch.int32, pin_memory=True)
+        up_ms = _time_launch(torch, lambda h=host_in: h.to("cuda", non_blocking=True), reps=3)
+        dev_out = torch.empty(5 * n + md.MAX_PASSES, dtype=torch.uint8, device="cuda")
+        host_out = torch.empty_like(dev_out, device="cpu").pin_memory()
+        down_ms = _time_launch(torch, lambda: host_out.copy_(dev_out, non_blocking=True),
+                               reps=3)
+        launches = out["launches"][kind]
+        kernels.append({
+            "name": f"merge_dedup[{kind}]", "route": "cuda", "source": MERGE_SRC,
+            "replaces": MERGE_REPLACES[kind], "launches": int(launches), "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": lib_ms,
+        })
+        DETAIL.setdefault("merge_timings", {})[kind] = {
+            "rows": n, "n_valid": n_valid, "passes": replay_passes[kind], "events_ms": events_ms,
+            "device_ms": device_ms, "upload_ms": up_ms, "download_ms": down_ms,
+            "bound_bytes": nbytes,
+        }
+        say(f"kernel merge_dedup[{kind}] at {n} rows ({n_valid} real, "
+            f"{replay_passes[kind]} radix passes, {launches} main-path launches): {ms:.4f} ms "
+            f"({'profiler' if device_ms is not None else 'events'}; {events_ms:.4f} ms by "
+            f"events incl. launches), plain {plain_ms:.4f} ms, library "
+            f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none'}, bound {bound_ms:.4f} ms "
+            f"({nbytes} B); upload {up_ms:.4f} ms, download {down_ms:.4f} ms [{card}]")
+    return kernels
+
+
 def main() -> int:
     try:
         import torch
@@ -854,9 +1458,15 @@ def main() -> int:
     card = phase_card(torch)
     phase_build()
     phase_kernels(torch)
+    phase_merge_kernels(torch)
     main_out = phase_main(torch)
     errs = phase_replay(torch, main_out)
     kernels = phase_timings(torch, main_out, errs, card)
+    main_out["db"].close()
+    del main_out
+    comp = phase_compaction(torch, COMPACTION_ROWS)
+    passes = phase_merge_replay(torch, comp)
+    kernels += phase_merge_timings(torch, comp, passes, card)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(DETAIL, f, indent=1, default=str)

@@ -40,7 +40,7 @@ class Connection:
         # resolved before anything is opened: no usable card, no connection
         self.device = resolve_device(device)
         self.store = store
-        self.instance = Instance(store, config=config, wal=wal)
+        self.instance = Instance(store, self.device, config=config, wal=wal)
         self.catalog = Catalog(store, self.instance)
         self.frontend = Frontend(self.catalog.schema_of)
         self.interpreters = InterpreterFactory(self.catalog, self.device)

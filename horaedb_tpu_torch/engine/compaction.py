@@ -1,4 +1,4 @@
-"""Compaction: L0 -> L1 with a merge-dedup sort
+"""Compaction: L0 -> L1 with the device merge-dedup kernel
 (ref: analytic_engine/src/compaction/{mod,picker,scheduler}.rs and
 runner/local_runner.rs).
 
@@ -10,11 +10,12 @@ Pickers (host-side policy, same two strategies as the reference):
 - ``SizeTieredPicker`` (picker.rs:211): within a window, group files of
   similar size; compact groups of >= min_threshold files.
 
-The runner replaces the reference's BinaryHeap merge loop with one sort:
-concatenate the input runs, one host lexsort over (tsid, ts, seq desc),
-shift-compare dedup mask, gather of payload columns, write one L1 SST per
-window. The sort moves to a device kernel when merge-dedup is ported.
-TTL-expired files are dropped without rewriting (ref: sst/manager.rs:100-118).
+The runner replaces the reference's BinaryHeap merge loop with the
+``ops.merge_dedup`` device sort: concatenate the input runs, one radix
+sort over (tsid, ts, seq desc) on the table's device, shift-compare dedup
+mask, host gather of payload columns, write one L1 SST per window.
+TTL-expired files are dropped without rewriting (ref:
+sst/manager.rs:100-118).
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import numpy as np
 
 from ..common_types.row_group import RowGroup
 from ..common_types.time_range import TimeRange
+from ..ops import merge_dedup_permutation
+from ..utils.env import env_int
 from .manifest import AddFile, MetaEdit, RemoveFile
 from .merge import dedup_keep_mask
 from .options import UpdateMode
@@ -60,6 +63,17 @@ _M_COMPACT_INFLIGHT = REGISTRY.gauge(
     "horaedb_compaction_inflight_total",
     "table compaction passes currently running",
 )
+
+
+def merge_chunk_count(n_rows: int) -> int:
+    """How many tsid-range chunks the pipelined device merge splits into.
+    One chunk below the target size (pipelining needs enough rows per
+    chunk to amortize a kernel dispatch); capped so tiny chunks don't
+    multiply launches."""
+    target = env_int("HORAEDB_MERGE_CHUNK_ROWS", 4_000_000)
+    if target <= 0:
+        return 1
+    return max(1, min(16, n_rows // target))
 
 
 @dataclass(frozen=True)
@@ -231,7 +245,7 @@ class Compactor:
                         skipped = False
                         # One-deep task pipeline: task i's output-SST
                         # uploads run on the io pool while task i+1's
-                        # merge runs — the same dump/install
+                        # device merge dispatches — the same dump/install
                         # overlap the flush path already has. Install
                         # (manifest append + version swap) stays on THIS
                         # thread, in task order, after uploads complete
@@ -325,11 +339,21 @@ class Compactor:
             table.version.levels.remove_files(h.level, [h.file_id])
         result.expired_dropped += len(expired)
 
+    def warm_device_merge(self) -> None:
+        """Build the merge kernel library before the first merge needs it
+        (nvcc at first use takes seconds; benches and long-running
+        engines take it off the critical path). One library serves every
+        kind and shape. Nothing to build on a CPU table."""
+        if self.table.device.type == "cuda":
+            from ..ops.merge_dedup import _kernels
+
+            _kernels()
+
     def _stage_task(self, task: CompactionTask) -> "_StagedTask":
         """Read + merge one task's inputs into finalized per-window SSTs
         and LAUNCH their uploads on the io pool. No metadata changes —
         the caller installs later (``_install_task``), typically after
-        the NEXT task's merge has started, so uploads
+        the NEXT task's device merge has been dispatched, so uploads
         overlap merge compute the way flush's dump/install already do."""
         table = self.table
         schema = table.schema
@@ -363,8 +387,10 @@ class Compactor:
             # file-granularity versioning exact.
             #
             # The merge STREAMS: _merge_stream yields key-ordered parts
-            # and each part's window slices append to that window's
-            # incremental parquet writer immediately.
+            # (tsid-range chunks on the device pipeline) and each part's
+            # window slices append to that window's incremental parquet
+            # writer immediately — payload gather and SST encoding of
+            # part i overlap the device sort of parts i+1.. .
             writers: dict[int, SstStreamWriter] = {}
             for m_rows, m_seq in self._merge_stream(parts, versions):
                 for w_start, w_rows, w_seq in self._split_by_window(
@@ -460,17 +486,182 @@ class Compactor:
             out.append((int(s), rows.take(idx), seq[idx]))
         return out
 
+    @staticmethod
+    def _rank_tsids(
+        parts: list[RowGroup], schema, full_tsid: np.ndarray | None = None
+    ) -> tuple[np.ndarray | None, int]:
+        """Dense tsid ranks across all inputs, built (nearly) for free
+        from the runs' sortedness: each SST is primary-key sorted, so its
+        distinct tsids fall out of one diff pass — no O(n log n) factorize.
+        The sorted union of the per-run distincts is the rank universe;
+        one vectorized searchsorted ranks every row. Ranks + the
+        deduped-runs/distinct-sequences invariants unlock the 2-key
+        packed sort kind (ops/merge_dedup.ranked_kernel)."""
+        tsid_idx = schema.tsid_index
+        if tsid_idx is None:
+            return None, 0
+        name = schema.columns[tsid_idx].name
+        uniqs = []
+        total_u = 0
+        n_total = 0
+        for part in parts:
+            col = part.columns[name]
+            n_total += len(col)
+            if len(col) == 0:
+                continue
+            change = np.empty(len(col), dtype=bool)
+            change[0] = True
+            np.not_equal(col[1:], col[:-1], out=change[1:])
+            uniqs.append(col[change])
+            total_u += int(change.sum())
+        if not uniqs:
+            return None, 0
+        if total_u > max(65536, n_total // 4):
+            # Grouped-runs assumption didn't hold (or cardinality is a
+            # large fraction of the rows): ranking wouldn't pay for itself.
+            return None, 0
+        union = np.unique(np.concatenate(uniqs))
+        if full_tsid is None:
+            full_tsid = np.concatenate([p.columns[name] for p in parts])
+        ranks = np.searchsorted(union, full_tsid).astype(np.uint64)
+        return ranks, len(union)
+
     def _merge_stream(self, parts: list[RowGroup], versions: list[np.ndarray]):
-        """Yield key-ordered merged (rows, seq) parts: one host sort on
-        (primary key, seq desc) plus the keep-first dedup mask on
-        OVERWRITE tables. Returns each surviving row's input-file
-        sequence (needed for per-window output stamping)."""
+        """Yield key-ordered merged (rows, seq) parts — the compaction
+        merge engine, and the ONE override point for A/B-ing it.
+
+        Large merges are partitioned into tsid-range chunks and PIPELINED:
+        every chunk's upload, sort and download are queued on the card's
+        stream without blocking, so the host-side payload gather + SST
+        encode of chunk i overlap the device sort of chunks i+1.. — the
+        device sort mostly
+        disappears from the critical path (the reference's BinaryHeap
+        merge, row_iter/merge.rs, is a single serial stream; the chunk
+        split is what a data-parallel device makes natural). Chunks split
+        on tsid VALUE boundaries, so every duplicate key lands in exactly
+        one chunk and per-chunk dedup is globally correct; chunks yield in
+        split order, which is (tsid, ts) order."""
+        table = self.table
+        device = table.device
         rows = RowGroup.concat(parts) if len(parts) > 1 else parts[0]
         seq = np.concatenate(versions)
-        order = rows.key_sort_permutation(seq=seq)
-        srt, srt_seq = rows.take(order), seq[order]
-        if self.table.options.update_mode is not UpdateMode.OVERWRITE:
-            yield srt, srt_seq
+        schema = rows.schema
+        tsid_idx = schema.tsid_index
+        dedup = table.options.update_mode is UpdateMode.OVERWRITE
+        n = len(rows)
+        n_chunks = merge_chunk_count(n) if tsid_idx is not None else 1
+        if n_chunks <= 1:
+            tsid_rank, n_ranks = (
+                self._rank_tsids(parts, schema)
+                if tsid_idx is not None
+                else (None, 0)
+            )
+            yield self._device_merge(
+                rows, seq, tsid_rank=tsid_rank, n_ranks=n_ranks
+            )
             return
-        keep = dedup_keep_mask(srt)
-        yield srt.filter(keep), srt_seq[keep]
+
+        tsid = rows.columns[schema.columns[tsid_idx].name]
+        tsid_rank, n_ranks = self._rank_tsids(parts, schema, full_tsid=tsid)
+        ts64 = rows.timestamps.astype(np.int64)
+        # OVERWRITE inputs are deduped runs with distinct per-file
+        # sequences, so (tsid, ts, seq) is row-unique — the precondition
+        # for the unstable packed kernel. APPEND inputs may repeat it.
+        unique = dedup
+
+        from ..ops.merge_dedup import (
+            merge_dedup_dispatch,
+            merge_dedup_dispatch_packed,
+            pack_ranked_key,
+        )
+
+        packed = (
+            pack_ranked_key(tsid_rank, ts64, seq, n_ranks)
+            if tsid_rank is not None and unique
+            else None
+        )
+        if packed is not None:
+            # Row-count-balanced chunks straight from the rank histogram
+            # (ranks are dense and ordered like tsid, so rank-range
+            # chunks = tsid-range chunks — no sampling pass needed).
+            comp, mask_hi, mask_lo = packed
+            counts = np.bincount(
+                tsid_rank.astype(np.int64), minlength=n_ranks
+            )
+            cum = np.cumsum(counts)
+            targets = [(n * (i + 1)) // n_chunks for i in range(n_chunks - 1)]
+            rank_split = np.searchsorted(cum, targets, side="left")
+            chunk_of_rank = np.searchsorted(
+                rank_split, np.arange(n_ranks), side="right"
+            )
+            cid = chunk_of_rank[tsid_rank.astype(np.int64)]
+        else:
+            # Approximate tsid quantiles from a stride sample (the inputs
+            # are sorted runs, so a stride over the concatenation samples
+            # every run): C-1 split values -> chunk id per row.
+            step = max(1, n // 65536)
+            sample = np.sort(tsid[::step])
+            splits = sample[
+                [min(len(sample) - 1, (len(sample) * (i + 1)) // n_chunks)
+                 for i in range(n_chunks - 1)]
+            ]
+            cid = np.searchsorted(splits, tsid, side="right")
+
+        idxs = [np.flatnonzero(cid == c) for c in range(n_chunks)]
+        # chunks in flight: bounds device memory, keeps overlap
+        window = max(1, env_int("HORAEDB_MERGE_WINDOW", 2))
+        handles: dict[int, object] = {}
+
+        def harvest(c: int):
+            perm, keep = handles.pop(c).get()
+            sel = idxs[c][perm[keep]]
+            return rows.take(sel), seq[sel]
+
+        for c in range(n_chunks):
+            idx = idxs[c]
+            if len(idx):
+                if packed is not None:
+                    handles[c] = merge_dedup_dispatch_packed(
+                        comp[idx], mask_hi, mask_lo, dedup=dedup, device=device
+                    )
+                else:
+                    handles[c] = merge_dedup_dispatch(
+                        tsid[idx], ts64[idx], seq[idx], dedup=dedup,
+                        device=device,
+                    )
+            if c - window + 1 in handles:
+                yield harvest(c - window + 1)
+        for c in sorted(handles):
+            yield harvest(c)
+
+    def _device_merge(
+        self,
+        rows: RowGroup,
+        seq: np.ndarray,
+        tsid_rank: np.ndarray | None = None,
+        n_ranks: int = 0,
+    ) -> tuple[RowGroup, np.ndarray]:
+        """Single-shot merge: sort + dedup permutation on the table's
+        device, host gather. Returns the merged rows plus each surviving row's
+        input-file sequence (needed for per-window output stamping)."""
+        table = self.table
+        schema = rows.schema
+        tsid_idx = schema.tsid_index
+        dedup = table.options.update_mode is UpdateMode.OVERWRITE
+        if tsid_idx is None:
+            # Explicit primary keys (no tsid): host lexsort fallback.
+            order = rows.key_sort_permutation(seq=seq)
+            srt, srt_seq = rows.take(order), seq[order]
+            if not dedup:
+                return srt, srt_seq
+            keep = dedup_keep_mask(srt)
+            return srt.filter(keep), srt_seq[keep]
+
+        tsid = rows.columns[schema.columns[tsid_idx].name]
+        perm, keep = merge_dedup_permutation(
+            tsid, rows.timestamps.astype(np.int64), seq, dedup=dedup,
+            tsid_rank=tsid_rank, n_ranks=n_ranks, unique=dedup,
+            device=table.device,
+        )
+        sel = perm[keep]
+        return rows.take(sel), seq[sel]

@@ -18,6 +18,8 @@ from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
+import torch
+
 from ..common_types.row_group import RowGroup
 from ..common_types.schema import Schema
 from ..table_engine.predicate import Predicate
@@ -129,10 +131,14 @@ class Instance:
     def __init__(
         self,
         store: ObjectStore,
+        device,
         config: EngineConfig | None = None,
         wal=None,  # Optional[WalManager]; wired in engine/wal
     ) -> None:
         self.store = store
+        # where every table's compactions and read merges run (the
+        # connection's device; "cpu" runs the kernels' plain versions)
+        self.device = torch.device(device)
         self.config = config or EngineConfig()
         self.wal = wal
         self._tables: dict[tuple[int, int], TableData] = {}
@@ -166,7 +172,10 @@ class Instance:
             manifest.append_edits(
                 [AlterSchema(schema), AlterOptions(options.to_dict())]
             )
-            table = TableData(space_id, table_id, name, schema, options, manifest, self.store)
+            table = TableData(
+                space_id, table_id, name, schema, options, manifest, self.store,
+                device=self.device,
+            )
             self._tables[key] = table
             # No eager scheduler here: a freshly-created table has no
             # data to expire or fold; the first flush request (or a
@@ -187,7 +196,7 @@ class Instance:
             options = TableOptions.from_dict(state.options)
             table = TableData(
                 space_id, table_id, name, state.schema, options, manifest, self.store,
-                recovered_state=state,
+                recovered_state=state, device=self.device,
             )
             self._tables[key] = table
             if self.wal is not None:
@@ -234,7 +243,7 @@ class Instance:
             options = TableOptions.from_dict(state.options)
             table = TableData(
                 space_id, table_id, name, state.schema, options, manifest,
-                self.store, recovered_state=state,
+                self.store, recovered_state=state, device=self.device,
             )
             table.read_only = True
             table._recompute_watermark_locked()
@@ -518,6 +527,7 @@ class Instance:
                 self.store,
                 table.options.update_mode,
                 projection=projection,
+                device=table.device,
             )
 
     # ---- maintenance ---------------------------------------------------

@@ -1,11 +1,19 @@
 """Merge-dedup read path (ref: analytic_engine/src/row_iter/{merge.rs,dedup.rs,chain.rs}).
 
 The reference streams rows through a BinaryHeap k-way merge with a dedup
-iterator on top (merge.rs:134-181). Here every overlapping source
-(memtables + SSTs) is materialized as dense columns, concatenated, and
-sorted ONCE by (primary key, version desc), then duplicates collapse with a
-shift-compare mask. The sort runs on the host (numpy lexsort) until the
-device merge-dedup kernel is ported.
+iterator on top (merge.rs:134-181). Re-designed for the device: every
+overlapping source (memtables + SSTs) is materialized as dense columns,
+concatenated, and sorted ONCE by (primary key, version desc), then
+duplicates collapse with a shift-compare mask. Sort+mask is exactly what
+accelerators are good at, and it's the same algorithm compaction uses on
+device (ops/merge_dedup).
+
+On a CUDA table a merge of at least ``device_merge_min_rows`` rows always
+launches the merge-dedup kernel. The reference also routes merges
+adaptively between device and host by measured per-row rates; that router
+is not ported (as the query path's device/host router is not): with the
+kernel built at first use there is nothing to wait for, and a merge never
+moves to the host while its table lives on a card.
 
 Version ordering across sources (matching the reference's sequence rules):
 memtable rows carry their true per-row WAL sequence; SST rows carry the
@@ -27,10 +35,28 @@ from ..common_types.dict_column import DictColumn
 from ..common_types.row_group import RowGroup
 from ..common_types.schema import Schema, project_schema
 from ..table_engine.predicate import Predicate
+from ..utils.env import env_int
 from ..utils.object_store import ObjectStore
 from .options import UpdateMode
 from .sst.reader import SstReader
 from .version import ReadView
+
+# On a card the sort runs where the merge can use it above a batch
+# threshold (the reference's accelerator default). A CPU table keeps the
+# host lexsort: the reference measured its device sort on the CPU at
+# 0.2-0.4x numpy's lexsort at every size, and defaults it off there.
+DEFAULT_DEVICE_MERGE_MIN_ROWS = 200_000
+
+
+def device_merge_min_rows(device) -> int:
+    raw = env_int("HORAEDB_DEVICE_MERGE_MIN_ROWS", None)
+    if raw is not None:
+        # any explicit value is honored, including negatives (force the
+        # device merge for every size) — only unset/malformed defaults
+        return raw
+    if device.type == "cpu":
+        return 1 << 62  # effectively off
+    return DEFAULT_DEVICE_MERGE_MIN_ROWS
 
 def dedup_keep_mask(rows: RowGroup) -> np.ndarray:
     """Mask keeping the FIRST row of each primary-key run.
@@ -272,8 +298,11 @@ def merge_read(
     store: ObjectStore,
     update_mode: UpdateMode,
     projection: Optional[Sequence[str]] = None,
+    *,
+    device,
 ) -> RowGroup:
-    """Read a consistent, time-filtered, deduplicated row set.
+    """Read a consistent, time-filtered, deduplicated row set; a large
+    merge sorts on ``device`` (the table's).
 
     Column filters from the predicate are NOT applied — they run in the
     execution kernel AFTER dedup (an overwritten row version must not
@@ -351,4 +380,18 @@ def merge_read(
         # rows are per-source concatenations (each key-sorted within its
         # window), like the APPEND chain.
         return rows
+    # Device merge-dedup above a size threshold: the same sort +
+    # shift-compare kernel compaction uses (ref: the read path IS the
+    # merge iterator in the reference, row_iter/merge.rs:134-181 — here
+    # it's one device sort instead of a BinaryHeap).
+    tsid_idx = out_schema.tsid_index
+    if tsid_idx is not None and len(rows) >= device_merge_min_rows(device):
+        from ..ops.merge_dedup import merge_dedup_permutation
+
+        tsid = rows.columns[out_schema.columns[tsid_idx].name]
+        perm, keep = merge_dedup_permutation(
+            tsid, rows.timestamps.astype(np.int64), version, dedup=True,
+            device=device,
+        )
+        return rows.take(perm[keep])
     return dedup_sorted(rows.sorted_by_key(seq=version))

@@ -12,6 +12,7 @@ import threading
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..common_types.row_group import RowGroup
 from ..common_types.schema import Schema
@@ -33,8 +34,13 @@ class TableData:
         manifest: Manifest,
         store: ObjectStore,
         recovered_state: Optional[TableManifestState] = None,
+        *,
+        device,
     ) -> None:
         self.space_id = space_id
+        # the connection's device: compactions and read merges of this
+        # table run there
+        self.device = torch.device(device)
         self.table_id = table_id
         self.name = name
         self.options = options

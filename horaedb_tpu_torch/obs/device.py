@@ -19,8 +19,8 @@ Four legs:
    ``system.public.device`` with bytes, rows, dtype, last-hit age, and
    eviction counts.
 2. **Kernel timing** — ``timed_dispatch(kind, fn, device)`` wraps every
-   kernel launch point (the cached packed kernel and the fused direct
-   kernel). Timing is SAMPLED (default 1-in-N, ``HORAEDB_DEVICE_SAMPLE``):
+   kernel launch point (the cached packed kernel, the fused direct
+   kernel and the merge-dedup sort). Timing is SAMPLED (default 1-in-N, ``HORAEDB_DEVICE_SAMPLE``):
    a sampled dispatch is bracketed by a ``torch.cuda.Event`` pair and
    waits on the end event, an unsampled one stays asynchronous. Slow-log
    candidates and EXPLAIN ANALYZE runs are always timed. Results land in
@@ -53,6 +53,7 @@ from ..utils.metrics import REGISTRY
 DEVICE_KERNEL_KINDS = (
     "cached_packed",   # packed cached agg over the resident columns
     "fused",           # direct fused scan-agg over a host batch
+    "merge_dedup",     # merge-dedup sort of a read merge or compaction chunk
 )
 
 # Occupancy row components: "column" rows sum to the scan cache's own

@@ -3,6 +3,9 @@
 - ``scan_agg``  — the fused filter -> time-bucket -> group-by -> aggregate
                   kernel (``csrc/scan_agg.cu``), its wrappers and their
                   plain PyTorch versions.
+- ``merge_dedup`` — the k-way merge + dedup sort (``csrc/merge_dedup.cu``,
+                  a stable LSD radix sort with the dedup mask as its
+                  epilogue), its wrappers, plain versions and host packing.
 - ``encoding``  — host-side prep (dense series codes, time buckets,
                   padding, the compressed resident layouts) and the plain
                   decode of those layouts.
@@ -15,6 +18,7 @@ from .encoding import (
     pad_to_bucket,
     shape_bucket,
 )
+from .merge_dedup import merge_dedup_permutation
 from .scan_agg import AGG_OPS, ScanAggSpec, scan_aggregate
 
 __all__ = [
@@ -25,4 +29,5 @@ __all__ = [
     "AGG_OPS",
     "ScanAggSpec",
     "scan_aggregate",
+    "merge_dedup_permutation",
 ]
