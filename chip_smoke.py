@@ -925,12 +925,8 @@ def _merge_check(torch, kind, words, masks, n_valid, dedup, what) -> int:
     kernel took (0 on the CPU)."""
     from horaedb_tpu_torch.ops import merge_dedup as md
 
-    if DEV == "cuda":
-        out = md._launch(kind, words, masks, n_valid, dedup)
-        perm, keep, passes = md.unpack(out, words[0].shape[0])
-    else:
-        perm, keep = md.sort_dedup(kind, words, masks, n_valid, dedup)
-        passes = torch.zeros(0)
+    out = md.sort_dedup(kind, words, masks, n_valid, dedup)
+    perm, keep, passes = md.unpack(out, words[0].shape[0])
     _sync(torch)
     want = md._plain(kind, words, masks, n_valid, dedup)
     check(torch.equal(perm.cpu(), want[0].cpu()), f"{what}: perm differs from plain")
@@ -1041,29 +1037,23 @@ COMPACTION_SEED = 7
 
 
 class MergeRecorder:
-    """Wraps the merge kernel's launch to keep the last main-path call of
-    each kind (its device words, masks, n_valid and dedup), so the replay
-    and the timings run the kernel on exactly the main path's inputs."""
+    """Wraps the merge wrapper to keep the last main-path call of each
+    kind (its device words, masks, n_valid and dedup), so the replay and
+    the timings run the kernel on exactly the main path's inputs."""
 
     def __init__(self, md):
         self.md = md
         self.calls: dict = {}
-        # the dispatcher launches on a card, and runs sort_dedup (the
-        # plain version) on the CPU
-        self.orig = {"_launch": md._launch, "sort_dedup": md.sort_dedup}
-        for name, fn in self.orig.items():
-            setattr(md, name, self._recording(fn))
+        self.orig = md.sort_dedup
 
-    def _recording(self, fn):
         def call(kind, words, masks, n_valid, dedup):
             self.calls[kind] = (words, masks, n_valid, dedup)
-            return fn(kind, words, masks, n_valid, dedup)
+            return self.orig(kind, words, masks, n_valid, dedup)
 
-        return call
+        md.sort_dedup = call
 
     def restore(self) -> None:
-        for name, fn in self.orig.items():
-            setattr(self.md, name, fn)
+        self.md.sort_dedup = self.orig
 
 
 class Timers:
@@ -1360,11 +1350,12 @@ def _merge_device_ms(torch, fn, reps=5):
 
 
 def _merge_bound(words, n_valid, kind) -> tuple[float, int]:
-    """Least time of the function: the real rows' key words read once,
-    perm (4 B) and keep (1 B) of every row written once, over HBM."""
-    n = words[0].shape[0]
-    n_sort = n if kind == "gen" else n_valid
-    nbytes = 4 * len(words) * n_sort + 5 * n
+    """Least time of the function: the real rows' key words read once, and
+    their perm (4 B) and keep (1 B) written once, over HBM. The pads of the
+    bucket are padding, not work (callers cut the outputs to the real
+    rows): rk/f32/f64 hold ``n_valid`` real rows, gen those with is_pad 0."""
+    n_real = int((words[0] == 0).sum()) if kind == "gen" else n_valid
+    nbytes = (4 * len(words) + 5) * n_real
     return nbytes / PEAK_BYTES_S * 1e3, nbytes
 
 
@@ -1388,7 +1379,7 @@ def phase_merge_timings(torch, comp, replay_passes, card) -> list:
     for kind in md.KINDS:
         words, masks, n_valid, dedup = calls[kind]
         n = words[0].shape[0]
-        launch = lambda k=kind, w=words, m=masks, v=n_valid, d=dedup: md._launch(k, w, m, v, d)  # noqa: E731
+        launch = lambda k=kind, w=words, m=masks, v=n_valid, d=dedup: md.sort_dedup(k, w, m, v, d)  # noqa: E731
         plain = lambda k=kind, w=words, m=masks, v=n_valid, d=dedup: md._plain(k, w, m, v, d)  # noqa: E731
         events_ms = _time_launch(torch, launch, reps=5, flush=flush)
         device_ms = _merge_device_ms(torch, launch)

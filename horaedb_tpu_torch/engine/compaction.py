@@ -496,7 +496,7 @@ class Compactor:
         The sorted union of the per-run distincts is the rank universe;
         one vectorized searchsorted ranks every row. Ranks + the
         deduped-runs/distinct-sequences invariants unlock the 2-key
-        packed sort kind (ops/merge_dedup.ranked_kernel)."""
+        packed sort kind (``rk`` in ops/merge_dedup)."""
         tsid_idx = schema.tsid_index
         if tsid_idx is None:
             return None, 0

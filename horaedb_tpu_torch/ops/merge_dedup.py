@@ -33,9 +33,9 @@ index >= n_valid — no dedicated is_pad word, and a real row whose key
 words are all ones still wins its tie against the pads because it precedes
 them in input order.
 
-Four kinds, each with a kernel wrapper and a plain PyTorch version beside
-it (the wrapper runs the plain version for CPU tensors, launches the
-kernel for CUDA tensors, and does nothing else):
+Four kinds, each with a plain PyTorch version beside the kernel, behind
+one wrapper, ``sort_dedup(kind, ...)``: it runs the plain version for CPU
+tensors, launches the kernel for CUDA tensors, and does nothing else.
 
 - ``rk``  (tsid-rank, ts, seq desc) packed into one u64 — 2 key words;
 - ``f32`` (tsid_hi, tsid_lo, packed rest) — 3 key words, input reversed;
@@ -322,44 +322,22 @@ def _launch(kind: str, words, masks, n_valid: int, dedup: bool) -> torch.Tensor:
 
 def unpack(out: torch.Tensor, n: int):
     """(perm int32[n], keep bool[n], passes uint8[MAX_PASSES]) views of a
-    launch's output buffer."""
+    sort's output buffer."""
     return (out[: 4 * n].view(torch.int32), out[4 * n: 5 * n].view(torch.bool),
             out[5 * n:])
 
 
-def sort_dedup(kind: str, words, masks, n_valid: int, dedup: bool):
-    """The wrapper of every kind: ``(perm, keep)`` over the padded rows.
-    CPU tensors run the plain version, CUDA tensors launch the kernel."""
+def sort_dedup(kind: str, words, masks, n_valid: int, dedup: bool) -> torch.Tensor:
+    """The wrapper of every kind. Returns one uint8 buffer on the words'
+    device holding perm, keep and the radix passes taken (see ``unpack``):
+    CPU tensors run the plain version (no passes), CUDA tensors launch the
+    kernel."""
     if words[0].device.type == "cpu":
         PLAIN_CALLS[kind] += 1
-        return _plain(kind, words, masks, n_valid, dedup)
-    return unpack(_launch(kind, words, masks, n_valid, dedup), words[0].shape[0])[:2]
-
-
-# One wrapper per kind, with the arguments of the reference's jitted
-# kernel of that kind (_ranked_kernel, _fused32_kernel, ...).
-
-
-def ranked_kernel(key_hi, key_lo, mask_hi, mask_lo, n_valid: int, *, dedup: bool):
-    return sort_dedup("rk", (key_hi, key_lo), (mask_hi, mask_lo), n_valid, dedup)
-
-
-def fused32_kernel(tsid_hi, tsid_lo, rest, rest_mask, n_valid: int, *, dedup: bool):
-    return sort_dedup("f32", (tsid_hi, tsid_lo, rest), (_U32_MAX, _U32_MAX, rest_mask),
-                      n_valid, dedup)
-
-
-def fused64_kernel(tsid_hi, tsid_lo, rest_hi, rest_lo, mask_hi, mask_lo, n_valid: int, *,
-                   dedup: bool):
-    return sort_dedup("f64", (tsid_hi, tsid_lo, rest_hi, rest_lo),
-                      (_U32_MAX, _U32_MAX, mask_hi, mask_lo), n_valid, dedup)
-
-
-def general_kernel(is_pad, tsid_hi, tsid_lo, ts_hi, ts_lo, negseq_hi, negseq_lo, *,
-                   dedup: bool):
-    return sort_dedup("gen", (is_pad, tsid_hi, tsid_lo, ts_hi, ts_lo, negseq_hi, negseq_lo),
-                      (0, _U32_MAX, _U32_MAX, _U32_MAX, _U32_MAX, 0, 0), is_pad.shape[0],
-                      dedup)
+        perm, keep = _plain(kind, words, masks, n_valid, dedup)
+        return torch.cat([perm.view(torch.uint8), keep.view(torch.uint8),
+                          torch.zeros(MAX_PASSES, dtype=torch.uint8)])
+    return _launch(kind, words, masks, n_valid, dedup)
 
 
 # ---- host packing ----------------------------------------------------------------
@@ -438,30 +416,34 @@ def pack_ranked_key(
 
 
 class MergeHandle:
-    """An in-flight merge. On the card the upload, the sort and the copy
-    of its result back to pinned host memory were queued on the device's
+    """An in-flight merge: the sort's output buffer (see ``sort_dedup``)
+    over ``n`` real rows. On the card the upload, the sort and the copy of
+    its result back to pinned host memory were queued on the device's
     current stream, and an event marks their end; ``get()`` waits on the
     event. Lets a caller pipeline the host-side payload gather of chunk i
     with the device sort of chunk i+1."""
 
     __slots__ = ("_out", "_n", "_event", "_kind")
 
-    def __init__(self, out, n: int, kind: str | None = None, event=None) -> None:
+    def __init__(self, out: torch.Tensor, n: int, kind: str | None = None,
+                 event=None) -> None:
         self._out, self._n, self._kind, self._event = out, n, kind, event
 
     def get(self) -> tuple[np.ndarray, np.ndarray]:
-        if self._event is None:  # plain version, or no rows
-            perm, keep = self._out
-            return perm[: self._n], keep[: self._n]
-        self._event.synchronize()
+        if self._event is not None:
+            self._event.synchronize()
         buf = self._out.numpy()
         bucket = (len(buf) - MAX_PASSES) // 5
         perm = buf[: 4 * bucket].view(np.int32)
         keep = buf[4 * bucket: 5 * bucket].view(np.bool_)
-        # a pass whose digit is the same in every row is skipped on the card
-        _log.debug("merge_dedup %s: %d rows, %d radix passes", self._kind, self._n,
-                   int(buf[5 * bucket:].sum()))
+        if self._event is not None:
+            # a pass whose digit is the same in every row is skipped on the card
+            _log.debug("merge_dedup %s: %d rows, %d radix passes", self._kind, self._n,
+                       int(buf[5 * bucket:].sum()))
         return perm[: self._n], keep[: self._n]
+
+
+_NO_ROWS = torch.zeros(MAX_PASSES, dtype=torch.uint8)
 
 
 def stage(cols, fills, n: int, pinned: bool) -> torch.Tensor:
@@ -483,17 +465,16 @@ def _dispatch(kind: str, cols, fills, masks, n: int, dedup: bool, device) -> Mer
     sort and the copy of its result back."""
     device = torch.device(device)
     if n == 0:
-        return MergeHandle((np.empty(0, np.int32), np.empty(0, np.bool_)), 0)
+        return MergeHandle(_NO_ROWS, 0)
     host = stage(cols, fills, n, pinned=device.type == "cuda")
     if device.type == "cpu":
-        perm, keep = sort_dedup(kind, host.unbind(0), masks, n, dedup)
-        return MergeHandle((perm.numpy(), keep.numpy()), n)
+        return MergeHandle(sort_dedup(kind, host.unbind(0), masks, n, dedup), n, kind)
     from ..obs.device import timed_dispatch
 
     with torch.cuda.device(device):
         words = host.to(device, non_blocking=True).unbind(0)
         out = timed_dispatch(
-            "merge_dedup", lambda: _launch(kind, words, masks, n, dedup), device
+            "merge_dedup", lambda: sort_dedup(kind, words, masks, n, dedup), device
         )
         back = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
         back.copy_(out, non_blocking=True)
@@ -587,7 +568,7 @@ def merge_dedup_dispatch(
     measured bit widths fit 63 bits."""
     n = len(tsid)
     if n == 0:
-        return MergeHandle((np.empty(0, np.int32), np.empty(0, np.bool_)), 0)
+        return MergeHandle(_NO_ROWS, 0)
     kind, cols, fills, masks = pack_inputs(tsid, ts, seq, tsid_rank, n_ranks, unique)
     return _dispatch(kind, cols, fills, masks, n, dedup, device)
 

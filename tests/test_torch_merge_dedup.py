@@ -125,7 +125,7 @@ def test_all_ones_real_key_beats_the_pads():
 @pytest.mark.parametrize("kind", md.KINDS)
 @pytest.mark.parametrize("dedup", [True, False])
 def test_wrappers_match_reference_kernels_below_the_bucket(kind, dedup):
-    """Each kind's wrapper on CPU tensors against the reference's jitted
+    """The wrapper of each kind on CPU tensors against the reference's jitted
     kernel on the same padded words, n_valid below the bucket, words with
     the top bit set (unsigned order). The stable kinds agree over the whole
     bucket; rk (unstable in the reference) over its real rows."""
@@ -155,14 +155,12 @@ def test_wrappers_match_reference_kernels_below_the_bucket(kind, dedup):
         words[1:, n_valid:] = 0
         want = ref_md._general_kernel(*map(jnp.asarray, words), dedup=dedup)
     t = [torch.from_numpy(w.view(np.int32)) for w in words]
-    if kind == "rk":
-        got = md.ranked_kernel(*t, int(masks[0]), int(masks[1]), n_valid, dedup=dedup)
-    elif kind == "f32":
-        got = md.fused32_kernel(*t, int(masks[2]), n_valid, dedup=dedup)
-    elif kind == "f64":
-        got = md.fused64_kernel(*t, int(masks[2]), int(masks[3]), n_valid, dedup=dedup)
+    # the masks the reference's kernel of each kind applies
+    if kind == "gen":
+        used = (0, _U32, _U32, _U32, _U32, 0, 0)
     else:
-        got = md.general_kernel(*t, dedup=dedup)
+        used = tuple(masks[:2]) if kind == "rk" else (_U32, _U32, *masks[2:])
+    got = md.unpack(md.sort_dedup(kind, t, [int(m) for m in used], n_valid, dedup), bucket)
     cut = n_valid if kind == "rk" else bucket
     assert_bit_equal(got[0].numpy()[:cut], np.asarray(want[0])[:cut], "perm")
     assert_bit_equal(got[1].numpy()[:cut], np.asarray(want[1])[:cut], "keep")
