@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Card: name and power limit (nvidia-smi), torch and CUDA versions.
 2. Build: the CUDA kernels from ``horaedb_tpu_torch/ops/csrc``, one nvcc
-   per source, started together.
+   per source, one after the other.
 3. Kernel vs plain: every entry point (direct, cached full, cached
    selective) and arm (single, shared, scatter) against its plain PyTorch
    version on the same CUDA tensors, over every resident layout, all six
@@ -15,9 +15,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    zeros, and one segment of more than 2**24 rows. Counts, mins and maxs
    must be bit-equal; sums within SUM_RTOL of the segment's sum of |x|.
 4. Main path: ``connect(None, device="cuda")``, the TSBS cpu table at
-   4000 hosts x 24 h (34,560,000 rows x 10 fields, seed 123) and the
+   4000 hosts x 12 h (17,280,000 rows x 10 fields, seed 123) and the
    README demo table (1M rows), written and flushed through the engine;
-   single-groupby-5-8-1, double-groupby-all (24 h), high-cpu-all (12 h)
+   single-groupby-5-8-1, double-groupby-all (12 h), high-cpu-all (6 h)
    and avg(value) GROUP BY name, each REPEATS times, checked against an
    independent numpy group-by over the generated rows. The launch counters
    must show the direct kernel and both forms of the cached kernel ran.
@@ -32,15 +32,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
    n_valid = 0, and a stress set through the dispatcher (exact duplicates,
    all-ones real keys, +-2**62 timestamps with a 64-bit seq span) that
    must reach its kind by the counters. perm and keep bit-equal.
-8. Main path of BASELINE config 5: 64 overlapping L0 SSTs, 100M rows,
+8. Main path of BASELINE config 5: 64 overlapping L0 SSTs, 32M rows,
    written through the engine's SstWriter and manifest; the SELECT before
-   compaction (the f32 read merge), ``Compactor.compact()`` (16 rk chunk
+   compaction (the f32 read merge), ``Compactor.compact()`` (rk chunk
    launches), the SELECT after and a GROUP BY, all checked against an
    independent numpy merge, as are the L1 SST's rows and order; host
    stage seconds.
 9. Merge replay and timings: the last f32 and rk main-path calls, kernel
    against plain (bit-equal); per kind the kernel's time, radix passes,
    bound, plain and library times, upload and download.
+10. Live-window kernels vs plain: the ring fold and gather on CUDA rings
+   against their plain versions: depth {8, 128} x cap {64, 4096} x rows
+   {0, 1, 4000, 24000, 2**20} x {distinct cells, one cell} x reset
+   {none, one slot, all} x pairs {none, present}, +-0, masked, wrapped and
+   dropped indices in every batch; gathers at n {1, 60, 128} with
+   out-of-range slots. Counts, mins and maxs bit-equal, sums and counter
+   increments within SUM_RTOL of the cell's sum of |x|.
+11. Live-window main path: the TSBS cpu table at 4000 hosts (append mode),
+   one hour of history, five per-field open-tail panels promoted at the
+   default knobs, three hours of live commits (1080 x 4000 rows; the
+   128-bucket ring rolls over), one late batch inside the ring and one
+   below its tail, every panel refreshed each simulated minute. Every
+   answer equals an independent numpy group-by; at six checkpoints the
+   kill-switch rescan too; >= 90% of refreshes served from state; scatter
+   launches = commits x states, reset launches = head advances x states,
+   no fold error.
+12. Live-window replay and timings: the last folds and gather of the main
+   path, kernel against plain; fold (reset and scatter) and gather device
+   times, bounds, plain and library times, the gather's copy back, the
+   fold's host time per commit, refresh latency from state and rescan.
+13. PromQL and alerts: a counter table at 4000 hosts, 10 s scrapes, a
+   counter reset on every host; its all-tags state promoted, 30 min of live
+   commits; increase/rate over the last 30 min at step 5 m served from
+   state, equal to numpy and to the kill-switch fold at 1e-4 relative; one
+   RuleEngine alert fires for the expected hosts from state.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -60,8 +85,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 
 HOSTS = 4000
-HOURS = 24
-HC_HOURS = 12
+# depth cut from 24 h and 12 h (and config 5 from 100M rows) so the live-window
+# phases fit the run's time
+HOURS = 12
+HC_HOURS = 6
 DEMO_ROWS = 1_000_000
 SEED = 123
 REPEATS = 5
@@ -122,26 +149,23 @@ def phase_card(torch) -> str:
 
 
 def phase_build() -> None:
-    """Both kernel libraries, one nvcc each, started together."""
-    from concurrent.futures import ThreadPoolExecutor
+    """The kernel libraries, one nvcc each, one after the other."""
+    from horaedb_tpu_torch.ops import livewindow, merge_dedup, scan_agg
 
-    from horaedb_tpu_torch.ops import merge_dedup, scan_agg
-
-    loaders = {"scan_agg": scan_agg._kernels, "merge_dedup": merge_dedup._kernels}
+    loaders = {"scan_agg": scan_agg._kernels, "merge_dedup": merge_dedup._kernels,
+               "livewindow": livewindow._kernels}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(loaders)) as pool:
-        # each builds and loads its library and checks its struct layouts
-        futs = {name: pool.submit(fn) for name, fn in loaders.items()}
-        libs = {name: f.result() for name, f in futs.items()}
-    secs = time.perf_counter() - t0
-    for name, lib in libs.items():
+    for name, fn in loaders.items():
+        # builds and loads the library and checks its struct layouts
+        lib = fn()
         say(f"build: {name}.cu in {lib.build_seconds:.2f} s of nvcc")
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {name}: {line.strip()}")
         DETAIL[f"build_log_{name}"] = lib.build_log
         DETAIL[f"nvcc_seconds_{name}"] = lib.build_seconds
-    say(f"build: {secs:.2f} s for both with loading")
+    secs = time.perf_counter() - t0
+    say(f"build: {secs:.2f} s for all three with loading")
     DETAIL["build_seconds"] = secs
 
 
@@ -1031,7 +1055,7 @@ def phase_merge_kernels(torch) -> None:
 # SSTs, 100M rows, k-way merge-dedup"; the table of bench.py's compaction
 # config (1000 series in one 2 h segment window, seed 7).
 COMPACTION_SSTS = 64
-COMPACTION_ROWS = 100_000_000
+COMPACTION_ROWS = 32_000_000
 COMPACTION_SERIES = 1000
 COMPACTION_SEED = 7
 
@@ -1429,6 +1453,704 @@ def phase_merge_timings(torch, comp, replay_passes, card) -> list:
     return kernels
 
 
+# ---- phase 10: the live-window fold and gather against their plain versions ----
+
+LW_SRC = "horaedb_tpu_torch/ops/csrc/livewindow.cu"
+LW_REPLACES = {"fold": "horaedb_tpu/ops/livewindow.py:45",
+               "gather": "horaedb_tpu/ops/livewindow.py:64"}
+LW_DEPTHS = (8, 128)
+LW_CAPS = (64, 4096)
+LW_ROWS = (0, 1, 4000, 24_000, 1 << 20)
+LW_GATHER_N = (1, 60, 128)
+
+
+def _lw_batch(rng, depth, cap, n, one_cell, reset, pairs):
+    """One fold's host inputs: rows on distinct cells (cycling through
+    every cell) or all on one cell, with +-0 values, a masked row
+    (slot == depth), negative indices that wrap and out-of-range ones that
+    drop mixed in; the reset mask names no slot, one or all; pairs on the
+    first half of the rows' cells, or none."""
+    import numpy as np
+
+    cells = depth * cap
+    if one_cell:
+        cell = np.full(n, int(rng.integers(cells)), dtype=np.int64)
+    else:
+        cell = rng.permutation(cells)[np.arange(n) % cells]
+    slot = (cell // cap).astype(np.int32)
+    grp = (cell % cap).astype(np.int32)
+    val = rng.normal(0.0, 100.0, n).astype(np.float32)
+    if n >= 16:
+        val[:4] = (-0.0, 0.0, 0.0, -0.0)
+        slot[4] = depth        # masked: dropped
+        slot[5] -= depth       # wraps back to its slot
+        grp[6] -= cap          # wraps back to its group
+        slot[7] = -depth - 1   # dropped
+        grp[8] = cap           # dropped
+    mask = np.zeros(depth, dtype=np.bool_)
+    if reset == "one":
+        mask[int(slot[0]) % depth if n else 0] = True
+    elif reset == "all":
+        mask[:] = True
+    m = n // 2 if pairs else 0
+    pd = np.abs(rng.normal(0.0, 10.0, m)).astype(np.float32)
+    return mask, slot, grp, val, slot[:m].copy(), grp[:m].copy(), pd
+
+
+def _lw_words(torch, batch):
+    """``pack_fold``'s words of a host batch, on the card."""
+    from horaedb_tpu_torch.ops import livewindow as L
+
+    words, r, n, m = L.pack_fold(*batch)
+    return torch.from_numpy(words).to(DEV), r, n, m
+
+
+def _lw_abs_words(torch, words, r, n, m):
+    """The same words with |val| and |delta|: folded by the plain version
+    into |ring|, they give each cell's scale for the sum tolerance."""
+    w = words.clone()
+    for lo, k in ((r + 2 * n, n), (r + 3 * n + 2 * m, m)):
+        w[lo:lo + k] &= 0x7FFFFFFF
+    return w
+
+
+def _bits(torch, t):
+    t = t.clone()
+    t[torch.isnan(t)] = float("nan")
+    return t.view(torch.int32)
+
+
+def _lw_fold_check(torch, base, words, r, n, m, what) -> float:
+    """The fold kernel against its plain version on clones of one ring:
+    counts, mins and maxs bit-equal, sums and counter increments within
+    SUM_RTOL of |the cell before| + the sum of |x| folded into it. Returns
+    the largest |sum or increment difference|."""
+    from horaedb_tpu_torch.ops import livewindow as L
+
+    got, want = base.clone(), base.clone()
+    scale = base.clone()
+    for k in (1, 4):
+        scale[k] &= 0x7FFFFFFF
+    L.fold(got, words, r, n, m)
+    L.fold_plain(want, words, r, n, m)
+    L.fold_plain(scale, _lw_abs_words(torch, words, r, n, m), r, n, m)
+    _sync(torch)
+    gp, wp, sp = L.planes(got), L.planes(want), L.planes(scale)
+    check(torch.equal(gp[0], wp[0]), f"{what}: counts differ")
+    check(torch.equal(_bits(torch, gp[2]), _bits(torch, wp[2])), f"{what}: mins differ")
+    check(torch.equal(_bits(torch, gp[3]), _bits(torch, wp[3])), f"{what}: maxs differ")
+    err = 0.0
+    for k, name in ((1, "sums"), (4, "inc")):
+        d = (gp[k].double() - wp[k].double()).abs()
+        check(not bool((d > SUM_RTOL * sp[k].double()).any()),
+              f"{what}: {name} differ beyond {SUM_RTOL} of sum|x|")
+        err = max(err, float(d.max()))
+    return err
+
+
+def _lw_gather_check(torch, rings, idx, g, what) -> None:
+    from horaedb_tpu_torch.ops import livewindow as L
+
+    got = L.gather(rings, idx, g)
+    want = L.gather_plain(rings, idx, g)
+    _sync(torch)
+    check(torch.equal(got, want), f"{what}: gather differs from plain")
+
+
+def phase_lw_kernels(torch) -> float:
+    """Fold and gather on CUDA rings against their plain versions over
+    depth x cap x rows x {distinct cells, one cell} x reset x pairs, and
+    gathers with out-of-range slots. Returns the largest |sum diff|."""
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import livewindow as L
+
+    rng = np.random.default_rng(SEED + 2)
+    n_cases, err = 0, 0.0
+    t0 = time.perf_counter()
+    for depth in LW_DEPTHS:
+        for cap in LW_CAPS:
+            base = L.alloc_rings(depth, cap, DEV)
+            warm = _lw_batch(rng, depth, cap, 2 * depth * cap, False, "none", True)
+            L.fold_plain(base, *_lw_words(torch, warm))  # a ring with values in it
+            for n in LW_ROWS:
+                for one_cell in (False, True):
+                    for reset in ("none", "one", "all"):
+                        for pairs in (False, True):
+                            what = (f"fold depth {depth} cap {cap} rows {n} "
+                                    f"{'one cell' if one_cell else 'distinct'} reset {reset} "
+                                    f"pairs {pairs}")
+                            batch = _lw_batch(rng, depth, cap, n, one_cell, reset, pairs)
+                            err = max(err, _lw_fold_check(torch, base, *_lw_words(torch, batch),
+                                                          what))
+                            n_cases += 1
+            for g in (cap, cap // 2 + 1):
+                for nq in LW_GATHER_N:
+                    idx = rng.integers(0, depth, nq).astype(np.int32)
+                    if nq >= 4:
+                        idx[:4] = (depth, depth + 7, -1, -depth - 3)
+                    _lw_gather_check(torch, base, torch.from_numpy(idx).to(DEV), g,
+                                     f"gather depth {depth} cap {cap} n {nq} g {g}")
+                    n_cases += 1
+    say(f"live-window kernels vs plain: {n_cases} cases passed in "
+        f"{time.perf_counter() - t0:.1f} s; max |sum diff| {err}")
+    DETAIL["lw_kernel_cases"] = n_cases
+    DETAIL["lw_kernel_max_abs_err"] = err
+    return err
+
+
+# ---- phase 11: the live window's main path at 4000 hosts --------------------
+
+LW_FIELDS = 5                    # per-field panels: the first five cpu fields
+LW_HISTORY_MIN = 60              # one hour written before promotion
+LW_LIVE_COMMITS = 1080           # three hours of 10 s scrapes, one commit each
+LW_LATE_AT = 700                 # after this commit: a batch 30 min back (in the ring)
+LW_OLD_AT = 900                  # after this commit: a batch 130 min back (below the tail)
+LW_CHECKPOINTS = (1, 30, 61, 100, 150, 180)  # refresh minutes also rescanned
+LW_T0 = 1_786_000_000_000 // 3_600_000 * 3_600_000  # the simulated clock's start
+
+
+class _Cells:
+    """Independent answers of the panels: per (minute, host) count, and per
+    field the sum and sum of |x| (float64 over the float32 values the
+    columns and rings hold), min and max."""
+
+    def __init__(self, minutes, hosts, fields):
+        import numpy as np
+
+        shape = (minutes, hosts)
+        self.count = np.zeros(shape, np.int64)
+        self.sum = {f: np.zeros(shape) for f in fields}
+        self.abs = {f: np.zeros(shape) for f in fields}
+        self.min = {f: np.full(shape, np.inf, np.float32) for f in fields}
+        self.max = {f: np.full(shape, -np.inf, np.float32) for f in fields}
+
+    def add(self, rows, host_ids):
+        import numpy as np
+
+        at = ((rows.columns["ts"] - LW_T0) // 60_000, host_ids)
+        np.add.at(self.count, at, 1)
+        for f in self.sum:
+            v = rows.columns[f].astype(np.float32)
+            np.add.at(self.sum[f], at, v.astype(np.float64))
+            np.add.at(self.abs[f], at, np.abs(v).astype(np.float64))
+            np.minimum.at(self.min[f], at, v)
+            np.maximum.at(self.max[f], at, v)
+
+    def check(self, res, f, mi_lo, host_index, what):
+        """A panel's answer over minutes >= mi_lo equals these cells."""
+        import numpy as np
+
+        mi = (res.column("minute").astype(np.int64) - LW_T0) // 60_000
+        host = np.fromiter(map(host_index.__getitem__, res.column("hostname")), np.int64,
+                           count=res.num_rows)
+        want = int((self.count[mi_lo:] > 0).sum())
+        check(res.num_rows == want, f"{what}: {res.num_rows} rows, expected {want}")
+        check(bool((mi >= mi_lo).all()), f"{what}: a row before the window")
+        check(np.unique(mi * len(host_index) + host).size == res.num_rows, f"{what}: duplicates")
+        c = res.column("c").astype(np.int64)
+        check(np.array_equal(c, self.count[mi, host]), f"{what}: counts differ")
+        check(np.array_equal(res.column("mn").astype(np.float32), self.min[f][mi, host]),
+              f"{what}: mins differ")
+        check(np.array_equal(res.column("mx").astype(np.float32), self.max[f][mi, host]),
+              f"{what}: maxs differ")
+        scale = self.abs[f][mi, host]
+        d = np.abs(res.column("s").astype(np.float64) - self.sum[f][mi, host])
+        check(bool((d <= SUM_RTOL * scale).all()), f"{what}: sums differ")
+        d = np.abs(res.column("a").astype(np.float64) - self.sum[f][mi, host] / c)
+        check(bool((d <= SUM_RTOL * scale / c).all()), f"{what}: avgs differ")
+        return float(np.max(d)) if len(d) else 0.0
+
+
+def _lw_panel(field: str, start: int) -> str:
+    return (f"SELECT time_bucket(ts, '1m') AS minute, hostname, count({field}) AS c, "
+            f"sum({field}) AS s, min({field}) AS mn, max({field}) AS mx, avg({field}) AS a "
+            f"FROM cpu WHERE ts >= {start} GROUP BY time_bucket(ts, '1m'), hostname")
+
+
+class LwRecorder:
+    """Wraps the live-window wrappers and ``LiveState.fold`` during the main
+    path: keeps the last fold with a reset and without one, the last gather
+    (for the replay and the timings), and the host seconds of every state
+    fold and of the kernel wrapper inside it."""
+
+    def __init__(self):
+        from horaedb_tpu_torch.ops import livewindow as L
+        from horaedb_tpu_torch.state import livewindow as S
+
+        self.L, self.S = L, S
+        self.orig = (L.fold, L.gather, S.LiveState.fold)
+        self.calls: dict = {}
+        self.fold_s = self.launch_s = 0.0
+        orig_fold, orig_gather, orig_state_fold = self.orig
+
+        def fold(rings, words, r, n, m):
+            t = time.perf_counter()
+            orig_fold(rings, words, r, n, m)
+            self.launch_s += time.perf_counter() - t
+            self.calls["fold_reset" if r else "fold"] = (rings, words, r, n, m)
+
+        def gather(rings, idx, g):
+            self.calls["gather"] = (rings, idx, g)
+            return orig_gather(rings, idx, g)
+
+        def state_fold(state, rows):
+            t = time.perf_counter()
+            ok = orig_state_fold(state, rows)
+            self.fold_s += time.perf_counter() - t
+            return ok
+
+        L.fold, L.gather, S.LiveState.fold = fold, gather, state_fold
+
+    def restore(self):
+        self.L.fold, self.L.gather, self.S.LiveState.fold = self.orig
+
+
+def phase_lw_main(torch) -> dict:
+    """Five per-field open-tail panels over the TSBS cpu table at 4000
+    hosts: one hour of history, promotion at the default knobs, three hours
+    of live commits (the 128-bucket ring rolls over), one late batch in the
+    ring and one below its tail, a refresh of every panel each simulated
+    minute. Every answer equals the independent cells; at the checkpoints
+    the kill-switch rescan gives the same."""
+    import numpy as np
+
+    import horaedb_tpu_torch
+    from horaedb_tpu_torch.common_types import RowGroup
+    from horaedb_tpu_torch.ops import livewindow as L
+    from horaedb_tpu_torch.state import livewindow as S
+    from horaedb_tpu_torch.tools import tsbs
+
+    fields = tsbs.CPU_FIELDS[:LW_FIELDS]
+    S.STORE.clear()
+    db = horaedb_tpu_torch.connect(None, device=DEV)
+    db.execute(_cpu_table_sql(tsbs).replace("segment_duration='2h'",
+                                             "segment_duration='2h', update_mode='append'"))
+    table = db.catalog.open("cpu")
+    host_index = {f"host_{i}": i for i in range(HOSTS)}
+    t_start = time.perf_counter()
+    minutes = LW_HISTORY_MIN + LW_LIVE_COMMITS // 6 + 1
+    cells = _Cells(minutes, HOSTS, fields)
+    hosts = np.arange(HOSTS)
+    history = tsbs.generate_cpu(HOSTS, LW_HISTORY_MIN * 60_000, t0=LW_T0, seed=SEED + 3)
+    table.write(RowGroup(table.schema, dict(history.columns)))
+    cells.add(history, np.tile(hosts, len(history) // HOSTS))
+    live_t0 = LW_T0 + LW_HISTORY_MIN * 60_000
+    live = tsbs.generate_cpu(HOSTS, LW_LIVE_COMMITS * tsbs.INTERVAL_MS, t0=live_t0,
+                             seed=SEED + 4)
+    check(len(live) == LW_LIVE_COMMITS * HOSTS, f"{len(live)} live rows")
+
+    # promotion: three eligible reads of each panel at the default knobs
+    for f in fields:
+        for _ in range(S.promote_reads()):
+            db.execute(_lw_panel(f, live_t0 - 60 * 60_000))
+    states = S.STORE.stats()["states"]
+    check(len(states) == LW_FIELDS, f"{len(states)} states promoted, expected {LW_FIELDS}")
+    check(all(s["depth"] == 128 for s in states), "ring depth is not 128")
+    say(f"live window: {len(history)} history rows, {LW_FIELDS} panels promoted "
+        f"({S.STORE.total_bytes()} B of rings) in {time.perf_counter() - t_start:.1f} s")
+
+    _sync(torch)
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rec = LwRecorder()
+    L.reset_counts()  # the main path's launches start here
+    head = None
+    advances = commits = refreshes = served = 0
+    refresh_s, check_s, commit_s = [], [], []
+    checkpoints = {}
+    max_err = 0.0
+    try:
+        for k in range(LW_LIVE_COMMITS):
+            rows = live.slice(k * HOSTS, (k + 1) * HOSTS)
+            batches = [rows]
+            if k == LW_LATE_AT:
+                batches.append(_shifted(RowGroup, rows, -30 * 60_000 + 5_000))
+            elif k == LW_OLD_AT:
+                batches.append(_shifted(RowGroup, rows, -130 * 60_000 + 5_000))
+            for b in batches:
+                t = time.perf_counter()
+                table.write(RowGroup(table.schema, dict(b.columns)))
+                commit_s.append(time.perf_counter() - t)
+                commits += 1
+                cells.add(b, hosts)
+                bmax = int(b.columns["ts"].max()) // 60_000
+                if head is not None and bmax > head:
+                    advances += 1
+                head = bmax if head is None else max(head, bmax)
+            if k % 6 != 5:
+                continue
+            clock = live_t0 + (k + 1) * tsbs.INTERVAL_MS
+            minute = (clock - live_t0) // 60_000
+            start = clock - 60 * 60_000
+            mi_lo = (start - LW_T0) // 60_000
+            for f in fields:
+                sql = _lw_panel(f, start)
+                t = time.perf_counter()
+                res = db.execute(sql)
+                refresh_s.append(time.perf_counter() - t)
+                path = db.interpreters.executor.last_path
+                refreshes += 1
+                served += path == "livewindow"
+                t = time.perf_counter()
+                max_err = max(max_err, cells.check(res, f, mi_lo, host_index,
+                                                   f"refresh minute {minute} {f} ({path})"))
+                check_s.append(time.perf_counter() - t)
+                if minute in LW_CHECKPOINTS:
+                    os.environ["HORAEDB_LIVEWINDOW"] = "0"
+                    try:
+                        t = time.perf_counter()
+                        raw = db.execute(sql)
+                        raw_s = time.perf_counter() - t
+                        check(db.interpreters.executor.last_path != "livewindow",
+                              "the kill switch still served from state")
+                    finally:
+                        os.environ.pop("HORAEDB_LIVEWINDOW", None)
+                    cells.check(raw, f, mi_lo, host_index, f"rescan minute {minute} {f}")
+                    _same_answer(res, raw, f"refresh minute {minute} {f}: state vs rescan")
+                    checkpoints.setdefault(minute, {})[f] = {
+                        "path": path, "served_s": refresh_s[-1], "rescan_s": raw_s}
+        _sync(torch)
+        launches = dict(L.LAUNCHES)
+        plain_calls = dict(L.PLAIN_CALLS)
+        fold_errors = L.FOLD_ERRORS
+    finally:
+        rec.restore()
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    n_states = len(S.STORE.stats()["states"])
+    check(n_states == LW_FIELDS, f"{n_states} states resident at the end")
+    check(fold_errors == 0, f"{fold_errors} folds failed")
+    counted = launches if DEV == "cuda" else {"fold_scatter": plain_calls["fold"],
+                                              "gather": plain_calls["gather"]}
+    check(counted["fold_scatter"] == commits * LW_FIELDS,
+          f"scatter launches {counted['fold_scatter']} != {commits} commits x {LW_FIELDS} states")
+    if DEV == "cuda":
+        check(launches["fold_reset"] == advances * LW_FIELDS,
+              f"reset launches {launches['fold_reset']} != {advances} advances x {LW_FIELDS}")
+        check(not any(plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
+    check(counted["gather"] == served > 0, f"gathers {counted['gather']} for {served} serves")
+    check(served >= 0.9 * refreshes, f"only {served} of {refreshes} refreshes served from state")
+    check(len(checkpoints) == len(LW_CHECKPOINTS), f"checkpoints {sorted(checkpoints)}")
+    host_fold_ms = (rec.fold_s - rec.launch_s) / commits * 1e3
+    say(f"live window: {commits} commits x {HOSTS} rows, {advances} head advances, "
+        f"{refreshes} refreshes ({served} served from state) checked against the cells; "
+        f"launches {launches}; fold errors {fold_errors}")
+    say(f"  commit (write + {LW_FIELDS} folds) median {statistics.median(commit_s) * 1e3:.3f} ms; "
+        f"state folds on the host {host_fold_ms:.3f} ms per commit beyond the launches "
+        f"({rec.launch_s / commits * 1e3:.3f} ms in the kernel wrapper); refresh median "
+        f"{statistics.median(refresh_s) * 1e3:.3f} ms; answer check median "
+        f"{statistics.median(check_s) * 1e3:.3f} ms; peak device memory {peak} B")
+    out = {
+        "db": db, "rec": rec, "launches": launches, "commits": commits, "advances": advances,
+        "refreshes": refreshes, "served": served, "checkpoints": checkpoints, "peak": peak,
+        "commit_ms_median": statistics.median(commit_s) * 1e3,
+        "refresh_ms_median": statistics.median(refresh_s) * 1e3,
+        "host_fold_ms_per_commit": host_fold_ms,
+        "launch_ms_per_commit": rec.launch_s / commits * 1e3,
+        "max_abs_err": max_err, "seconds": time.perf_counter() - t_start,
+    }
+    DETAIL["livewindow_main"] = {k: v for k, v in out.items() if k not in ("db", "rec")}
+    return out
+
+
+def _shifted(RowGroup, rows, dt_ms: int):
+    cols = dict(rows.columns)
+    cols["ts"] = cols["ts"] + dt_ms
+    return RowGroup(rows.schema, cols)
+
+
+def _same_answer(a, b, what) -> None:
+    """Two answers of one panel: the same cells with the same counts, and
+    mins and maxs equal as float32, the type the ring holds (a rescan of
+    memtable rows reads the float64 values); their sums and avgs were
+    each held to the cells already."""
+    import numpy as np
+
+    def ordered(r):
+        o = np.lexsort((r.column("hostname").astype(str), r.column("minute")))
+        cols = {n: r.column(n)[o] for n in ("minute", "hostname", "c")}
+        cols.update({n: r.column(n)[o].astype(np.float32) for n in ("mn", "mx")})
+        return cols
+
+    x, y = ordered(a), ordered(b)
+    for n in x:
+        check(np.array_equal(x[n], y[n]), f"{what}: {n} differs")
+
+
+# ---- phase 12: live-window replay and timings ----------------------------------
+
+
+def _lw_fold_bound(rings, words, r, n, m) -> tuple[float, int]:
+    """Least time of one fold: 12 B per row and per pair read, each distinct
+    (slot, group) cell the rows touch read and written in 4 planes
+    (8 B x 4), each distinct increment cell read and written (8 B), and
+    each reset slot's 5 planes written (20 B x cap), over HBM."""
+    import numpy as np
+
+    depth, cap = int(rings.shape[1]), int(rings.shape[2])
+    w = words.cpu().numpy()
+
+    def distinct(lo, k):
+        s = w[lo:lo + k].astype(np.int64)
+        g = w[lo + k:lo + 2 * k].astype(np.int64)
+        s = np.where(s < 0, s + depth, s)
+        g = np.where(g < 0, g + cap, g)
+        ok = (s >= 0) & (s < depth) & (g >= 0) & (g < cap)
+        return np.unique(s[ok] * cap + g[ok]).size
+
+    nbytes = 12 * n + 12 * m + 32 * distinct(r, n) + 8 * distinct(r + 3 * n, m)
+    nbytes += 20 * cap * np.unique(w[:r]).size
+    return nbytes / PEAK_BYTES_S * 1e3, int(nbytes)
+
+
+def phase_lw_timings(torch, main, card) -> list:
+    """The main path's last folds (with and without a reset) and its last
+    gather, replayed kernel against plain; then each kernel's device time,
+    bound, plain and library times, the gather's copy back, and the
+    refresh latency from state against the rescan in this call."""
+    from horaedb_tpu_torch.ops import livewindow as L
+
+    calls = main["rec"].calls
+    err = 0.0
+    for kind in ("fold_reset", "fold"):
+        check(kind in calls, f"the main path made no {kind} call")
+        err = max(err, _lw_fold_check(torch, *calls[kind], f"main path {kind} replay"))
+    rings, idx, g = calls["gather"]
+    _lw_gather_check(torch, rings, idx, g, "main path gather replay")
+    say(f"live-window replay: the last folds and gather equal their plain versions; "
+        f"max |sum diff| {err}")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rings, words, r, n, m = calls["fold_reset"]
+    scratch = rings.clone()
+    fold = lambda: L.fold(scratch, words, r, n, m)  # noqa: E731
+    reset_ms = _device_ms(torch, fold, "ring_reset", flush=flush)
+    scatter_ms = _device_ms(torch, fold, "ring_scatter", flush=flush)
+    fold_events_ms = _time_launch(torch, fold, flush=flush)
+    fold_ms = (reset_ms + scatter_ms) if None not in (reset_ms, scatter_ms) else fold_events_ms
+    fold_plain_ms = _time_launch(torch, lambda: L.fold_plain(scratch, words, r, n, m), reps=5,
+                                 flush=flush)
+    fold_bound, fold_bytes = _lw_fold_bound(rings, words, r, n, m)
+    _, w0, r0, n0, m0 = calls["fold"]
+    scatter_only_ms = _device_ms(torch, lambda: L.fold(scratch, w0, r0, n0, m0),
+                                 "ring_scatter", flush=flush)
+    rings, idx, g = calls["gather"]
+    gather = lambda: L.gather(rings, idx, g)  # noqa: E731
+    gather_dev_ms = _device_ms(torch, gather, "ring_gather", flush=flush)
+    gather_events_ms = _time_launch(torch, gather, flush=flush)
+    gather_ms = gather_dev_ms if gather_dev_ms is not None else gather_events_ms
+    gather_plain_ms = _time_launch(torch, lambda: L.gather_plain(rings, idx, g), flush=flush)
+    idx_long = idx.long()
+    lib_ms = _time_launch(torch, lambda: torch.index_select(rings[:, :, :g], 1, idx_long),
+                          flush=flush)
+    out = gather()
+    host = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
+    d2h_ms = _time_launch(torch, lambda: host.copy_(out, non_blocking=True))
+    n_idx = int(idx.shape[0])
+    gather_bytes = 2 * 20 * n_idx * g
+    gather_bound = gather_bytes / PEAK_BYTES_S * 1e3
+    cps = main["checkpoints"]
+    served = [v["served_s"] * 1e3 for c in cps.values() for v in c.values()]
+    rescan = [v["rescan_s"] * 1e3 for c in cps.values() for v in c.values()]
+    launches = main["launches"]
+    kernels = [
+        {"name": "livewindow_fold", "route": "cuda", "source": LW_SRC,
+         "replaces": LW_REPLACES["fold"],
+         "launches": int(launches["fold_reset"] + launches["fold_scatter"]),
+         "max_abs_err": err, "ms": fold_ms, "plain_ms": fold_plain_ms, "bound_ms": fold_bound,
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "livewindow_gather", "route": "cuda", "source": LW_SRC,
+         "replaces": LW_REPLACES["gather"], "launches": int(launches["gather"]),
+         "max_abs_err": 0.0, "ms": gather_ms, "plain_ms": gather_plain_ms,
+         "bound_ms": gather_bound, "bound_by": "bytes", "library_ms": lib_ms},
+    ]
+    detail = {
+        "fold_rows": n, "fold_pairs": m, "fold_reset_slots": r, "fold_bound_bytes": fold_bytes,
+        "reset_ms": reset_ms, "scatter_ms": scatter_ms, "fold_events_ms": fold_events_ms,
+        "scatter_ms_without_reset": scatter_only_ms, "fold_plain_ms": fold_plain_ms,
+        "host_fold_ms_per_commit": main["host_fold_ms_per_commit"],
+        "launch_ms_per_commit": main["launch_ms_per_commit"],
+        "gather_n": n_idx, "gather_g": g, "gather_ms": gather_ms,
+        "gather_events_ms": gather_events_ms, "gather_plain_ms": gather_plain_ms,
+        "index_select_ms": lib_ms, "d2h_ms": d2h_ms, "gather_bound_bytes": gather_bytes,
+        "refresh_served_ms": served, "refresh_rescan_ms": rescan, "peak_bytes": main["peak"],
+    }
+    DETAIL["livewindow_timings"] = detail
+    say(f"kernel livewindow_fold at a head-advance commit ({n} rows, {m} pairs, {r} reset "
+        f"slot(s), {main['launches']['fold_scatter']} scatter + "
+        f"{main['launches']['fold_reset']} reset main-path launches): reset {reset_ms} ms + "
+        f"scatter {scatter_ms} ms on the device timeline ({fold_events_ms:.4f} ms by events "
+        f"incl. launches); scatter without a reset {scatter_only_ms} ms; plain "
+        f"{fold_plain_ms:.4f} ms; bound {fold_bound:.6f} ms ({fold_bytes} B); host "
+        f"{main['host_fold_ms_per_commit']:.3f} ms per commit beyond "
+        f"{main['launch_ms_per_commit']:.3f} ms in the wrapper [{card}]")
+    say(f"kernel livewindow_gather at n {n_idx} x g {g} ({launches['gather']} main-path "
+        f"launches): {gather_ms:.4f} ms ({gather_events_ms:.4f} ms by events), plain "
+        f"{gather_plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound {gather_bound:.6f} ms "
+        f"({gather_bytes} B); copy back {d2h_ms:.4f} ms [{card}]")
+    say(f"refresh at the checkpoints: from state median {statistics.median(served):.3f} ms, "
+        f"kill-switch rescan median {statistics.median(rescan):.3f} ms; peak device memory "
+        f"{main['peak']} B [{card}]")
+    return kernels
+
+
+# ---- phase 13: PromQL rate/increase and an alert over a counter table --------
+
+CTR_HISTORY_MIN = 10
+CTR_LIVE_COMMITS = 180   # 30 min of 10 s scrapes
+CTR_RESET_AT = 72        # the live commit at which every host's counter restarts
+CTR_STEP_MS = 5 * 60_000
+CTR_FIRING = 100  # after the reset only the last 100 hosts stay above the threshold
+
+
+def _ctr_values(k: int, hosts):
+    """Counter value of every host at tick k: 10**7 + 1000 h + rate_h k
+    before the reset, 1000 h + rate_h (k - reset) after it."""
+    rate = 1 + hosts % 7
+    k_reset = CTR_HISTORY_MIN * 6 + CTR_RESET_AT
+    if k < k_reset:
+        return 1e7 + 1000.0 * hosts + rate * k
+    return 1000.0 * hosts + rate * (k - k_reset)
+
+
+def _ctr_expected(t0, start, end, hosts, only=None):
+    """increase per (host, step bucket) over the samples in [start, end]:
+    consecutive deltas, a drop counting the new value (a reset), each
+    delta in its later sample's bucket, as the reference's fold defines."""
+    import numpy as np
+
+    out = {}
+    ticks = [k for k in range(CTR_HISTORY_MIN * 6 + CTR_LIVE_COMMITS)
+             if start <= t0 + k * 10_000 <= end]
+    vals = np.stack([_ctr_values(k, hosts) for k in ticks])
+    d = vals[1:] - vals[:-1]
+    d = np.where(d < 0, vals[1:], d)
+    b = [((t0 + k * 10_000) // CTR_STEP_MS) * CTR_STEP_MS for k in ticks[1:]]
+    for h in (hosts if only is None else [only]):
+        series = {}
+        for j, bj in enumerate(b):
+            series[bj] = series.get(bj, 0.0) + float(d[j, h])
+        out[(("hostname", f"host_{h}"),)] = series
+    return out
+
+
+def phase_lw_promql(torch) -> dict:
+    """A counter table at 4000 hosts with 10 s scrapes and a counter reset
+    on every host at one time: its all-tags state promoted, 30 min of live
+    commits, then increase/rate over the last 30 min at step 5 m served
+    from the state (the PromQL read counter moves), equal to the
+    kill-switch fold at 1e-4 relative and to numpy; then one alert rule
+    that fires from the state (route livewindow)."""
+    import numpy as np
+
+    import horaedb_tpu_torch
+    from horaedb_tpu_torch.common_types import RowGroup
+    from horaedb_tpu_torch.common_types.schema import compute_tsid
+    from horaedb_tpu_torch.ops import livewindow as L
+    from horaedb_tpu_torch.proxy.promql import evaluate_range, parse_promql
+    from horaedb_tpu_torch.rules import RuleEngine
+    from horaedb_tpu_torch.state import livewindow as S
+    from horaedb_tpu_torch.utils.config import RulesSection
+
+    S.STORE.clear()
+    db = horaedb_tpu_torch.connect(None, device=DEV)
+    db.execute("CREATE TABLE ctr (hostname string TAG, value double NOT NULL, "
+               "ts timestamp NOT NULL, TIMESTAMP KEY(ts)) ENGINE=Analytic "
+               "WITH (segment_duration='2h', update_mode='append')")
+    table = db.catalog.open("ctr")
+    hosts = np.arange(HOSTS)
+    names = np.array([f"host_{i}" for i in hosts], dtype=object)
+    tsid = compute_tsid([names])
+    # the simulated clock ends at the wall clock, so the alert's range is
+    # the open tail
+    end = (int(time.time() * 1000) // 60_000) * 60_000
+    t0 = end - (CTR_HISTORY_MIN * 6 + CTR_LIVE_COMMITS) * 10_000
+
+    def rows_at(ks):
+        return RowGroup(table.schema, {
+            "hostname": np.tile(names, len(ks)), "tsid": np.tile(tsid, len(ks)),
+            "ts": np.repeat([t0 + k * 10_000 for k in ks], HOSTS).astype(np.int64),
+            "value": np.concatenate([_ctr_values(k, hosts) for k in ks]),
+        })
+
+    table.write(rows_at(range(CTR_HISTORY_MIN * 6)))
+    for _ in range(S.promote_reads()):
+        db.execute("SELECT time_bucket(ts, '1m') AS b, hostname, sum(value) AS s, "
+                   "count(value) AS c FROM ctr GROUP BY time_bucket(ts, '1m'), hostname")
+    states = S.STORE.stats()["states"]
+    check(len(states) == 1, f"{len(states)} counter states promoted")
+    L.reset_counts()  # this phase's launches start here
+    for k in range(CTR_HISTORY_MIN * 6, CTR_HISTORY_MIN * 6 + CTR_LIVE_COMMITS):
+        table.write(rows_at([k]))
+    _sync(torch)
+    start = end - CTR_LIVE_COMMITS * 10_000
+    out = {"queries": {}}
+
+    def matrix(expr):
+        res = evaluate_range(db, parse_promql(expr), start, end, CTR_STEP_MS)
+        return {tuple(sorted((k, v) for k, v in s["metric"].items() if k != "__name__")):
+                {int(round(t * 1000)): float(v) for t, v in s["values"]} for s in res}
+
+    def close(got, want, what):
+        check(set(got) == set(want), f"{what}: series differ")
+        for key, pts in want.items():
+            check(set(got[key]) == set(pts), f"{what}: {key} steps differ")
+            for b, v in pts.items():
+                check(abs(got[key][b] - v) <= 1e-4 * max(1.0, abs(v)),
+                      f"{what}: {key} at {b}: {got[key][b]} vs {v}")
+
+    for expr, only in (("increase(ctr[5m])", None), ("rate(ctr[5m])", None),
+                       ('increase(ctr{hostname="host_7"}[5m])', 7)):
+        before = S._M_READS_PROMQL.value
+        t = time.perf_counter()
+        got = matrix(expr)
+        served_s = time.perf_counter() - t
+        check(S._M_READS_PROMQL.value > before, f"{expr}: not served from state")
+        want = _ctr_expected(t0, start, end, hosts, only)
+        if expr.startswith("rate"):
+            want = {k: {b: v / (CTR_STEP_MS / 1000.0) for b, v in s.items()}
+                    for k, s in want.items()}
+        close(got, want, f"{expr} vs numpy")
+        os.environ["HORAEDB_LIVEWINDOW"] = "0"
+        try:
+            t = time.perf_counter()
+            raw = matrix(expr)
+            raw_s = time.perf_counter() - t
+        finally:
+            os.environ.pop("HORAEDB_LIVEWINDOW", None)
+        close(got, raw, f"{expr} vs the kill switch")
+        out["queries"][expr] = {"served_s": served_s, "rescan_s": raw_s, "series": len(got)}
+        say(f"promql {expr}: {len(got)} series from state in {served_s * 1e3:.3f} ms, "
+            f"kill-switch fold {raw_s * 1e3:.3f} ms; equal to numpy and to the rescan")
+
+    (state_row,) = S.STORE.stats()["states"]
+    threshold = 1000.0 * (HOSTS - CTR_FIRING) - 0.5
+    eng = RuleEngine(db, RulesSection(alerts=[f"CtrHigh := ctr > {threshold}"])).load()
+    eng.run_once(now_ms=int(time.time() * 1000))
+    check(db.interpreters.executor.last_path == "livewindow",
+          f"the alert read took {db.interpreters.executor.last_path}")
+    (after,) = S.STORE.stats()["states"]
+    check(after["reads_served"] > state_row["reads_served"], "the alert read no state")
+    snap = eng.alerts_snapshot()
+    fired = sorted(int(a["labels"]["hostname"][5:]) for a in snap if a["state"] == "firing")
+    check(fired == list(range(HOSTS - CTR_FIRING, HOSTS)),
+          f"alert fired for {fired[:5]}... ({len(fired)})")
+    _sync(torch)
+    launches, plain_calls = dict(L.LAUNCHES), dict(L.PLAIN_CALLS)
+    check(L.FOLD_ERRORS == 0, f"{L.FOLD_ERRORS} counter folds failed")
+    if DEV == "cuda":
+        check(launches["fold_scatter"] == CTR_LIVE_COMMITS, f"counter folds {launches}")
+        check(launches["gather"] > 0, "no gather")
+        check(not any(plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
+    say(f"alert CtrHigh fired for {len(fired)} hosts from state (route livewindow); "
+        f"launches {launches}")
+    out.update(launches=launches, fired=len(fired))
+    DETAIL["livewindow_promql"] = out
+    db.close()
+    S.STORE.clear()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1446,10 +2168,12 @@ def main() -> int:
         print(f"chip_smoke: the horaedb_tpu_torch package is not beside this script ({e})",
               file=sys.stderr)
         return 2
+    t_run = time.perf_counter()
     card = phase_card(torch)
     phase_build()
     phase_kernels(torch)
     phase_merge_kernels(torch)
+    phase_lw_kernels(torch)
     main_out = phase_main(torch)
     errs = phase_replay(torch, main_out)
     kernels = phase_timings(torch, main_out, errs, card)
@@ -1458,6 +2182,14 @@ def main() -> int:
     comp = phase_compaction(torch, COMPACTION_ROWS)
     passes = phase_merge_replay(torch, comp)
     kernels += phase_merge_timings(torch, comp, passes, card)
+    del comp
+    lw_main = phase_lw_main(torch)
+    kernels += phase_lw_timings(torch, lw_main, card)
+    lw_main["db"].close()
+    del lw_main
+    phase_lw_promql(torch)
+    DETAIL["run_seconds"] = time.perf_counter() - t_run
+    say(f"chip_smoke: every phase passed in {DETAIL['run_seconds']:.1f} s")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(DETAIL, f, indent=1, default=str)

@@ -2,10 +2,14 @@
 
 The on-disk state — WAL, manifest, Parquet SSTs — is written by the same
 code in both packages, so a data directory opens in either with no
-conversion. What does not carry over by itself is a scan-cache entry's
-device-resident columns: ``entry_from_reference`` rebuilds them on a
-torch device from their numpy form, bit for bit, so both packages' kernels
-can run on identical encoded columns.
+conversion. What does not carry over by itself is device-resident state:
+
+- ``entry_from_reference`` rebuilds a scan-cache entry's resident columns
+  on a torch device from their numpy form, bit for bit, so both packages'
+  kernels can run on identical encoded columns;
+- ``livestate_from_reference`` rebuilds a live-window state (its rings,
+  host sidecars, group maps and ring position), so both packages fold the
+  next batch into the same rings.
 
 ``arrays`` names each resident part by ``<column>/<part index>``:
 ``series_codes/0``, ``series_codes/1`` (codes, or words + block bases),
@@ -101,3 +105,47 @@ def entry_from_reference(arrays: dict[str, np.ndarray], layouts, device) -> Resi
         value_layouts=value_layouts,
         padded_rows=n_rows,
     )
+
+
+# The reference LiveState's attributes a carried-over state needs, besides
+# ``rings`` (five numpy arrays [depth, cap]: counts, sums, mins, maxs, inc).
+LIVESTATE_FIELDS = (
+    "key", "table_name", "ts_col", "value_col", "tags", "all_tags", "bucket_ms",
+    "depth", "cap", "firsts", "lasts", "head", "valid_from", "max_folded_ts",
+    "group_slots", "group_vals", "tsid_slot", "series_last", "dirty", "counter_dirty",
+)
+
+
+def livestate_from_reference(fields: dict, device):
+    """The port's ``LiveState`` on ``device`` from a JAX live-window
+    state's ``LIVESTATE_FIELDS`` and ``rings``, given as numpy arrays and
+    plain Python values. The state has no table: the store does not hold
+    it, and it folds and reads like the reference's."""
+    from .state.livewindow import LiveState
+
+    state = LiveState(
+        fields["key"], fields["table_name"], fields["ts_col"], fields["value_col"],
+        tuple(fields["tags"]), fields["bucket_ms"], fields["depth"], None, device=device,
+    )
+    rings = np.stack([
+        np.ascontiguousarray(a, dtype=np.int32 if k == 0 else np.float32).view(np.int32)
+        for k, a in enumerate(fields["rings"])
+    ])
+    if rings.shape != (5, state.depth, fields["cap"]):
+        raise ValueError(f"rings {rings.shape} do not match depth and cap")
+    with state.on_device():
+        state.rings = torch.from_numpy(rings).to(state.device)
+    state.cap = int(fields["cap"])
+    state.all_tags = bool(fields["all_tags"])
+    state.firsts = np.array(fields["firsts"], dtype=np.int64)
+    state.lasts = np.array(fields["lasts"], dtype=np.int64)
+    state.head = None if fields["head"] is None else int(fields["head"])
+    state.valid_from = int(fields["valid_from"])
+    state.max_folded_ts = int(fields["max_folded_ts"])
+    state.group_slots = dict(fields["group_slots"])
+    state.group_vals = list(fields["group_vals"])
+    state.tsid_slot = dict(fields["tsid_slot"])
+    state.series_last = dict(fields["series_last"])
+    state.dirty = set(fields["dirty"])
+    state.counter_dirty = set(fields["counter_dirty"])
+    return state

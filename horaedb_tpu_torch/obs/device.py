@@ -54,14 +54,16 @@ DEVICE_KERNEL_KINDS = (
     "cached_packed",   # packed cached agg over the resident columns
     "fused",           # direct fused scan-agg over a host batch
     "merge_dedup",     # merge-dedup sort of a read merge or compaction chunk
+    "state_fold",      # live-window ring fold/gather (ops/livewindow)
 )
 
 # Occupancy row components: "column" rows sum to the scan cache's own
 # device_bytes accounting (the acceptance invariant); "session" rows
 # are the content-keyed query-shape uploads the cache keeps beside the
 # columns; "evicted" rows carry eviction counts
-# for tables no longer resident.
-OCCUPANCY_COMPONENTS = ("column", "session", "evicted")
+# for tables no longer resident; "state" rows are the live-window rings
+# (state/livewindow).
+OCCUPANCY_COMPONENTS = ("column", "session", "evicted", "state")
 # the components with a resident-bytes gauge
 _GAUGED = ("column", "session")
 

@@ -32,7 +32,6 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
-_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -71,13 +70,11 @@ def _build(src: str, out: str) -> tuple[float, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``ops/csrc/<name>.cu``, built on first use.
-    Different sources build concurrently when called from several threads.
+    One build at a time: a second caller waits for the first.
 
     The library carries ``build_seconds`` and ``build_log`` (0.0 and ""
     when an earlier build of the same source was found)."""
     with _lock:
-        name_lock = _name_locks.setdefault(name, threading.Lock())
-    with name_lock:
         lib = _libs.get(name)
         if lib is None:
             src, out = _target(name)

@@ -263,6 +263,29 @@ class InterpreterFactory:
                 for a in q.aggs
             )
             lines.append(f"  Aggregate: keys=[{keys}] aggs=[{aggs}]")
+            # same shared predicate the executor hook serves from — what
+            # this line promises is what execution does (route=rollup)
+            from ..rules.rewrite import rollup_decision_for
+
+            dec = rollup_decision_for(self.catalog, q)
+            if dec is not None:
+                lines.append(
+                    f"  Rollup: table={dec.rollup_table} tier={dec.suffix} "
+                    f"buckets<[{dec.cut}] served pre-aggregated, raw tail "
+                    f"[{dec.cut}, {dec.end}) from {q.table} (route=rollup)"
+                )
+            # live window state: again the ONE executor predicate, so the
+            # promise and the serve cannot drift (route=livewindow)
+            from ..state.livewindow import livewindow_decision_for
+
+            lw = livewindow_decision_for(self.catalog, q)
+            if lw is not None:
+                lines.append(
+                    f"  LiveWindow: window={lw.step_ms}ms "
+                    f"[{lw.s_lo}, {lw.s_hi}) served from device ring state "
+                    f"({lw.n_buckets} buckets), raw head [{lw.start}, "
+                    f"{lw.s_lo}) (route=livewindow)"
+                )
             shape = self.executor._agg_device_shape(q)
             if shape is not None:
                 path = "device (fused kernel; HBM-cached when table state is stable)"
@@ -435,7 +458,8 @@ class InterpreterFactory:
         Output-or-exception per plan, positionally — a member whose
         execution fails poisons only its own slot. Members needing
         machinery the executor's cohort path cannot serve (subqueries,
-        joins, unknown tables) execute solo in place."""
+        joins, rollup or live-window serves, unknown tables) execute solo
+        in place."""
         outcomes: list = [None] * len(plans)
         by_table: dict[str, list] = {}
         for i, plan in enumerate(plans):
@@ -444,6 +468,15 @@ class InterpreterFactory:
                 p = rewritten if rewritten is not None else plan
                 if p.select.join is not None:
                     outcomes[i] = self._select(p)
+                    continue
+                from ..rules.rewrite import try_rollup_serve
+                from ..state.livewindow import try_livewindow_serve
+
+                out = try_livewindow_serve(self, p)
+                if out is None:
+                    out = try_rollup_serve(self, p)
+                if out is not None:
+                    outcomes[i] = out
                     continue
                 by_table.setdefault(p.table, []).append((i, p))
             except BaseException as e:
@@ -462,8 +495,21 @@ class InterpreterFactory:
 
     def _execute_query(self, plan: QueryPlan, table) -> ResultSet:
         """One door to query execution (SELECT and EXPLAIN ANALYZE both
-        pass through): the executor's paths. The rollup and live-window
-        serves of the reference wait for their slices of the port."""
+        pass through): a step-compatible dashboard aggregate over a
+        rollup-maintained table serves from the tier tables
+        (rules/rewrite, ``route=rollup``); an eligible open-tail window
+        aggregate serves head-from-rollup + tail-from-state
+        (state/livewindow, ``route=livewindow``); everything else takes
+        the executor's normal paths."""
+        from ..rules.rewrite import try_rollup_serve
+        from ..state.livewindow import try_livewindow_serve
+
+        out = try_livewindow_serve(self, plan)
+        if out is not None:
+            return out
+        out = try_rollup_serve(self, plan)
+        if out is not None:
+            return out
         return self.executor.execute(plan, table)
 
     @staticmethod

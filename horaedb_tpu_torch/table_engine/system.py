@@ -509,10 +509,12 @@ class AlertsTable(_VirtualTable):
         return _ALERTS_SCHEMA
 
     def _materialize(self) -> RowGroup:
+        from ..rules import registered_engines
         from ..utils.metrics import _render_labels
 
-        # the rules engine is not ported yet: no engine, no alerts
         entries = []
+        for eng in registered_engines():
+            entries.extend(eng.alerts_snapshot())
 
         def ts_of(e: dict) -> int:
             if e["state"] == "resolved":

@@ -84,3 +84,99 @@ def test_cuda_compaction_raises_when_the_kernel_cannot_build(card, monkeypatch, 
         Compactor(td).compact()
     assert not any(md.PLAIN_CALLS.values()) and not any(md.LAUNCHES.values())
     assert len(td.version.levels.files_at(0)) == 3
+
+
+@pytest.mark.parametrize("depth,cap", [(8, 64), (8, 4096), (128, 64), (128, 4096)])
+@pytest.mark.parametrize("n", [1, 4000, 24_000])
+@pytest.mark.parametrize("one_cell", [False, True])
+@pytest.mark.parametrize("reset", ["none", "one", "all"])
+def test_livewindow_fold_matches_plain(card, depth, cap, n, one_cell, reset):
+    """The fold kernel against its plain version on clones of one CUDA ring
+    (chip_smoke.py's phase 10 at test size): counts, mins and maxs
+    bit-equal, sums and increments within SUM_RTOL of the cell's sum of
+    |x|; +-0, a masked row, wrapped and dropped indices in every batch."""
+    from horaedb_tpu_torch.ops import livewindow as L
+
+    rng = np.random.default_rng(depth + cap + n)
+    base = L.alloc_rings(depth, cap, card)
+    warm = chip_smoke._lw_batch(rng, depth, cap, 3 * cap, False, "none", True)
+    L.fold_plain(base, *chip_smoke._lw_words(torch, warm))
+    batch = chip_smoke._lw_batch(rng, depth, cap, n, one_cell, reset, n % 2 == 0)
+    chip_smoke._lw_fold_check(torch, base, *chip_smoke._lw_words(torch, batch), "fold")
+
+
+@pytest.mark.parametrize("depth,cap", [(8, 64), (128, 4096)])
+@pytest.mark.parametrize("n", [1, 60, 128])
+def test_livewindow_gather_matches_plain(card, depth, cap, n):
+    from horaedb_tpu_torch.ops import livewindow as L
+
+    rng = np.random.default_rng(n)
+    base = L.alloc_rings(depth, cap, card)
+    warm = chip_smoke._lw_batch(rng, depth, cap, 2 * depth * cap, False, "none", True)
+    L.fold_plain(base, *chip_smoke._lw_words(torch, warm))
+    idx = rng.integers(0, depth, n).astype(np.int32)
+    if n >= 4:
+        idx[:4] = (depth, depth + 7, -1, -depth - 3)
+    for g in (cap, cap // 2 + 1):
+        chip_smoke._lw_gather_check(torch, base, torch.from_numpy(idx).to(card), g, "gather")
+
+
+def test_livewindow_fold_on_one_thread_gather_on_another(card):
+    """A writer thread's acknowledged INSERTs fold into the CUDA ring; a
+    reader thread's refresh right after each acknowledgement, served from
+    state, counts every acknowledged row."""
+    import queue
+    import threading
+
+    import horaedb_tpu_torch
+    from horaedb_tpu_torch.ops import livewindow as L
+    from horaedb_tpu_torch.state import livewindow as S
+
+    S.STORE.clear()
+    db = horaedb_tpu_torch.connect(None, device="cuda")
+    try:
+        db.execute("CREATE TABLE lw_threads (host string TAG, value double NOT NULL, "
+                   "ts timestamp NOT NULL, TIMESTAMP KEY(ts)) ENGINE=Analytic "
+                   "WITH (segment_duration='2h', update_mode='append')")
+        t0 = 1_786_000_000_000 // 60_000 * 60_000
+        db.execute("INSERT INTO lw_threads (host, value, ts) VALUES "
+                   + ",".join(f"('h{h}', 1.0, {t0 - 60_000 + h})" for h in range(50)))
+        panel = (f"SELECT time_bucket(ts, '1m') AS b, host, count(value) AS c FROM lw_threads "
+                 f"WHERE ts >= {t0} GROUP BY time_bucket(ts, '1m'), host")
+        for _ in range(S.promote_reads()):
+            db.execute(panel)
+        assert len(S.STORE.stats()["states"]) == 1
+        acked: queue.Queue = queue.Queue()
+        checked: queue.Queue = queue.Queue()
+        errors = []
+
+        def writer():
+            for i in range(40):
+                db.execute("INSERT INTO lw_threads (host, value, ts) VALUES "
+                           + ",".join(f"('h{h}', {float(i)}, {t0 + i * 1_500 + h})"
+                                      for h in range(50)))
+                acked.put((i + 1) * 50)
+                checked.get(timeout=60)  # the next write waits for the read
+            acked.put(None)
+
+        def reader():
+            while (want := acked.get(timeout=60)) is not None:
+                rows = db.execute(panel).to_pylist()
+                if db.interpreters.executor.last_path != "livewindow":
+                    errors.append("not served from state")
+                if sum(r["c"] for r in rows) != want:
+                    errors.append(f"counted {sum(r['c'] for r in rows)} of {want}")
+                checked.put(True)
+
+        L.reset_counts()
+        threads = [threading.Thread(target=writer), threading.Thread(target=reader)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not errors, errors[:5]
+        assert L.LAUNCHES["fold_scatter"] == 40 and L.LAUNCHES["gather"] >= 40
+        assert L.FOLD_ERRORS == 0
+    finally:
+        S.STORE.clear()
+        db.close()
