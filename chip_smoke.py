@@ -15,9 +15,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    zeros, and one segment of more than 2**24 rows. Counts, mins and maxs
    must be bit-equal; sums within SUM_RTOL of the segment's sum of |x|.
 4. Main path: ``connect(None, device="cuda")``, the TSBS cpu table at
-   4000 hosts x 12 h (17,280,000 rows x 10 fields, seed 123) and the
+   4000 hosts x 24 h (34,560,000 rows x 10 fields, seed 123) and the
    README demo table (1M rows), written and flushed through the engine;
-   single-groupby-5-8-1, double-groupby-all (12 h), high-cpu-all (6 h)
+   single-groupby-5-8-1, double-groupby-all (24 h), high-cpu-all (12 h)
    and avg(value) GROUP BY name, each REPEATS times, checked against an
    independent numpy group-by over the generated rows. The launch counters
    must show the direct kernel and both forms of the cached kernel ran.
@@ -32,9 +32,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    n_valid = 0, and a stress set through the dispatcher (exact duplicates,
    all-ones real keys, +-2**62 timestamps with a 64-bit seq span) that
    must reach its kind by the counters. perm and keep bit-equal.
-8. Main path of BASELINE config 5: 64 overlapping L0 SSTs, 32M rows,
+8. Main path of BASELINE config 5: 64 overlapping L0 SSTs, 100M rows,
    written through the engine's SstWriter and manifest; the SELECT before
-   compaction (the f32 read merge), ``Compactor.compact()`` (rk chunk
+   compaction (the f32 read merge), ``Compactor.compact()`` (16 rk chunk
    launches), the SELECT after and a GROUP BY, all checked against an
    independent numpy merge, as are the L1 SST's rows and order; host
    stage seconds.
@@ -56,7 +56,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    answer equals an independent numpy group-by; at six checkpoints the
    kill-switch rescan too; >= 90% of refreshes served from state; scatter
    launches = commits x states, reset launches = head advances x states,
-   no fold error.
+   no fold error. A profiler trace over two steady minutes gives the
+   device's idle share of their commits' and refreshes' wall time.
 12. Live-window replay and timings: the last folds and gather of the main
    path, kernel against plain; fold (reset and scatter) and gather device
    times, bounds, plain and library times, the gather's copy back, the
@@ -85,10 +86,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 
 HOSTS = 4000
-# depth cut from 24 h and 12 h (and config 5 from 100M rows) so the live-window
-# phases fit the run's time
-HOURS = 12
-HC_HOURS = 6
+HOURS = 24
+HC_HOURS = 12
 DEMO_ROWS = 1_000_000
 SEED = 123
 REPEATS = 5
@@ -527,7 +526,7 @@ def _expected(tsbs, rows, demo):
             np.bincount(key, weights=np.abs(f32[f]), minlength=HOSTS * HOURS) / cnt)
         for f in tsbs.CPU_FIELDS
     }
-    # high-cpu-all: usage_user > 90 in the first 12 h
+    # high-cpu-all: usage_user > 90 in the first HC_HOURS hours
     hc = (f32["usage_user"] > 90) & (ts < HC_HOURS * 3_600_000)
     exp["high-cpu-all"] = (int(hc.sum()), float(f32["usage_user"][hc].max()))
     # readme: avg(value) per name
@@ -669,24 +668,29 @@ def phase_main(torch) -> dict:
 def _device_ms(torch, fn, name: str, reps=20, flush=None):
     """Mean ms of the ``name`` kernel on the card by the profiler's device
     timeline (the launch alone, without the wrapper's host work), or None
-    when the profiler records no such kernel."""
+    when the profiler records no such kernel in two traces (one trace of
+    a run on the card recorded none of a kernel that had launched)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if flush is not None:
-                    flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:  # no CUPTI tracing on this machine
-        say(f"profiler unavailable ({e}); kernel times from CUDA events")
-        return None
-    us = [e.time_range.elapsed_us() for e in prof.events() if name in e.name]
-    return sum(us) / len(us) / 1e3 if us else None
+    for _ in range(2):
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    if flush is not None:
+                        flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+        except RuntimeError as e:  # no CUPTI tracing on this machine
+            say(f"profiler unavailable ({e}); kernel times from CUDA events")
+            return None
+        us = [e.time_range.elapsed_us() for e in prof.events() if name in e.name]
+        if us:
+            return sum(us) / len(us) / 1e3
+        say(f"the profiler recorded no {name} kernel in {reps} launches")
+    return None
 
 
 def _time_launch(torch, fn, reps=10, flush=None) -> float:
@@ -1055,7 +1059,7 @@ def phase_merge_kernels(torch) -> None:
 # SSTs, 100M rows, k-way merge-dedup"; the table of bench.py's compaction
 # config (1000 series in one 2 h segment window, seed 7).
 COMPACTION_SSTS = 64
-COMPACTION_ROWS = 32_000_000
+COMPACTION_ROWS = 100_000_000
 COMPACTION_SERIES = 1000
 COMPACTION_SEED = 7
 
@@ -1548,13 +1552,24 @@ def _lw_fold_check(torch, base, words, r, n, m, what) -> float:
     return err
 
 
-def _lw_gather_check(torch, rings, idx, g, what) -> None:
+def _lw_gather_check(torch, rings, idx, g, what) -> float:
+    """The gather kernel against its plain version: bit-equal words.
+    Returns the largest |difference| of the five planes' values (0 where
+    the words agree, inf where one side is not finite and they differ)."""
     from horaedb_tpu_torch.ops import livewindow as L
 
     got = L.gather(rings, idx, g)
     want = L.gather_plain(rings, idx, g)
     _sync(torch)
-    check(torch.equal(got, want), f"{what}: gather differs from plain")
+
+    def values(w):
+        return torch.cat([w[:1].double(), w[1:].view(torch.float32).double()])
+
+    d = (values(got) - values(want)).abs().nan_to_num(nan=float("inf"))
+    d = torch.where(got == want, torch.zeros_like(d), d)
+    err = float(d.max()) if d.numel() else 0.0
+    check(torch.equal(got, want), f"{what}: gather differs from plain (max |diff| {err})")
+    return err
 
 
 def phase_lw_kernels(torch) -> float:
@@ -1566,7 +1581,7 @@ def phase_lw_kernels(torch) -> float:
     from horaedb_tpu_torch.ops import livewindow as L
 
     rng = np.random.default_rng(SEED + 2)
-    n_cases, err = 0, 0.0
+    n_cases, err, gather_err = 0, 0.0, 0.0
     t0 = time.perf_counter()
     for depth in LW_DEPTHS:
         for cap in LW_CAPS:
@@ -1589,13 +1604,16 @@ def phase_lw_kernels(torch) -> float:
                     idx = rng.integers(0, depth, nq).astype(np.int32)
                     if nq >= 4:
                         idx[:4] = (depth, depth + 7, -1, -depth - 3)
-                    _lw_gather_check(torch, base, torch.from_numpy(idx).to(DEV), g,
-                                     f"gather depth {depth} cap {cap} n {nq} g {g}")
+                    gather_err = max(gather_err, _lw_gather_check(
+                        torch, base, torch.from_numpy(idx).to(DEV), g,
+                        f"gather depth {depth} cap {cap} n {nq} g {g}"))
                     n_cases += 1
     say(f"live-window kernels vs plain: {n_cases} cases passed in "
-        f"{time.perf_counter() - t0:.1f} s; max |sum diff| {err}")
+        f"{time.perf_counter() - t0:.1f} s; max |sum diff| {err}; gather max |diff| "
+        f"{gather_err}")
     DETAIL["lw_kernel_cases"] = n_cases
     DETAIL["lw_kernel_max_abs_err"] = err
+    DETAIL["lw_gather_max_abs_err"] = gather_err
     return err
 
 
@@ -1607,6 +1625,7 @@ LW_LIVE_COMMITS = 1080           # three hours of 10 s scrapes, one commit each
 LW_LATE_AT = 700                 # after this commit: a batch 30 min back (in the ring)
 LW_OLD_AT = 900                  # after this commit: a batch 130 min back (below the tail)
 LW_CHECKPOINTS = (1, 30, 61, 100, 150, 180)  # refresh minutes also rescanned
+LW_TRACE = (714, 726)  # commits [lo, hi) traced for the device's idle share: minutes 120-121
 LW_T0 = 1_786_000_000_000 // 3_600_000 * 3_600_000  # the simulated clock's start
 
 
@@ -1666,6 +1685,26 @@ def _lw_panel(field: str, start: int) -> str:
     return (f"SELECT time_bucket(ts, '1m') AS minute, hostname, count({field}) AS c, "
             f"sum({field}) AS s, min({field}) AS mn, max({field}) AS mx, avg({field}) AS a "
             f"FROM cpu WHERE ts >= {start} GROUP BY time_bucket(ts, '1m'), hostname")
+
+
+def _device_busy_ms(prof) -> tuple[float, int]:
+    """The union of the device intervals (kernels, copies, memsets) of a
+    profiler trace, in ms, and how many there were."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, lo, hi = 0.0, None, None
+    for a, b in spans:
+        if hi is None or a > hi:
+            if hi is not None:
+                busy_us += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    if hi is not None:
+        busy_us += hi - lo
+    return busy_us / 1e3, len(spans)
 
 
 class LwRecorder:
@@ -1760,8 +1799,30 @@ def phase_lw_main(torch) -> dict:
     refresh_s, check_s, commit_s = [], [], []
     checkpoints = {}
     max_err = 0.0
+    # a torch.profiler trace over a steady window (no late batch, no
+    # checkpoint): the device's idle share of the wall time of the window's
+    # commits and refreshes, the script's own checks left out
+    prof, trace_wall_s, trace = None, 0.0, None
     try:
         for k in range(LW_LIVE_COMMITS):
+            if DEV == "cuda" and k == LW_TRACE[0]:
+                from torch.profiler import ProfilerActivity, profile
+
+                _sync(torch)
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.start()
+                n_commit, n_refresh = len(commit_s), len(refresh_s)
+            if prof is not None and k == LW_TRACE[1]:
+                _sync(torch)
+                prof.stop()
+                trace_wall_s = sum(commit_s[n_commit:]) + sum(refresh_s[n_refresh:])
+                busy_ms, n_events = _device_busy_ms(prof)
+                trace = {"commits": len(commit_s) - n_commit,
+                         "refreshes": len(refresh_s) - n_refresh,
+                         "wall_ms": trace_wall_s * 1e3, "device_busy_ms": busy_ms,
+                         "device_events": n_events,
+                         "idle_share": 1.0 - busy_ms / (trace_wall_s * 1e3)}
+                prof = None
             rows = live.slice(k * HOSTS, (k + 1) * HOSTS)
             batches = [rows]
             if k == LW_LATE_AT:
@@ -1816,6 +1877,8 @@ def phase_lw_main(torch) -> dict:
         fold_errors = L.FOLD_ERRORS
     finally:
         rec.restore()
+        if prof is not None:
+            prof.stop()
     peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
     n_states = len(S.STORE.stats()["states"])
     check(n_states == LW_FIELDS, f"{n_states} states resident at the end")
@@ -1840,6 +1903,12 @@ def phase_lw_main(torch) -> dict:
         f"({rec.launch_s / commits * 1e3:.3f} ms in the kernel wrapper); refresh median "
         f"{statistics.median(refresh_s) * 1e3:.3f} ms; answer check median "
         f"{statistics.median(check_s) * 1e3:.3f} ms; peak device memory {peak} B")
+    if trace is not None:
+        check(trace["device_events"] > 0, "the traced window ran nothing on the device")
+        say(f"  traced commits {LW_TRACE[0]}-{LW_TRACE[1] - 1} ({trace['commits']} commits, "
+            f"{trace['refreshes']} refreshes): device busy {trace['device_busy_ms']:.3f} ms "
+            f"({trace['device_events']} kernels and copies) of {trace['wall_ms']:.3f} ms of "
+            f"their wall time, idle share {trace['idle_share']:.6f}")
     out = {
         "db": db, "rec": rec, "launches": launches, "commits": commits, "advances": advances,
         "refreshes": refreshes, "served": served, "checkpoints": checkpoints, "peak": peak,
@@ -1847,7 +1916,7 @@ def phase_lw_main(torch) -> dict:
         "refresh_ms_median": statistics.median(refresh_s) * 1e3,
         "host_fold_ms_per_commit": host_fold_ms,
         "launch_ms_per_commit": rec.launch_s / commits * 1e3,
-        "max_abs_err": max_err, "seconds": time.perf_counter() - t_start,
+        "max_abs_err": max_err, "seconds": time.perf_counter() - t_start, "trace": trace,
     }
     DETAIL["livewindow_main"] = {k: v for k, v in out.items() if k not in ("db", "rec")}
     return out
@@ -1916,9 +1985,9 @@ def phase_lw_timings(torch, main, card) -> list:
         check(kind in calls, f"the main path made no {kind} call")
         err = max(err, _lw_fold_check(torch, *calls[kind], f"main path {kind} replay"))
     rings, idx, g = calls["gather"]
-    _lw_gather_check(torch, rings, idx, g, "main path gather replay")
+    gather_err = _lw_gather_check(torch, rings, idx, g, "main path gather replay")
     say(f"live-window replay: the last folds and gather equal their plain versions; "
-        f"max |sum diff| {err}")
+        f"max |sum diff| {err}, gather max |diff| {gather_err}")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rings, words, r, n, m = calls["fold_reset"]
@@ -1961,7 +2030,7 @@ def phase_lw_timings(torch, main, card) -> list:
          "bound_by": "bytes", "library_ms": None},
         {"name": "livewindow_gather", "route": "cuda", "source": LW_SRC,
          "replaces": LW_REPLACES["gather"], "launches": int(launches["gather"]),
-         "max_abs_err": 0.0, "ms": gather_ms, "plain_ms": gather_plain_ms,
+         "max_abs_err": gather_err, "ms": gather_ms, "plain_ms": gather_plain_ms,
          "bound_ms": gather_bound, "bound_by": "bytes", "library_ms": lib_ms},
     ]
     detail = {
@@ -2169,25 +2238,35 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_run = time.perf_counter()
-    card = phase_card(torch)
-    phase_build()
-    phase_kernels(torch)
-    phase_merge_kernels(torch)
-    phase_lw_kernels(torch)
-    main_out = phase_main(torch)
-    errs = phase_replay(torch, main_out)
-    kernels = phase_timings(torch, main_out, errs, card)
+    DETAIL["phase_seconds"] = {}
+
+    def timed(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        DETAIL["phase_seconds"][fn.__name__] = time.perf_counter() - t
+        return out
+
+    card = timed(phase_card, torch)
+    timed(phase_build)
+    timed(phase_kernels, torch)
+    timed(phase_merge_kernels, torch)
+    timed(phase_lw_kernels, torch)
+    main_out = timed(phase_main, torch)
+    errs = timed(phase_replay, torch, main_out)
+    kernels = timed(phase_timings, torch, main_out, errs, card)
     main_out["db"].close()
     del main_out
-    comp = phase_compaction(torch, COMPACTION_ROWS)
-    passes = phase_merge_replay(torch, comp)
-    kernels += phase_merge_timings(torch, comp, passes, card)
+    comp = timed(phase_compaction, torch, COMPACTION_ROWS)
+    passes = timed(phase_merge_replay, torch, comp)
+    kernels += timed(phase_merge_timings, torch, comp, passes, card)
     del comp
-    lw_main = phase_lw_main(torch)
-    kernels += phase_lw_timings(torch, lw_main, card)
+    lw_main = timed(phase_lw_main, torch)
+    kernels += timed(phase_lw_timings, torch, lw_main, card)
     lw_main["db"].close()
     del lw_main
-    phase_lw_promql(torch)
+    timed(phase_lw_promql, torch)
+    say("phase seconds: " + json.dumps({k: round(v, 1)
+                                         for k, v in DETAIL["phase_seconds"].items()}))
     DETAIL["run_seconds"] = time.perf_counter() - t_run
     say(f"chip_smoke: every phase passed in {DETAIL['run_seconds']:.1f} s")
     os.makedirs(OUT_DIR, exist_ok=True)

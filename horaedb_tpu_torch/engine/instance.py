@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import contextvars
-import logging
 import threading
 import time as _time
 from contextlib import contextmanager
@@ -33,8 +32,6 @@ from .manifest import AlterOptions, AlterSchema, Manifest
 from .merge import merge_read
 from .options import TableOptions
 from .table_data import TableData
-
-logger = logging.getLogger("horaedb_tpu_torch.engine.instance")
 
 # Registered at import so the series exist from the first scrape.
 _M_WAL_APPEND_SECONDS = REGISTRY.histogram(
@@ -494,20 +491,20 @@ class Instance:
                     if not fut.done():
                         fut.set_exception(e)
                 continue
-            for _, fut in entries:
-                fut.set_result(seq)
-            # Live-window fold rides the committed group (outside the
-            # serial lock — the state layer orders itself): cheap no-op
-            # when the table holds no promoted state. A state whose fold
-            # fails is dropped, logged and counted there; nothing it
-            # raises may fail the write it observed or leave the group's
-            # other futures unresolved.
+            # Live-window fold rides the committed group BEFORE any of its
+            # writers is acknowledged, so a refresh right after an ack
+            # sees the rows, and outside the serial lock (the state layer
+            # orders itself): a cheap no-op when the table holds no
+            # promoted state. It never raises for a failed fold: the
+            # states that missed the batch are dropped and counted there,
+            # and the write succeeds.
             try:
                 from ..state.livewindow import on_write as _lw_on_write
 
                 _lw_on_write(table, merged)
-            except Exception:
-                logger.exception("live-window write hook failed for %s", table.name)
+            finally:
+                for _, fut in entries:
+                    fut.set_result(seq)
         return needs_flush
 
     # ---- read path -----------------------------------------------------

@@ -707,8 +707,19 @@ class LiveWindowStore:
     # -- write path (engine/instance ingest hook) -------------------------
 
     def on_write(self, table_data, rows) -> None:
-        """Called after each committed write group. Cheap when the table
-        has no state. Never raises into the write path."""
+        """Called after each committed write group, before its writers
+        are acknowledged. Cheap when the table has no state. Never raises
+        into the write path: whatever fails, every state of the table that
+        may have missed the batch is dropped (reads go raw and stay
+        exact), logged and counted in ``ops.livewindow.FOLD_ERRORS``."""
+        try:
+            self._fold_committed(table_data, rows)
+        except Exception:
+            _log.exception("live-window write hook failed for %s: its states dropped",
+                           table_data.name)
+            self.drop_table(table_data.name, outcome="fold_error")
+
+    def _fold_committed(self, table_data, rows) -> None:
         states = self.states_for_table(table_data.name)
         if not states:
             return
@@ -835,6 +846,21 @@ class LiveWindowStore:
             _M_EVICTIONS.inc()
         self._refresh_gauge()
         refresh_occupancy(force=True)
+
+    def drop_table(self, table_name: str, outcome: str) -> None:
+        """Drop every state of ``table_name`` after a failed write hook;
+        each one counts in ``ops.livewindow.FOLD_ERRORS``."""
+        from ..ops import livewindow as lw_ops
+
+        with self._lock:
+            keys = list(self._by_table.get(table_name, []))
+        for key in keys:
+            lw_ops.FOLD_ERRORS += 1
+            try:
+                self.drop(key, outcome=outcome)
+            except Exception:
+                # drop() unregisters the state before its bookkeeping
+                _log.exception("live-window drop of %s failed after unregistering", key)
 
     def _evict_over_budget(self) -> None:
         budget = budget_bytes()

@@ -1,269 +1,14 @@
-"""Server/engine configuration (ref: src/horaedb/src/config.rs).
+"""Configuration sections the port reads (a copy of the reference's
+``utils/config.py``, cut to what the port imports).
 
-One TOML file -> typed ``Config`` with unknown-key rejection (the
-reference's serde ``deny_unknown_fields``), plus environment-variable
-overrides for the deployment-varying fields (ref: bin/horaedb-server.rs
-:89-102 overrides addr/meta/cluster from env).
-
-    [server]
-    http_port = 5440
-    host = "127.0.0.1"
-
-    [engine]
-    data_dir = "/data/horaedb"
-    wal = true                      # false = disable_data_wal semantics
-    space_write_buffer_size = "256mb"
-    compaction_l0_trigger = 4
-    compaction_workers = 2          # background compaction pool size
-    background_flush = true         # false = inline flush on the writer
-    flush_workers = 2               # background flush pool size
-    write_stall_immutable_count = 8   # frozen-memtable backpressure bound
-    write_stall_immutable_bytes = "1gb"
-    write_stall_deadline = "30s"      # stall wait before shedding 503
-
-    [limits]
-    slow_threshold = "1s"
-    admission_slots = 8               # weighted admission slot units
-    admission_queue_depth = 32        # bounded per-class wait queue
-    admission_deadline = "5s"         # queue wait before shedding
-    admission_memory_budget = "1gb"  # working-set budget for admits
-    dedup = true                      # single-flight identical reads
-    query_timeout = "60s"             # default per-query time budget
-                                      # (0s = unbounded; header/session
-                                      # knobs override per request)
-    forward_timeout = "30s"           # per-hop cap for forwarded calls
-                                      # (effective = min(cap, remaining))
-
-    [wlm.batch]
-    enabled = false                   # cohort batching (wlm/batch)
-    window = "2ms"                    # micro-batching gather window
-    max_cohort = 32                   # fused dispatch width ceiling
-    shapes = []                       # substrings of normalized SQL
-                                      # shapes eligible ([] = any
-                                      # batchable aggregate SELECT)
-
-    [observability]
-    self_scrape = true                # node scrapes its own registry
-    self_scrape_interval = "10s"      # into system_metrics.samples
-    self_metrics_retention = "24h"    # 0s = keep forever
-    event_ring = 512                  # bounded event-journal capacity
-    decision_ring = 1024              # bounded decision-journal capacity
-    profile_keys = 1024               # profile-aggregator LRU key bound
-    trace_ring = 64                   # recent finished-trace ring
-    trace_slow_ring = 256             # slow finished-trace ring
-    slow_threshold = "1s"             # slow-trace/slow-log admission
-                                      # (promoted from [limits]; either
-                                      # location accepted, this one wins)
-
-    [rules]
-    enabled = true                    # continuous-query engine (rules/)
-    eval_interval = "15s"             # rule + rollup evaluation cadence
-    grace = "5s"                      # rollup bucket close grace (late rows)
-    recording = ["error_rate := rate(errors_total[1m])"]
-    alerts = ["HighErrors := rate(errors_total[1m]) > 5 for 30s"]
-    rollup_tables = ["cpu"]           # maintain raw -> 1m -> 1h ladders
-    rollup_raw_ttl = "24h"            # applied to each source (0s = leave)
-    rollup_1m_ttl = "30d"
-    rollup_1h_ttl = "0s"              # 0s = keep forever
-    recording_ttl = "30d"             # recording-rule output tables
-
-    [slo]
-    objectives = ["cheap_p99 := histogram_quantile(0.99, rate(horaedb_query_class_duration_seconds_bucket{class=\"cheap\"}[1m])) <= 0.5 target 99%"]
-    fast_window = "5m"                # fast burn-rate window
-    slow_window = "1h"                # slow burn-rate window
-    burn_threshold = 1.0              # burn on fast AND slow >= threshold
-
-Env overrides: HORAEDB_HTTP_PORT, HORAEDB_HOST, HORAEDB_DATA_DIR.
+Only ``[rules]`` is here: ``rules.RuleEngine`` defaults to it. The TOML
+loader and the server, engine, limits, WLM, cluster, object-store and
+elastic sections come with the slice that ports the server (ROADMAP A10).
 """
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass, field
-from typing import Any, Optional
-
-try:
-    import tomllib  # Python 3.11+
-except ImportError:  # 3.10: fall back to the minimal subset parser below
-    tomllib = None
-
-from ..engine.options import parse_duration_ms, parse_size_bytes
-
-
-class ConfigError(ValueError):
-    pass
-
-
-def _strip_toml_comment(line: str) -> str:
-    """Drop a trailing ``# comment`` — only a ``#`` OUTSIDE quoted
-    strings starts one (``"#"`` inside a value must survive)."""
-    quote = None
-    for i, ch in enumerate(line):
-        if quote:
-            if ch == quote:
-                quote = None
-        elif ch in ("'", '"'):
-            quote = ch
-        elif ch == "#":
-            return line[:i]
-    return line
-
-
-def _minitoml_value(v: str, lineno: int) -> Any:
-    import json
-
-    if v.startswith("'") and v.endswith("'") and len(v) >= 2:
-        return v[1:-1]  # TOML literal string: no escapes
-    if v.startswith('"') or v.startswith("["):
-        # quoted strings and inline string/number arrays are valid JSON
-        try:
-            return json.loads(v)
-        except json.JSONDecodeError as e:
-            raise ConfigError(f"bad TOML value at line {lineno}: {v!r}") from e
-    if v in ("true", "false"):
-        return v == "true"
-    try:
-        return int(v)
-    except ValueError:
-        pass
-    try:
-        return float(v)
-    except ValueError:
-        raise ConfigError(f"bad TOML value at line {lineno}: {v!r}")
-
-
-def _minitoml_loads(text: str) -> dict:
-    """Minimal TOML subset parser (sections incl. dotted, key = value
-    with strings / ints / floats / booleans / inline arrays) — only used
-    when the stdlib ``tomllib`` is absent (Python < 3.11). Covers every
-    shape this module documents; anything fancier errors loudly."""
-    root: dict[str, Any] = {}
-    cur = root
-    for lineno, raw_line in enumerate(text.splitlines(), 1):
-        line = _strip_toml_comment(raw_line).strip()
-        if not line:
-            continue
-        if line.startswith("["):
-            if not line.endswith("]"):
-                raise ConfigError(f"bad TOML section at line {lineno}")
-            cur = root
-            for part in line[1:-1].strip().split("."):
-                nxt = cur.setdefault(part.strip(), {})
-                if not isinstance(nxt, dict):
-                    raise ConfigError(
-                        f"section {part!r} collides with a value (line {lineno})"
-                    )
-                cur = nxt
-            continue
-        key, eq, value = line.partition("=")
-        if not eq:
-            raise ConfigError(f"bad TOML line {lineno}: {raw_line!r}")
-        cur[key.strip()] = _minitoml_value(value.strip(), lineno)
-    return root
-
-
-@dataclass
-class ServerConfig:
-    host: str = "127.0.0.1"
-    http_port: int = 5440  # ref default, config.rs:176
-    # 0 = derive from http_port + remote.GRPC_PORT_OFFSET; -1 = disabled
-    grpc_port: int = 0
-    # MySQL / PostgreSQL wire listeners (ref defaults 3307 / 5433).
-    # 0 = derive from http_port (+2000 / +3000); -1 = disabled
-    mysql_port: int = 0
-    pg_port: int = 0
-    # when set, /admin/* and /debug/* require
-    # "Authorization: Bearer <token>" (ref: proxy/src/auth/)
-    auth_token: str = ""
-
-
-@dataclass
-class EngineSection:
-    data_dir: Optional[str] = None  # None = in-memory
-    wal: bool = True
-    wal_backend: str = "disk"  # "disk" | "object_store" | "shared_log"
-    space_write_buffer_size: int = 256 << 20
-    compaction_l0_trigger: int = 4
-    compaction_workers: int = 2
-    # pipelined background flush + write-stall backpressure (engine/flush)
-    background_flush: bool = True
-    flush_workers: int = 2
-    write_stall_immutable_count: int = 8
-    write_stall_immutable_bytes: int = 1 << 30
-    write_stall_deadline_s: float = 30.0
-
-
-@dataclass
-class LimitsConfig:
-    slow_threshold_s: float = 1.0
-    # workload manager (wlm/): weighted admission slots, bounded wait
-    # queues with a deadline, a memory budget, and read dedup
-    admission_slots: int = 8
-    admission_queue_depth: int = 32
-    admission_deadline_s: float = 5.0
-    admission_memory_budget: int = 1 << 30
-    dedup: bool = True
-    # deadline propagation (utils/deadline): the default per-query time
-    # budget when the client sent no X-HoraeDB-Timeout-Ms / session
-    # knob (0 = unbounded); every layer charges it and forwarding hops
-    # ship the REMAINING budget
-    query_timeout_s: float = 60.0
-    # per-hop ceiling for forwarded HTTP calls and remote RPCs — the
-    # effective per-call timeout is min(forward_timeout, remaining
-    # budget) instead of the old fixed 30s constants
-    forward_timeout_s: float = 30.0
-
-
-@dataclass
-class BatchSection:
-    """Cohort batching ([wlm.batch] — wlm/batch.CohortBatcher): in-flight
-    SELECTs sharing one normalized plan shape but differing literals
-    gather for a micro-batching window, then the whole cohort is served
-    by ONE fused device dispatch (vmap over the query axis of the packed
-    scan-agg kernel). Disabled by default: with ``enabled = false`` the
-    proxy read path is bit-for-bit the pre-batching single-flight path."""
-
-    enabled: bool = False
-    window_s: float = 0.002  # gather window before the fused dispatch
-    max_cohort: int = 32  # cohort width ceiling (vmap batch axis bound)
-    # substrings matched against the normalized (literal-stripped) SQL
-    # shape; non-empty restricts batching to the listed shapes
-    shapes: list[str] = field(default_factory=list)
-
-
-@dataclass
-class WlmSection:
-    """Workload-manager extensions beyond [limits] (which predates this
-    section and keeps the admission/dedup knobs for compatibility)."""
-
-    batch: BatchSection = field(default_factory=BatchSection)
-
-
-@dataclass
-class ObservabilitySection:
-    """Self-monitoring (engine/metrics_recorder): the node periodically
-    snapshots its own metrics registry into the real time-series table
-    ``system_metrics.samples`` through the normal write path, bounded by
-    ``self_metrics_retention`` (0 = unbounded)."""
-
-    self_scrape: bool = True
-    self_scrape_interval_s: float = 10.0
-    self_metrics_retention_s: float = 24 * 3600.0
-    # bounded event-journal (utils/events) ring capacity; drops are
-    # accounted in horaedb_events_dropped_total and /debug/status
-    event_ring: int = 512
-    # bounded decision-journal (obs/decisions) ring capacity; drops are
-    # accounted in horaedb_decision_dropped_total and every eviction of
-    # an unresolved entry is a counted expiry
-    decision_ring: int = 1024
-    # profile plane (obs/profile): LRU bound on live (path, route,
-    # shape) keys; evictions are exactly accounted in
-    # horaedb_profile_dropped_total + the aggregator's evicted totals
-    profile_keys: int = 1024
-    # finished-trace rings (utils/tracectx.TRACE_STORE): recent + slow,
-    # served as system.public.traces and /debug/trace
-    trace_ring: int = 64
-    trace_slow_ring: int = 256
 
 
 @dataclass
@@ -284,543 +29,3 @@ class RulesSection:
     rollup_1m_ttl_s: float = 30 * 24 * 3600.0
     rollup_1h_ttl_s: float = 0.0
     recording_ttl_s: float = 30 * 24 * 3600.0
-
-
-@dataclass
-class SloSection:
-    """Service-level objectives (slo/): each objective line declares a
-    PromQL indicator over the node's own telemetry history
-    (system_metrics.samples / query_stats) with a compliance bound and a
-    good-time target; the evaluator rides the [rules] eval cadence and
-    maintains fast/slow sliding burn-rate windows incrementally. Served
-    as ``system.public.slo`` on every wire and at ``/debug/slo``."""
-
-    objectives: list[str] = field(default_factory=list)
-    fast_window_s: float = 5 * 60.0
-    slow_window_s: float = 3600.0
-    burn_threshold: float = 1.0
-
-
-@dataclass
-class ElasticSection:
-    """Elastic shard management (meta/elastic): the coordinator reads the
-    fleet's own telemetry history (``system.public.query_stats`` over the
-    ordinary distributed read path) and emits guarded actions — per-shard
-    read-replica scale-up/-down, load-aware rebalancing of the hottest
-    shard off the most-loaded node with a pre-warmed cutover — through
-    the same lease-fenced machinery the admin APIs use. Every action is
-    railed: per-shard cooldown, a global per-round action budget,
-    hysteresis (fast window scales out now; scale-in needs the slow
-    window quiet too), a circuit breaker that quarantines a shard after
-    repeated failed moves, and degraded-telemetry hold (stale or missing
-    samples ⇒ no action). ``dry_run`` journals decisions as typed events
-    without acting."""
-
-    enabled: bool = False
-    dry_run: bool = False
-    # replica-count policy bounds (replaces the static --read-replicas)
-    min_replicas: int = 0
-    max_replicas: int = 2
-    # per-shard read QPS thresholds, with SLO-burn-style dual windows:
-    # scale-up triggers on the FAST window alone (a spike scales out
-    # now); scale-in requires BOTH windows under the down threshold
-    # (sustained quiet), so the two can never oscillate on a blip
-    scale_up_qps: float = 50.0
-    scale_down_qps: float = 5.0
-    fast_window_s: float = 60.0
-    slow_window_s: float = 600.0
-    # control-loop cadence + rails
-    decide_interval_s: float = 15.0
-    cooldown_s: float = 120.0  # per-shard: min time between actions
-    action_budget: int = 2  # max actions applied per decision round
-    quarantine_after: int = 3  # failed/reverted moves before the breaker opens
-    node_stable_s: float = 30.0  # a (re)joined node must be online this
-    # long before it attracts replicas or rebalance moves (flap guard)
-    rebalance: bool = True  # load-aware move of the hottest shard
-    min_move_qps: float = 1.0  # never move a shard colder than this
-    # GLOBAL move cadence: after any move decision, no new move for this
-    # long (<= 0 derives slow_window). Per-shard cooldowns alone cannot
-    # stop churn — a loop cycling through shards moves SOMETHING every
-    # round while each individual shard looks rested.
-    move_cooldown_s: float = 0.0
-    prewarm: bool = True  # target tails the manifest before cutover
-    prewarm_timeout_s: float = 30.0
-    telemetry_timeout_s: float = 3.0  # per-node query_stats poll timeout
-
-
-@dataclass
-class ClusterSection:
-    enabled: bool = False
-    self_endpoint: str = ""
-    endpoints: list[str] = field(default_factory=list)
-    # explicit table -> endpoint pins; unlisted tables hash over endpoints
-    rules: dict[str, str] = field(default_factory=dict)
-    # coordinator mode: meta server endpoints (overrides static routing)
-    meta_endpoints: list[str] = field(default_factory=list)
-    # follower read-replicas per shard (advisory on data nodes — the
-    # coordinator's --read-replicas flag is authoritative; documented so
-    # one config file can describe the whole deployment)
-    read_replicas: int = 0
-    # default bounded-staleness opt-in for follower reads: a query whose
-    # range reaches past a follower's watermark may still be served there
-    # when the follower lags by at most this much (0 = watermark-covered
-    # ranges only; per-request override: X-HoraeDB-Read-Staleness)
-    read_staleness_s: float = 0.0
-    # [cluster.elastic] — the coordinator's self-driving control loop
-    elastic: ElasticSection = field(default_factory=ElasticSection)
-
-
-@dataclass
-class S3Section:
-    """Cloud object storage (ref: components/object_store s3.rs). When
-    ``bucket`` is set the engine stores SSTs/manifests (and the
-    object-store WAL) in S3 instead of the local disk; an optional
-    CRC-paged disk cache fronts reads (disk_cache.rs analog)."""
-
-    bucket: str = ""
-    endpoint: str = ""
-    region: str = "us-east-1"
-    access_key: str = ""
-    secret_key: str = ""
-    prefix: str = ""
-    disk_cache_dir: str = ""
-    disk_cache_bytes: int = 1 << 30
-    mem_cache_bytes: int = 256 << 20
-
-
-@dataclass
-class Config:
-    server: ServerConfig = field(default_factory=ServerConfig)
-    engine: EngineSection = field(default_factory=EngineSection)
-    limits: LimitsConfig = field(default_factory=LimitsConfig)
-    wlm: WlmSection = field(default_factory=WlmSection)
-    observability: ObservabilitySection = field(
-        default_factory=ObservabilitySection
-    )
-    rules: RulesSection = field(default_factory=RulesSection)
-    slo: SloSection = field(default_factory=SloSection)
-    cluster: ClusterSection = field(default_factory=ClusterSection)
-    s3: S3Section = field(default_factory=S3Section)
-
-    @staticmethod
-    def load(path: Optional[str] = None) -> "Config":
-        raw: dict[str, Any] = {}
-        if path is not None:
-            if tomllib is not None:
-                with open(path, "rb") as f:
-                    raw = tomllib.load(f)
-            else:
-                with open(path, "r", encoding="utf-8") as f:
-                    raw = _minitoml_loads(f.read())
-        cfg = Config()
-        _apply(cfg, raw)
-        _apply_env(cfg)
-        return cfg
-
-
-_KNOWN = {
-    "server": {
-        "host", "http_port", "grpc_port", "mysql_port", "pg_port", "auth_token",
-    },
-    "engine": {
-        "data_dir", "wal", "wal_backend",
-        "space_write_buffer_size", "compaction_l0_trigger",
-        "compaction_workers", "background_flush", "flush_workers",
-        "write_stall_immutable_count", "write_stall_immutable_bytes",
-        "write_stall_deadline",
-    },
-    "limits": {
-        "slow_threshold", "admission_slots", "admission_queue_depth",
-        "admission_deadline", "admission_memory_budget", "dedup",
-        "query_timeout", "forward_timeout",
-    },
-    "wlm": {"batch"},
-    "observability": {
-        "self_scrape", "self_scrape_interval", "self_metrics_retention",
-        "event_ring", "decision_ring", "profile_keys",
-        "trace_ring", "trace_slow_ring", "slow_threshold",
-    },
-    "rules": {
-        "enabled", "eval_interval", "grace", "recording", "alerts",
-        "rollup_tables", "rollup_raw_ttl", "rollup_1m_ttl",
-        "rollup_1h_ttl", "recording_ttl",
-    },
-    "slo": {
-        "objectives", "fast_window", "slow_window", "burn_threshold",
-    },
-    "cluster": {
-        "self_endpoint", "endpoints", "rules", "meta_endpoints",
-        "read_replicas", "read_staleness", "elastic",
-    },
-    "s3": {
-        "bucket", "endpoint", "region", "access_key", "secret_key", "prefix",
-        "disk_cache_dir", "disk_cache_bytes", "mem_cache_bytes",
-    },
-}
-
-
-def _apply(cfg: Config, raw: dict) -> None:
-    unknown_sections = set(raw) - set(_KNOWN)
-    if unknown_sections:
-        raise ConfigError(f"unknown config section(s): {sorted(unknown_sections)}")
-    for section, keys in raw.items():
-        if not isinstance(keys, dict):
-            raise ConfigError(f"section [{section}] must be a table")
-        unknown = set(keys) - _KNOWN[section]
-        if unknown:
-            raise ConfigError(
-                f"unknown key(s) in [{section}]: {sorted(unknown)}"
-            )
-    s = raw.get("server", {})
-    if "host" in s:
-        cfg.server.host = str(s["host"])
-    if "http_port" in s:
-        cfg.server.http_port = int(s["http_port"])
-    if "grpc_port" in s:
-        cfg.server.grpc_port = int(s["grpc_port"])
-    if "mysql_port" in s:
-        cfg.server.mysql_port = int(s["mysql_port"])
-    if "pg_port" in s:
-        cfg.server.pg_port = int(s["pg_port"])
-    if "auth_token" in s:
-        cfg.server.auth_token = str(s["auth_token"])
-    e = raw.get("engine", {})
-    if "data_dir" in e:
-        cfg.engine.data_dir = str(e["data_dir"]) or None
-    if "wal" in e:
-        if not isinstance(e["wal"], bool):
-            raise ConfigError("engine.wal must be a boolean")
-        cfg.engine.wal = e["wal"]
-    if "wal_backend" in e:
-        if e["wal_backend"] not in ("disk", "object_store", "shared_log"):
-            raise ConfigError(
-                "engine.wal_backend must be 'disk', 'object_store' or 'shared_log'"
-            )
-        cfg.engine.wal_backend = str(e["wal_backend"])
-    if "space_write_buffer_size" in e:
-        cfg.engine.space_write_buffer_size = parse_size_bytes(e["space_write_buffer_size"])
-    if "compaction_l0_trigger" in e:
-        cfg.engine.compaction_l0_trigger = int(e["compaction_l0_trigger"])
-    if "compaction_workers" in e:
-        cfg.engine.compaction_workers = int(e["compaction_workers"])
-    if "background_flush" in e:
-        if not isinstance(e["background_flush"], bool):
-            raise ConfigError("engine.background_flush must be a boolean")
-        cfg.engine.background_flush = e["background_flush"]
-    if "flush_workers" in e:
-        cfg.engine.flush_workers = int(e["flush_workers"])
-    if "write_stall_immutable_count" in e:
-        cfg.engine.write_stall_immutable_count = int(
-            e["write_stall_immutable_count"]
-        )
-    if "write_stall_immutable_bytes" in e:
-        cfg.engine.write_stall_immutable_bytes = parse_size_bytes(
-            e["write_stall_immutable_bytes"]
-        )
-    if "write_stall_deadline" in e:
-        cfg.engine.write_stall_deadline_s = (
-            parse_duration_ms(e["write_stall_deadline"]) / 1000.0
-        )
-    l = raw.get("limits", {})
-    if "slow_threshold" in l:
-        cfg.limits.slow_threshold_s = parse_duration_ms(l["slow_threshold"]) / 1000.0
-    if "admission_slots" in l:
-        cfg.limits.admission_slots = int(l["admission_slots"])
-    if "admission_queue_depth" in l:
-        cfg.limits.admission_queue_depth = int(l["admission_queue_depth"])
-    if "admission_deadline" in l:
-        cfg.limits.admission_deadline_s = (
-            parse_duration_ms(l["admission_deadline"]) / 1000.0
-        )
-    if "admission_memory_budget" in l:
-        cfg.limits.admission_memory_budget = parse_size_bytes(
-            l["admission_memory_budget"]
-        )
-    if "dedup" in l:
-        if not isinstance(l["dedup"], bool):
-            raise ConfigError("limits.dedup must be a boolean")
-        cfg.limits.dedup = l["dedup"]
-    if "query_timeout" in l:
-        cfg.limits.query_timeout_s = (
-            parse_duration_ms(l["query_timeout"]) / 1000.0
-        )
-        if cfg.limits.query_timeout_s < 0:
-            raise ConfigError("limits.query_timeout must be >= 0 (0 = unbounded)")
-    if "forward_timeout" in l:
-        cfg.limits.forward_timeout_s = (
-            parse_duration_ms(l["forward_timeout"]) / 1000.0
-        )
-        if cfg.limits.forward_timeout_s <= 0:
-            raise ConfigError("limits.forward_timeout must be positive")
-    w = raw.get("wlm", {})
-    if "batch" in w:
-        _apply_batch(cfg.wlm.batch, w["batch"])
-    o = raw.get("observability", {})
-    if "self_scrape" in o:
-        if not isinstance(o["self_scrape"], bool):
-            raise ConfigError("observability.self_scrape must be a boolean")
-        cfg.observability.self_scrape = o["self_scrape"]
-    if "self_scrape_interval" in o:
-        cfg.observability.self_scrape_interval_s = (
-            parse_duration_ms(o["self_scrape_interval"]) / 1000.0
-        )
-        if cfg.observability.self_scrape_interval_s <= 0:
-            raise ConfigError(
-                "observability.self_scrape_interval must be positive"
-            )
-    if "self_metrics_retention" in o:
-        cfg.observability.self_metrics_retention_s = (
-            parse_duration_ms(o["self_metrics_retention"]) / 1000.0
-        )
-    if "event_ring" in o:
-        cfg.observability.event_ring = int(o["event_ring"])
-        if cfg.observability.event_ring < 1:
-            raise ConfigError("observability.event_ring must be >= 1")
-    if "decision_ring" in o:
-        cfg.observability.decision_ring = int(o["decision_ring"])
-        if cfg.observability.decision_ring < 1:
-            raise ConfigError("observability.decision_ring must be >= 1")
-    if "profile_keys" in o:
-        cfg.observability.profile_keys = int(o["profile_keys"])
-        if cfg.observability.profile_keys < 1:
-            raise ConfigError("observability.profile_keys must be >= 1")
-    if "trace_ring" in o:
-        cfg.observability.trace_ring = int(o["trace_ring"])
-        if cfg.observability.trace_ring < 1:
-            raise ConfigError("observability.trace_ring must be >= 1")
-    if "trace_slow_ring" in o:
-        cfg.observability.trace_slow_ring = int(o["trace_slow_ring"])
-        if cfg.observability.trace_slow_ring < 1:
-            raise ConfigError("observability.trace_slow_ring must be >= 1")
-    if "slow_threshold" in o:
-        # promoted from [limits] (ISSUE 20 satellite): the proxy's slow
-        # trace/slow-log admission is an observability knob; when both
-        # sections set it, [observability] wins (applied after [limits])
-        cfg.limits.slow_threshold_s = (
-            parse_duration_ms(o["slow_threshold"]) / 1000.0
-        )
-        if cfg.limits.slow_threshold_s <= 0:
-            raise ConfigError("observability.slow_threshold must be positive")
-    ru = raw.get("rules", {})
-    if "enabled" in ru:
-        if not isinstance(ru["enabled"], bool):
-            raise ConfigError("rules.enabled must be a boolean")
-        cfg.rules.enabled = ru["enabled"]
-    if "eval_interval" in ru:
-        cfg.rules.eval_interval_s = parse_duration_ms(ru["eval_interval"]) / 1000.0
-        if cfg.rules.eval_interval_s <= 0:
-            raise ConfigError("rules.eval_interval must be positive")
-    if "grace" in ru:
-        cfg.rules.grace_s = parse_duration_ms(ru["grace"]) / 1000.0
-        if cfg.rules.grace_s < 0:
-            raise ConfigError("rules.grace must be >= 0")
-    for key in ("recording", "alerts", "rollup_tables"):
-        if key in ru:
-            v = ru[key]
-            if not isinstance(v, list) or not all(isinstance(x, str) for x in v):
-                raise ConfigError(f"rules.{key} must be a list of strings")
-            setattr(cfg.rules, key, list(v))
-    for key, attr in (
-        ("rollup_raw_ttl", "rollup_raw_ttl_s"),
-        ("rollup_1m_ttl", "rollup_1m_ttl_s"),
-        ("rollup_1h_ttl", "rollup_1h_ttl_s"),
-        ("recording_ttl", "recording_ttl_s"),
-    ):
-        if key in ru:
-            setattr(cfg.rules, attr, parse_duration_ms(ru[key]) / 1000.0)
-    if ru:
-        # rule lines fail HERE, at load, not at the first evaluation
-        from ..rules.model import RuleError, parse_rule_line
-
-        try:
-            for line in cfg.rules.recording:
-                parse_rule_line(line, "recording")
-            for line in cfg.rules.alerts:
-                parse_rule_line(line, "alert")
-        except RuleError as e:
-            raise ConfigError(f"[rules]: {e}") from None
-    sl = raw.get("slo", {})
-    if "objectives" in sl:
-        v = sl["objectives"]
-        if not isinstance(v, list) or not all(isinstance(x, str) for x in v):
-            raise ConfigError("slo.objectives must be a list of strings")
-        cfg.slo.objectives = list(v)
-    for key, attr in (
-        ("fast_window", "fast_window_s"),
-        ("slow_window", "slow_window_s"),
-    ):
-        if key in sl:
-            setattr(cfg.slo, attr, parse_duration_ms(sl[key]) / 1000.0)
-            if getattr(cfg.slo, attr) <= 0:
-                raise ConfigError(f"slo.{key} must be positive")
-    if "burn_threshold" in sl:
-        cfg.slo.burn_threshold = float(sl["burn_threshold"])
-        if cfg.slo.burn_threshold <= 0:
-            raise ConfigError("slo.burn_threshold must be positive")
-    if sl:
-        if cfg.slo.fast_window_s > cfg.slo.slow_window_s:
-            raise ConfigError("slo.fast_window must be <= slo.slow_window")
-        # objective lines fail HERE, at load, not at the first evaluation
-        from ..slo.model import SloError, parse_objective_line
-
-        try:
-            seen = set()
-            for line in cfg.slo.objectives:
-                obj = parse_objective_line(line)
-                if obj.name in seen:
-                    raise SloError(f"duplicate objective name {obj.name!r}")
-                seen.add(obj.name)
-        except SloError as e:
-            raise ConfigError(f"[slo]: {e}") from None
-    s3 = raw.get("s3", {})
-    if s3:
-        for k in ("bucket", "endpoint", "region", "access_key", "secret_key",
-                  "prefix", "disk_cache_dir"):
-            if k in s3:
-                setattr(cfg.s3, k, str(s3[k]))
-        for k in ("disk_cache_bytes", "mem_cache_bytes"):
-            if k in s3:
-                setattr(cfg.s3, k, parse_size_bytes(s3[k]))
-        if not cfg.s3.bucket or not cfg.s3.endpoint:
-            raise ConfigError("[s3] requires both bucket and endpoint")
-    c = raw.get("cluster", {})
-    if c:
-        cfg.cluster.enabled = True
-        cfg.cluster.self_endpoint = str(c.get("self_endpoint", ""))
-        eps = c.get("endpoints", [])
-        if not isinstance(eps, list) or not all(isinstance(e, str) for e in eps):
-            raise ConfigError("cluster.endpoints must be a list of strings")
-        cfg.cluster.endpoints = eps
-        rules = c.get("rules", {})
-        if not isinstance(rules, dict):
-            raise ConfigError("cluster.rules must be a table of table -> endpoint")
-        cfg.cluster.rules = {str(k): str(v) for k, v in rules.items()}
-        meps = c.get("meta_endpoints", [])
-        if not isinstance(meps, list) or not all(isinstance(e, str) for e in meps):
-            raise ConfigError("cluster.meta_endpoints must be a list of strings")
-        cfg.cluster.meta_endpoints = meps
-        if "read_replicas" in c:
-            cfg.cluster.read_replicas = int(c["read_replicas"])
-            if cfg.cluster.read_replicas < 0:
-                raise ConfigError("cluster.read_replicas must be >= 0")
-        if "read_staleness" in c:
-            cfg.cluster.read_staleness_s = (
-                parse_duration_ms(c["read_staleness"]) / 1000.0
-            )
-            if cfg.cluster.read_staleness_s < 0:
-                raise ConfigError("cluster.read_staleness must be >= 0")
-        if "elastic" in c:
-            _apply_elastic(cfg.cluster.elastic, c["elastic"])
-        if not cfg.cluster.self_endpoint:
-            raise ConfigError("cluster.self_endpoint is required in [cluster]")
-        if not meps and not eps:
-            raise ConfigError(
-                "[cluster] needs either meta_endpoints (coordinator mode) "
-                "or endpoints (static mode)"
-            )
-
-
-_ELASTIC_KEYS = {
-    "enabled", "dry_run", "min_replicas", "max_replicas", "scale_up_qps",
-    "scale_down_qps", "fast_window", "slow_window", "decide_interval",
-    "cooldown", "action_budget", "quarantine_after", "node_stable",
-    "rebalance", "min_move_qps", "prewarm", "prewarm_timeout",
-    "move_cooldown",
-}
-
-
-def _apply_elastic(es: ElasticSection, raw: Any) -> None:
-    """[cluster.elastic] — validated at load like every other section; a
-    typo'd knob or an oscillation-prone threshold pair fails HERE, not
-    at the first decision round."""
-    if not isinstance(raw, dict):
-        raise ConfigError("cluster.elastic must be a table")
-    unknown = set(raw) - _ELASTIC_KEYS
-    if unknown:
-        raise ConfigError(
-            f"unknown key(s) in [cluster.elastic]: {sorted(unknown)}"
-        )
-    for key in ("enabled", "dry_run", "rebalance", "prewarm"):
-        if key in raw:
-            if not isinstance(raw[key], bool):
-                raise ConfigError(f"cluster.elastic.{key} must be a boolean")
-            setattr(es, key, raw[key])
-    for key in ("min_replicas", "max_replicas", "action_budget",
-                "quarantine_after"):
-        if key in raw:
-            setattr(es, key, int(raw[key]))
-    for key, attr in (
-        ("fast_window", "fast_window_s"),
-        ("slow_window", "slow_window_s"),
-        ("decide_interval", "decide_interval_s"),
-        ("cooldown", "cooldown_s"),
-        ("node_stable", "node_stable_s"),
-        ("prewarm_timeout", "prewarm_timeout_s"),
-        ("move_cooldown", "move_cooldown_s"),
-    ):
-        if key in raw:
-            setattr(es, attr, parse_duration_ms(raw[key]) / 1000.0)
-    for key in ("scale_up_qps", "scale_down_qps", "min_move_qps"):
-        if key in raw:
-            setattr(es, key, float(raw[key]))
-    if es.min_replicas < 0:
-        raise ConfigError("cluster.elastic.min_replicas must be >= 0")
-    if es.max_replicas < es.min_replicas:
-        raise ConfigError(
-            "cluster.elastic.max_replicas must be >= min_replicas"
-        )
-    if es.scale_down_qps >= es.scale_up_qps:
-        # equal thresholds would let one borderline sample scale out and
-        # back in on alternating rounds — the hysteresis gap is mandatory
-        raise ConfigError(
-            "cluster.elastic.scale_down_qps must be < scale_up_qps"
-        )
-    if es.fast_window_s <= 0 or es.slow_window_s < es.fast_window_s:
-        raise ConfigError(
-            "cluster.elastic windows need 0 < fast_window <= slow_window"
-        )
-    if es.decide_interval_s <= 0:
-        raise ConfigError("cluster.elastic.decide_interval must be positive")
-    if es.action_budget < 1:
-        raise ConfigError("cluster.elastic.action_budget must be >= 1")
-    if es.quarantine_after < 1:
-        raise ConfigError("cluster.elastic.quarantine_after must be >= 1")
-
-
-_BATCH_KEYS = {"enabled", "window", "max_cohort", "shapes"}
-
-
-def _apply_batch(bs: BatchSection, raw: Any) -> None:
-    """[wlm.batch] — validated at load like every other section."""
-    if not isinstance(raw, dict):
-        raise ConfigError("wlm.batch must be a table")
-    unknown = set(raw) - _BATCH_KEYS
-    if unknown:
-        raise ConfigError(f"unknown key(s) in [wlm.batch]: {sorted(unknown)}")
-    if "enabled" in raw:
-        if not isinstance(raw["enabled"], bool):
-            raise ConfigError("wlm.batch.enabled must be a boolean")
-        bs.enabled = raw["enabled"]
-    if "window" in raw:
-        bs.window_s = parse_duration_ms(raw["window"]) / 1000.0
-        if bs.window_s <= 0:
-            raise ConfigError("wlm.batch.window must be positive")
-    if "max_cohort" in raw:
-        bs.max_cohort = int(raw["max_cohort"])
-        if bs.max_cohort < 2:
-            # a 1-wide "cohort" is just the solo path plus a window wait
-            raise ConfigError("wlm.batch.max_cohort must be >= 2")
-    if "shapes" in raw:
-        v = raw["shapes"]
-        if not isinstance(v, list) or not all(isinstance(x, str) for x in v):
-            raise ConfigError("wlm.batch.shapes must be a list of strings")
-        bs.shapes = list(v)
-
-
-def _apply_env(cfg: Config) -> None:
-    if v := os.environ.get("HORAEDB_HTTP_PORT"):
-        cfg.server.http_port = int(v)
-    if v := os.environ.get("HORAEDB_HOST"):
-        cfg.server.host = v
-    if v := os.environ.get("HORAEDB_DATA_DIR"):
-        cfg.engine.data_dir = v

@@ -180,3 +180,12 @@ def test_livewindow_fold_on_one_thread_gather_on_another(card):
     finally:
         S.STORE.clear()
         db.close()
+
+
+def test_livewindow_writers_of_one_group_commit_read_their_rows(card):
+    """Two writers acknowledged from one group commit each read, right
+    after the acknowledgement, a panel served from the CUDA ring that
+    holds both writers' rows (tests/torch_livewindow_cases.py)."""
+    from torch_livewindow_cases import two_writers_in_one_group
+
+    two_writers_in_one_group("cuda")

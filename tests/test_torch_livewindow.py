@@ -40,6 +40,7 @@ from horaedb_tpu_torch.state import livewindow as lw
 from horaedb_tpu_torch.utils.config import RulesSection
 from horaedb_tpu_torch.utils.querystats import STATS_STORE, finish_ledger, start_ledger
 
+from torch_livewindow_cases import two_writers_in_one_group
 from torch_parity import assert_bit_equal, assert_sums_close, rows_match
 
 MIN = 60_000
@@ -671,3 +672,33 @@ def test_a_failed_fold_drops_the_state_and_the_write_succeeds(both, monkeypatch)
                  key=lambda r: (r["b"], r["host"]))
     assert both.port.interpreters.executor.last_path != "livewindow"
     rows_match(both.raw("lw_fail"), got, lambda r, c: None)
+
+
+def test_a_failed_write_hook_drops_every_state_of_the_table(both, monkeypatch):
+    """A failure in the write hook outside any one state's fold (here the
+    lookup of the table's states) never fails the write either: every
+    state of the table is dropped and counted, and the next reads are raw
+    and exact."""
+    both.seed("lw_hook", minutes=30)
+    both.promote("lw_hook")
+
+    def broken(*a, **k):
+        raise RuntimeError("state lookup failed")
+
+    errors = ops.FOLD_ERRORS
+    with monkeypatch.context() as m:
+        m.setattr(lw.STORE, "states_for_table", broken)
+        both.insert("lw_hook", [("h0", 1.0, END + MIN)])
+    assert ops.FOLD_ERRORS == errors + 1
+    assert not lw.STORE.stats()["states"]
+    got = sorted(both.port.execute(_panel("lw_hook")).to_pylist(),
+                 key=lambda r: (r["b"], r["host"]))
+    assert both.port.interpreters.executor.last_path != "livewindow"
+    rows_match(both.raw("lw_hook"), got, lambda r, c: None)
+
+
+def test_writers_of_one_group_commit_read_their_rows_from_state():
+    """Two writers acknowledged from one group commit each read, right
+    after the acknowledgement, a panel served from state that holds both
+    writers' rows (tests/torch_livewindow_cases.py)."""
+    two_writers_in_one_group("cpu")
