@@ -6,8 +6,8 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Card: name and power limit (nvidia-smi), torch and CUDA versions.
-2. Build: the CUDA kernels from ``horaedb_tpu_torch/ops/csrc``, one nvcc
-   per source, one after the other.
+2. Build: the four CUDA kernel libraries from ``horaedb_tpu_torch/ops/csrc``,
+   one nvcc per source, one after the other.
 3. Kernel vs plain: every entry point (direct, cached full, cached
    selective) and arm (single, shared, scatter) against its plain PyTorch
    version on the same CUDA tensors, over every resident layout, all six
@@ -67,6 +67,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    commits; increase/rate over the last 30 min at step 5 m served from
    state, equal to numpy and to the kill-switch fold at 1e-4 relative; one
    RuleEngine alert fires for the expected hosts from state.
+14. Raw-read kernels vs plain (run after phase 6, on the card beside the
+   resident cpu table): the top-k and the bounded selection against their
+   plain versions on the same CUDA tensors over every resident layout (a
+   dictionary-coded key, delta and dictionary timestamps, delta series
+   codes, bf16), ts and f32 keys both ways, k in {1, 16, 128, 4096, n},
+   n in {0, 1, 1000, 2**20, 2**25 + 4096}, every filter op, selections at
+   the exact count and around it, and the traps (+-0 at the threshold, NaN
+   last, +-inf, ties past k, fewer passing rows than k, an empty allow
+   list or time range). Indices and counts bit-equal.
+15. Raw main path: five raw reads on the resident cpu table (34,560,000
+   rows) through ``Connection.execute``, REPEATS times each, every run on
+   the device raw route with its kernel and equal to an independent numpy
+   answer; once each the kill-switch host route; one unflushed tick then
+   lastpoint-host again (hit+delta, the new row first); EXPLAIN; the
+   launch counters.
+16. Raw replay and timings: each query's last kernel call against its
+   plain version (bit-equal); device time, bound, plain and library
+   (torch.topk / torch.nonzero) times, the copy back; warm execute
+   latency against the kill-switch route.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -149,10 +168,10 @@ def phase_card(torch) -> str:
 
 def phase_build() -> None:
     """The kernel libraries, one nvcc each, one after the other."""
-    from horaedb_tpu_torch.ops import livewindow, merge_dedup, scan_agg
+    from horaedb_tpu_torch.ops import livewindow, merge_dedup, scan_agg, scan_topk
 
     loaders = {"scan_agg": scan_agg._kernels, "merge_dedup": merge_dedup._kernels,
-               "livewindow": livewindow._kernels}
+               "livewindow": livewindow._kernels, "scan_topk": scan_topk._kernels}
     t0 = time.perf_counter()
     for name, fn in loaders.items():
         # builds and loads the library and checks its struct layouts
@@ -164,7 +183,7 @@ def phase_build() -> None:
         DETAIL[f"build_log_{name}"] = lib.build_log
         DETAIL[f"nvcc_seconds_{name}"] = lib.build_seconds
     secs = time.perf_counter() - t0
-    say(f"build: {secs:.2f} s for all three with loading")
+    say(f"build: {secs:.2f} s for all four with loading")
     DETAIL["build_seconds"] = secs
 
 
@@ -582,7 +601,14 @@ def phase_main(torch) -> dict:
 
     rec = Recorder(S)
     t0 = time.perf_counter()
-    db = horaedb_tpu_torch.connect(None, device=DEV)
+    # raw reads (phase 15) gather the rows they select from the cache
+    # entry's host copy: this connection's cache keeps it (the default
+    # drops copies over 256 MB)
+    os.environ["HORAEDB_CACHE_HOST_ROWS_MB"] = "65536"
+    try:
+        db = horaedb_tpu_torch.connect(None, device=DEV)
+    finally:
+        os.environ.pop("HORAEDB_CACHE_HOST_ROWS_MB")
     check(db.device.type == DEV, f"connection is not on {DEV}")
     db.execute(_cpu_table_sql(tsbs))
     rows = tsbs.generate_cpu(HOSTS, HOURS * 3_600_000, seed=SEED)
@@ -610,6 +636,7 @@ def phase_main(torch) -> dict:
     say(f"load: {len(rows)} cpu rows generated in {t_gen - t0:.1f} s, written and flushed "
         f"in {t_cpu - t_gen:.1f} s; {DEMO_ROWS} demo rows in {t_load - t_cpu:.1f} s")
     exp = _expected(tsbs, rows, demo)
+    raw_exp = _raw_expected(tsbs, rows)
     del rows
 
     queries = [
@@ -659,7 +686,8 @@ def phase_main(torch) -> dict:
     DETAIL["load_seconds"] = t_load - t0
     DETAIL["launches"] = launches
     DETAIL["peak_bytes"] = peak
-    return {"db": db, "results": results, "launches": launches, "peak": peak, "rec": rec}
+    return {"db": db, "results": results, "launches": launches, "peak": peak, "rec": rec,
+            "raw_expected": raw_exp}
 
 
 # ---- phase 5: timings ---------------------------------------------------------
@@ -1356,25 +1384,34 @@ def phase_merge_replay(torch, comp) -> dict:
     return passes
 
 
-def _merge_device_ms(torch, fn, reps=5):
-    """Mean device ms of one merge launch: the sum of its kernels on the
-    profiler's device timeline, or None without CUPTI tracing."""
+MERGE_KERNELS = ("init_hist", "plan_passes", "tile_hist", "digit_scan", "tile_scatter",
+                 "epilogue")
+
+
+def _family_device_ms(torch, fn, names, reps=5):
+    """Mean device ms of one call of ``fn``: the sum of its kernels (every
+    event whose name holds one of ``names``) on the profiler's device
+    timeline; None without CUPTI tracing or when two traces record none
+    of them."""
     from torch.profiler import ProfilerActivity, profile
 
-    names = ("init_hist", "plan_passes", "tile_hist", "digit_scan", "tile_scatter", "epilogue")
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:
-        say(f"profiler unavailable ({e}); merge times from CUDA events")
-        return None
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.name.split("(")[0].split(" ")[-1] in names]
-    return sum(us) / reps / 1e3 if us else None
+    for _ in range(2):
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        except RuntimeError as e:
+            say(f"profiler unavailable ({e}); times from CUDA events")
+            return None
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if any(n in e.name for n in names)]
+        if us:
+            return sum(us) / reps / 1e3
+        say(f"the profiler recorded none of {names} in {reps} calls")
+    return None
 
 
 def _merge_bound(words, n_valid, kind) -> tuple[float, int]:
@@ -1410,7 +1447,7 @@ def phase_merge_timings(torch, comp, replay_passes, card) -> list:
         launch = lambda k=kind, w=words, m=masks, v=n_valid, d=dedup: md.sort_dedup(k, w, m, v, d)  # noqa: E731
         plain = lambda k=kind, w=words, m=masks, v=n_valid, d=dedup: md._plain(k, w, m, v, d)  # noqa: E731
         events_ms = _time_launch(torch, launch, reps=5, flush=flush)
-        device_ms = _merge_device_ms(torch, launch)
+        device_ms = _family_device_ms(torch, launch, MERGE_KERNELS)
         ms = device_ms if device_ms is not None else events_ms
         plain_ms = _time_launch(torch, plain, reps=2, flush=flush)
         lib_ms = None
@@ -2220,6 +2257,601 @@ def phase_lw_promql(torch) -> dict:
     return out
 
 
+# ---- phase 14: the raw-read kernels against their plain versions -------------
+
+RAW_SRC = "horaedb_tpu_torch/ops/csrc/scan_topk.cu"
+RAW_REPLACES = {
+    "raw_topk": "horaedb_tpu/ops/scan_topk.py:244",
+    "raw_select": "horaedb_tpu/ops/scan_topk.py:297",
+}
+# (series layout, ts layout, (key field kind, filter field kind)); "codes"
+# is a dictionary field kept in code space, as raw reads keep the sort key
+RAW_LAYOUTS = [
+    ("raw", "raw", ("raw", "raw")),
+    ("delta", "delta", ("codes", "raw")),
+    ("delta", "dict", ("raw", "codes")),
+    ("raw", "delta", ("bf16", "dict")),
+    ("delta", "raw", ("dict", "bf16")),
+]
+RAW_SIZES = (0, 1, 1000, 1 << 20)
+RAW_BIG = (1 << 25) + 4096
+RAW_KS = (1, 16, 128, 4096)
+# (key_is_ts, descending)
+RAW_KEYS = ((True, True), (True, False), (False, True), (False, False))
+
+
+def _raw_values(rng, n, kind):
+    """A value column of ``kind``: floats with ties (a tenth at 100.0),
+    +-0, NaN and +-inf; or integer dictionary values (a dictionary holds
+    neither NaN nor both zeros)."""
+    import numpy as np
+
+    if kind in ("dict", "codes"):
+        vocab = rng.choice(np.arange(-500, 500), 300, replace=False).astype(np.float32)
+        return vocab[rng.integers(0, len(vocab), n)]
+    v = np.round(rng.normal(0, 50, n) * 2).astype(np.float32) / 2
+    special = np.array([100.0, -0.0, 0.0, np.nan, np.inf, -np.inf], dtype=np.float32)
+    pick = rng.random(n)
+    v = np.where(pick < 0.10, special[0], v)
+    for j, p in enumerate((0.03, 0.03, 0.02, 0.01, 0.01)):
+        lo = 0.10 + sum((0.03, 0.03, 0.02, 0.01, 0.01)[:j])
+        v = np.where((pick >= lo) & (pick < lo + p), special[j + 1], v)
+    return v.astype(np.float32)
+
+
+def _raw_columns(torch, rng, n, layout):
+    """n resident rows sorted by (series, ts) in ``layout`` (delta layouts
+    fall back to raw when n is not a multiple of 128), a masked pad tail
+    on series S; returns (args without session/dyn, layout kwargs, S,
+    the largest ts)."""
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import encoding as E
+
+    dev = torch.device(DEV)
+    series_layout, ts_layout, kinds = layout
+    if n % E.FOR_BLOCK:
+        series_layout = "raw"
+        ts_layout = "raw" if ts_layout == "delta" else ts_layout
+    if n == 0:  # no dictionary of nothing
+        ts_layout = "raw"
+        kinds = tuple("raw" if k in ("dict", "codes") else k for k in kinds)
+    S = max(1, n // 500)
+    codes = np.sort(rng.integers(0, S, n)).astype(np.int32)
+    codes[n - min(37, n // 10):] = S  # pad rows: the allow list masks them
+    first = np.searchsorted(codes, codes, "left")
+    rank = np.arange(n) - first
+    jitter = 0 if ts_layout == "dict" else rng.integers(0, 9, n)
+    ts = (rank * 10 + jitter).astype(np.int32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(
+            np.int32) if a.dtype == np.uint32 else np.ascontiguousarray(a)).to(dev)
+
+    if series_layout == "delta":
+        d = E.delta_for_encode(codes, 8)
+        sp, sl = (t(d.words), t(d.base)), ("delta", d.width)
+    else:
+        sp, sl = (t(codes),), ("raw",)
+    if ts_layout == "delta":
+        d = E.delta_for_encode(ts, 16)
+        tp, tl = (t(d.words), t(d.base)), ("delta", d.width)
+    elif ts_layout == "dict":
+        d = E.dict_encode(ts, 4096)
+        tp, tl = (t(d.words), t(d.dictionary)), ("dict", d.width)
+    else:
+        tp, tl = (t(ts),), ("raw",)
+    values, vl = [], []
+    for kind in kinds:
+        col = _raw_values(rng, n, kind)
+        if kind in ("dict", "codes"):
+            d = E.dict_encode(col, 4096)
+            values.append((t(d.words), t(d.dictionary)))
+            vl.append(("dict", d.width, kind == "dict"))
+        elif kind == "bf16":
+            values.append((t(col).to(torch.bfloat16),))
+            vl.append(("bf16",))
+        else:
+            values.append((t(col),))
+            vl.append(("raw",))
+    kw = dict(value_layouts=tuple(vl), ts_layout=tl, series_layout=sl)
+    return (sp, tp, tuple(values)), kw, S, int(ts.max()) if n else 0
+
+
+def _raw_inputs(torch, rng, S, allow_frac, lits, lo, hi, key_lo=0, key_hi=0):
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import scan_topk as T
+
+    dev = torch.device(DEV)
+    allow = np.append(rng.random(S) < allow_frac, False).astype(np.int32)
+    session = torch.from_numpy(allow).to(dev)
+    dyn = torch.from_numpy(T.pack_raw_dyn(lits, lo, hi, key_lo, key_hi)).to(dev)
+    return session, dyn
+
+
+def _raw_check(torch, kind, cols, session, dyn, kw, what) -> int:
+    """One launch of the ``kind`` kernel and its plain version on the same
+    tensors; fails unless bit-equal. Returns the rows the answer holds."""
+    from horaedb_tpu_torch.ops import scan_topk as T
+
+    if kind == "raw_topk":
+        got = T.raw_topk_packed(*cols, session, dyn, **kw)
+        _sync(torch)
+        want = T.raw_topk_plain(*cols, session, dyn, **kw)
+    else:
+        got = T.raw_select_packed(*cols, session, dyn, **kw)
+        _sync(torch)
+        want = T.raw_select_plain(*cols, session, dyn, **kw)
+    check(got.shape == want.shape and torch.equal(got, want.to(got.device)),
+          f"{what}: kernel {got[:12].tolist()} vs plain {want[:12].tolist()}")
+    return int((got[1:] >= 0).sum()) if kind == "raw_select" else int((got >= 0).sum())
+
+
+def _raw_cases(torch, rng, n, layout, ks, keys, op_at) -> int:
+    """Top-k at every (key, k) and selections at three buffer sizes over one
+    column set of n rows; the filter op rotates with ``op_at``."""
+    from horaedb_tpu_torch.ops import scan_agg as S, scan_topk as T
+
+    cols, lay, n_series, ts_max = _raw_columns(torch, rng, n, layout)
+    n_cases = 0
+    for j, (key_is_ts, desc) in enumerate(keys):
+        op = OPS[(op_at + j) % len(OPS)]
+        filters = ((1, S._FILTER_OPS[op]),)
+        full = j % 2 == 0  # the whole time range, or a window inside it
+        lo, hi = (0, ts_max + 1) if full else (15, max(ts_max - 25, 15))
+        key_lo, key_hi = T.topk_key_bounds(desc, key_is_ts, lo, hi)
+        session, dyn = _raw_inputs(torch, rng, n_series, 0.8, [5.0], lo, hi, key_lo, key_hi)
+        for k in sorted({min(k, max(n, 1)) for k in ks} | {max(n, 1)}):
+            kw = dict(k=k, descending=desc, key_is_ts=key_is_ts, key_field=0,
+                      numeric_filters=filters, **lay)
+            _raw_check(torch, "raw_topk", cols, session, dyn, kw,
+                       f"raw_topk n={n} {layout} ts={key_is_ts} desc={desc} {op} k={k}")
+            n_cases += 1
+        count = int(T.raw_select_plain(*cols, session, dyn, select_slots=0,
+                                       numeric_filters=filters, **lay)[0])
+        for slots in sorted({count, count + 3, max(count - 1, 0)}):
+            _raw_check(torch, "raw_select", cols, session, dyn,
+                       dict(select_slots=slots, numeric_filters=filters, **lay),
+                       f"raw_select n={n} {layout} {op} slots={slots} (count {count})")
+            n_cases += 1
+    return n_cases
+
+
+def _raw_traps(torch, rng) -> int:
+    """The cases the reference's tests pin, at small n."""
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import scan_agg as S, scan_topk as T
+
+    dev = torch.device(DEV)
+    n_cases = 0
+
+    def table(v, w=None):
+        n = len(v)
+        v = np.asarray(v, dtype=np.float32)
+        w = np.arange(n, dtype=np.float32) if w is None else np.asarray(w, np.float32)
+        cols = ((torch.zeros(n, dtype=torch.int32, device=dev),),
+                (torch.arange(n, dtype=torch.int32, device=dev),),
+                ((torch.from_numpy(v).to(dev),), (torch.from_numpy(w).to(dev),)))
+        return cols, n
+
+    def topk(cols, n, k, desc, filters=(), lits=(), allow=1, lo=0, hi=None, key_is_ts=False):
+        hi = n if hi is None else hi
+        session = torch.tensor([allow, 0], dtype=torch.int32, device=dev)
+        key_lo, key_hi = T.topk_key_bounds(desc, key_is_ts, lo, hi)
+        dyn = torch.from_numpy(T.pack_raw_dyn(lits, lo, hi, key_lo, key_hi)).to(dev)
+        kw = dict(k=k, descending=desc, key_is_ts=key_is_ts, key_field=0,
+                  numeric_filters=filters, value_layouts=(("raw",), ("raw",)))
+        what = f"trap n={n} k={k} desc={desc} filters={filters} allow={allow} [{lo},{hi})"
+        _raw_check(torch, "raw_topk", cols, session, dyn, kw, what)
+        for slots in (0, n):
+            _raw_check(torch, "raw_select", cols, session, dyn,
+                       dict(select_slots=slots, numeric_filters=filters,
+                            value_layouts=(("raw",), ("raw",))), what + f" slots={slots}")
+        return 3
+
+    # +-0 at the threshold: the 12-row table of the reference's quirk
+    pm0 = [-0.0, -0.0, -0.0, -0.0, -5.0, 0.0, -1.0, -2.0, -3.0, -4.0, -6.0, -7.0]
+    cols, n = table(pm0)
+    for k in (1, 2, 5, 12):
+        for desc in (True, False):
+            n_cases += topk(cols, n, k, desc)
+    # 20 x -0.0, 20 x +0.0, 8 negatives
+    cols, n = table([-0.0] * 20 + [0.0] * 20 + [-1.0 - i for i in range(8)])
+    for k in (1, 16, 21, 48):
+        n_cases += topk(cols, n, k, True) + topk(cols, n, k, False)
+    # NaN last in both directions; fewer passing rows than k, with and
+    # without NaN among them; +-inf
+    v = np.arange(60, dtype=np.float32)
+    v[::4] = np.nan
+    v[5], v[6] = np.inf, -np.inf
+    cols, n = table(v)
+    ge = ((1, S._FILTER_OPS[">="]),)
+    for desc in (True, False):
+        for k in (8, 16, 60):
+            n_cases += topk(cols, n, k, desc)
+        n_cases += topk(cols, n, 32, desc, lo=40, hi=60)  # 20 rows pass, 5 of them NaN
+        n_cases += topk(cols, n, 16, desc, ge, [52.0])  # 6 rows pass, none NaN
+    # more ties at the k-th key than slots
+    cols, n = table(np.where(rng.random(5000) < 0.7, 100.0,
+                             rng.normal(50, 20, 5000)).astype(np.float32))
+    for k in (1, 128, 4096):
+        n_cases += topk(cols, n, k, True) + topk(cols, n, k, False)
+    # an empty allow list and an empty time range
+    n_cases += topk(cols, n, 16, True, allow=0)
+    n_cases += topk(cols, n, 16, True, lo=50, hi=50)
+    n_cases += topk(cols, n, 16, True, lo=50, hi=50, key_is_ts=True)
+    return n_cases
+
+
+def phase_raw_kernels(torch) -> None:
+    """Both raw-read kernels against their plain versions, bit-equal: every
+    resident layout (a dictionary-coded key, delta and dictionary
+    timestamps, delta series codes, bf16), ts and f32 keys in both
+    directions, k in RAW_KS and k = n, n in RAW_SIZES and RAW_BIG rows,
+    every filter op, selections at the exact count, above and below it,
+    and the trap cases."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    n_cases = _raw_traps(torch, rng)
+    at = 0
+    for n in RAW_SIZES:
+        for layout in RAW_LAYOUTS:
+            n_cases += _raw_cases(torch, rng, n, layout, RAW_KS, RAW_KEYS, at)
+            at += 1
+    for layout in (RAW_LAYOUTS[0], RAW_LAYOUTS[1]):
+        n_cases += _raw_cases(torch, rng, RAW_BIG, layout, (16, 4096), RAW_KEYS, at)
+        at += 1
+    _sync(torch)
+    say(f"raw kernels vs plain: {n_cases} cases bit-equal")
+    DETAIL["raw_kernel_cases"] = n_cases
+
+
+# ---- phase 15: raw reads on the cpu table (the raw main path) ----------------
+
+H12 = 12 * 3_600_000
+# TSBS devops high-cpu-1 reads one random host; this one, the first from
+# host_42 on whose usage_user passes 90 in the first 12 h (host_42 itself
+# never does at seed 123), so the selection has rows to return
+HC_FROM = 42
+
+
+def raw_queries(hc_host: int) -> list:
+    """(name, SQL, kernel) of the raw main path; the cpu table's first
+    timestamp is 0."""
+    return [
+        ("lastpoint-host",
+         "SELECT * FROM cpu WHERE hostname = 'host_7' ORDER BY ts DESC LIMIT 10", "topk"),
+        ("hottest-12h",
+         f"SELECT hostname, ts, usage_user FROM cpu WHERE ts >= {H12} AND ts < {2 * H12} "
+         "ORDER BY usage_user DESC LIMIT 100", "topk"),
+        ("coolest-asc",
+         "SELECT hostname, ts, usage_idle FROM cpu WHERE usage_system > 50 "
+         "ORDER BY usage_idle ASC LIMIT 1000 OFFSET 10", "topk"),
+        ("high-cpu-1",
+         f"SELECT * FROM cpu WHERE hostname = 'host_{hc_host}' AND usage_user > 90 "
+         f"AND ts >= 0 AND ts < {H12}", "select"),
+        # the same over 16 hosts and 24 h
+        ("high-cpu-16",
+         "SELECT * FROM cpu WHERE hostname IN ("
+         + ", ".join(f"'host_{i}'" for i in range(16))
+         + f") AND usage_user > 50 AND ts >= 0 AND ts < {2 * H12}", "select"),
+    ]
+
+
+def _raw_expected(tsbs, rows) -> dict:
+    """Independent answers of ``raw_queries`` from the generated rows: the
+    rows that pass (numeric filters on the float32 values the device
+    columns hold), ordered by the ORDER BY key and then by the resident
+    order, which query/scan_cache.py defines as (series code, ts) with
+    series codes the ranks of the sorted unique tsids; the LIMIT/OFFSET
+    window of that. Rows without ORDER BY come in resident order. Each
+    answer is its rows as dicts of every column."""
+    import numpy as np
+
+    ts = rows.columns["ts"]
+    n_ticks = HOURS * 3_600_000 // tsbs.INTERVAL_MS
+    host = np.tile(np.arange(HOSTS), n_ticks)  # generate_cpu's row order
+    _, inv = np.unique(rows.columns["tsid"], return_inverse=True)
+    order = np.lexsort((ts, inv))
+    rank = np.empty(len(order), np.int64)
+    rank[order] = np.arange(len(order))
+    f32 = {f: rows.columns[f].astype(np.float32) for f in ("usage_user", "usage_system")}
+
+    def window(sel, key, offset, limit):
+        i = np.flatnonzero(sel)
+        return i[np.lexsort((rank[i], key[i]))][offset:offset + limit]
+
+    def in_order(sel):
+        i = np.flatnonzero(sel)
+        return i[np.argsort(rank[i], kind="stable")]
+
+    hot = (f32["usage_user"] > 90) & (ts < H12)
+    hc_host = next(h % HOSTS for h in range(HC_FROM, HC_FROM + HOSTS) if hot[host == h % HOSTS].any())
+    picks = {
+        "lastpoint-host": window(host == 7, -ts, 0, 10),
+        "hottest-12h": window((ts >= H12) & (ts < 2 * H12), -rows.columns["usage_user"], 0,
+                              100),
+        "coolest-asc": window(f32["usage_system"] > 50, rows.columns["usage_idle"], 10, 1000),
+        "high-cpu-1": in_order((host == hc_host) & hot),
+        "high-cpu-16": in_order((host < 16) & (f32["usage_user"] > 50)),
+    }
+    names = [c.name for c in rows.schema.columns]
+    out = {}
+    for q, i in picks.items():
+        out[q] = [{c: rows.columns[c][j] for c in names} for j in i]
+    out["n_at_100_second_half"] = int(((ts >= H12) & (rows.columns["usage_user"] == 100.0)).sum())
+    out["hc_host"] = hc_host
+    return out
+
+
+def _same_rows(got, want, what) -> None:
+    check(len(got) == len(want), f"{what}: {len(got)} rows, expected {len(want)}")
+    for k, (g, w) in enumerate(zip(got, want)):
+        for c, v in g.items():
+            check(c in w and v == w[c], f"{what}: row {k} column {c}: {v!r} vs {w.get(c)!r}")
+
+
+def _key_rows(rows, key):
+    return [(r["hostname"], r["ts"]) for r in sorted(rows, key=key)]
+
+
+class RawRecorder:
+    """Wraps the raw-read wrappers during the main path to keep, per query,
+    the last main-path call of its kernel (args and kwargs) for phase 16."""
+
+    def __init__(self, T):
+        self.T = T
+        self.orig = (T.raw_topk_packed, T.raw_select_packed)
+        self.calls: dict = {}
+        self.query = ""
+        orig_topk, orig_select = self.orig
+
+        def topk(*a, **k):
+            self.calls[self.query] = ("raw_topk", a, k)
+            return orig_topk(*a, **k)
+
+        def select(*a, **k):
+            self.calls[self.query] = ("raw_select", a, k)
+            return orig_select(*a, **k)
+
+        T.raw_topk_packed, T.raw_select_packed = topk, select
+
+    def restore(self) -> None:
+        self.T.raw_topk_packed, self.T.raw_select_packed = self.orig
+
+
+def phase_raw_main(torch, main) -> dict:
+    """``raw_queries`` through ``Connection.execute`` on the resident cpu table,
+    REPEATS times each: every run served by the device raw path with its
+    kernel, every answer equal to the independent numpy answer; once per
+    query the kill-switch host route (HORAEDB_RAW_DEVICE=0) too: the same
+    rows where the order is total, the same ORDER BY keys where ties cross
+    the LIMIT (the host reads rows in its merge order, not the resident
+    order), the same row set where there is no ORDER BY. Then one unflushed
+    tick and lastpoint-host again (hit+delta, the new row first), EXPLAIN,
+    and the launch counters."""
+    from horaedb_tpu_torch.ops import scan_topk as T
+    from horaedb_tpu_torch.tools import tsbs
+
+    db, exp = main["db"], main["raw_expected"]
+    queries = raw_queries(exp["hc_host"])
+    say(f"cpu rows at usage_user == 100.0 in the second 12 h: {exp['n_at_100_second_half']}; "
+        f"high-cpu-1 reads host_{exp['hc_host']}")
+    rec = RawRecorder(T)
+    _sync(torch)
+    T.reset_counts()  # the raw main path's launches start here
+    out = {"queries": {}}
+    try:
+        for name, sql, kernel in queries:
+            rec.query = name
+            runs = []
+            for _ in range(REPEATS):
+                t = time.perf_counter()
+                res = db.execute(sql)
+                secs = time.perf_counter() - t
+                m = res.metrics
+                check(m.get("path") == "raw_device" and m.get("raw_kernel") == kernel,
+                      f"{name}: path {m.get('path')} kernel {m.get('raw_kernel')} "
+                      f"({m.get('raw_host')})")
+                got = res.to_pylist()
+                _same_rows(got, exp[name], f"{name} vs numpy")
+                runs.append({"seconds": secs, "cache": m.get("cache"),
+                             "candidates": m.get("raw_candidates")})
+            os.environ["HORAEDB_RAW_DEVICE"] = "0"
+            try:
+                t = time.perf_counter()
+                host = db.execute(sql)
+                host_s = time.perf_counter() - t
+            finally:
+                os.environ.pop("HORAEDB_RAW_DEVICE", None)
+            check(host.metrics.get("path") == "host", f"{name}: kill switch took "
+                  f"{host.metrics.get('path')}")
+            href = host.to_pylist()
+            if name in ("lastpoint-host", "high-cpu-1"):
+                _same_rows(got, href, f"{name} vs the kill switch")
+                how = "the same rows"
+            elif kernel == "select":
+                key = lambda r: (r["hostname"], r["ts"])  # noqa: E731
+                check(_key_rows(got, key) == _key_rows(href, key),
+                      f"{name}: row sets differ from the kill switch")
+                how = "the same row set"
+            else:
+                col = sql.split("ORDER BY ")[1].split()[0]
+                check([r[col] for r in got] == [r[col] for r in href],
+                      f"{name}: ORDER BY keys differ from the kill switch")
+                check(len({(r["hostname"], r["ts"]) for r in got}) == len(got),
+                      f"{name}: duplicate rows")
+                how = "the same ORDER BY keys"
+            check(name in rec.calls, f"{name}: its kernel never launched")
+            warm = statistics.median([r["seconds"] for r in runs[2:]])
+            out["queries"][name] = {"runs": runs, "warm_s": warm, "host_s": host_s,
+                                    "rows": len(got)}
+            say(f"raw {name}: raw_device/{kernel}, {len(got)} rows equal to numpy; "
+                f"execute runs {[round(r['seconds'] * 1e3, 3) for r in runs]} ms "
+                f"(cache {[r['cache'] for r in runs]}); kill switch {host_s * 1e3:.3f} ms, "
+                f"{how}")
+        launches, plain_calls = dict(T.LAUNCHES), dict(T.PLAIN_CALLS)
+        rec.query = "after a write"
+        # one unflushed tick past the table's end: the delta rides the cache
+        tick = tsbs.generate_cpu(HOSTS, tsbs.INTERVAL_MS, t0=2 * H12, seed=SEED + 1)
+        db.catalog.open("cpu").write(tick)
+        name, sql, _ = queries[0]
+        res = db.execute(sql)
+        m = res.metrics
+        got = res.to_pylist()
+        check(m.get("path") == "raw_device" and m.get("cache") == "hit+delta",
+              f"{name} after a write: path {m.get('path')} cache {m.get('cache')}")
+        check(got[0]["ts"] == 2 * H12 and got[0]["hostname"] == "host_7"
+              and got[0]["usage_user"] == tick.columns["usage_user"][7],
+              f"{name} after a write: first row {got[0]}")
+        _same_rows(got[1:], exp[name][:9], f"{name} after a write")
+        plan = db.execute("EXPLAIN " + queries[1][1]).column("plan")
+        line = [p for p in plan if "Execution:" in p]
+        check(line and "raw device" in line[0] and "top-k" in line[0],
+              f"EXPLAIN of hottest-12h: {line}")
+        say(f"raw {name} after one unflushed tick: raw_device, cache hit+delta, the new row "
+            f"first; EXPLAIN: {line[0].strip()}")
+    finally:
+        rec.restore()
+    if DEV == "cuda":
+        check(launches["raw_topk"] > 0 and launches["raw_select"] > 0,
+              f"raw main path launches {launches}")
+        check(not any(plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
+    say(f"raw main path launches: {launches}")
+    out.update(launches=launches, calls=rec.calls)
+    DETAIL["raw_main"] = {k: v for k, v in out.items() if k != "calls"}
+    return out
+
+
+# ---- phase 16: raw-read replay and timings -----------------------------------
+
+RAW_KERNELS = ("raw_keys", "topk_hist", "topk_pick", "raw_flags", "raw_scan", "raw_write",
+               "raw_fill", "Memset")
+
+
+def _raw_bound(torch, kind, args, kw) -> tuple[float, str, dict]:
+    """Least time for the work: each input read once (the series codes of
+    every row, the timestamps of allowed rows, the filter fields of rows
+    in range, the key field of masked-in rows, each at its resident
+    width), each output written once, over HBM bandwidth; or its integer
+    operations over the f32 peak, whichever is larger."""
+    from horaedb_tpu_torch.ops import encoding as E, scan_topk as T
+
+    sp, tp, vals, session, dyn = args
+    n = E.layout_rows(sp, kw["series_layout"])
+    n_f = len(kw["numeric_filters"])
+    sc = E.decode_series(sp, kw["series_layout"], n).long()
+    tr = E.decode_ts(tp, kw["ts_layout"], n)
+    lits = dyn[:n_f].view(torch.float32)
+    lo, hi = (int(x) for x in dyn[n_f:n_f + 2].tolist())
+    allowed = session[sc] != 0
+    in_range = allowed & (tr >= lo) & (tr < hi)
+
+    def share(parts, frac):
+        return sum(_bytes_of(p) if p.numel() < 65536 else int(_bytes_of(p) * frac)
+                   for p in parts)
+
+    nbytes = _bytes_of(session) + _bytes_of(dyn) + share(sp, 1.0)
+    nbytes += share(tp, float(allowed.float().mean()) if n else 0.0)
+    fields = {f for f, _ in kw["numeric_filters"]}
+    frac = float(in_range.float().mean()) if n else 0.0
+    nbytes += sum(share(vals[f], frac) for f in fields)
+    if kind == "raw_topk":
+        _, _, dv = E.decode_layouts(sp, tp, vals, kw["series_layout"], kw["ts_layout"],
+                                    kw["value_layouts"])
+        m = T._raw_mask(sc, tr, dv, session != 0, lits, lo, hi, kw["numeric_filters"])
+        if not kw["key_is_ts"] and kw["key_field"] not in fields:
+            nbytes += share(vals[kw["key_field"]], float(m.float().mean()) if n else 0.0)
+        nbytes += 4 * kw["k"]
+    else:
+        nbytes += 4 * (1 + kw["select_slots"])
+    ops = n * (n_f + 4)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), {
+        "bytes": nbytes, "rows": n}
+
+
+def _raw_library(torch, kind, args, kw):
+    """One PyTorch call computing the same function from the same mask and
+    keys (computed outside the timed call): ``torch.topk`` over the masked
+    key tensor, or ``torch.nonzero`` over the mask."""
+    from horaedb_tpu_torch.ops import encoding as E, scan_topk as T
+
+    sp, tp, vals, session, dyn = args
+    lits, lo, hi, _, _ = T._unpack_dyn(dyn, kw["numeric_filters"])
+    sc, tr, dv = E.decode_layouts(sp, tp, vals, kw["series_layout"], kw["ts_layout"],
+                                  kw["value_layouts"])
+    m = T._raw_mask(sc, tr, dv, session != 0, lits, lo, hi, kw["numeric_filters"])
+    if kind == "raw_select":
+        return lambda: torch.nonzero(m)
+    key = T._sort_key(tr, dv, m, descending=kw["descending"], key_is_ts=kw["key_is_ts"],
+                      key_field=kw["key_field"])
+    return lambda: torch.topk(key, kw["k"])
+
+
+def phase_raw_timings(torch, raw, card) -> list:
+    """Each query's last main-path call of its raw kernel, replayed: kernel
+    against plain (bit-equal), then its device time, bound, plain and
+    library times and the copy back of its slots; warm execute latency
+    per query against the kill-switch route. The kernel line holds each
+    kernel at its heaviest query: hottest-12h (topk over 17.28M candidate
+    rows) and high-cpu-16 (the largest selection buffer)."""
+    from horaedb_tpu_torch.ops import scan_topk as T
+
+    fns = {"raw_topk": (T.raw_topk_packed, T.raw_topk_plain),
+           "raw_select": (T.raw_select_packed, T.raw_select_plain)}
+    heaviest = {"raw_topk": "hottest-12h", "raw_select": "high-cpu-16"}
+    kernels = []
+    for name in raw["queries"]:
+        kind, args, kw = raw["calls"][name]
+        launch_fn, plain_fn = fns[kind]
+        got = launch_fn(*args, **kw)
+        _sync(torch)
+        want = plain_fn(*args, **kw)
+        check(torch.equal(got, want), f"{name} replay: the {kind} kernel differs from plain")
+        launch = lambda f=launch_fn, a=args, k=kw: f(*a, **k)  # noqa: E731
+        plain = lambda f=plain_fn, a=args, k=kw: f(*a, **k)  # noqa: E731
+        launch_ms = _time_launch(torch, launch)
+        device_ms = _family_device_ms(torch, launch, RAW_KERNELS, reps=10)
+        ms = device_ms if device_ms is not None else launch_ms
+        plain_ms = _time_launch(torch, plain, reps=3)
+        lib_ms = _time_launch(torch, _raw_library(torch, kind, args, kw))
+        bound_ms, bound_by, work = _raw_bound(torch, kind, args, kw)
+        copies = []
+        for _ in range(10):
+            out = launch()
+            _sync(torch)
+            t = time.perf_counter()
+            out.cpu()
+            copies.append((time.perf_counter() - t) * 1e3)
+        copy_ms = statistics.median(copies)
+        slots = kw.get("k", kw.get("select_slots"))
+        say(f"kernel {kind} at {name} ({work['rows']} rows, {slots} slots, {work['bytes']} B): "
+            f"{ms:.4f} ms on the device timeline "
+            f"({'profiler' if device_ms is not None else 'events'}), {launch_ms:.4f} ms "
+            f"launch incl. wrapper, plain {plain_ms:.4f} ms, "
+            f"{'torch.topk' if kind == 'raw_topk' else 'torch.nonzero'} {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), copy back {copy_ms:.4f} ms [{card}]")
+        DETAIL.setdefault("raw_kernels", {})[name] = {
+            "kernel": kind, "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bytes": work["bytes"],
+            "slots": slots, "copy_ms": copy_ms}
+        if heaviest[kind] == name:
+            kernels.append({
+                "name": kind, "route": "cuda", "source": RAW_SRC,
+                "replaces": RAW_REPLACES[kind], "launches": int(raw["launches"][kind]),
+                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms,
+            })
+    for name, q in raw["queries"].items():
+        say(f"raw latency {name}: warm execute {q['warm_s'] * 1e3:.3f} ms (median of runs "
+            f"3-{REPEATS}), kill-switch host route {q['host_s'] * 1e3:.3f} ms [{card}]")
+    return kernels
+
 def main() -> int:
     try:
         import torch
@@ -2254,6 +2886,10 @@ def main() -> int:
     main_out = timed(phase_main, torch)
     errs = timed(phase_replay, torch, main_out)
     kernels = timed(phase_timings, torch, main_out, errs, card)
+    timed(phase_raw_kernels, torch)
+    raw = timed(phase_raw_main, torch, main_out)
+    kernels += timed(phase_raw_timings, torch, raw, card)
+    del raw
     main_out["db"].close()
     del main_out
     comp = timed(phase_compaction, torch, COMPACTION_ROWS)

@@ -20,7 +20,7 @@ Four legs:
    eviction counts.
 2. **Kernel timing** — ``timed_dispatch(kind, fn, device)`` wraps every
    kernel launch point (the cached packed kernel, the fused direct
-   kernel and the merge-dedup sort). Timing is SAMPLED (default 1-in-N, ``HORAEDB_DEVICE_SAMPLE``):
+   kernel, the merge-dedup sort and the raw-read top-k and selection). Timing is SAMPLED (default 1-in-N, ``HORAEDB_DEVICE_SAMPLE``):
    a sampled dispatch is bracketed by a ``torch.cuda.Event`` pair and
    waits on the end event, an unsampled one stays asynchronous. Slow-log
    candidates and EXPLAIN ANALYZE runs are always timed. Results land in
@@ -55,6 +55,8 @@ DEVICE_KERNEL_KINDS = (
     "fused",           # direct fused scan-agg over a host batch
     "merge_dedup",     # merge-dedup sort of a read merge or compaction chunk
     "state_fold",      # live-window ring fold/gather (ops/livewindow)
+    "raw_topk",        # raw-read fused filter + top-k (ops/scan_topk)
+    "raw_select",      # raw-read bounded selection (ops/scan_topk)
 )
 
 # Occupancy row components: "column" rows sum to the scan cache's own

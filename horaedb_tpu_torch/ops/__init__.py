@@ -6,6 +6,9 @@
 - ``merge_dedup`` — the k-way merge + dedup sort (``csrc/merge_dedup.cu``,
                   a stable LSD radix sort with the dedup mask as its
                   epilogue), its wrappers, plain versions and host packing.
+- ``scan_topk`` — the raw-read fused filter + top-k and bounded selection
+                  (``csrc/scan_topk.cu``) over the resident columns, their
+                  wrappers and plain PyTorch versions.
 - ``encoding``  — host-side prep (dense series codes, time buckets,
                   padding, the compressed resident layouts) and the plain
                   decode of those layouts.

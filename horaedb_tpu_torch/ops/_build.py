@@ -2,9 +2,10 @@
 
 Each ``ops/csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``horaedb_tpu_torch/_build/``
-(listed in ``.gitignore``), named by the hash of its source so an edited
-kernel rebuilds. The library loads with ``ctypes``. A failed build raises:
-there is no fallback to the plain versions.
+(listed in ``.gitignore``), named by the hash of its source and of every
+``ops/csrc`` header it includes, so an edited kernel or header rebuilds.
+The library loads with ``ctypes``. A failed build raises: there is no
+fallback to the plain versions.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,11 +47,34 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(src: str) -> list[str]:
+    """``src`` and every header it includes from ``ops/csrc``, directly or
+    through another header, in include order."""
+    seen: list[str] = []
+    todo = [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                dep = os.path.join(CSRC_DIR, inc.decode())
+                if os.path.exists(dep):
+                    todo.append(dep)
+    return seen
+
+
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def _build(src: str, out: str) -> tuple[float, str]:

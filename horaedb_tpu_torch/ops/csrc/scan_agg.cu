@@ -18,6 +18,8 @@
 //                    registers, applies the session allow list, the time
 //                    range and the numeric filters, then buckets and groups.
 //                    SELECTIVE reads row i from the index tail of ``dyn``.
+//                    The column decoders live in layouts.cuh, shared with
+//                    the raw-read kernels (scan_topk.cu).
 //
 // What bounds it: the bytes of the resident columns (one pass over codes,
 // timestamps and the touched value columns), or for small selective scans
@@ -42,21 +44,12 @@
 #include <math.h>
 #include <stdint.h>
 
-#define MAX_FIELDS 32
-#define MAX_FILTERS 16
+#include "layouts.cuh"
+
 #define BLOCK 256
 #define FULL_MASK 0xffffffffu
 
 enum { ARM_SINGLE = 0, ARM_SHARED = 1, ARM_SCATTER = 2 };
-// column layouts
-enum { LAY_RAW = 0, LAY_BF16 = 1, LAY_DICT = 2, LAY_CODES = 3, LAY_DELTA = 4, LAY_TSDICT = 5 };
-
-struct Column {
-  const void* data;  // raw values, bf16 bits, or the packed uint32 words
-  const void* aux;   // dictionary (f32 or int32) or the delta block bases
-  int kind;
-  int width;         // bits per packed code
-};
 
 struct Out {
   int* counts;   // [n_seg]
@@ -67,12 +60,6 @@ struct Out {
   int n_agg;
   int minmax;
   int pad_;
-};
-
-struct Filters {
-  int n;
-  int field[MAX_FILTERS];
-  int op[MAX_FILTERS];
 };
 
 struct DirectArgs {
@@ -102,56 +89,6 @@ struct CachedArgs {
   Filters filt;
   Out out;
 };
-
-// ---- decode ----------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t unpack(const uint32_t* __restrict__ w, int width,
-                                           long long i) {
-  unsigned long long p = (unsigned long long)i * (unsigned)width;
-  long long wi = (long long)(p >> 5);
-  unsigned sh = (unsigned)(p & 31);
-  uint32_t lo = w[wi] >> sh;
-  // the stream carries a safety word, so w[wi + 1] is always readable;
-  // a shift by 32 is undefined, hence the sh == 0 guard
-  uint32_t hi = sh ? (w[wi + 1] << (32 - sh)) : 0u;
-  return (lo | hi) & ((1u << width) - 1u);
-}
-
-__device__ __forceinline__ float load_value(const Column& c, long long i) {
-  switch (c.kind) {
-    case LAY_RAW:
-      return ((const float*)c.data)[i];
-    case LAY_BF16:
-      return __uint_as_float(((uint32_t)((const uint16_t*)c.data)[i]) << 16);
-    case LAY_DICT:
-      return ((const float*)c.aux)[unpack((const uint32_t*)c.data, c.width, i)];
-    default:  // LAY_CODES: filter-only dictionary field, compared in code space
-      return (float)unpack((const uint32_t*)c.data, c.width, i);
-  }
-}
-
-__device__ __forceinline__ int load_int(const Column& c, long long i) {
-  switch (c.kind) {
-    case LAY_RAW:
-      return ((const int*)c.data)[i];
-    case LAY_DELTA:
-      return (int)((uint32_t)((const int*)c.aux)[i >> 7] +
-                    unpack((const uint32_t*)c.data, c.width, i));
-    default:  // LAY_TSDICT
-      return ((const int*)c.aux)[unpack((const uint32_t*)c.data, c.width, i)];
-  }
-}
-
-__device__ __forceinline__ bool compare(float v, int op, float lit) {
-  switch (op) {
-    case 0: return v == lit;
-    case 1: return v != lit;
-    case 2: return v < lit;
-    case 3: return v <= lit;
-    case 4: return v > lit;
-    default: return v >= lit;
-  }
-}
 
 // clip(floor((ts - t0) / width), 0, nb - 1); the subtraction wraps in
 // int32 like the reference's, so it runs in uint32

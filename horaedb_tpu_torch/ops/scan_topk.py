@@ -1,0 +1,468 @@
+"""Fused filter + top-k / bounded-selection kernels for raw reads.
+
+Non-aggregate reads, above all the dashboard staple ``SELECT ... ORDER BY
+ts DESC LIMIT n``, run over the scan cache's resident columns (series
+codes, relative timestamps, value columns, in any resident layout). Both
+kernels evaluate the per-query predicate as a device mask (series
+allow-list + time range + numeric field comparisons, the mask
+``ops.scan_agg`` builds) and return only ROW INDICES; the host gathers
+those rows from the entry's host copy and finishes exactly.
+
+- **top-k** (``ORDER BY <ts|field> [DESC] LIMIT n``): the k rows with the
+  largest int32 sort key, ties broken toward the smaller resident row id.
+  Slot order: the rows strictly above the threshold in row order, then the
+  ties in row order, then -1.
+- **bounded selection**: every passing row id, in row order, into a
+  buffer the executor sizes from an exact host-side candidate bound, plus
+  the passing count.
+
+Float sort keys travel through the order-preserving f32 -> int32 bit
+transform, so one integer threshold serves both ``ORDER BY ts`` and
+``ORDER BY field``, and the masked-row sentinel (INT32_MIN) lies outside
+the real key domain (even ``-inf`` maps above it).
+
+Both are written by hand in CUDA (``csrc/scan_topk.cu``): one pass decodes,
+masks and keys; a radix select over four 8-bit digits finds the k-th key;
+an ordered stream compaction writes the slots. The plain PyTorch versions
+below transcribe the reference's programs (its 32-step bisection and its
+cumsum + searchsorted compaction): they are the spec, and they run for
+CPU tensors. For a CUDA tensor the wrappers launch the kernels or raise.
+
+Packed entry points keep the reference's serving discipline: one
+content-cached session upload (the allow-list), one per-query int32 dyn
+upload (filter literals bitcast + time bounds + key seeds), one int32
+fetch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..utils.env import env_int
+from .encoding import decode_layouts, layout_rows, next_pow2
+from .scan_agg import (
+    MAX_FIELDS,
+    MAX_FILTERS,
+    _Column,
+    _Filters,
+    _apply_filters,
+    _check,
+    _check_tensor,
+    _dense_layout,
+    _filters,
+    _int_column,
+    _value_column,
+)
+
+_I32_MIN = -(2**31)
+
+# Kernel launches, counted where each wrapper launches its kernel;
+# PLAIN_CALLS counts the plain versions the wrappers ran for CPU tensors.
+LAUNCHES = {"raw_topk": 0, "raw_select": 0}
+PLAIN_CALLS = {"raw_topk": 0, "raw_select": 0}
+
+
+def reset_counts() -> None:
+    for d in (LAUNCHES, PLAIN_CALLS):
+        for k in d:
+            d[k] = 0
+
+
+def raw_device_enabled() -> bool:
+    """HORAEDB_RAW_DEVICE kill switch: 0/off/false pins every raw
+    (non-aggregate) read to the host path. Read per query so operators
+    can flip it live."""
+    return os.environ.get("HORAEDB_RAW_DEVICE", "1") not in (
+        "0", "off", "false",
+    )
+
+
+def raw_max_rows() -> int:
+    """HORAEDB_RAW_MAX_ROWS: ceiling on rows a device raw read may
+    select/gather (bounds both the selection buffer and top-k's
+    limit+offset). Queries whose candidate bound exceeds it fall back
+    to the host path. Guarded parse — a typo degrades to the default."""
+    return env_int("HORAEDB_RAW_MAX_ROWS", 1 << 18)
+
+
+@dataclass(frozen=True)
+class RawScanSpec:
+    """Static shape/op configuration of one raw-read launch.
+
+    Exactly one of ``k`` (top-k slots) / ``select_slots`` (selection
+    buffer) is nonzero.
+    """
+
+    k: int = 0
+    descending: bool = True
+    key_is_ts: bool = True
+    key_field: int = 0  # value field of the key when key_is_ts is False
+    numeric_filters: tuple[tuple[int, str], ...] = ()
+    select_slots: int = 0
+    # Compressed-layout descriptors (ops.encoding), as in ScanAggSpec.
+    # Raw reads keep dictionary fields in the code domain, the sort key
+    # too (the dictionary is sorted); the executor pre-translates filter
+    # literals against the sorted dictionary.
+    value_layouts: tuple = ()
+    ts_layout: tuple = ("raw",)
+    series_layout: tuple = ("raw",)
+
+
+def padded_k(n_rows: int, limit_plus_offset: int) -> int:
+    """Top-k slot count: limit + offset rounded up to a power of two (at
+    least 16), clamped to the resident row count.
+
+    The kernel needs no padding, but k is part of the answer: when zeros
+    of both signs compete for the last slots, the k-th key decides which
+    of them are candidates (``f32_sort_key`` ranks -0.0 below +0.0, the
+    host's final sort does not), so a smaller k can change which rows a
+    query returns. The reference pads k exactly so; keep it, so the port
+    answers as the reference does."""
+    return min(next_pow2(max(limit_plus_offset, 1), floor=16), max(n_rows, 1))
+
+
+def f32_sort_key(v: torch.Tensor) -> torch.Tensor:
+    """Monotone f32 -> int32: signed integer order equals float order
+    (-inf < ... < -0 < +0 < ... < +inf < NaN). Real keys never reach
+    INT32_MIN, so it is a safe masked-row sentinel."""
+    u = v.to(torch.float32).contiguous().view(torch.int32)
+    u2 = torch.where(u < 0, ~u, u | _I32_MIN)
+    return u2 ^ _I32_MIN
+
+
+def topk_key_bounds(
+    descending: bool, key_is_ts: bool, lo_rel: int, hi_rel: int
+) -> tuple[int, int]:
+    """Host-side bisection seeds bracketing every real sort key: the
+    query's own relative time range for ts keys (DESC: key == ts_rel in
+    [lo_rel, hi_rel); ASC: key == -ts_rel). Float keys span the full
+    int32 domain INCLUDING the NaN slot at INT32_MIN + 1 (_sort_key
+    pins NaN samples there), so their lower seed is the sentinel
+    itself — the strict/tie masks AND the row mask, so sentinel rows
+    still can't be selected."""
+    if not key_is_ts:
+        return _I32_MIN, 2**31 - 1
+    if descending:
+        return lo_rel - 1, hi_rel
+    return -hi_rel, -lo_rel + 1
+
+
+def pack_raw_dyn(
+    filter_literals: Sequence[float],
+    lo_rel: int,
+    hi_rel: int,
+    key_lo: int = _I32_MIN,
+    key_hi: int = 2**31 - 1,
+) -> np.ndarray:
+    """[literals (f32 bitcast) | lo, hi, key_lo, key_hi] — one int32
+    upload (the selection kernel ignores the trailing key seeds)."""
+    lits = np.asarray(filter_literals, dtype=np.float32).view(np.int32)
+    return np.concatenate(
+        [lits, np.array([lo_rel, hi_rel, key_lo, key_hi], dtype=np.int32)]
+    )
+
+
+# ---- plain PyTorch versions ------------------------------------------------
+
+
+def _raw_mask(series_codes, ts_rel, values, allowed_series, literals, lo_rel, hi_rel,
+              numeric_filters):
+    """The shared predicate mask: allow-list + time range + numeric
+    filters (the op codes of scan_agg)."""
+    m = allowed_series[series_codes.long()]
+    m = m & (ts_rel >= lo_rel) & (ts_rel < hi_rel)
+    vals = {fi: values[fi].to(torch.float32) for fi, _ in numeric_filters}
+    return _apply_filters(m, vals, literals, numeric_filters)
+
+
+def _sort_key(ts_rel, values, m, *, descending: bool, key_is_ts: bool, key_field: int):
+    """Masked int32 sort key, largest-first == result order."""
+    sentinel = torch.full_like(m, _I32_MIN, dtype=torch.int32)
+    if key_is_ts:
+        key = ts_rel.to(torch.int32)
+        if not descending:
+            # real keys never equal INT32_MIN (ts_rel > INT32_MIN), so the
+            # negation cannot overflow
+            key = -key
+        return torch.where(m, key, sentinel)
+    v = values[key_field].to(torch.float32)
+    key = f32_sort_key(v)
+    if not descending:
+        key = -key
+    # NaN samples (valid, non-NULL) rank below every real value in both
+    # directions, as np.lexsort places NaN last: pinned just above the
+    # sentinel AFTER the direction flip
+    key = torch.where(torch.isnan(v), torch.full_like(key, _I32_MIN + 1), key)
+    return torch.where(m, key, sentinel)
+
+
+def _kth_threshold(key, k: int, key_lo: int, key_hi: int) -> int:
+    """The reference's bisection for the k-th largest key: the returned
+    ``thr`` satisfies count(key > thr) < k <= count(key >= thr) whenever at
+    least k real (non-sentinel) keys exist; seeds bracket the real keys
+    (key_lo strictly below every one, key_hi at least the largest).
+    Overflow-safe signed midpoint via (a & b) + ((a ^ b) >> 1)."""
+    lo, hi = int(key_lo), int(key_hi)
+    while hi > lo + 1:
+        mid = (lo & hi) + ((lo ^ hi) >> 1)
+        cnt = int((key > mid).sum())
+        if cnt >= k:
+            lo = mid
+        else:
+            # hi stays strictly above lo (count(> t) only shrinks as t
+            # grows, so the invariant count(> hi) < k survives the clamp)
+            hi = max(mid, lo + 1)
+    return hi
+
+
+def _compact(mask, slots: int):
+    """Row indices of the first ``slots`` True entries, ascending —
+    cumsum + searchsorted. Slots past the count return index n; callers
+    mask them."""
+    cs = torch.cumsum(mask.to(torch.int64), 0)
+    j = torch.arange(slots, dtype=torch.int64, device=mask.device)
+    idx = torch.searchsorted(cs, j + 1, side="left").to(torch.int32)
+    return idx, int(cs[-1]) if mask.shape[0] else 0
+
+
+def raw_topk_body(series_codes, ts_rel, values, allowed_series, literals, lo_rel, hi_rel,
+                  key_lo, key_hi, *, k: int, descending: bool, key_is_ts: bool,
+                  key_field: int, numeric_filters):
+    """-> row idx int32[k]: the top-k rows by key, ties broken toward the
+    smaller resident row id; strict rows first in row order, then ties;
+    -1 in slots with no passing row."""
+    m = _raw_mask(series_codes, ts_rel, values, allowed_series, literals, lo_rel, hi_rel,
+                  numeric_filters)
+    key = _sort_key(ts_rel, values, m, descending=descending, key_is_ts=key_is_ts,
+                    key_field=key_field)
+    thr = _kth_threshold(key, k, key_lo, key_hi)
+    strict = key > thr  # sentinel rows can never exceed thr (> I32_MIN)
+    tie = m & (key == thr)
+    i_strict, n_strict = _compact(strict, k)
+    i_tie, _ = _compact(tie, k)
+    total = int(m.sum())
+    j = torch.arange(k, dtype=torch.int64, device=m.device)
+    # strict rows fill the first n_strict slots; lowest-row-id ties the rest
+    idx = torch.where(j < n_strict, i_strict, i_tie[(j - n_strict).clamp(0, k - 1)])
+    valid = j < min(k, total)
+    return torch.where(valid, idx, torch.full_like(idx, -1))
+
+
+def raw_select_body(series_codes, ts_rel, values, allowed_series, literals, lo_rel, hi_rel,
+                    *, select_slots: int, numeric_filters):
+    """-> (row idx int32[slots] in resident order, passing count). The
+    caller sizes ``select_slots`` from an exact bound, so the first
+    ``count`` slots are exactly the passing rows in (series, ts) resident
+    order; the rest are -1."""
+    m = _raw_mask(series_codes, ts_rel, values, allowed_series, literals, lo_rel, hi_rel,
+                  numeric_filters)
+    idx, count = _compact(m, select_slots)
+    j = torch.arange(select_slots, dtype=torch.int64, device=m.device)
+    return torch.where(j < count, idx, torch.full_like(idx, -1)), count
+
+
+def _unpack_dyn(dyn, numeric_filters):
+    n_f = len(numeric_filters)
+    literals = dyn[:n_f].contiguous().view(torch.float32)
+    lo, hi, key_lo, key_hi = (int(x) for x in dyn[n_f:n_f + 4].tolist())
+    return literals, lo, hi, key_lo, key_hi
+
+
+def raw_topk_plain(series_parts, ts_parts, values, session, dyn, *, k: int,
+                   descending: bool, key_is_ts: bool, key_field: int, numeric_filters,
+                   value_layouts: tuple = (), ts_layout: tuple = ("raw",),
+                   series_layout: tuple = ("raw",)):
+    """Plain version of ``raw_topk_packed``: the same inputs, int32[k]."""
+    literals, lo, hi, key_lo, key_hi = _unpack_dyn(dyn, numeric_filters)
+    sc, tr, vals = decode_layouts(series_parts, ts_parts, values, series_layout, ts_layout,
+                                  value_layouts)
+    return raw_topk_body(sc, tr, vals, session != 0, literals, lo, hi, key_lo, key_hi,
+                         k=k, descending=descending, key_is_ts=key_is_ts,
+                         key_field=key_field, numeric_filters=numeric_filters)
+
+
+def raw_select_plain(series_parts, ts_parts, values, session, dyn, *, select_slots: int,
+                     numeric_filters, value_layouts: tuple = (), ts_layout: tuple = ("raw",),
+                     series_layout: tuple = ("raw",)):
+    """Plain version of ``raw_select_packed``: int32[1 + slots], [passing
+    count | row indices]."""
+    literals, lo, hi, _, _ = _unpack_dyn(dyn, numeric_filters)
+    sc, tr, vals = decode_layouts(series_parts, ts_parts, values, series_layout, ts_layout,
+                                  value_layouts)
+    out, count = raw_select_body(sc, tr, vals, session != 0, literals, lo, hi,
+                                 select_slots=select_slots, numeric_filters=numeric_filters)
+    head = torch.tensor([count], dtype=torch.int32, device=out.device)
+    return torch.cat([head, out])
+
+
+# ---- the kernels and their wrappers -----------------------------------------
+
+
+class _RawArgs(ctypes.Structure):
+    """Mirror of ``RawArgs`` in ops/csrc/scan_topk.cu."""
+
+    _fields_ = [
+        ("series", _Column),
+        ("ts", _Column),
+        ("fields", _Column * MAX_FIELDS),
+        ("session", ctypes.c_void_p),
+        ("dyn", ctypes.c_void_p),
+        ("keys", ctypes.c_void_p),
+        ("scratch", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("n_rows", ctypes.c_longlong),
+        ("k", ctypes.c_longlong),
+        ("descending", ctypes.c_int),
+        ("key_is_ts", ctypes.c_int),
+        ("key_field", ctypes.c_int),
+        ("device", ctypes.c_int),
+        ("filt", _Filters),
+    ]
+
+
+# rows per tile of the kernels' ordered compaction, and the state and
+# histogram words at the head of their scratch (checked at load)
+TILE = 4096
+_HEAD_WORDS = 16 + 256
+
+_lib = None
+
+
+def _kernels():
+    """The built kernel library (nvcc at first use), with its C signatures
+    declared and its struct layout checked against the mirror."""
+    global _lib
+    if _lib is None:
+        from ._build import load
+
+        lib = load("scan_topk")
+        lib.scan_topk_abi.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        lib.scan_topk_abi.restype = ctypes.c_int
+        for fn in ("raw_topk_launch", "raw_select_launch"):
+            getattr(lib, fn).argtypes = [ctypes.POINTER(_RawArgs), ctypes.c_void_p]
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.scan_topk_error_string.argtypes = [ctypes.c_int]
+        lib.scan_topk_error_string.restype = ctypes.c_char_p
+        sizes = (ctypes.c_longlong * 5)()
+        lib.scan_topk_abi(sizes)
+        want = [ctypes.sizeof(_RawArgs), MAX_FIELDS, MAX_FILTERS, TILE, _HEAD_WORDS]
+        if list(sizes) != want:
+            raise RuntimeError(f"scan_topk ABI mismatch: kernel {list(sizes)} vs {want}")
+        _lib = lib
+    return _lib
+
+
+def _scratch_words(n_rows: int) -> int:
+    """int32 words of the kernels' scratch for ``n_rows`` rows: state and
+    histogram, two streams of per-tile counts and of ballot bit words."""
+    tiles = -(-n_rows // TILE)
+    return _HEAD_WORDS + 2 * tiles + 2 * tiles * (TILE // 32)
+
+
+def _args(series_parts, ts_parts, values, session, dyn, numeric_filters, value_layouts,
+          ts_layout, series_layout) -> tuple[_RawArgs, int]:
+    """Check the inputs of a CUDA launch; returns the launch arguments
+    (pointers of the columns, session and dyn) and the row count."""
+    dev = session.device
+    _check(dev.type == "cuda", f"unsupported device {dev}")
+    _check_tensor(session, "session", torch.int32, dev, 1)
+    _check_tensor(dyn, "dyn", torch.int32, dev, 1)
+    _check(len(values) == len(value_layouts), "one layout per value field")
+    _check(len(values) <= MAX_FIELDS, f"at most {MAX_FIELDS} value fields")
+    _check(dyn.shape[0] >= len(numeric_filters) + 4, "dyn holds literals and four scalars")
+    n_rows = layout_rows(series_parts, series_layout)
+    _check(n_rows < 2**31, "row ids must fit int32")
+    a = _RawArgs()
+    a.series = _int_column(series_parts, series_layout, dev, "series")
+    a.ts = _int_column(ts_parts, ts_layout, dev, "ts")
+    _check(ts_layout[0] != "delta" or layout_rows(ts_parts, ts_layout) == n_rows, "ts rows")
+    if ts_layout[0] == "raw":
+        _check(ts_parts[0].shape[0] == n_rows, f"ts has {ts_parts[0].shape[0]} rows")
+    for f, (parts, lay) in enumerate(zip(values, value_layouts)):
+        a.fields[f] = _value_column(parts, lay, dev, f"value[{f}]")
+        if lay[0] in ("raw", "bf16"):
+            _check(parts[0].shape[0] == n_rows, f"value[{f}] has {parts[0].shape[0]} rows")
+    a.session = session.data_ptr()
+    a.dyn = dyn.data_ptr()
+    a.n_rows = n_rows
+    a.device = dev.index if dev.index is not None else torch.cuda.current_device()
+    a.filt = _filters(numeric_filters, len(values))
+    return a, n_rows
+
+
+def _run(lib, fn: str, a: _RawArgs, dev) -> None:
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(lib, fn)(ctypes.byref(a), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{fn} failed: {lib.scan_topk_error_string(err).decode()} ({err})"
+        )
+
+
+def raw_topk_packed(series_parts, ts_parts, values, session, dyn, *, k: int,
+                    descending: bool, key_is_ts: bool, key_field: int, numeric_filters,
+                    value_layouts: tuple = (), ts_layout: tuple = ("raw",),
+                    series_layout: tuple = ("raw",)):
+    """-> int32[k] resident row indices, -1 in slots with no passing row.
+
+    Resident series/ts/value part tuples, one session buffer (the allow
+    list, int32[S + 1]), one dyn buffer [literals bitcast | lo, hi,
+    key_lo, key_hi]. A CUDA input launches ``raw_topk`` (csrc/scan_topk.cu);
+    a CPU input runs ``raw_topk_plain``."""
+    values = tuple(values)
+    layouts = value_layouts or tuple(_dense_layout(p) for p in values)
+    kw = dict(k=k, descending=descending, key_is_ts=key_is_ts, key_field=key_field,
+              numeric_filters=numeric_filters, value_layouts=layouts, ts_layout=ts_layout,
+              series_layout=series_layout)
+    _check(k >= 1, f"k {k} must be at least 1")
+    _check(key_is_ts or 0 <= key_field < len(values), f"key field {key_field} out of range")
+    dev = session.device
+    if dev.type == "cpu":
+        PLAIN_CALLS["raw_topk"] += 1
+        return raw_topk_plain(series_parts, ts_parts, values, session, dyn, **kw)
+    a, n_rows = _args(series_parts, ts_parts, values, session, dyn, numeric_filters, layouts,
+                      ts_layout, series_layout)
+    lib = _kernels()
+    keys = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    scratch = torch.empty(_scratch_words(n_rows), dtype=torch.int32, device=dev)
+    out = torch.empty(k, dtype=torch.int32, device=dev)
+    a.keys, a.scratch, a.out = keys.data_ptr(), scratch.data_ptr(), out.data_ptr()
+    a.k = k
+    a.descending, a.key_is_ts, a.key_field = int(descending), int(key_is_ts), key_field
+    _run(lib, "raw_topk_launch", a, dev)
+    LAUNCHES["raw_topk"] += 1
+    return out
+
+
+def raw_select_packed(series_parts, ts_parts, values, session, dyn, *, select_slots: int,
+                      numeric_filters, value_layouts: tuple = (), ts_layout: tuple = ("raw",),
+                      series_layout: tuple = ("raw",)):
+    """-> int32[1 + slots]: [passing count | row indices in row order, -1
+    past the count]; never writes past ``select_slots``. A CUDA input
+    launches ``raw_select`` (csrc/scan_topk.cu); a CPU input runs
+    ``raw_select_plain``."""
+    values = tuple(values)
+    layouts = value_layouts or tuple(_dense_layout(p) for p in values)
+    _check(select_slots >= 0, f"select_slots {select_slots} is negative")
+    dev = session.device
+    if dev.type == "cpu":
+        PLAIN_CALLS["raw_select"] += 1
+        return raw_select_plain(series_parts, ts_parts, values, session, dyn,
+                                select_slots=select_slots, numeric_filters=numeric_filters,
+                                value_layouts=layouts, ts_layout=ts_layout,
+                                series_layout=series_layout)
+    a, n_rows = _args(series_parts, ts_parts, values, session, dyn, numeric_filters, layouts,
+                      ts_layout, series_layout)
+    lib = _kernels()
+    scratch = torch.empty(_scratch_words(n_rows), dtype=torch.int32, device=dev)
+    out = torch.empty(1 + select_slots, dtype=torch.int32, device=dev)
+    a.scratch, a.out, a.k = scratch.data_ptr(), out.data_ptr(), select_slots
+    _run(lib, "raw_select_launch", a, dev)
+    LAUNCHES["raw_select"] += 1
+    return out

@@ -574,6 +574,35 @@ class Executor:
                 return self._finish_metrics(m, t_start, "dist-plan", out)
         from ..utils.tracectx import span as _span
 
+        # Raw (non-aggregate) reads: fused filter + top-k / bounded
+        # selection over the scan cache, returning only row indices to
+        # gather. The port has no measured device/host routing (the
+        # reference's PathRouter), so every eligible read on a resident
+        # table runs on the connection's device; the host serves one only
+        # by the reference's deterministic rules (the kill switch, LIMIT
+        # pushdown, the row budget, and the cache and soundness checks in
+        # _try_raw_device).
+        if (
+            not plan.is_aggregate
+            and cache_on
+            and not hasattr(table, "sub_tables")
+            and table.physical_datas()
+        ):
+            raw_shape = self._raw_device_shape(plan)
+            if raw_shape is not None:
+                from ..ops.scan_topk import raw_device_enabled
+
+                if self._limit_pushdown_safe(plan):
+                    # no residual, no ORDER BY: the host scan stops at
+                    # LIMIT rows, near O(limit) by construction
+                    self._raw_host(m, "host", "limit_pushdown")
+                elif not raw_device_enabled():
+                    self._raw_host(m, "host", "kill_switch")
+                else:
+                    out = self._try_raw_device(plan, table, raw_shape, m)
+                    if out is not None:
+                        return self._finish_metrics(m, t_start, "raw_device", out)
+
         t_scan = _time.perf_counter()
         projection = self._projection(plan)
         predicate = plan.predicate
@@ -1398,6 +1427,389 @@ class Executor:
             np.add.at(state.sums[fi], (g, b), v)
             np.minimum.at(state.mins[fi], (g, b), v)
             np.maximum.at(state.maxs[fi], (g, b), v)
+
+    # ---- device raw reads (non-aggregate over the resident scan cache) -----
+    def _raw_device_shape(self, plan: QueryPlan) -> Optional[dict]:
+        """Shape descriptor when a non-aggregate plan fits the device
+        raw-read kernels, else None. Eligibility mirrors the cached agg
+        path: the residual WHERE must decompose into series-level
+        (tag-only) conjuncts + numeric float-field comparisons.
+
+        ``topk_ok`` marks the stricter sub-shape the top-k kernel can
+        serve (single ORDER BY key on ts or a float column, LIMIT
+        present, no DISTINCT/window — those need the complete row set);
+        everything else eligible runs as a bounded selection, whose
+        complete passing set makes ANY downstream projection exact."""
+        stmt = plan.select
+        if plan.is_aggregate or stmt.group_by or stmt.join is not None:
+            return None
+        schema = plan.schema
+        if schema.tsid_index is None:
+            return None
+        device_filters, other = self._split_residual_filters(plan)
+        tag_names = set(schema.tag_names)
+        series_filters: list = []
+        for conj in other:
+            if _is_series_conjunct(conj, tag_names):
+                series_filters.append(conj)
+            else:
+                return None
+        order = None  # (column, is_ts, ascending)
+        topk_ok = False
+        if len(stmt.order_by) == 1 and stmt.limit is not None:
+            o = stmt.order_by[0]
+            expr = o.expr
+            aliases = {
+                item.alias: item.expr for item in stmt.items if item.alias
+            }
+            if (
+                isinstance(expr, ast.Column)
+                and expr.name in aliases
+                and not schema.has_column(expr.name)
+            ):
+                expr = aliases[expr.name]
+            if isinstance(expr, ast.Column) and schema.has_column(expr.name):
+                name = expr.name
+                if name == schema.timestamp_name:
+                    order = (name, True, o.ascending)
+                elif schema.column(name).kind.is_float:
+                    order = (name, False, o.ascending)
+            if order is not None and not stmt.distinct:
+                from .planner import _walk
+
+                topk_ok = not any(
+                    isinstance(e, ast.WindowFunc)
+                    for item in stmt.items
+                    for e in _walk(item.expr)
+                )
+        return {
+            "device_filters": device_filters,
+            "series_filters": series_filters,
+            "order": order,
+            "topk_ok": topk_ok,
+        }
+
+    @staticmethod
+    def _raw_host(m: dict, path: str, reason: str) -> None:
+        """An eligible raw read that the host serves, by one of the
+        reference's deterministic rules: counted under ``path`` ("host"
+        for a deliberate route, "fallback" for a device attempt the cache
+        or eligibility checks bounced), the rule in ``m["raw_host"]``."""
+        querystats.note_raw_scan(path)
+        m["raw_host"] = reason
+
+    def _try_raw_device(
+        self, plan: QueryPlan, table, shape: dict, m: dict
+    ) -> Optional[ResultSet]:
+        """Serve a non-aggregate read from device-resident scan state,
+        or None (caller falls through to the host projection path).
+
+        The kernels return only ROW INDICES (<= k for top-k, <= the
+        HORAEDB_RAW_MAX_ROWS budget for selections); the host gathers
+        those rows from the entry's resident copy, folds the unflushed
+        memtable delta (filtered exactly on host), and runs the ordinary
+        projection machinery over the small candidate set — so ORDER BY
+        ties, NULL ranks, aliases and expressions behave exactly like
+        the host path."""
+        import time as _time
+
+        from ..obs.device import timed_dispatch
+        from ..ops.scan_agg import encode_filter_ops
+        from ..ops.scan_topk import (
+            RawScanSpec,
+            pack_raw_dyn,
+            padded_k,
+            raw_max_rows,
+            raw_select_packed,
+            raw_topk_packed,
+            topk_key_bounds,
+        )
+        from ..utils.tracectx import span as _span
+        from .scan_cache import _to_device
+
+        device_filters = shape["device_filters"]
+        series_filters = shape["series_filters"]
+        order = shape["order"]
+        stmt = plan.select
+
+        filter_cols = [f[0] for f in device_filters]
+        key_col = order[0] if order is not None and not order[1] else None
+        value_names = list(
+            dict.fromkeys(filter_cols + ([key_col] if key_col else []))
+        )
+        # Filters/sort keys compare against the RESIDENT values — bf16
+        # residency would reclassify rows near thresholds, so raw usage
+        # pins these columns f32 (same contract as agg filter columns).
+        self.scan_cache.note_usage(
+            table.name, value_names, sum_cols=(),
+            filter_cols=set(value_names),
+        )
+        entry, built, delta = self.scan_cache.get(
+            table, value_names,
+            read_rows=lambda: table.read(Predicate.all_time()),
+        )
+        if entry is None or delta is None:
+            querystats.record(cache_misses=1)
+            self._raw_host(m, "fallback", "cache")
+            return None
+        # The selected rows gather from the entry's HOST copy; entries
+        # whose host rows were dropped under the budget can't serve raw.
+        if entry.rows is None:
+            self._raw_host(m, "fallback", "no_host_rows")
+            return None
+        # NULLs in a filtered/sorted column: the resident column holds
+        # the fill value where the host path 3-value NULL-compares.
+        for c in value_names:
+            if not entry.all_valid.get(c, False):
+                self._raw_host(m, "fallback", "null")
+                return None
+        if len(delta) and not self._raw_delta_sound(table, entry, delta):
+            self._raw_host(m, "fallback", "overwrite_delta")
+            return None
+
+        # Series allow-list (tag filters, per series on host) + value-
+        # stat pruning. Unlike the agg path the pruned list IS the allow
+        # list: the delta never consults it (filtered exactly below).
+        S = entry.n_series
+        allowed = np.ones(S, dtype=bool)
+        for conj in series_filters:
+            v, valid = eval_expr(conj, entry.series_rows)
+            allowed &= np.asarray(as_values(v)).astype(bool) & valid
+        stats = entry.series_value_stats or {}
+        for col, op, lit in device_filters:
+            st = stats.get(col)
+            if st is None:
+                continue
+            could = _series_could_match(st[0], st[1], op, lit)
+            if could is not None:
+                allowed = allowed & could
+
+        tr = plan.predicate.time_range
+        lo = max(tr.inclusive_start, entry.min_ts)
+        hi = min(tr.exclusive_end, entry.max_ts + 1)
+        empty_range = hi <= lo or not allowed.any()
+        lo_rel = lo - entry.min_ts if not empty_range else 0
+        hi_rel = hi - entry.min_ts if not empty_range else 0
+
+        budget = raw_max_rows()
+        limit = stmt.limit
+        offset = stmt.offset or 0
+        estimate = None
+        if shape["topk_ok"] and limit + offset <= budget:
+            kind = "topk"
+        else:
+            estimate = (
+                self._raw_candidate_estimate(entry, allowed, lo_rel, hi_rel)
+                if not empty_range
+                else 0
+            )
+            if estimate > budget:
+                # deliberate selectivity-based route: the host serves
+                self._raw_host(m, "host", "over_budget")
+                return None
+            kind = "select"
+
+        # Eligibility confirmed — record cache facts (a bail-out above
+        # must not leave 'cache' lying in a host-path metric tree).
+        m["cache"] = "build" if built else ("hit+delta" if len(delta) else "hit")
+        m["rows_scanned"] = entry.n_valid + len(delta)
+        querystats.record(scan_rows=entry.n_valid + len(delta))
+        if built:
+            querystats.record(cache_misses=1)
+        else:
+            querystats.record(cache_hits=1, cache_bytes=entry.device_bytes)
+        if len(delta):
+            m["delta_rows"] = len(delta)
+            querystats.record(memtable_rows=len(delta))
+
+        # Compressed layouts: raw reads return ROW INDICES and gather from
+        # the host copy, so no field ever needs its decoded values on the
+        # device — dictionary columns stay in the code domain even as the
+        # SORT KEY (the dictionary is sorted: code order == value order,
+        # ties included), and filter literals pre-translate.
+        value_layouts = tuple(
+            entry.value_layout(c, full_decode=False) for c in value_names
+        )
+        literals = [
+            _translate_code_literal(
+                entry.value_cols_dev[col].dict_host, op, lit
+            )
+            if value_layouts[value_names.index(col)][0] == "dict"
+            else lit
+            for col, op, lit in device_filters
+        ]
+        nfilters = tuple(
+            (value_names.index(c), op) for c, op, _ in device_filters
+        )
+        idx = np.empty(0, dtype=np.int64)
+        t_kernel = _time.perf_counter()
+        # An empty allow-list or time range passes no resident row: no
+        # launch, as in the reference.
+        if not empty_range:
+            values_dev = entry.values_for(value_names)
+            allow_arr = np.append(allowed, False)  # pad series masked
+            if kind == "topk":
+                # k keeps the reference's padding: see padded_k
+                spec = RawScanSpec(
+                    k=padded_k(entry.n_valid, limit + offset),
+                    descending=not order[2],
+                    key_is_ts=order[1],
+                    numeric_filters=nfilters,
+                    key_field=(
+                        value_names.index(order[0]) if not order[1] else 0
+                    ),
+                )
+            else:
+                # The estimate is an exact upper bound of the passing rows,
+                # so the buffer holds exactly that many slots (no padding:
+                # nothing is compiled per shape).
+                spec = RawScanSpec(select_slots=estimate, numeric_filters=nfilters)
+            kernel_key = (
+                "raw", kind, spec.k, spec.select_slots,
+                spec.descending, spec.key_is_ts, spec.key_field, nfilters,
+                value_layouts, entry.ts_layout, entry.series_layout,
+            )
+            key_lo = key_hi = 0
+            if kind == "topk":
+                key_lo, key_hi = topk_key_bounds(
+                    spec.descending, spec.key_is_ts, lo_rel, hi_rel
+                )
+            session_dev = entry.raw_session_for(allow_arr)
+            dyn = _to_device(
+                pack_raw_dyn(literals, lo_rel, hi_rel, key_lo, key_hi), self.device
+            )
+            layouts = dict(
+                value_layouts=value_layouts,
+                ts_layout=entry.ts_layout,
+                series_layout=entry.series_layout,
+            )
+            dkind = "raw_" + kind
+            if kind == "topk":
+                packed = timed_dispatch(
+                    dkind,
+                    lambda: raw_topk_packed(
+                        entry.series_parts, entry.ts_parts,
+                        values_dev, session_dev, dyn,
+                        k=spec.k, descending=spec.descending,
+                        key_is_ts=spec.key_is_ts,
+                        key_field=spec.key_field,
+                        numeric_filters=encode_filter_ops(nfilters),
+                        **layouts,
+                    ),
+                    self.device,
+                )
+                got = packed.cpu().numpy()
+                idx = got[got >= 0]
+            else:
+                packed = timed_dispatch(
+                    dkind,
+                    lambda: raw_select_packed(
+                        entry.series_parts, entry.ts_parts,
+                        values_dev, session_dev, dyn,
+                        select_slots=spec.select_slots,
+                        numeric_filters=encode_filter_ops(nfilters),
+                        **layouts,
+                    ),
+                    self.device,
+                )
+                got = packed.cpu().numpy()
+                total = int(got[0])
+                if total > spec.select_slots:
+                    # The estimate bounds the mask exactly, so this is a
+                    # fault, not a route: the reference bails to the host
+                    # here; the port raises (ROADMAP queue C).
+                    raise RuntimeError(
+                        f"raw selection passed {total} rows into a buffer of "
+                        f"{spec.select_slots} sized from an exact bound"
+                    )
+                idx = got[1 : 1 + total]
+            querystats.note_kernel_dispatch(
+                kernel_key, _time.perf_counter() - t_kernel, kind=dkind
+            )
+
+        base = (
+            entry.rows.take(np.asarray(idx, dtype=np.int64))
+            if len(idx)
+            else entry.rows.slice(0, 0)
+        )
+        combined = base
+        if len(delta):
+            d_rows = self._raw_delta_rows(plan, delta)
+            if len(d_rows):
+                combined = RowGroup.concat([base, d_rows])
+        m["raw_kernel"] = kind
+        m["raw_candidates"] = int(len(idx))
+        with _span("raw_project", table=plan.table):
+            out = self._execute_projection(plan, combined, m)
+        querystats.note_raw_scan(kind, kernel="raw_" + kind, rows=out.num_rows)
+        return out
+
+    def _raw_candidate_estimate(
+        self, entry, allowed: np.ndarray, lo_rel: int, hi_rel: int
+    ) -> int:
+        """EXACT count of resident rows in allowed series within the
+        relative time range, ignoring numeric filters (which only
+        shrink it) — the bound that gates the selection buffer, so the
+        device compaction can never truncate. O(S log rows) host work
+        over the per-series sorted ranges."""
+        if not allowed.any():
+            return 0
+        ts_rel = entry.ts_rel_host
+        # the largest relative timestamp is max_ts - min_ts: no scan of
+        # the column per query
+        full_range = lo_rel <= 0 and (
+            len(ts_rel) == 0 or hi_rel > entry.max_ts - entry.min_ts
+        )
+        if allowed.all() and full_range:
+            return entry.n_valid
+        offsets = entry.series_offsets
+        total = 0
+        for s in np.nonzero(allowed)[0]:
+            s0, s1 = int(offsets[s]), int(offsets[s + 1])
+            if full_range:
+                total += s1 - s0
+            else:
+                a = np.searchsorted(ts_rel[s0:s1], lo_rel, "left")
+                b = np.searchsorted(ts_rel[s0:s1], hi_rel, "left")
+                total += int(b - a)
+        return total
+
+    def _raw_delta_sound(self, table, entry, delta) -> bool:
+        """May the unflushed delta be UNIONED with the cached base for a
+        raw read? APPEND tables: always (duplicates are data). OVERWRITE
+        tables: only when no delta row can shadow a base row (strictly
+        newer timestamps) nor another delta row (unique keys within the
+        delta) — the union would otherwise return a stale base row
+        beside its overwrite. New series in the delta are fine: raw
+        reads filter the delta rows directly, no base mapping needed."""
+        from ..engine.options import UpdateMode
+
+        if table.options.update_mode is UpdateMode.APPEND:
+            return True
+        d_ts = delta.timestamps
+        if int(d_ts.min()) <= entry.max_ts:
+            return False
+        schema = delta.schema
+        tsid_name = schema.columns[schema.tsid_index].name
+        pairs = np.stack([
+            delta.columns[tsid_name].astype(np.int64),
+            d_ts.astype(np.int64),
+        ])
+        return np.unique(pairs, axis=1).shape[1] == len(delta)
+
+    def _raw_delta_rows(self, plan: QueryPlan, delta):
+        """Delta rows passing the query's time range + FULL residual
+        WHERE, evaluated exactly on host — the delta is one memtable's
+        worth at most, and exact evaluation also covers series the base
+        has never seen."""
+        tr = plan.predicate.time_range
+        d_ts = delta.timestamps
+        mask = (d_ts >= tr.inclusive_start) & (d_ts < tr.exclusive_end)
+        residual = self._residual_where(plan)
+        if residual is not None and len(delta):
+            v, valid = eval_expr(residual, delta)
+            mask &= np.asarray(as_values(v)).astype(bool) & valid
+        return delta if mask.all() else delta.filter(mask)
 
     def _execute_agg_host(self, plan: QueryPlan, rows: RowGroup) -> ResultSet:
         from ..utils.deadline import checkpoint as _deadline_checkpoint

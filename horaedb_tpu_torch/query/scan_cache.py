@@ -189,6 +189,9 @@ class CachedTableScan:
     # dashboard re-issuing the same query shape skips the upload entirely
     # (see ops.scan_agg packed serving path)
     _sessions: dict = None
+    # raw (non-aggregate) reads ship only the allow-list — their own
+    # content-keyed session cache (ops.scan_topk packed serving path)
+    _raw_sessions: dict = None
     # the connection's device: every tensor of the entry lives there
     device: torch.device = None
     # Derived host state that SURVIVES dropping ``rows`` (ref analog: the
@@ -265,6 +268,15 @@ class CachedTableScan:
             "_sessions",
             gos.tobytes() + allow.tobytes(),
             lambda: _to_device(pack_session(gos, allow), self.device),
+        )
+
+    def raw_session_for(self, allow: np.ndarray):
+        """Device handle for a raw read's allow-list upload (raw reads
+        ship no group map), content-keyed like the aggregate sessions."""
+        return self._session_lru(
+            "_raw_sessions",
+            allow.tobytes(),
+            lambda: _to_device(allow.astype(np.int32), self.device),
         )
 
 
@@ -357,9 +369,10 @@ class ScanCache:
         for e in entries:
             try:
                 col += e.device_bytes
-                c = e._sessions
-                if c:
-                    sess += sum(v.nbytes for v in list(c.values()))
+                for attr in ("_sessions", "_raw_sessions"):
+                    c = getattr(e, attr)
+                    if c:
+                        sess += sum(v.nbytes for v in list(c.values()))
             except Exception:
                 continue  # a racing extend/evict: best-effort sums
         return {"column": col, "session": sess}
@@ -423,13 +436,15 @@ class ScanCache:
                     rows.append(row(name, col, "column", _dtype_name(dev),
                                     dev.nbytes, e.n_valid, age,
                                     encoding=enc, logical_rows=e.n_valid))
-                cache = e._sessions
-                if cache:
-                    vals = list(cache.values())
-                    rows.append(row(
-                        name, "__sessions__", "session", "int32",
-                        sum(v.nbytes for v in vals), len(vals), age,
-                    ))
+                for attr, label in (("_sessions", "__sessions__"),
+                                    ("_raw_sessions", "__raw_sessions__")):
+                    cache = getattr(e, attr)
+                    if cache:
+                        vals = list(cache.values())
+                        rows.append(row(
+                            name, label, "session", "int32",
+                            sum(v.nbytes for v in vals), len(vals), age,
+                        ))
             except Exception:
                 continue  # a racing extend/evict: skip this entry's rows
         resident = {name for name, _ in entries}

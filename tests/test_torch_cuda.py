@@ -189,3 +189,58 @@ def test_livewindow_writers_of_one_group_commit_read_their_rows(card):
     from torch_livewindow_cases import two_writers_in_one_group
 
     two_writers_in_one_group("cuda")
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, 1 << 16])
+@pytest.mark.parametrize("layout", chip_smoke.RAW_LAYOUTS,
+                         ids=lambda c: "-".join([c[0], c[1], *c[2]]))
+def test_raw_kernels_match_plain(card, layout, n):
+    """The raw-read top-k and selection against their plain versions on the
+    same CUDA tensors (chip_smoke.py's phase 14 at test size): indices and
+    counts bit-equal, every key, k and filter op."""
+    rng = np.random.default_rng(n + len(layout[2][0]))
+    assert chip_smoke._raw_cases(torch, rng, n, layout, chip_smoke.RAW_KS, chip_smoke.RAW_KEYS,
+                                 n % 6) > 0
+
+
+def test_raw_kernel_traps(card):
+    """+-0 at the threshold, NaN last, +-inf, ties past k, fewer passing
+    rows than k, an empty allow list and an empty time range."""
+    assert chip_smoke._raw_traps(torch, np.random.default_rng(0)) > 0
+
+
+def test_raw_reads_on_the_card_launch_the_kernels(card):
+    """Raw reads through ``Connection.execute`` on a CUDA connection answer
+    as a CPU connection does, through the kernels, never the plain
+    versions."""
+    import horaedb_tpu_torch
+    from horaedb_tpu_torch.ops import scan_topk as T
+
+    rows = ", ".join(f"('h{i % 7}', {float((i * 37) % 101)}, {float(i)}, "
+                     f"{1_700_000_000_000 + i * 1000})" for i in range(3000))
+    queries = {
+        "SELECT host, v, w FROM rd WHERE v < 60 ORDER BY ts DESC LIMIT 25": "topk",
+        "SELECT host, v FROM rd WHERE host IN ('h1', 'h4') ORDER BY v ASC LIMIT 40": "topk",
+        "SELECT host, v, w FROM rd WHERE v >= 90": "select",
+    }
+    answers = {}
+    for device in ("cpu", "cuda"):
+        db = horaedb_tpu_torch.connect(None, device=device)
+        try:
+            db.execute("CREATE TABLE rd (host string TAG, v double, w double, "
+                       "ts timestamp NOT NULL, TIMESTAMP KEY(ts))")
+            db.execute(f"INSERT INTO rd (host, v, w, ts) VALUES {rows}")
+            T.reset_counts()
+            for sql, kernel in queries.items():
+                for _ in range(3):
+                    out = db.execute(sql)
+                assert out.metrics.get("path") == "raw_device"
+                assert out.metrics.get("raw_kernel") == kernel
+                answers.setdefault(sql, []).append(out.to_pylist())
+            if device == "cuda":
+                assert T.LAUNCHES["raw_topk"] > 0 and T.LAUNCHES["raw_select"] > 0
+                assert not any(T.PLAIN_CALLS.values())
+        finally:
+            db.close()
+    for sql, (cpu, cuda) in answers.items():
+        assert cpu == cuda, sql
