@@ -2813,6 +2813,7 @@ def phase_raw_timings(torch, raw, card) -> list:
         _sync(torch)
         want = plain_fn(*args, **kw)
         check(torch.equal(got, want), f"{name} replay: the {kind} kernel differs from plain")
+        err = float((got.long() - want.long()).abs().max()) if got.numel() else 0.0
         launch = lambda f=launch_fn, a=args, k=kw: f(*a, **k)  # noqa: E731
         plain = lambda f=plain_fn, a=args, k=kw: f(*a, **k)  # noqa: E731
         launch_ms = _time_launch(torch, launch)
@@ -2844,7 +2845,7 @@ def phase_raw_timings(torch, raw, card) -> list:
             kernels.append({
                 "name": kind, "route": "cuda", "source": RAW_SRC,
                 "replaces": RAW_REPLACES[kind], "launches": int(raw["launches"][kind]),
-                "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib_ms,
             })
     for name, q in raw["queries"].items():

@@ -167,8 +167,12 @@ class TestRawEquivalence:
         _seed(dbs, n=200)
         sql = (f"SELECT v, ts FROM rd WHERE ts >= {T0 + lo}"
                + (f" AND ts < {T0 + hi}" if hi else "") + " ORDER BY ts DESC LIMIT 20")
+        _warm(dbs[1], sql)
+        before = port_kernels.PLAIN_CALLS["raw_topk"]
         got, _ = _parity(dbs, sql, monkeypatch, "topk")
         assert got.num_rows == rows
+        # an empty time range passes no resident row: nothing launches
+        assert (port_kernels.PLAIN_CALLS["raw_topk"] == before) == (rows == 0)
 
     def test_delta_rows_including_new_series(self, dbs, monkeypatch):
         _seed(dbs, n=120)
