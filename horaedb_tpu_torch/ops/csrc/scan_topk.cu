@@ -17,6 +17,7 @@
 //
 // Top-k. The reference bisects 32 times for the threshold, each step a
 // count over every key. Here:
+//   raw_init     one block zeroes the state and the histogram;
 //   raw_keys     one pass decodes, masks and writes the int32 key buffer,
 //                counts the masked-in rows and histograms the top 8-bit
 //                digit of the key (sign bit flipped: unsigned order);
@@ -192,6 +193,11 @@ __device__ __forceinline__ void hist_flush(int* shared_hist, int* global_hist) {
 }
 
 // ---- top-k: keys and the radix select --------------------------------------
+
+// One block: zeroes the state words and the histogram.
+__global__ void __launch_bounds__(BLOCK) raw_init(const __grid_constant__ RawArgs a) {
+  for (int t = threadIdx.x; t < ST_WORDS + 256; t += BLOCK) a.scratch[t] = 0;
+}
 
 __global__ void __launch_bounds__(BLOCK) raw_keys(const __grid_constant__ RawArgs a) {
   __shared__ int hist[256];
@@ -477,7 +483,8 @@ int raw_topk_launch(const RawArgs* a, void* stream) {
   TRY(grid_for(a->device, nt, 8, &grid));
   TRY(grid_for(a->device, nt, 16, &wgrid));
   TRY(grid_for(a->device, (a->k + BLOCK - 1) / BLOCK, 8, &fgrid));
-  TRY(cudaMemsetAsync(a->scratch, 0, (ST_WORDS + 256) * sizeof(int), s));
+  raw_init<<<1, BLOCK, 0, s>>>(*a);
+  LAUNCHED();
   raw_keys<<<grid, BLOCK, 0, s>>>(*a);
   LAUNCHED();
   for (int shift = 24; shift >= 0; shift -= 8) {

@@ -582,26 +582,13 @@ class Executor:
         # by the reference's deterministic rules (the kill switch, LIMIT
         # pushdown, the row budget, and the cache and soundness checks in
         # _try_raw_device).
-        if (
-            not plan.is_aggregate
-            and cache_on
-            and not hasattr(table, "sub_tables")
-            and table.physical_datas()
-        ):
-            raw_shape = self._raw_device_shape(plan)
-            if raw_shape is not None:
-                from ..ops.scan_topk import raw_device_enabled
-
-                if self._limit_pushdown_safe(plan):
-                    # no residual, no ORDER BY: the host scan stops at
-                    # LIMIT rows, near O(limit) by construction
-                    self._raw_host(m, "host", "limit_pushdown")
-                elif not raw_device_enabled():
-                    self._raw_host(m, "host", "kill_switch")
-                else:
-                    out = self._try_raw_device(plan, table, raw_shape, m)
-                    if out is not None:
-                        return self._finish_metrics(m, t_start, "raw_device", out)
+        raw_shape, raw_reason = self._raw_route(plan, table)
+        if raw_reason is not None:
+            self._raw_host(m, "host", raw_reason)
+        elif raw_shape is not None:
+            out = self._try_raw_device(plan, table, raw_shape, m)
+            if out is not None:
+                return self._finish_metrics(m, t_start, "raw_device", out)
 
         t_scan = _time.perf_counter()
         projection = self._projection(plan)
@@ -1488,6 +1475,34 @@ class Executor:
             "order": order,
             "topk_ok": topk_ok,
         }
+
+    def _raw_route(self, plan: QueryPlan, table) -> tuple[Optional[dict], Optional[str]]:
+        """The one gate of the raw device path, shared by execution and
+        EXPLAIN: ``(shape, None)`` when the device raw path takes the read,
+        ``(shape, reason)`` when an eligible read goes to the host by a
+        deterministic rule, ``(None, None)`` when the read is not eligible
+        (plain engine tables only: partitioned plans ship subtrees)."""
+        import os as _os
+
+        from ..ops.scan_topk import raw_device_enabled
+
+        if (
+            plan.is_aggregate
+            or _os.environ.get("HORAEDB_SCAN_CACHE", "1") == "0"
+            or hasattr(table, "sub_tables")
+            or not table.physical_datas()
+        ):
+            return None, None
+        shape = self._raw_device_shape(plan)
+        if shape is None:
+            return None, None
+        if self._limit_pushdown_safe(plan):
+            # no residual, no ORDER BY: the host scan stops at LIMIT rows,
+            # near O(limit) by construction
+            return shape, "limit_pushdown"
+        if not raw_device_enabled():
+            return shape, "kill_switch"
+        return shape, None
 
     @staticmethod
     def _raw_host(m: dict, path: str, reason: str) -> None:

@@ -300,24 +300,8 @@ class InterpreterFactory:
                 path = "host"
             lines.append(f"  Execution: {path}")
         else:
-            import os as _os
-
-            from ..ops.scan_topk import raw_device_enabled
-
-            # same gate as the executor: plain engine tables only
-            # (partitioned plans ship subtrees), the scan cache + kill
-            # switch open, and never on limit-pushdown-safe plans (the
-            # host early-stop scan is unbeatable by construction)
-            raw_shape = (
-                self.executor._raw_device_shape(q)
-                if raw_device_enabled()
-                and _os.environ.get("HORAEDB_SCAN_CACHE", "1") != "0"
-                and not hasattr(table, "sub_tables")
-                and table.physical_datas()
-                and not self.executor._limit_pushdown_safe(q)
-                else None
-            )
-            if raw_shape is not None:
+            raw_shape, raw_reason = self.executor._raw_route(q, table)
+            if raw_shape is not None and raw_reason is None:
                 kind = "top-k" if raw_shape["topk_ok"] else "bounded selection"
                 lines.append(
                     f"  Execution: raw device ({kind} over the resident scan "

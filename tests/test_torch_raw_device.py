@@ -341,6 +341,22 @@ class TestSurfaces:
         assert "projection scan (host)" in line(
             "SELECT host, v FROM rd WHERE v < 10 ORDER BY ts DESC LIMIT 5")
 
+    @pytest.mark.parametrize("kill", ["1", "0"])
+    @pytest.mark.parametrize("sql", [
+        "SELECT host, v FROM rd WHERE v < 10 ORDER BY ts DESC LIMIT 5",
+        "SELECT host, v FROM rd WHERE v < 10",
+        "SELECT host, v FROM rd LIMIT 5",
+        "SELECT host, avg(v) AS a FROM rd GROUP BY host",
+    ])
+    def test_explain_agrees_with_execution(self, dbs, monkeypatch, kill, sql):
+        _seed(dbs, n=50)
+        port = dbs[1]
+        monkeypatch.setenv("HORAEDB_RAW_DEVICE", kill)
+        plan = port.execute("EXPLAIN " + sql).column("plan")
+        line = next(p for p in plan if "Execution:" in p)
+        got = _warm(port, sql)
+        assert ("raw device" in line) == (got.metrics.get("path") == "raw_device"), line
+
     def test_counters_and_the_plain_versions(self, dbs):
         from horaedb_tpu_torch.utils.metrics import REGISTRY
 
