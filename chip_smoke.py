@@ -90,6 +90,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    plain version (bit-equal); device time, bound, plain and library
    (torch.topk / torch.nonzero) times, the copy back; warm execute
    latency against the kill-switch route.
+17. Cohort kernels vs plain (after phase 16, beside the resident cpu
+   table): the cohort scan-aggregate (B1e) against its plain version over
+   every resident layout, each arm, need_minmax both ways, all six filter
+   ops, F = 0, B in {1, 2, 7, 32}, members with an empty allow list or
+   time range, NaN and +-0 (counts, mins, maxs bit-equal; sums within
+   SUM_RTOL of each member's sum of |x|); the cohort top-k (B4c) against
+   its plain version and against B launches of the solo top-k, bit-equal,
+   over phase 14's layouts, keys and sizes at B in {1, 3, 32} and its
+   traps; selective_cached_scan_agg (B1d) against the SELECTIVE cached
+   kernel and its plain version.
+18. The dashboard flood, on phase 4's connection and resident cpu table:
+   32 threads send 32 distinct texts of one shape (hostname count/sum/max
+   of usage_user over a sliding start and a usage_user literal) through
+   ``Proxy`` with [wlm.batch] on (window 5 ms, cohorts up to 32), in the
+   reference flood's closed loop (each thread takes the next query number
+   from one shared counter and sends it as soon as its last is answered):
+   64 warm-up queries, 256 measured; then the same 256 through a Proxy
+   with batching off (one solo launch a query, or none when the same text
+   is already in flight). Every answer of both arms equals an independent
+   numpy group-by; dispatches per query from the launch counters,
+   p50/p99 latency, qps, cohort sizes. It fails unless a fused cohort
+   reached B >= 8, the cohort kernel launched, no cohort form ran a plain
+   version, no fused dispatch fell back (warm-up included), and the fused
+   arm dispatched less per query than the solo arm. Then the last fused
+   call replayed (kernel against plain) and timed against B solo
+   launches, its bound and index_add_; the cohort top-k replayed on the
+   resident columns for 32 lastpoint-host members (hosts 0-31, k 16),
+   bit-equal to 32 solo top-k launches, and timed against them and
+   torch.topk; B1d timed at single-groupby-5-8-1's gather.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -634,6 +663,7 @@ def phase_main(torch) -> dict:
         f"in {t_cpu - t_gen:.1f} s; {DEMO_ROWS} demo rows in {t_load - t_cpu:.1f} s")
     exp = _expected(tsbs, rows, demo)
     raw_exp = _raw_expected(tsbs, rows)
+    flood_exp = _flood_expected(tsbs, rows)
     del rows
 
     queries = [
@@ -684,7 +714,7 @@ def phase_main(torch) -> dict:
     DETAIL["launches"] = launches
     DETAIL["peak_bytes"] = peak
     return {"db": db, "results": results, "launches": launches, "peak": peak, "rec": rec,
-            "raw_expected": raw_exp}
+            "raw_expected": raw_exp, "flood_expected": flood_exp}
 
 
 # ---- phase 5: timings ---------------------------------------------------------
@@ -2876,6 +2906,733 @@ def phase_raw_timings(torch, raw, card) -> list:
             f"3-{REPEATS}), kill-switch host route {q['host_s'] * 1e3:.3f} ms [{card}]")
     return kernels
 
+# ---- phase 17: the cohort kernels against their plain versions --------------
+
+COHORT_BS = (1, 2, 7, 32)
+COHORT_REPLACES = {
+    "cohort": "horaedb_tpu/ops/scan_agg.py:582",
+    "raw_topk_cohort": "horaedb_tpu/ops/scan_topk.py:397",
+    "selective": "horaedb_tpu/ops/scan_agg.py:423",
+}
+RAW_COHORT_BS = (1, 3, 32)
+
+
+def _cohort_abs_sums(torch, args, kw):
+    """Per member, the plain version's sums of |x| over the rows it keeps
+    (the scale of each sum's tolerance); the columns decode once."""
+    from horaedb_tpu_torch.ops import encoding as E, scan_agg as S
+
+    sp, tp, values, sessions, dyns = args
+    n_agg = kw["n_agg_fields"]
+    layouts = kw.get("value_layouts") or tuple(S._dense_layout(p) for p in values)
+    sc, tr, vals = E.decode_layouts(sp, tp, values, kw.get("series_layout", ("raw",)),
+                                    kw.get("ts_layout", ("raw",)), layouts)
+    cols = [v.float().abs() for v in vals[:n_agg]] + [v.float() for v in vals]
+    raw_kw = {**kw, "numeric_filters": tuple((n_agg + f, op) for f, op in kw["numeric_filters"]),
+              "value_layouts": tuple(("raw",) for _ in cols),
+              "ts_layout": ("raw",), "series_layout": ("raw",)}
+    cols = tuple((c.contiguous(),) for c in cols)
+    out = []
+    for b in range(sessions.shape[0]):
+        packed = S._packed_body((sc.contiguous(),), (tr.contiguous(),), cols, sessions[b],
+                                dyns[b], **{**raw_kw, "selective": False})
+        out.append(_split(torch, packed, kw)[1])
+    return out
+
+
+def _time_once(torch, fn):
+    """(result, ms) of one call, without warm-up: for the plain versions
+    at the real shape, which run once (by CUDA events on the card)."""
+    if DEV != "cuda":
+        t = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _cohort_check(torch, args, kw, what) -> tuple[float, int, float]:
+    """One launch of the cohort kernel and one run of its plain version on
+    the same tensors; member by member as ``_compare``. Returns the
+    largest |sum difference|, the rows counted and the plain run's ms."""
+    from horaedb_tpu_torch.ops import scan_agg as S
+
+    got = S.cached_scan_agg_cohort(*args, **kw)
+    _sync(torch)
+    want, plain_ms = _time_once(torch, lambda: S._cohort_body(*args, **kw))
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    err, counted = 0.0, 0
+    for b, abs_sums in enumerate(_cohort_abs_sums(torch, args, kw)):
+        gb = _split(torch, got[b], kw)
+        err = max(err, _compare(f"{what} member {b}", *gb, _split(torch, want[b], kw),
+                                abs_sums, kw["need_minmax"]))
+        counted += int(gb[0].sum())
+    return err, counted, plain_ms
+
+
+def _cohort_case(torch, rng, layout_case, arm, need_minmax, op, B, G, nb, special=False,
+                 n_agg=None, n_series=40, per=3001):
+    import numpy as np
+
+    from horaedb_tpu_torch.convert import entry_from_reference
+    from horaedb_tpu_torch.ops import encoding as E, scan_agg as S
+
+    dev = torch.device(DEV)
+    series_layout, ts_layout, kinds = layout_case
+    arrays, layouts = _resident_case(rng, n_series, per, series_layout, ts_layout, kinds)
+    if special:  # NaN and signed zeros in the first (raw) field
+        for rows, val in ((slice(3, 9), np.nan), (slice(40, 52), -0.0), (slice(52, 60), 0.0),
+                          (slice(per + 1, per + 4), -0.0)):
+            arrays["value/0/0"][rows] = val
+    entry = entry_from_reference(arrays, layouts, dev)
+    if any(k == "bf16" for k in kinds):
+        entry = _with_bf16(torch, entry, kinds)
+    nf = len(kinds)
+    n_agg = nf - 1 if n_agg is None else n_agg
+    filters = ((nf - 1, S._FILTER_OPS[op]),)
+    # literals the filter field holds (codes, for a field kept in code space)
+    held = E.decode_value(entry.value_parts[nf - 1], entry.value_layouts[nf - 1],
+                          n_series * per).cpu().numpy()[: n_series * per]
+    sessions, dyns = [], []
+    for b in range(B):
+        gos = np.append(rng.integers(0, G, n_series), 0).astype(np.int32)
+        allow = np.append(rng.random(n_series) < 0.8, False)
+        allow[0] = True
+        lo, hi = int(rng.integers(0, 400)), per * 10 - int(rng.integers(0, 400))
+        if b == 1:
+            allow[:] = False  # no series
+        if b == 2:
+            hi = lo  # no time
+        t0 = lo - int(rng.integers(0, 50))
+        width = max(1, (hi - t0) // max(nb - 1, 1))
+        sessions.append(S.pack_session(gos, allow))
+        dyns.append(S.pack_dyn([float(held[rng.integers(0, len(held))])], lo, hi, t0, width))
+    args = (*entry.kernel_args().values(), torch.from_numpy(np.stack(sessions)).to(dev),
+            torch.from_numpy(np.stack(dyns)).to(dev))
+    kw = dict(n_groups=G, n_buckets=nb, n_agg_fields=n_agg, numeric_filters=filters,
+              need_minmax=need_minmax, segment_impl=arm, **entry.layout_kwargs())
+    err, counted, _ = _cohort_check(torch, args, kw, f"cohort/{arm}/B={B}/{layout_case}/{op}")
+    check(counted > 0, f"cohort/{arm}/B={B}/{layout_case}: no row passed")
+    return err
+
+
+def _raw_cohort_case(torch, rng, cols, lay, n_series, ts_max, B, k, key_is_ts, desc, op,
+                     what) -> int:
+    """B4c against its plain version and against B solo top-k launches,
+    bit-equal; member 1 allows no series, member 2 has no time."""
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import scan_agg as S, scan_topk as T
+
+    dev = torch.device(DEV)
+    filters = ((1, S._FILTER_OPS[op]),)
+    sessions, dyns = [], []
+    for b in range(B):
+        allow = np.append(rng.random(n_series) < 0.8, False).astype(np.int32)
+        if b == 1:
+            allow[:] = 0
+        lo, hi = (0, ts_max + 1) if b % 2 == 0 else (15, max(ts_max - 25, 15))
+        if b == 2:
+            lo = hi = 50
+        key_lo, key_hi = T.topk_key_bounds(desc, key_is_ts, lo, hi)
+        sessions.append(allow)
+        dyns.append(T.pack_raw_dyn([float(rng.integers(-20, 21))], lo, hi, key_lo, key_hi))
+    sess = torch.from_numpy(np.stack(sessions)).to(dev)
+    dyn = torch.from_numpy(np.stack(dyns)).to(dev)
+    kw = dict(k=k, descending=desc, key_is_ts=key_is_ts, key_field=0, numeric_filters=filters,
+              **lay)
+    got = T.raw_topk_cohort(*cols, sess, dyn, **kw)
+    _sync(torch)
+    want = T.raw_topk_cohort_plain(*cols, sess, dyn, **kw)
+    check(torch.equal(got, want), f"{what}: cohort kernel differs from plain")
+    for b in range(B):
+        solo = T.raw_topk_packed(*cols, sess[b], dyn[b], **kw)
+        check(torch.equal(solo, got[b]), f"{what}: member {b} differs from its solo launch")
+    return 1
+
+
+def phase_cohort_kernels(torch) -> None:
+    """B1e, B4c and B1d on the card against their plain versions."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 17)
+    err, n_b1e = 0.0, 0
+    arms = (("single", 1, 1), ("shared", 16, 8), ("scatter", 512, 64))
+    for i, (arm, G, nb) in enumerate(arms):
+        for c, case in enumerate(LAYOUT_CASES):
+            for need_minmax in (True, False):
+                j = (i * len(LAYOUT_CASES) + c) * 2 + need_minmax
+                err = max(err, _cohort_case(torch, rng, case, arm, need_minmax, OPS[j % 6],
+                                            COHORT_BS[j % 4], G, nb))
+                n_b1e += 1
+        err = max(err, _cohort_case(torch, rng, LAYOUT_CASES[0], arm, True, ">=", 7, G, nb,
+                                    special=True))
+        err = max(err, _cohort_case(torch, rng, ("delta", "delta", ("raw",)), arm, True, "!=",
+                                    32, G, nb, n_agg=0))
+        n_b1e += 2
+    n_b4c = 0
+    for n in RAW_SIZES:
+        for li, layout in enumerate(RAW_LAYOUTS):
+            cols, lay, n_series, ts_max = _raw_columns(torch, rng, n, layout)
+            for j, (key_is_ts, desc) in enumerate(RAW_KEYS):
+                at = li * 4 + j + n
+                k = min(RAW_KS[at % len(RAW_KS)], max(n, 1))
+                n_b4c += _raw_cohort_case(
+                    torch, rng, cols, lay, n_series, ts_max, RAW_COHORT_BS[at % 3], k,
+                    key_is_ts, desc, OPS[at % 6],
+                    f"raw_topk_cohort n={n} {layout} ts={key_is_ts} desc={desc}")
+    # the +-0 trap at the threshold, three members
+    pm0 = np.array([-0.0, -0.0, -0.0, -0.0, -5.0, 0.0, -1.0, -2.0, -3.0, -4.0, -6.0, -7.0],
+                   dtype=np.float32)
+    dev = torch.device(DEV)
+    cols = ((torch.zeros(12, dtype=torch.int32, device=dev),),
+            (torch.arange(12, dtype=torch.int32, device=dev),),
+            ((torch.from_numpy(pm0).to(dev),), (torch.arange(12, dtype=torch.float32,
+                                                             device=dev),)))
+    for k in (1, 2, 5, 12):
+        for desc in (True, False):
+            n_b4c += _raw_cohort_case(
+                torch, rng, cols, dict(value_layouts=(("raw",), ("raw",))), 1, 11, 3, k, False,
+                desc, ">=", f"raw_topk_cohort +-0 k={k} desc={desc}")
+    # B1d: the unpacked selective form against the packed SELECTIVE kernel
+    n_b1d = 0
+    for arm, G, nb in arms:
+        for need_minmax in (True, False):
+            _b1d_case(torch, rng, arm, G, nb, need_minmax)
+            n_b1d += 1
+    _sync(torch)
+    say(f"cohort kernels vs plain: B1e {n_b1e} cases (max |sum diff| {err}), B4c {n_b4c} "
+        f"cases bit-equal, B1d {n_b1d} cases")
+    DETAIL["cohort_kernel_cases"] = {"b1e": n_b1e, "b4c": n_b4c, "b1d": n_b1d,
+                                     "b1e_max_abs_err": err}
+
+
+def _b1d_inputs(torch, rng, n_series=40, per=3001):
+    """Dense raw columns, a gather of five series' rows padded to its
+    bucket, a session and the scalars of one selective query."""
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import encoding as E
+
+    dev = torch.device(DEV)
+    n = n_series * per
+    codes = np.append(np.repeat(np.arange(n_series), per), n_series).astype(np.int32)
+    ts = np.append(np.tile(np.arange(per) * 10, n_series) + rng.integers(0, 9, n), -1)
+    vals = rng.normal(0, 50, (3, n + 1)).astype(np.float32)
+    vals[2] = np.round(vals[2])
+    allow = np.append(rng.random(n_series) < 0.8, False)
+    pick = np.nonzero(allow[:n_series])[0][:5]
+    idx = np.concatenate([np.arange(s * per + 7, s * per + per - 9, dtype=np.int32)
+                          for s in pick])
+    idx = E.pad_to_bucket(idx, len(idx), fill=np.int32(n))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return t(idx), t(codes), t(ts.astype(np.int32)), t(vals), allow, t
+
+
+def _b1d_case(torch, rng, arm, G, nb, need_minmax) -> None:
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import scan_agg as S
+
+    idx, codes, ts, vals, allow, t = _b1d_inputs(torch, rng)
+    gos = np.append(rng.integers(0, G, len(allow) - 1), 0).astype(np.int32)
+    lits = t(np.array([4.0], dtype=np.float32))
+    lo, hi, t0 = 15, 29_000, -7
+    width = max(1, 30_000 // max(nb - 1, 1))
+    filters = ((2, S._FILTER_OPS[">="]),)
+    kw = dict(n_groups=G, n_buckets=nb, n_agg_fields=2, numeric_filters=filters,
+              need_minmax=need_minmax, segment_impl=arm)
+    got = S.selective_cached_scan_agg(idx, codes, ts, vals, t(gos), t(allow), lits, lo, hi, t0,
+                                      width, **kw)
+    session = t(S.pack_session(gos, allow))
+    dyn = t(S.pack_dyn([4.0], lo, hi, t0, width, idx.cpu().numpy()))
+    pargs = ((codes,), (ts,), tuple((v.contiguous(),) for v in vals), session, dyn)
+    pkw = {**kw, "selective": True, "value_layouts": (("raw",),) * 3, "ts_layout": ("raw",),
+           "series_layout": ("raw",)}
+    packed = _split(torch, S.cached_scan_agg_packed(*pargs, **pkw), pkw)
+    _sync(torch)
+    what = f"selective_cached_scan_agg/{arm}/minmax={need_minmax}"
+    abs_sums = _abs_sums(torch, "cached_selective", pargs, pkw)
+    flat = [g.reshape(-1) for g in got]
+    # two launches sum with atomics in different orders: sums to SUM_RTOL
+    _compare(f"{what} vs the SELECTIVE packed kernel", *flat, packed, abs_sums, need_minmax)
+    want = _split(torch, S._packed_body(*pargs, **pkw), pkw)
+    _compare(what, *flat, want, abs_sums, need_minmax)
+    check(int(got[0].sum()) > 0, f"{what}: no row passed")
+
+
+# ---- phase 18: the dashboard flood through the Proxy ---------------------------
+
+FLOOD_THREADS = 32
+FLOOD_WARMUP = 64
+FLOOD_MEASURED = 256
+FLOOD_H3 = 3 * 3_600_000
+
+
+def flood_queries() -> list:
+    """The 32 texts of the flood: the reference's flood shape over the cpu
+    schema, start t0 + (q % 8) * 3 h (the table starts at 0) and literal
+    ((q // 8) % 4) * 20 + 0.5."""
+    t_end = HOURS * 3_600_000
+    return [
+        f"SELECT hostname, count(usage_user), sum(usage_user), max(usage_user) FROM cpu "
+        f"WHERE ts >= {(q % 8) * FLOOD_H3} AND ts < {t_end} "
+        f"AND usage_user >= {((q // 8) % 4) * 20 + 0.5} GROUP BY hostname"
+        for q in range(32)
+    ]
+
+
+def _flood_expected(tsbs, rows) -> list:
+    """Per flood text, (count, sum, sum of |x|, max) per host from the
+    generated rows (time-major: tick, then host), on the float32 values
+    the device columns hold; sums in float64."""
+    import numpy as np
+
+    n_ticks = HOURS * 3_600_000 // tsbs.INTERVAL_MS
+    per_slot = FLOOD_H3 // tsbs.INTERVAL_MS
+    u = rows.columns["usage_user"].astype(np.float32).reshape(n_ticks // per_slot, per_slot,
+                                                              HOSTS)
+    by_lit = []
+    for lit in range(4):
+        keep = u >= np.float32(lit * 20 + 0.5)
+        w = np.where(keep, u, 0).astype(np.float64)
+        by_lit.append((keep.sum(axis=1), w.sum(axis=1), np.abs(w).sum(axis=1),
+                       np.where(keep, u, -np.inf).max(axis=1)))
+    out = []
+    for q in range(32):
+        c, s, a, m = by_lit[(q // 8) % 4]
+        lo = q % 8
+        out.append((c[lo:].sum(0), s[lo:].sum(0), a[lo:].sum(0), m[lo:].max(0)))
+    return out
+
+
+def _check_flood(res, exp, what) -> None:
+    import numpy as np
+
+    c, s, a, m = exp
+    hosts = np.array([int(h[5:]) for h in res.columns[0]])
+    check(len(hosts) == int((c > 0).sum()) and len(set(hosts.tolist())) == len(hosts),
+          f"{what}: {len(hosts)} hosts")
+    check(np.array_equal(np.asarray(res.columns[1]), c[hosts]), f"{what}: counts")
+    got_s = np.asarray(res.columns[2], dtype=np.float64)
+    check(bool((np.abs(got_s - s[hosts]) <= SUM_RTOL * a[hosts]).all()), f"{what}: sums")
+    check(np.array_equal(np.asarray(res.columns[3], dtype=np.float64), m[hosts]),
+          f"{what}: maxs")
+
+
+class CohortRecorder:
+    """Wraps the cohort wrapper to keep its last call (args and kwargs)
+    for the replay."""
+
+    def __init__(self, S):
+        self.S = S
+        self.orig = S.cached_scan_agg_cohort
+        self.last = None
+
+        def cohort(*a, **k):
+            self.last = (a, k)
+            return self.orig(*a, **k)
+
+        S.cached_scan_agg_cohort = cohort
+
+    def restore(self) -> None:
+        self.S.cached_scan_agg_cohort = self.orig
+
+
+def _flood_arm(torch, proxy, texts, n) -> dict:
+    """The reference flood's closed loop (bench.py's ``flood``):
+    FLOOD_THREADS threads take the next query number q from one shared
+    counter, send texts[q % 32] and take another as soon as it is
+    answered. Returns per-query latency and results."""
+    import threading
+
+    lat = [0.0] * n
+    results = [None] * n
+    errors = []
+    idx = iter(range(n))
+    lock = threading.Lock()
+
+    def worker():
+        while True:
+            with lock:
+                q = next(idx, None)
+            if q is None:
+                return
+            try:
+                t0 = time.perf_counter()
+                results[q] = proxy.handle_sql(texts[q % len(texts)])
+                lat[q] = time.perf_counter() - t0
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors.append(f"query {q}: {e!r}")
+
+    threads = [threading.Thread(target=worker) for _ in range(FLOOD_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    check(not errors, f"flood errors: {errors[:3]}")
+    return {"lat": lat, "results": results, "wall": wall}
+
+
+def _dispatch_total(S) -> int:
+    """Cached scan-agg dispatches: launches on the card, plain versions in
+    a CPU rehearsal (phase 18 checks that none ran on the card)."""
+    forms = ("cached", "cached_selective", "cached_cohort")
+    return sum(sum(S.LAUNCHES[f].values()) + S.PLAIN_CALLS[f] for f in forms)
+
+
+def phase_flood(torch, main) -> dict:
+    """The dashboard flood through ``Proxy.handle_sql`` on phase 4's
+    connection: the fused arm ([wlm.batch] on), then the solo arm (off).
+    Besides the gated numbers it records the garbage collector's runs by
+    generation and the live threads during the fused arm."""
+    import gc
+    import threading
+
+    from horaedb_tpu_torch.ops import scan_agg as S
+    from horaedb_tpu_torch.proxy import Proxy
+    from horaedb_tpu_torch.query import executor as X
+    from horaedb_tpu_torch.utils.config import BatchSection
+    from horaedb_tpu_torch.utils.metrics import REGISTRY
+
+    def counter(name, **labels):
+        return REGISTRY.counter(name, "", labels=labels).value
+
+    db, exp = main["db"], main["flood_expected"]
+    texts = flood_queries()
+    rec = CohortRecorder(S)
+    out = {}
+    try:
+        fused = Proxy(db, batch_cfg=BatchSection(enabled=True, window_s=0.005, max_cohort=32))
+        try:
+            X.reset_counts()  # fallbacks count from the first warm-up query on
+            _flood_arm(torch, fused, texts, FLOOD_WARMUP)
+            _sync(torch)
+            S.reset_counts()  # the flood's launches start here
+            gc0 = [g["collections"] for g in gc.get_stats()]
+            fused0 = counter("horaedb_batch_dispatch_total", kind="fused")
+            buckets0 = {b: counter("horaedb_batch_cohort_total", size=b)
+                        for b in ("1", "2", "4", "8", "16", "32+")}
+            arm = _flood_arm(torch, fused, texts, FLOOD_MEASURED)
+            launches = {f: dict(a) for f, a in S.LAUNCHES.items()}
+            plain_calls = dict(S.PLAIN_CALLS)
+            fallbacks = X.COHORT_FALLBACKS
+            gc_runs = [g["collections"] - c for g, c in zip(gc.get_stats(), gc0)]
+            threads = threading.active_count()
+            fused_cohorts = counter("horaedb_batch_dispatch_total", kind="fused") - fused0
+            buckets = {b: counter("horaedb_batch_cohort_total", size=b) - v
+                       for b, v in buckets0.items()}
+        finally:
+            fused.close()
+        sizes = [r.metrics.get("batch_cohort", 0) for r in arm["results"]]
+        out["fused"] = {**arm, "launches": launches, "dispatches": _dispatch_total(S),
+                        "sizes": sizes, "fused_cohorts": fused_cohorts, "buckets": buckets,
+                        "fallbacks": fallbacks, "plain_calls": plain_calls,
+                        "gc_runs": gc_runs, "threads": threads}
+        solo = Proxy(db)
+        try:
+            S.reset_counts()
+            arm = _flood_arm(torch, solo, texts, FLOOD_MEASURED)
+            out["solo"] = {**arm, "launches": {f: dict(a) for f, a in S.LAUNCHES.items()},
+                           "dispatches": _dispatch_total(S)}
+        finally:
+            solo.close()
+    finally:
+        rec.restore()
+    for name in ("fused", "solo"):
+        for q, res in enumerate(out[name]["results"]):
+            _check_flood(res, exp[q % 32], f"flood {name} query {q}")
+    f, so = out["fused"], out["solo"]
+    members = sum(1 for x in f["sizes"] if x)
+    check(max(f["sizes"]) >= 8, f"no fused cohort reached 8 members: {sorted(set(f['sizes']))}")
+    if DEV == "cuda":
+        check(sum(f["launches"]["cached_cohort"].values()) > 0, "the cohort kernel never launched")
+        check(f["plain_calls"]["cached_cohort"] == 0, "a cohort plain version ran on the card")
+    check(f["fallbacks"] == 0, f"{f['fallbacks']} fused cohort dispatches fell back solo (warm-up included)")
+    check(f["dispatches"] < so["dispatches"],
+          f"fused arm dispatched {f['dispatches']}, solo arm {so['dispatches']}")
+    summary = {}
+    for name, a in (("fused", f), ("solo", so)):
+        lat = sorted(a["lat"])
+        summary[name] = {
+            "dispatches_per_query": a["dispatches"] / FLOOD_MEASURED,
+            "p50_ms": lat[len(lat) // 2] * 1e3,
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3,
+            "qps": FLOOD_MEASURED / a["wall"], "launches": a["launches"],
+        }
+    summary["fused"].update(
+        fused_cohorts=f["fused_cohorts"], members_fused=members,
+        mean_cohort=members / f["fused_cohorts"] if f["fused_cohorts"] else 0.0,
+        max_cohort=max(f["sizes"]), cohort_buckets=f["buckets"],
+        gc_runs_by_generation=f["gc_runs"], threads_alive=f["threads"])
+    for name, d in summary.items():
+        say(f"flood {name}: {d['dispatches_per_query']:.4f} dispatches a query, p50 "
+            f"{d['p50_ms']:.3f} ms, p99 {d['p99_ms']:.3f} ms, {d['qps']:.1f} qps; launches "
+            f"{d['launches']}")
+    say(f"flood fused: {f['fused_cohorts']} fused cohorts served {members} of "
+        f"{FLOOD_MEASURED} queries (mean {summary['fused']['mean_cohort']:.2f}, largest "
+        f"{summary['fused']['max_cohort']}; horaedb_batch_cohort_total {f['buckets']}); "
+        f"every answer of both arms equals numpy; no fallback; gc runs by generation "
+        f"{f['gc_runs']}, {f['threads']} threads alive")
+    DETAIL["flood"] = summary
+    return {"summary": summary, "last": rec.last,
+            "launches": sum(f["launches"]["cached_cohort"].values())}
+
+
+def _cohort_bound(torch, args, kw) -> tuple[float, str, dict]:
+    """Least time for the cohort: the real rows' resident columns read
+    once, plus each member's session, dyn and packed output, over HBM
+    bandwidth; or its f32 operations, which grow with B, over the f32
+    peak."""
+    from horaedb_tpu_torch.ops import encoding as E
+
+    sp, tp, vals, sessions, dyns = args
+    n = E.layout_rows(sp, kw["series_layout"])
+    sc = E.decode_series(sp, kw["series_layout"], n)
+    n_real = int((sc < sessions.shape[1] // 2 - 1).sum())
+    frac = n_real / n if n else 0.0
+
+    def share(parts):
+        return sum(_bytes_of(p) if p.numel() < 65536 else int(_bytes_of(p) * frac)
+                   for p in parts)
+
+    B = sessions.shape[0]
+    planes = 3 if kw["need_minmax"] else 1
+    out_bytes = 4 * B * kw["n_groups"] * kw["n_buckets"] * (1 + planes * kw["n_agg_fields"])
+    nbytes = share(sp) + share(tp) + sum(share(v) for v in vals)
+    nbytes += _bytes_of(sessions) + _bytes_of(dyns) + out_bytes
+    ops = B * n_real * (len(kw["numeric_filters"]) + 4 + 3 * kw["n_agg_fields"])
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), {
+        "bytes": nbytes, "ops": ops, "rows": n, "real": n_real}
+
+
+def _cohort_library(torch, args, kw):
+    """index_add_ of every member's kept rows into its own block of
+    segments (decode, masks and segment ids of all members precomputed,
+    int32 ids over the stacked [B * n_seg] segments): one call."""
+    from horaedb_tpu_torch.ops import encoding as E, scan_agg as S
+
+    sp, tp, values, sessions, dyns = args
+    sc, tr, vals = E.decode_layouts(sp, tp, values, kw["series_layout"], kw["ts_layout"],
+                                    kw["value_layouts"])
+    sc = sc.long()
+    n_f, nb = len(kw["numeric_filters"]), kw["n_buckets"]
+    n_seg = kw["n_groups"] * nb
+    B = sessions.shape[0]
+    s1 = sessions.shape[1] // 2
+    segs = []
+    for b in range(B):
+        lo, hi, t0, width = (int(x) for x in dyns[b, n_f:n_f + 4].tolist())
+        keep = (sessions[b, s1:][sc] != 0) & (tr >= lo) & (tr < hi)
+        keep = S._apply_filters(keep, vals, dyns[b, :n_f].contiguous().view(torch.float32),
+                                kw["numeric_filters"])
+        d = ((tr.long() - t0 + (1 << 31)) % (1 << 32)) - (1 << 31)
+        bucket = torch.div(d, width, rounding_mode="floor").clamp(0, nb - 1)
+        seg = sessions[b, :s1][sc].long() * nb + bucket + b * n_seg
+        segs.append(torch.where(keep, seg, B * n_seg).to(torch.int32))
+    seg = torch.cat(segs)
+    del segs
+    src = vals[0].float().repeat(B) if kw["n_agg_fields"] else torch.ones_like(seg,
+                                                                               dtype=torch.float)
+    out = torch.zeros(B * n_seg + 1, device=seg.device)
+    return lambda: out.index_add_(0, seg, src)
+
+
+def _time_cohort(torch, args, kw, what, flush, card) -> dict:
+    """One cohort call on the resident columns: kernel against plain (the
+    plain run once, timed), then the kernel's device time against B solo
+    launches of the same members, its bound and index_add_."""
+    from horaedb_tpu_torch.ops import scan_agg as S
+
+    B = args[3].shape[0]
+    err, counted, plain_ms = _cohort_check(torch, args, kw, f"{what} (B={B})")
+    launch = lambda: S.cached_scan_agg_cohort(*args, **kw)  # noqa: E731
+    sp, tp, vals, sessions, dyns = args
+    solo_kw = {**kw, "selective": False}
+    solo = lambda: [S.cached_scan_agg_packed(sp, tp, vals, sessions[b], dyns[b],  # noqa: E731
+                                             **solo_kw) for b in range(B)]
+    ms = _device_ms(torch, launch, "scan_agg_cohort", reps=5, flush=flush)
+    ms = ms if ms is not None else _time_launch(torch, launch, reps=5, flush=flush)
+    solo_one = _device_ms(torch, lambda: S.cached_scan_agg_packed(
+        sp, tp, vals, sessions[0], dyns[0], **solo_kw), "scan_agg_cached", reps=10, flush=flush)
+    solo_ms = _time_launch(torch, solo, reps=3, flush=flush)
+    lib = _cohort_library(torch, args, kw)
+    lib_ms = _time_launch(torch, lib, reps=3)
+    del lib
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    bound_ms, bound_by, work = _cohort_bound(torch, args, kw)
+    arm = S.cohort_arm(kw["segment_impl"], B, len(vals), kw["n_groups"] * kw["n_buckets"],
+                       kw["n_agg_fields"], kw["need_minmax"])
+    solo_b = solo_one * B if solo_one is not None else None
+    say(f"kernel scan_agg_cohort, {what} (B={B}, {arm}, {work['rows']} rows, {work['real']} "
+        f"real, {counted} rows counted over the members): {ms:.4f} ms on the device "
+        f"timeline; {B} solo launches {solo_ms:.4f} ms by events (one solo {solo_one} ms on "
+        f"the device timeline, x{B} = {solo_b}); plain {plain_ms:.4f} ms (once); index_add_ "
+        f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, {work['bytes']} B, "
+        f"{work['ops']} ops); max |sum diff| {err} [{card}]")
+    return {"B": B, "arm": arm, "ms": ms, "solo_events_ms": solo_ms, "solo_one_ms": solo_one,
+            "solo_x_B_ms": solo_b, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, **work}
+
+
+def phase_flood_timings(torch, main, flood, raw, card) -> list:
+    """B1e: the flood's last fused call replayed (kernel against plain) and
+    timed against B solo launches of the same members, its bound and
+    index_add_. B4c: 32 lastpoint-host members on the resident columns,
+    bit-equal to 32 solo top-k launches, timed against them and
+    torch.topk. B1d: timed at single-groupby-5-8-1's gather."""
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import encoding as E, scan_agg as S, scan_topk as T
+
+    kernels = []
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    # ---- B1e: the last fused call, and the flood's 32 texts as one cohort
+    args, kw = flood["last"]
+    last = _time_cohort(torch, args, kw, "the last fused call", flush, card)
+    kernels.append({
+        "name": "scan_agg_cohort", "route": "cuda", "source": SRC,
+        "replaces": COHORT_REPLACES["cohort"], "launches": int(flood["launches"]),
+        "max_abs_err": last["max_abs_err"], "ms": last["ms"], "plain_ms": last["plain_ms"],
+        "bound_ms": last["bound_ms"], "bound_by": last["bound_by"],
+        "library_ms": last["library_ms"],
+    })
+    db = main["db"]
+    ex, table = db.interpreters.executor, db.catalog.open("cpu")
+    preps = [ex.prepare_cached_agg(db._cached_plan(t), table, {"table": "cpu"},
+                                   allow_selective=False) for t in flood_queries()]
+    dev = args[3].device
+    full = (*args[:3],
+            torch.from_numpy(np.stack([S.pack_session(p.gos, p.allow_scan)
+                                       for p in preps])).to(dev),
+            torch.from_numpy(np.stack([S.pack_dyn(p.literals, p.lo_rel, p.hi_rel, p.t0_rel,
+                                                  p.width_i) for p in preps])).to(dev))
+    whole = _time_cohort(torch, full, kw, "the 32 flood texts as one cohort", flush, card)
+    DETAIL["cohort_kernel"] = {"last": last, "all_32": whole}
+    # ---- B4c: 32 lastpoint-host members, hosts 0-31
+    _, rargs, rkw = raw["calls"]["lastpoint-host"]
+    sp, tp, vals, session, dyn = rargs
+    from horaedb_tpu_torch.common_types.dict_column import as_values
+
+    entry = main["db"].interpreters.executor.scan_cache._entries["cpu"]
+    names = np.asarray(as_values(entry.series_rows.columns["hostname"]), dtype=object)
+    allow = np.zeros((32, session.shape[0]), dtype=np.int32)
+    for h in range(32):
+        allow[h, int(np.flatnonzero(names == f"host_{h}")[0])] = 1
+    sess = torch.from_numpy(allow).to(session.device)
+    dyns = dyn.repeat(32, 1)
+    k = T.padded_k(E.layout_rows(sp, rkw["series_layout"]), 10)
+    ckw = {**rkw, "k": k}
+    got = T.raw_topk_cohort(sp, tp, vals, sess, dyns, **ckw)
+    _sync(torch)
+    want, p_ms = _time_once(torch, lambda: T.raw_topk_cohort_plain(sp, tp, vals, sess, dyns,
+                                                                    **ckw))
+    check(torch.equal(got, want), "raw_topk_cohort replay differs from plain")
+    c_err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    solos = torch.stack([T.raw_topk_packed(sp, tp, vals, sess[h], dyns[h], **ckw)
+                         for h in range(32)])
+    check(torch.equal(got, solos), "raw_topk_cohort differs from 32 solo top-k launches")
+    check(bool((got >= 0).all()), "raw_topk_cohort: a lastpoint member found no row")
+    c_launch = lambda: T.raw_topk_cohort(sp, tp, vals, sess, dyns, **ckw)  # noqa: E731
+    s_launch = lambda: [T.raw_topk_packed(sp, tp, vals, sess[h], dyns[h], **ckw)  # noqa: E731
+                        for h in range(32)]
+    cohort_names = ("cohort_init", "cohort_keys", "cohort_hist", "cohort_pick", "cohort_flags",
+                    "cohort_scan", "cohort_write", "cohort_fill")
+    c_ms = _family_device_ms(torch, c_launch, cohort_names, reps=3)
+    c_ms = c_ms if c_ms is not None else _time_launch(torch, c_launch, reps=3)
+    s_ms = _family_device_ms(torch, s_launch, RAW_KERNELS, reps=2)
+    s_ms = s_ms if s_ms is not None else _time_launch(torch, s_launch, reps=2)
+    lits, lo, hi, _, _ = T._unpack_dyn(dyn, rkw["numeric_filters"])
+    sc, tr, dv = E.decode_layouts(sp, tp, vals, rkw["series_layout"], rkw["ts_layout"],
+                                  rkw["value_layouts"])
+    keys = torch.stack([
+        T._sort_key(tr, dv, T._raw_mask(sc, tr, dv, sess[h] != 0, lits, lo, hi,
+                                        rkw["numeric_filters"]),
+                    descending=rkw["descending"], key_is_ts=rkw["key_is_ts"],
+                    key_field=rkw["key_field"]) for h in range(32)])
+    del sc, tr, dv
+    t_ms = _time_launch(torch, lambda: torch.topk(keys, k, dim=1), reps=3)
+    del keys
+    torch.cuda.empty_cache()
+    b_ms, b_by, b_work = _raw_bound(torch, "raw_topk", (sp, tp, vals, sess.amax(0), dyn),
+                                    {**rkw, "k": 32 * k})
+    b_ms += (_bytes_of(sess) + _bytes_of(dyns) - _bytes_of(session) - _bytes_of(dyn)) \
+        / PEAK_BYTES_S * 1e3
+    say(f"kernel raw_topk_cohort, 32 lastpoint-host members (k {k}, {b_work['rows']} rows, "
+        f"{b_work['real']} real): {c_ms:.4f} ms on the device timeline; 32 solo top-k "
+        f"launches {s_ms:.4f} ms; plain {p_ms:.4f} ms; torch.topk of the [32, n] masked keys "
+        f"{t_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); bit-equal to plain and to the solo "
+        f"launches [{card}]")
+    DETAIL["raw_topk_cohort"] = {"ms": c_ms, "solo_ms": s_ms, "plain_ms": p_ms,
+                                 "library_ms": t_ms, "bound_ms": b_ms, "k": k}
+    kernels.append({
+        "name": "raw_topk_cohort", "route": "cuda", "source": RAW_SRC,
+        "replaces": COHORT_REPLACES["raw_topk_cohort"], "launches": 0,
+        "max_abs_err": c_err, "ms": c_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": t_ms,
+    })
+    # ---- B1d at single-groupby-5-8-1's gather, on decoded raw columns
+    pargs, pkw = main["results"]["single-groupby-5-8-1"]["calls"]["cached_selective"]
+    sp, tp, vals, session, dyn = pargs
+    n_f = len(pkw["numeric_filters"])
+    sc, tr, dv = E.decode_layouts(sp, tp, vals, pkw["series_layout"], pkw["ts_layout"],
+                                  pkw["value_layouts"])
+    sc, tr = sc.to(torch.int32).contiguous(), tr.to(torch.int32).contiguous()
+    dense = torch.stack([v.float() for v in dv])
+    del dv
+    s1 = session.shape[0] // 2
+    lo, hi, t0, width = (int(x) for x in dyn[n_f:n_f + 4].tolist())
+    idx = dyn[n_f + 4:]
+    bkw = {x: pkw[x] for x in ("n_groups", "n_buckets", "n_agg_fields", "numeric_filters",
+                               "need_minmax", "segment_impl")}
+    b1d = lambda: S.selective_cached_scan_agg(  # noqa: E731
+        idx, sc, tr, dense, session[:s1], session[s1:] != 0,
+        dyn[:n_f].contiguous().view(torch.float32), lo, hi, t0, width, **bkw)
+    got = b1d()
+    ref_packed = _split(torch, S.cached_scan_agg_packed(*pargs, **pkw), pkw)
+    _sync(torch)
+    dargs = ((sc,), (tr,), tuple((v.contiguous(),) for v in dense), session, dyn)
+    dkw = {**pkw, "value_layouts": (("raw",),) * dense.shape[0], "ts_layout": ("raw",),
+           "series_layout": ("raw",)}
+    d_err = _compare("selective_cached_scan_agg vs the main path's SELECTIVE launch",
+                     *(g.reshape(-1) for g in got), ref_packed,
+                     _abs_sums(torch, "cached_selective", dargs, dkw), pkw["need_minmax"])
+    d_err = max(d_err, _compare("selective_cached_scan_agg vs plain at single-groupby-5-8-1",
+                                *(g.reshape(-1) for g in got),
+                                _split(torch, S._packed_body(*dargs, **dkw), dkw),
+                                _abs_sums(torch, "cached_selective", dargs, dkw),
+                                pkw["need_minmax"]))
+    d_ms = _device_ms(torch, b1d, "scan_agg_cached", reps=20, flush=flush)
+    d_ms = d_ms if d_ms is not None else _time_launch(torch, b1d, flush=flush)
+    dp_ms = _time_launch(torch, lambda: S._packed_body(*dargs, **dkw), reps=3, flush=flush)
+    dl_ms = _time_launch(torch, _library_call(torch, S, "cached_selective", dargs, dkw),
+                         flush=flush)
+    d_bound, d_by, d_work = _kernel_bounds("cached_selective", dargs, dkw)
+    say(f"kernel selective_cached_scan_agg at single-groupby-5-8-1 ({d_work['rows']} gathered "
+        f"rows of decoded f32 columns): {d_ms:.4f} ms on the device timeline; plain "
+        f"{dp_ms:.4f} ms; index_add_ {dl_ms:.4f} ms; bound {d_bound:.6f} ms ({d_by}); equal to "
+        f"the main path's SELECTIVE launch and to plain (largest |difference| {d_err}) [{card}]")
+    kernels.append({
+        "name": "selective_cached_scan_agg", "route": "cuda", "source": SRC,
+        "replaces": COHORT_REPLACES["selective"], "launches": 0, "max_abs_err": d_err,
+        "ms": d_ms, "plain_ms": dp_ms, "bound_ms": d_bound, "bound_by": d_by,
+        "library_ms": dl_ms,
+    })
+    del sc, tr, dense
+    torch.cuda.empty_cache()
+    return kernels
+
+
 def main() -> int:
     try:
         import torch
@@ -2913,7 +3670,10 @@ def main() -> int:
     timed(phase_raw_kernels, torch)
     raw = timed(phase_raw_main, torch, main_out)
     kernels += timed(phase_raw_timings, torch, raw, card)
-    del raw
+    timed(phase_cohort_kernels, torch)
+    flood = timed(phase_flood, torch, main_out)
+    kernels += timed(phase_flood_timings, torch, main_out, flood, raw, card)
+    del raw, flood
     main_out["db"].close()
     del main_out
     comp = timed(phase_compaction, torch, COMPACTION_ROWS)

@@ -52,6 +52,7 @@ from ..utils.metrics import REGISTRY
 # like SEGMENT_KERNEL_LABELS / RAW_SCAN_PATHS).
 DEVICE_KERNEL_KINDS = (
     "cached_packed",   # packed cached agg over the resident columns
+    "cached_cohort",   # cohort cached agg: B queries in one launch (wlm/batch)
     "fused",           # direct fused scan-agg over a host batch
     "merge_dedup",     # merge-dedup sort of a read merge or compaction chunk
     "state_fold",      # live-window ring fold/gather (ops/livewindow)

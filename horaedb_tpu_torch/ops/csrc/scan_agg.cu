@@ -4,6 +4,7 @@
 //   horaedb_tpu/ops/scan_agg.py  scan_agg_body / _fused_scan_agg        (B1a)
 //   horaedb_tpu/ops/scan_agg.py  _packed_body / cached_scan_agg_packed   (B1b)
 //   horaedb_tpu/ops/scan_agg.py  cached_scan_agg_body                   (B1c)
+//   horaedb_tpu/ops/scan_agg.py  _cohort_body / cached_scan_agg_cohort   (B1e)
 //   horaedb_tpu/ops/scan_agg.py  _single_segment_agg, _scatter_segment_agg,
 //                                _mxu_counts / _mxu_segment_agg          (B2a-c)
 //   horaedb_tpu/ops/encoding.py  unpack_bits, decode_series/ts/value,
@@ -20,12 +21,27 @@
 //                    SELECTIVE reads row i from the index tail of ``dyn``.
 //                    The column decoders live in layouts.cuh, shared with
 //                    the raw-read kernels (scan_topk.cu).
+//   scan_agg_cohort  B full-scan cached queries in one launch (B1e): member
+//                    b reads row b of the stacked sessions and dyns and
+//                    writes row b of the packed outputs. A block decodes a
+//                    tile of rows once into shared memory (series code,
+//                    timestamp, every value field), then runs each
+//                    member's allow list, time range, filters and
+//                    reduction over the tile: the columns are read and
+//                    decoded once for the cohort. Each warp walks its own
+//                    part of the tile for every member and commits the
+//                    run partial at its end. Arms: single and shared keep
+//                    every member's partials in shared memory beside the
+//                    tile when they fit there together, else the launch
+//                    takes scatter (the wrapper decides).
 //
 // What bounds it: the bytes of the resident columns (one pass over codes,
 // timestamps and the touched value columns), or for small selective scans
-// the launch itself. The design keeps every decoded value in registers and
-// cuts atomics: each warp walks a contiguous run of rows (the cache is
-// sorted by series and time, so neighbouring rows mostly share a segment),
+// the launch itself; for a cohort, the same bytes once plus B sessions,
+// dyns and outputs, while its work (decode, mask, reduce) grows with B.
+// The design keeps every decoded value in registers and cuts atomics:
+// each warp walks a contiguous run of rows (the cache is sorted by series
+// and time, so neighbouring rows mostly share a segment),
 // reduces each 32-row step with shuffles, carries the running partial of
 // the current segment in registers (lane f owns field f) and commits it
 // only when the segment changes. Rows of a step that do not share one
@@ -170,33 +186,60 @@ struct DirectSource {
   }
 };
 
-template <bool SELECTIVE>
-struct CachedSource {
+// the resident columns of ``a``, read at row i
+struct ResidentCols {
   const CachedArgs& a;
-  int lo, hi, t0, width;
-  __device__ CachedSource(const CachedArgs& args) : a(args) {
-    const int nf = a.filt.n;
-    lo = a.dyn[nf];
-    hi = a.dyn[nf + 1];
-    t0 = a.dyn[nf + 2];
-    width = a.dyn[nf + 3];
-  }
-  __device__ __forceinline__ bool row(long long r, int& seg, long long& i) const {
-    const int nf = a.filt.n;
-    i = SELECTIVE ? (long long)a.dyn[nf + 4 + r] : r;
-    int code = load_int(a.series, i);
-    if (a.session[a.s1 + code] == 0) return false;
-    int ts = load_int(a.ts, i);
-    if (!(ts >= lo && ts < hi)) return false;
-    for (int k = 0; k < nf; ++k) {
-      float v = load_value(a.fields[a.filt.field[k]], i);
-      if (!compare(v, a.filt.op[k], __int_as_float(a.dyn[k]))) return false;
-    }
-    seg = a.session[code] * a.n_buckets + bucket_of(ts, t0, width, a.n_buckets);
-    return seg >= 0 && seg < a.out.n_seg;
-  }
+  __device__ __forceinline__ int code(long long i) const { return load_int(a.series, i); }
+  __device__ __forceinline__ int ts(long long i) const { return load_int(a.ts, i); }
   __device__ __forceinline__ float value(int f, long long i) const {
     return load_value(a.fields[f], i);
+  }
+};
+
+// one query's session (group map | allow list) and dyn row over the
+// columns ``cols`` gives: the allow list, the time range, the numeric
+// filters, then the row's group x bucket segment. A series code below 0
+// marks a row past the last one.
+template <class Cols>
+struct QueryRows {
+  const CachedArgs& a;
+  const int* session;
+  const int* dyn;
+  Cols cols;
+  int lo, hi, t0, width;
+  __device__ QueryRows(const CachedArgs& args, const int* session_, const int* dyn_,
+                       const Cols& cols_)
+      : a(args), session(session_), dyn(dyn_), cols(cols_) {
+    const int nf = a.filt.n;
+    lo = dyn[nf];
+    hi = dyn[nf + 1];
+    t0 = dyn[nf + 2];
+    width = dyn[nf + 3];
+  }
+  __device__ __forceinline__ bool keep(long long i, int& seg) const {
+    const int code = cols.code(i);
+    if (code < 0 || session[a.s1 + code] == 0) return false;
+    const int ts = cols.ts(i);
+    if (!(ts >= lo && ts < hi)) return false;
+    for (int k = 0; k < a.filt.n; ++k) {
+      if (!compare(cols.value(a.filt.field[k], i), a.filt.op[k], __int_as_float(dyn[k])))
+        return false;
+    }
+    seg = session[code] * a.n_buckets + bucket_of(ts, t0, width, a.n_buckets);
+    return seg >= 0 && seg < a.out.n_seg;
+  }
+  __device__ __forceinline__ float value(int f, long long i) const { return cols.value(f, i); }
+};
+
+// one query over the resident columns; SELECTIVE reads the rows its dyn
+// row lists after the four scalars
+template <bool SELECTIVE>
+struct CachedSource : QueryRows<ResidentCols> {
+  __device__ CachedSource(const CachedArgs& args, const int* session_, const int* dyn_)
+      : QueryRows<ResidentCols>(args, session_, dyn_, ResidentCols{args}) {}
+  __device__ __forceinline__ bool row(long long r, int& seg, long long& i) const {
+    i = SELECTIVE ? (long long)dyn[a.filt.n + 4 + r] : r;
+    return keep(i, seg);
   }
 };
 
@@ -225,16 +268,11 @@ __device__ __forceinline__ void commit(const Target& t, int seg, int cnt, float 
   }
 }
 
+// one warp reduces rows [begin, end) into ``t`` and commits its last run
 template <int ARM, class Src>
-__device__ void reduce_rows(const Src& src, long long n_rows, const Out& out, const Target& t) {
+__device__ void reduce_range(const Src& src, long long begin, long long end, const Out& out,
+                             const Target& t) {
   const int lane = threadIdx.x & 31;
-  const long long warp = ((long long)blockIdx.x * BLOCK + threadIdx.x) >> 5;
-  const long long n_warps = ((long long)gridDim.x * BLOCK) >> 5;
-  // a contiguous run of rows per warp, a multiple of 32
-  long long chunk = (n_rows + n_warps - 1) / n_warps;
-  chunk = (chunk + 31) & ~31LL;
-  const long long begin = warp * chunk;
-  const long long end = min(begin + chunk, n_rows);
   const int n_agg = out.n_agg;
   const bool minmax = out.minmax != 0;
 
@@ -293,6 +331,58 @@ __device__ void reduce_rows(const Src& src, long long n_rows, const Out& out, co
   commit(t, run_seg, run_cnt, run_sum, run_min, run_max, lane, n_agg, minmax);
 }
 
+// each warp of the grid takes a contiguous run of rows, a multiple of 32
+template <int ARM, class Src>
+__device__ void reduce_rows(const Src& src, long long n_rows, const Out& out, const Target& t) {
+  const long long warp = ((long long)blockIdx.x * BLOCK + threadIdx.x) >> 5;
+  const long long n_warps = ((long long)gridDim.x * BLOCK) >> 5;
+  long long chunk = (n_rows + n_warps - 1) / n_warps;
+  chunk = (chunk + 31) & ~31LL;
+  const long long begin = warp * chunk;
+  reduce_range<ARM>(src, begin, min(begin + chunk, n_rows), out, t);
+}
+
+// block-private partials of every segment in shared memory at ``base``
+__device__ __forceinline__ Target smem_target(float* base, const Out& out) {
+  const long long fs = (long long)out.n_agg * out.n_seg;
+  Target t;
+  t.counts = (int*)base;
+  t.sums = base + out.n_seg;
+  t.mins = t.sums + fs;
+  t.maxs = t.mins + fs;
+  t.n_seg = out.n_seg;
+  return t;
+}
+
+__device__ __forceinline__ void init_partials(const Target& t, const Out& out) {
+  const long long fs = (long long)out.n_agg * out.n_seg;
+  for (long long k = threadIdx.x; k < out.n_seg; k += BLOCK) t.counts[k] = 0;
+  for (long long k = threadIdx.x; k < fs; k += BLOCK) {
+    t.sums[k] = 0.f;
+    if (out.minmax) {
+      t.mins[k] = INFINITY;
+      t.maxs[k] = -INFINITY;
+    }
+  }
+}
+
+// merge a block's partials into the output with global atomics
+__device__ __forceinline__ void flush_partials(const Target& t, const Out& out) {
+  for (int s = threadIdx.x; s < out.n_seg; s += BLOCK) {
+    const int c = t.counts[s];
+    if (c == 0) continue;
+    atomicAdd(&out.counts[s], c);
+    for (int f = 0; f < out.n_agg; ++f) {
+      const long long o = (long long)f * out.n_seg + s;
+      atomicAdd(&out.sums[o], t.sums[o]);
+      if (out.minmax) {
+        atomic_extreme<true>(&out.mins[o], t.mins[o]);
+        atomic_extreme<false>(&out.maxs[o], t.maxs[o]);
+      }
+    }
+  }
+}
+
 template <int ARM, class Src>
 __device__ void scan_agg(const Src& src, long long n_rows, const Out& out) {
   if (ARM == ARM_SCATTER) {
@@ -302,38 +392,12 @@ __device__ void scan_agg(const Src& src, long long n_rows, const Out& out) {
   }
   // single / shared: block-private partials of every segment in shared memory
   extern __shared__ float smem[];
-  const int n_seg = out.n_seg;
-  const long long fs = (long long)out.n_agg * n_seg;
-  Target t;
-  t.counts = (int*)smem;
-  t.sums = smem + n_seg;
-  t.mins = t.sums + fs;
-  t.maxs = t.mins + fs;
-  t.n_seg = n_seg;
-  for (long long k = threadIdx.x; k < n_seg; k += BLOCK) t.counts[k] = 0;
-  for (long long k = threadIdx.x; k < fs; k += BLOCK) {
-    t.sums[k] = 0.f;
-    if (out.minmax) {
-      t.mins[k] = INFINITY;
-      t.maxs[k] = -INFINITY;
-    }
-  }
+  const Target t = smem_target(smem, out);
+  init_partials(t, out);
   __syncthreads();
   reduce_rows<ARM>(src, n_rows, out, t);
   __syncthreads();
-  for (int s = threadIdx.x; s < n_seg; s += BLOCK) {
-    const int c = t.counts[s];
-    if (c == 0) continue;
-    atomicAdd(&out.counts[s], c);
-    for (int f = 0; f < out.n_agg; ++f) {
-      const long long o = (long long)f * n_seg + s;
-      atomicAdd(&out.sums[o], t.sums[o]);
-      if (out.minmax) {
-        atomic_extreme<true>(&out.mins[o], t.mins[o]);
-        atomic_extreme<false>(&out.maxs[o], t.maxs[o]);
-      }
-    }
-  }
+  flush_partials(t, out);
 }
 
 template <int ARM>
@@ -344,8 +408,108 @@ __global__ void __launch_bounds__(BLOCK) scan_agg_direct(const __grid_constant__
 
 template <int ARM, bool SELECTIVE>
 __global__ void __launch_bounds__(BLOCK) scan_agg_cached(const __grid_constant__ CachedArgs a) {
-  CachedSource<SELECTIVE> src(a);
+  CachedSource<SELECTIVE> src(a, a.session, a.dyn);
   scan_agg<ARM>(src, a.n_rows, a.out);
+}
+
+// B full-scan cached queries: c holds the columns and statics (its
+// session, dyn and out are unused); member b reads sessions + b * sess_w
+// and dyns + b * dyn_w, and writes the packed row at c.out + b * out_w
+// floats. ``tile`` rows a tile (a multiple of BLOCK), ``n_fields`` value
+// fields decoded per row.
+struct CohortArgs {
+  CachedArgs c;
+  const int* sessions;
+  const int* dyns;
+  long long out_w;
+  int members;
+  int sess_w;
+  int dyn_w;
+  int n_fields;
+  int tile;
+  int pad_;
+};
+
+// a tile decoded into shared memory, read at tile row r
+struct TileCols {
+  const int* codes;  // -1: past the last row
+  const int* tss;
+  const float* vals;  // [n_fields][tile]
+  int tile;
+  __device__ __forceinline__ int code(long long r) const { return codes[r]; }
+  __device__ __forceinline__ int ts(long long r) const { return tss[r]; }
+  __device__ __forceinline__ float value(int f, long long r) const { return vals[f * tile + r]; }
+};
+
+// one member's query over the decoded tile
+struct TileSource : QueryRows<TileCols> {
+  __device__ TileSource(const CachedArgs& args, const int* session_, const int* dyn_,
+                        const TileCols& cols_)
+      : QueryRows<TileCols>(args, session_, dyn_, cols_) {}
+  __device__ __forceinline__ bool row(long long r, int& seg, long long& i) const {
+    i = r;
+    return keep(r, seg);
+  }
+};
+
+__device__ __forceinline__ Out member_out(const CohortArgs& a, int m) {
+  Out out = a.c.out;
+  const long long off = (long long)m * a.out_w;  // floats
+  out.counts = (int*)((float*)out.counts + off);
+  out.sums += off;
+  out.mins += off;
+  out.maxs += off;
+  return out;
+}
+
+template <int ARM>
+__global__ void __launch_bounds__(BLOCK) scan_agg_cohort(const __grid_constant__ CohortArgs a) {
+  extern __shared__ float smem[];
+  const CachedArgs& c = a.c;
+  const int T = a.tile, M = a.members;
+  int* codes = (int*)smem;
+  int* tss = codes + T;
+  float* vals = (float*)(tss + T);
+  // single / shared: every member's partials after the tile, out_w floats each
+  float* parts = vals + (long long)a.n_fields * T;
+  if (ARM != ARM_SCATTER) {
+    for (int m = 0; m < M; ++m) init_partials(smem_target(parts + m * a.out_w, c.out), c.out);
+  }
+  const int per_warp = T / (BLOCK / 32);
+  const long long begin = (long long)(threadIdx.x >> 5) * per_warp;
+  const long long n_tiles = (c.n_rows + T - 1) / T;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    __syncthreads();  // every member is done with the last tile (and the init)
+    const long long base = tile * T;
+#pragma unroll 4
+    for (int r = threadIdx.x; r < T; r += BLOCK) {
+      const long long i = base + r;
+      if (i < c.n_rows) {
+        codes[r] = load_int(c.series, i);
+        tss[r] = load_int(c.ts, i);
+        for (int f = 0; f < a.n_fields; ++f) vals[f * T + r] = load_value(c.fields[f], i);
+      } else {
+        codes[r] = -1;
+      }
+    }
+    __syncthreads();
+    for (int m = 0; m < M; ++m) {
+      const TileSource src(c, a.sessions + (long long)m * a.sess_w,
+                           a.dyns + (long long)m * a.dyn_w, TileCols{codes, tss, vals, T});
+      const Out out = member_out(a, m);
+      const Target t = ARM == ARM_SCATTER
+                           ? Target{out.counts, out.sums, out.mins, out.maxs, out.n_seg}
+                           : smem_target(parts + m * a.out_w, out);
+      reduce_range<ARM>(src, begin, begin + per_warp, out, t);
+    }
+  }
+  if (ARM != ARM_SCATTER) {
+    __syncthreads();
+    for (int m = 0; m < M; ++m) {
+      const Out out = member_out(a, m);
+      flush_partials(smem_target(parts + m * a.out_w, out), out);
+    }
+  }
 }
 
 // ---- host launch (plain C interface, loaded with ctypes) --------------------
@@ -356,12 +520,14 @@ static size_t smem_bytes(int arm, const Out& out) {
   return ((size_t)out.n_seg * (1 + planes * (size_t)out.n_agg)) * sizeof(float);
 }
 
+// ``smem`` < 0: the arm's partials (smem_bytes); a cohort passes its own
 template <class K>
 static cudaError_t launch(K kernel, int arm, int device, long long n_rows, const Out& out,
-                          cudaStream_t stream, const void* args) {
+                          cudaStream_t stream, const void* args, long long smem_ = -1,
+                          long long rows_per_block = BLOCK * 8) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const size_t smem = smem_bytes(arm, out);
+  const size_t smem = smem_ < 0 ? smem_bytes(arm, out) : (size_t)smem_;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -372,8 +538,9 @@ static cudaError_t launch(K kernel, int arm, int device, long long n_rows, const
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  // enough rows per warp that the carried run partial pays off
-  long long want = (n_rows + BLOCK * 8 - 1) / (BLOCK * 8);
+  // enough rows per warp that the carried run partial pays off (the solo
+  // kernels); one tile a block at least (the cohort)
+  long long want = (n_rows + rows_per_block - 1) / rows_per_block;
   long long cap = (long long)sms * per_sm;
   int grid = (int)(want < 1 ? 1 : (want < cap ? want : cap));
   void* params[] = {(void*)args};
@@ -393,6 +560,7 @@ int scan_agg_abi(long long* sizes) {
   sizes[4] = sizeof(CachedArgs);
   sizes[5] = MAX_FIELDS;
   sizes[6] = MAX_FILTERS;
+  sizes[7] = sizeof(CohortArgs);
   return 0;
 }
 
@@ -429,6 +597,27 @@ int scan_agg_cached_launch(const CachedArgs* a, int arm, int selective, void* st
       case ARM_SCATTER:
         return launch(scan_agg_cached<ARM_SCATTER, false>, arm, a->device, a->n_rows, a->out, s, a);
     }
+  }
+  return cudaErrorInvalidValue;
+}
+
+int scan_agg_cohort_launch(const CohortArgs* a, int arm, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (a->members < 1 || a->tile < BLOCK || a->tile % BLOCK) return cudaErrorInvalidValue;
+  const CachedArgs& c = a->c;
+  // the tile, then (single / shared) every member's partials
+  long long smem = (long long)a->tile * (2 + a->n_fields) * 4;
+  if (arm != ARM_SCATTER) smem += (long long)a->members * a->out_w * 4;
+  switch (arm) {
+    case ARM_SINGLE:
+      return launch(scan_agg_cohort<ARM_SINGLE>, arm, c.device, c.n_rows, c.out, s, a, smem,
+                    a->tile);
+    case ARM_SHARED:
+      return launch(scan_agg_cohort<ARM_SHARED>, arm, c.device, c.n_rows, c.out, s, a, smem,
+                    a->tile);
+    case ARM_SCATTER:
+      return launch(scan_agg_cohort<ARM_SCATTER>, arm, c.device, c.n_rows, c.out, s, a, smem,
+                    a->tile);
   }
   return cudaErrorInvalidValue;
 }

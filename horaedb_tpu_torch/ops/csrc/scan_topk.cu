@@ -1,9 +1,10 @@
 // Raw reads over the resident scan cache: fused filter + top-k, and the
 // bounded selection, for Hopper.
 //
-// Replaces the JAX package's jitted device programs (B4)
+// Replaces the JAX package's jitted device programs (B4, B4c)
 //   horaedb_tpu/ops/scan_topk.py  raw_topk_body    via raw_topk_packed
 //   horaedb_tpu/ops/scan_topk.py  raw_select_body  via raw_select_packed
+//   horaedb_tpu/ops/scan_topk.py  raw_topk_cohort  (raw_topk_body over B queries)
 //
 // Both read the scan cache's columns where they live, in any layout
 // (layouts.cuh), and return only row ids; the host gathers those rows.
@@ -45,6 +46,25 @@
 // What bounds it: the bytes of the resident columns (one decode pass) and
 // of the key buffer (written once, read four times); the picks and the
 // scan are single-block steps of a few microseconds each.
+//
+// Cohort top-k (B4c): B queries of one shape (the same k, key and filter
+// fields; their own allow lists, time ranges and literals) in one launch
+// sequence, at most MAX_COHORT members a sequence. The key of a row does
+// not depend on the member, only whether it passes does, so:
+//   cohort_init   one block per member zeroes its state and histogram;
+//   cohort_keys   one pass decodes each row once, writes ONE key buffer
+//                 (not B) and, per member, a ballot bit word of the rows
+//                 that pass, the passing count and the top-digit histogram;
+//   cohort_hist   three passes read each key once and histogram the next
+//                 digit for every member whose bits and prefix match;
+//   cohort_pick   topk_pick, one block per member;
+//   cohort_flags  one pass reads each key once and writes every member's
+//                 strict and tie bit words and per-tile counts;
+//   cohort_scan, cohort_write, cohort_fill
+//                 raw_scan, raw_write and raw_fill with the member on the
+//                 grid (block = chunk * B + member where blocks share rows).
+// Member b's slots are those raw_topk gives for its session and dyn row:
+// the same keys, mask, histograms and threshold rule.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -91,25 +111,32 @@ struct RawArgs {
   Filters filt;
 };
 
+// a cohort member's scratch adds the bit words of the rows it passes
 struct Scratch {
   int* st;
   int* hist;
   int* cnt[2];
   unsigned* bits[2];
+  unsigned* mask;
 };
 
 __device__ __forceinline__ long long n_tiles_of(long long n) { return (n + TILE - 1) / TILE; }
 
-__device__ __forceinline__ Scratch scratch_of(const RawArgs& a) {
-  const long long nt = n_tiles_of(a.n_rows);
+__device__ __forceinline__ Scratch scratch_at(int* base, long long n_rows) {
+  const long long nt = n_tiles_of(n_rows);
   Scratch s;
-  s.st = a.scratch;
-  s.hist = a.scratch + ST_WORDS;
+  s.st = base;
+  s.hist = base + ST_WORDS;
   s.cnt[0] = s.hist + 256;
   s.cnt[1] = s.cnt[0] + nt;
   s.bits[0] = (unsigned*)(s.cnt[1] + nt);
   s.bits[1] = s.bits[0] + nt * WORDS;
+  s.mask = s.bits[1] + nt * WORDS;
   return s;
+}
+
+__device__ __forceinline__ Scratch scratch_of(const RawArgs& a) {
+  return scratch_at(a.scratch, a.n_rows);
 }
 
 // ---- mask and key -------------------------------------------------------------
@@ -258,9 +285,9 @@ __global__ void __launch_bounds__(BLOCK) topk_hist(const __grid_constant__ RawAr
 // c(hi) < k and ends at min(key_hi, max(key_lo + 1, t*)), t* the least t
 // with c(t) < k (the k-th largest key when total >= k, else INT32_MIN), or
 // at key_hi when key_hi <= key_lo + 1 and it never runs.
-__global__ void __launch_bounds__(BLOCK) topk_pick(const __grid_constant__ RawArgs a, int shift) {
+__device__ __forceinline__ void pick_digit(const Scratch& s, long long k, const int* dyn, int nf,
+                                           int shift) {
   __shared__ int h[256];
-  const Scratch s = scratch_of(a);
   const int t = threadIdx.x;
   h[t] = s.hist[t];
   s.hist[t] = 0;
@@ -268,8 +295,8 @@ __global__ void __launch_bounds__(BLOCK) topk_pick(const __grid_constant__ RawAr
   if (t != 0) return;
   int* st = s.st;
   if (shift == 24) {
-    st[ST_ACTIVE] = (long long)st[ST_TOTAL] >= a.k;
-    st[ST_RANK] = (int)(a.k < st[ST_TOTAL] ? a.k : st[ST_TOTAL]);
+    st[ST_ACTIVE] = (long long)st[ST_TOTAL] >= k;
+    st[ST_RANK] = (int)(k < st[ST_TOTAL] ? k : st[ST_TOTAL]);
     st[ST_PREFIX] = 0;
   }
   if (st[ST_ACTIVE]) {
@@ -283,8 +310,7 @@ __global__ void __launch_bounds__(BLOCK) topk_pick(const __grid_constant__ RawAr
     st[ST_PREFIX] = (int)((uint32_t)st[ST_PREFIX] | ((uint32_t)d << shift));
   }
   if (shift == 0) {
-    const int nf = a.filt.n;
-    const long long key_lo = a.dyn[nf + 2], key_hi = a.dyn[nf + 3];
+    const long long key_lo = dyn[nf + 2], key_hi = dyn[nf + 3];
     long long thr;
     if (key_hi <= key_lo + 1) {
       thr = key_hi;
@@ -294,8 +320,12 @@ __global__ void __launch_bounds__(BLOCK) topk_pick(const __grid_constant__ RawAr
       if (thr > key_hi) thr = key_hi;
     }
     st[ST_THR] = (int)thr;
-    st[ST_LIMIT] = (int)(a.k < st[ST_TOTAL] ? a.k : st[ST_TOTAL]);
+    st[ST_LIMIT] = (int)(k < st[ST_TOTAL] ? k : st[ST_TOTAL]);
   }
+}
+
+__global__ void __launch_bounds__(BLOCK) topk_pick(const __grid_constant__ RawArgs a, int shift) {
+  pick_digit(scratch_of(a), a.k, a.dyn, a.filt.n, shift);
 }
 
 // ---- ordered compaction -------------------------------------------------------
@@ -358,10 +388,8 @@ __global__ void __launch_bounds__(BLOCK) raw_flags(const __grid_constant__ RawAr
 // One block: exclusive prefix sums of the tile counts of ``streams``
 // streams, in place; the totals go to the state (top-k) or to out[0], the
 // selection's count.
-__global__ void __launch_bounds__(SCAN_THREADS) raw_scan(const __grid_constant__ RawArgs a,
-                                                         int streams) {
-  const Scratch s = scratch_of(a);
-  const long long nt = n_tiles_of(a.n_rows);
+__device__ __forceinline__ void scan_tiles(const Scratch& s, long long nt, int streams,
+                                           int* count_out) {
   for (int q = 0; q < streams; ++q) {
     int* cnt = s.cnt[q];
     int carry = 0;
@@ -378,32 +406,38 @@ __global__ void __launch_bounds__(SCAN_THREADS) raw_scan(const __grid_constant__
         s.st[q == 0 ? ST_STRICT : ST_TIE] = carry;
       } else {
         s.st[ST_TOTAL] = carry;
-        a.out[0] = carry;
+        count_out[0] = carry;
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS) raw_scan(const __grid_constant__ RawArgs a,
+                                                         int streams) {
+  scan_tiles(scratch_of(a), n_tiles_of(a.n_rows), streams, a.out);
 }
 
 // Each tile writes the row ids of its set bits, in row order, to slots
 // [first + offset, ...) below ``limit``: strict rows from slot 0 and below
 // k; ties from slot n_strict and below min(k, total); selected rows from
 // out[1] and below 1 + slots. One thread per bit word.
-__global__ void __launch_bounds__(WORDS) raw_write(const __grid_constant__ RawArgs a, int mode) {
-  const Scratch s = scratch_of(a);
+// blocks ``blk`` of ``nblk`` share the tiles
+__device__ __forceinline__ void write_slots(const Scratch& s, long long n_rows, long long k,
+                                            int* out, int mode, long long blk, long long nblk) {
   const int q = mode == MODE_TIE ? 1 : 0;
   long long first, limit;
   if (mode == MODE_STRICT) {
     first = 0;
-    limit = a.k;
+    limit = k;
   } else if (mode == MODE_TIE) {
     first = s.st[ST_STRICT];
     limit = s.st[ST_LIMIT];
   } else {
     first = 1;
-    limit = 1 + a.k;
+    limit = 1 + k;
   }
-  const long long nt = n_tiles_of(a.n_rows);
-  for (long long tile = blockIdx.x; tile < nt; tile += gridDim.x) {
+  const long long nt = n_tiles_of(n_rows);
+  for (long long tile = blk; tile < nt; tile += nblk) {
     const long long start = first + s.cnt[q][tile];
     if (start >= limit) continue;  // the whole tile lands past the last slot
     unsigned bits = s.bits[q][tile * WORDS + threadIdx.x];
@@ -412,31 +446,236 @@ __global__ void __launch_bounds__(WORDS) raw_write(const __grid_constant__ RawAr
     const long long row0 = tile * TILE + (long long)threadIdx.x * 32;
     while (bits && pos < limit) {
       const int b = __ffs(bits) - 1;
-      a.out[pos++] = (int)(row0 + b);
+      out[pos++] = (int)(row0 + b);
       bits &= bits - 1;
     }
   }
+}
+
+__global__ void __launch_bounds__(WORDS) raw_write(const __grid_constant__ RawArgs a, int mode) {
+  write_slots(scratch_of(a), a.n_rows, a.k, a.out, mode, blockIdx.x, gridDim.x);
 }
 
 // Slots no tile wrote. Top-k: -1 from min(k, total) on; below it only
 // where the reference's tie stream runs out (its searchsorted returns
 // n_rows there; never with seeds that bracket the keys). Selection: -1
 // from min(count, slots) on.
-__global__ void __launch_bounds__(BLOCK) raw_fill(const __grid_constant__ RawArgs a, int mode) {
-  const Scratch s = scratch_of(a);
-  const long long stride = (long long)gridDim.x * BLOCK;
+__device__ __forceinline__ void fill_slots(const Scratch& s, long long n_rows, long long k,
+                                           int* out, int mode, long long blk, long long nblk) {
+  const long long stride = nblk * BLOCK;
   if (mode == MODE_SELECT) {
     const long long count = s.st[ST_TOTAL];
-    const long long from = count < a.k ? count : a.k;
-    for (long long j = from + blockIdx.x * BLOCK + threadIdx.x; j < a.k; j += stride)
-      a.out[1 + j] = -1;
+    const long long from = count < k ? count : k;
+    for (long long j = from + blk * BLOCK + threadIdx.x; j < k; j += stride) out[1 + j] = -1;
     return;
   }
   const long long n_strict = s.st[ST_STRICT], n_tie = s.st[ST_TIE], limit = s.st[ST_LIMIT];
-  for (long long j = blockIdx.x * BLOCK + threadIdx.x; j < a.k; j += stride) {
+  for (long long j = blk * BLOCK + threadIdx.x; j < k; j += stride) {
     const bool written = j < n_strict || (j < limit && j - n_strict < n_tie);
-    if (!written) a.out[j] = j < limit ? (int)a.n_rows : -1;
+    if (!written) out[j] = j < limit ? (int)n_rows : -1;
   }
+}
+
+__global__ void __launch_bounds__(BLOCK) raw_fill(const __grid_constant__ RawArgs a, int mode) {
+  fill_slots(scratch_of(a), a.n_rows, a.k, a.out, mode, blockIdx.x, gridDim.x);
+}
+
+// ---- cohort top-k (B4c) ---------------------------------------------------------
+
+#define MAX_COHORT 32
+
+// r: the columns, statics, the shared key buffer (r.keys) and the bases of
+// the scratch and the slots (r.session and r.dyn unused); member b reads
+// sessions + b * sess_w and dyns + b * dyn_w, keeps its scratch at
+// r.scratch + b * member_words and writes its k slots at r.out + b * k.
+struct CohortRawArgs {
+  RawArgs r;
+  const int* sessions;
+  const int* dyns;
+  long long member_words;
+  int members;
+  int sess_w;
+  int dyn_w;
+  int pad_;
+};
+
+__device__ __forceinline__ Scratch member_scratch(const CohortRawArgs& a, int m) {
+  return scratch_at(a.r.scratch + (long long)m * a.member_words, a.r.n_rows);
+}
+
+__global__ void __launch_bounds__(BLOCK) cohort_init(const __grid_constant__ CohortRawArgs a) {
+  int* base = a.r.scratch + (long long)blockIdx.x * a.member_words;
+  for (int t = threadIdx.x; t < ST_WORDS + 256; t += BLOCK) base[t] = 0;
+}
+
+__global__ void __launch_bounds__(BLOCK) cohort_keys(const __grid_constant__ CohortRawArgs a) {
+  __shared__ int hist[MAX_COHORT][256];
+  __shared__ int count[MAX_COHORT];
+  __shared__ int lo_s[MAX_COHORT], hi_s[MAX_COHORT];
+  const RawArgs& r = a.r;
+  const int M = a.members, nf = r.filt.n;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int t = threadIdx.x; t < M * 256; t += BLOCK) hist[t >> 8][t & 255] = 0;
+  for (int m = threadIdx.x; m < M; m += BLOCK) {
+    count[m] = 0;
+    lo_s[m] = a.dyns[(long long)m * a.dyn_w + nf];
+    hi_s[m] = a.dyns[(long long)m * a.dyn_w + nf + 1];
+  }
+  __syncthreads();
+  const long long nt = n_tiles_of(r.n_rows);
+  for (long long tile = blockIdx.x; tile < nt; tile += gridDim.x) {
+    for (int j = 0; j < TILE / BLOCK; ++j) {
+      const long long i = tile * TILE + j * BLOCK + threadIdx.x;
+      int key = KEY_MASKED;
+      unsigned pass = 0;  // bit m: member m keeps the row
+      if (i < r.n_rows) {
+        const int code = load_int(r.series, i);
+        unsigned allow = 0;
+        for (int m = 0; m < M; ++m)
+          if (a.sessions[(long long)m * a.sess_w + code] != 0) allow |= 1u << m;
+        if (allow) {
+          const int ts = load_int(r.ts, i);
+          key = sort_key(r, i, ts);
+          float fv[MAX_FILTERS];
+#pragma unroll
+          for (int f = 0; f < MAX_FILTERS; ++f)
+            if (f < nf) fv[f] = load_value(r.fields[r.filt.field[f]], i);
+          if (key != KEY_MASKED) {
+            for (int m = 0; m < M; ++m) {
+              if (!((allow >> m) & 1u) || ts < lo_s[m] || ts >= hi_s[m]) continue;
+              const int* lit = a.dyns + (long long)m * a.dyn_w;
+              bool ok = true;
+#pragma unroll
+              for (int f = 0; f < MAX_FILTERS; ++f)
+                if (f < nf && ok) ok = compare(fv[f], r.filt.op[f], __int_as_float(lit[f]));
+              if (ok) pass |= 1u << m;
+            }
+          }
+        }
+        r.keys[i] = key;
+      }
+      const long long word = tile * WORDS + j * (BLOCK / 32) + w;
+      const int digit = (int)(flipped(key) >> 24);
+      for (int m = 0; m < M; ++m) {
+        const bool in = (pass >> m) & 1u;
+        const unsigned b = __ballot_sync(FULL_MASK, in);
+        if (lane == 0) {
+          member_scratch(a, m).mask[word] = b;
+          if (b) atomicAdd(&count[m], __popc(b));
+        }
+        if (b) hist_add(hist[m], in ? digit : 256);
+      }
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < M * 256; t += BLOCK) {
+    const int m = t >> 8;
+    if (hist[m][t & 255]) atomicAdd(&member_scratch(a, m).hist[t & 255], hist[m][t & 255]);
+  }
+  for (int m = threadIdx.x; m < M; m += BLOCK)
+    if (count[m]) atomicAdd(&member_scratch(a, m).st[ST_TOTAL], count[m]);
+}
+
+__global__ void __launch_bounds__(BLOCK) cohort_hist(const __grid_constant__ CohortRawArgs a,
+                                                     int shift) {
+  __shared__ int hist[MAX_COHORT][256];
+  __shared__ unsigned want[MAX_COHORT];
+  __shared__ int active[MAX_COHORT];
+  const RawArgs& r = a.r;
+  const int M = a.members;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int t = threadIdx.x; t < M * 256; t += BLOCK) hist[t >> 8][t & 255] = 0;
+  for (int m = threadIdx.x; m < M; m += BLOCK) {
+    const Scratch s = member_scratch(a, m);
+    active[m] = s.st[ST_ACTIVE];  // fewer than k rows: no k-th key to find
+    want[m] = (uint32_t)s.st[ST_PREFIX] >> (shift + 8);
+  }
+  __syncthreads();
+  const long long nt = n_tiles_of(r.n_rows);
+  for (long long tile = blockIdx.x; tile < nt; tile += gridDim.x) {
+    for (int j = 0; j < TILE / BLOCK; ++j) {
+      const long long i = tile * TILE + j * BLOCK + threadIdx.x;
+      const uint32_t u = flipped(i < r.n_rows ? r.keys[i] : KEY_MASKED);
+      const long long word = tile * WORDS + j * (BLOCK / 32) + w;
+      for (int m = 0; m < M; ++m) {
+        if (!active[m]) continue;
+        const unsigned bits = member_scratch(a, m).mask[word];  // the same word in every lane
+        if (bits == 0) continue;
+        const bool in = ((bits >> lane) & 1u) && (u >> (shift + 8)) == want[m];
+        hist_add(hist[m], in ? (int)((u >> shift) & 255u) : 256);
+      }
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < M * 256; t += BLOCK) {
+    const int m = t >> 8;
+    if (hist[m][t & 255]) atomicAdd(&member_scratch(a, m).hist[t & 255], hist[m][t & 255]);
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK) cohort_pick(const __grid_constant__ CohortRawArgs a,
+                                                     int shift) {
+  const int m = blockIdx.x;
+  pick_digit(member_scratch(a, m), a.r.k, a.dyns + (long long)m * a.dyn_w, a.r.filt.n, shift);
+}
+
+__global__ void __launch_bounds__(BLOCK) cohort_flags(const __grid_constant__ CohortRawArgs a) {
+  __shared__ int thr_s[MAX_COHORT];
+  __shared__ int c0[MAX_COHORT], c1[MAX_COHORT];
+  const RawArgs& r = a.r;
+  const int M = a.members;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int m = threadIdx.x; m < M; m += BLOCK) thr_s[m] = member_scratch(a, m).st[ST_THR];
+  const long long nt = n_tiles_of(r.n_rows);
+  for (long long tile = blockIdx.x; tile < nt; tile += gridDim.x) {
+    for (int m = threadIdx.x; m < M; m += BLOCK) c0[m] = c1[m] = 0;
+    __syncthreads();
+    for (int j = 0; j < TILE / BLOCK; ++j) {
+      const long long i = tile * TILE + j * BLOCK + threadIdx.x;
+      const int key = i < r.n_rows ? r.keys[i] : KEY_MASKED;
+      const long long word = tile * WORDS + j * (BLOCK / 32) + w;
+      for (int m = 0; m < M; ++m) {
+        const Scratch s = member_scratch(a, m);
+        const unsigned bits = s.mask[word];  // the same word in every lane
+        unsigned b0 = 0, b1 = 0;
+        if (bits) {
+          const bool in = (bits >> lane) & 1u;
+          b0 = __ballot_sync(FULL_MASK, in && key > thr_s[m]);
+          b1 = __ballot_sync(FULL_MASK, in && key == thr_s[m]);
+        }
+        if (lane == 0) {
+          s.bits[0][word] = b0;
+          s.bits[1][word] = b1;
+          if (b0) atomicAdd(&c0[m], __popc(b0));
+          if (b1) atomicAdd(&c1[m], __popc(b1));
+        }
+      }
+    }
+    __syncthreads();
+    for (int m = threadIdx.x; m < M; m += BLOCK) {
+      const Scratch s = member_scratch(a, m);
+      s.cnt[0][tile] = c0[m];
+      s.cnt[1][tile] = c1[m];
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS) cohort_scan(const __grid_constant__ CohortRawArgs a) {
+  scan_tiles(member_scratch(a, blockIdx.x), n_tiles_of(a.r.n_rows), 2, nullptr);
+}
+
+__global__ void __launch_bounds__(WORDS) cohort_write(const __grid_constant__ CohortRawArgs a,
+                                                      int mode) {
+  const int m = (int)(blockIdx.x % (unsigned)a.members);
+  write_slots(member_scratch(a, m), a.r.n_rows, a.r.k, a.r.out + (long long)m * a.r.k, mode,
+              blockIdx.x / (unsigned)a.members, gridDim.x / (unsigned)a.members);
+}
+
+__global__ void __launch_bounds__(BLOCK) cohort_fill(const __grid_constant__ CohortRawArgs a) {
+  const int m = (int)(blockIdx.x % (unsigned)a.members);
+  fill_slots(member_scratch(a, m), a.r.n_rows, a.r.k, a.r.out + (long long)m * a.r.k,
+             MODE_STRICT, blockIdx.x / (unsigned)a.members, gridDim.x / (unsigned)a.members);
 }
 
 // ---- host launch (plain C interface, loaded with ctypes) --------------------
@@ -472,6 +711,8 @@ int scan_topk_abi(long long* sizes) {
   sizes[2] = MAX_FILTERS;
   sizes[3] = TILE;
   sizes[4] = ST_WORDS + 256;
+  sizes[5] = sizeof(CohortRawArgs);
+  sizes[6] = MAX_COHORT;
   return 0;
 }
 
@@ -523,6 +764,44 @@ int raw_select_launch(const RawArgs* a, void* stream) {
   raw_write<<<wgrid, WORDS, 0, s>>>(*a, MODE_SELECT);
   LAUNCHED();
   raw_fill<<<fgrid, BLOCK, 0, s>>>(*a, MODE_SELECT);
+  LAUNCHED();
+  return 0;
+}
+
+// one launch sequence for a cohort of at most MAX_COHORT members
+int raw_topk_cohort_launch(const CohortRawArgs* a, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int M = a->members;
+  if (M < 1 || M > MAX_COHORT) return (int)cudaErrorInvalidValue;
+  TRY(cudaSetDevice(a->r.device));
+  const long long nt = host_tiles(a->r.n_rows);
+  int grid, wgrid, fgrid;
+  TRY(grid_for(a->r.device, nt, 8, &grid));
+  TRY(grid_for(a->r.device, nt, 16, &wgrid));
+  TRY(grid_for(a->r.device, (a->r.k + BLOCK - 1) / BLOCK, 8, &fgrid));
+  // the member-on-grid kernels: each member's share, all resident together
+  const int wg = wgrid / M > 0 ? wgrid / M : 1, fg = fgrid / M > 0 ? fgrid / M : 1;
+  cohort_init<<<M, BLOCK, 0, s>>>(*a);
+  LAUNCHED();
+  cohort_keys<<<grid, BLOCK, 0, s>>>(*a);
+  LAUNCHED();
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    if (shift != 24) {
+      cohort_hist<<<grid, BLOCK, 0, s>>>(*a, shift);
+      LAUNCHED();
+    }
+    cohort_pick<<<M, 256, 0, s>>>(*a, shift);
+    LAUNCHED();
+  }
+  cohort_flags<<<grid, BLOCK, 0, s>>>(*a);
+  LAUNCHED();
+  cohort_scan<<<M, SCAN_THREADS, 0, s>>>(*a);
+  LAUNCHED();
+  cohort_write<<<wg * M, WORDS, 0, s>>>(*a, MODE_STRICT);
+  LAUNCHED();
+  cohort_write<<<wg * M, WORDS, 0, s>>>(*a, MODE_TIE);
+  LAUNCHED();
+  cohort_fill<<<fg * M, BLOCK, 0, s>>>(*a);
   LAUNCHED();
   return 0;
 }

@@ -17,8 +17,14 @@ Layout contract (prepared by ops.encoding on host):
 
 Each kernel wrapper checks its inputs and, for a CUDA tensor, launches the
 kernel; for a CPU tensor it runs the plain PyTorch version beside it in
-this module (``scan_agg_body``, ``_packed_body``). Nothing else chooses
-between them.
+this module (``scan_agg_body``, ``_packed_body``, ``_cohort_body``).
+Nothing else chooses between them.
+
+``cached_scan_agg_cohort`` serves a cohort of B shape-identical queries
+(one session and dyn row each) in one launch that decodes each tile of
+resident rows once for all members; ``selective_cached_scan_agg`` is the
+unpacked form of the selective cached kernel, kept for the reference's
+signature.
 
 Aggregation state is the classic monoid (count, sum, min, max): partials
 from different batches and the host-side delta fold combine associatively.
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -57,19 +64,26 @@ MAX_FILTERS = 16
 # Launches per entry point and arm, counted where each wrapper launches
 # its kernel; PLAIN_CALLS counts the plain versions the wrappers ran for
 # CPU tensors. Plain integers: a run reads them to show which path served.
-LAUNCHES = {
-    form: {arm: 0 for arm in ARMS}
-    for form in ("direct", "cached", "cached_selective")
-}
-PLAIN_CALLS = {"direct": 0, "cached": 0, "cached_selective": 0}
+# Wrappers run on several threads at once (the proxy's pool), so each
+# count moves under _COUNTS_LOCK.
+_FORMS = ("direct", "cached", "cached_selective", "cached_cohort")
+LAUNCHES = {form: {arm: 0 for arm in ARMS} for form in _FORMS}
+PLAIN_CALLS = {form: 0 for form in _FORMS}
+_COUNTS_LOCK = threading.Lock()
+
+
+def _count(table: dict, key: str) -> None:
+    with _COUNTS_LOCK:
+        table[key] += 1
 
 
 def reset_counts() -> None:
-    for form in LAUNCHES.values():
-        for arm in form:
-            form[arm] = 0
-    for k in PLAIN_CALLS:
-        PLAIN_CALLS[k] = 0
+    with _COUNTS_LOCK:
+        for form in LAUNCHES.values():
+            for arm in form:
+                form[arm] = 0
+        for k in PLAIN_CALLS:
+            PLAIN_CALLS[k] = 0
 
 
 def shared_fits(n_seg: int, n_agg_fields: int, need_minmax: bool = True) -> bool:
@@ -333,6 +347,26 @@ def _packed_body(
     return torch.cat(parts)
 
 
+def packed_len(n_groups: int, n_buckets: int, n_agg_fields: int, need_minmax: bool) -> int:
+    """f32 words of one packed output [counts | sums | mins | maxs]."""
+    planes = 3 if need_minmax else 1
+    return n_groups * n_buckets * (1 + planes * n_agg_fields)
+
+
+def _cohort_body(series_codes, ts_rel, values, sessions, dyns, **kw):
+    """Plain version of the cohort kernel: ``_packed_body`` once per
+    member (row b of ``sessions`` int32[B, 2(S+1)] and ``dyns`` int32[B,
+    n_f + 4]) over the same resident columns; f32[B, packed_len]."""
+    rows = [
+        _packed_body(series_codes, ts_rel, values, sessions[b], dyns[b], selective=False, **kw)
+        for b in range(sessions.shape[0])
+    ]
+    if rows:
+        return torch.stack(rows)
+    n = packed_len(kw["n_groups"], kw["n_buckets"], kw["n_agg_fields"], kw["need_minmax"])
+    return torch.zeros((0, n), dtype=torch.float32, device=sessions.device)
+
+
 # ---- the kernel and its wrappers -------------------------------------------
 
 
@@ -398,6 +432,49 @@ class _CachedArgs(ctypes.Structure):
     ]
 
 
+class _CohortArgs(ctypes.Structure):
+    """Mirror of ``CohortArgs`` in ops/csrc/scan_agg.cu: the columns and
+    statics of one cached launch, and where member b's session, dyn and
+    packed output rows start."""
+
+    _fields_ = [
+        ("c", _CachedArgs),
+        ("sessions", ctypes.c_void_p),
+        ("dyns", ctypes.c_void_p),
+        ("out_w", ctypes.c_longlong),
+        ("members", ctypes.c_int),
+        ("sess_w", ctypes.c_int),
+        ("dyn_w", ctypes.c_int),
+        ("n_fields", ctypes.c_int),
+        ("tile", ctypes.c_int),
+        ("pad_", ctypes.c_int),
+    ]
+
+
+def cohort_tile(n_fields: int) -> int:
+    """Rows of the cohort kernel's tile: a power of two from 256 to 4096
+    whose decoded rows (series code, timestamp, ``n_fields`` values) fit
+    48 KB of shared memory."""
+    tile = 4096
+    while tile > 256 and tile * (2 + n_fields) * 4 > 48 * 1024:
+        tile //= 2
+    return tile
+
+
+def cohort_arm(segment_impl: str, members: int, n_fields: int, n_seg: int,
+               n_agg_fields: int, need_minmax: bool) -> str:
+    """The arm a cohort launch takes: ``single`` and ``shared`` keep every
+    member's partials in shared memory beside the tile, so they hold only
+    where all of them fit there together; otherwise ``scatter``."""
+    _check(segment_impl in ARMS, f"segment_impl {segment_impl!r} not in {ARMS}")
+    _check(segment_impl != "single" or n_seg == 1, "single arm needs n_seg == 1")
+    tile_bytes = cohort_tile(n_fields) * (2 + n_fields) * 4
+    parts = members * packed_len(1, n_seg, n_agg_fields, need_minmax) * 4
+    if segment_impl != "scatter" and tile_bytes + parts > SHARED_MEM_BYTES:
+        return "scatter"
+    return segment_impl
+
+
 # column layout codes of the kernel (ops/csrc/scan_agg.cu)
 _LAY_RAW, _LAY_BF16, _LAY_DICT, _LAY_CODES, _LAY_DELTA, _LAY_TSDICT = range(6)
 
@@ -422,14 +499,18 @@ def _kernels():
             ctypes.POINTER(_CachedArgs), ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.scan_agg_cached_launch.restype = ctypes.c_int
+        lib.scan_agg_cohort_launch.argtypes = [
+            ctypes.POINTER(_CohortArgs), ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.scan_agg_cohort_launch.restype = ctypes.c_int
         lib.scan_agg_error_string.argtypes = [ctypes.c_int]
         lib.scan_agg_error_string.restype = ctypes.c_char_p
-        sizes = (ctypes.c_longlong * 7)()
+        sizes = (ctypes.c_longlong * 8)()
         lib.scan_agg_abi(sizes)
         want = [
             ctypes.sizeof(_Column), ctypes.sizeof(_Out), ctypes.sizeof(_Filters),
             ctypes.sizeof(_DirectArgs), ctypes.sizeof(_CachedArgs),
-            MAX_FIELDS, MAX_FILTERS,
+            MAX_FIELDS, MAX_FILTERS, ctypes.sizeof(_CohortArgs),
         ]
         if list(sizes) != want:
             raise RuntimeError(f"scan_agg ABI mismatch: kernel {list(sizes)} vs {want}")
@@ -505,7 +586,7 @@ def fused_scan_agg(
         segment_impl=segment_impl,
     )
     if dev.type == "cpu":
-        PLAIN_CALLS["direct"] += 1
+        _count(PLAIN_CALLS, "direct")
         return scan_agg_body(group_codes, bucket_ids, mask, values, literals, **kw)
     _check(dev.type == "cuda", f"unsupported device {dev}")
     n = group_codes.shape[0]
@@ -549,7 +630,7 @@ def fused_scan_agg(
         lib, lib.scan_agg_direct_launch(ctypes.byref(a), _ARM_CODE[arm], stream),
         "scan_agg_direct",
     )
-    LAUNCHES["direct"][arm] += 1
+    _count(LAUNCHES["direct"], arm)
     shape = (n_agg_fields, n_groups, n_buckets)
     return (
         counts.view(n_groups, n_buckets), sums.view(shape),
@@ -632,20 +713,42 @@ def cached_scan_agg_packed(
     )
     form = "cached_selective" if selective else "cached"
     if dev.type == "cpu":
-        PLAIN_CALLS[form] += 1
+        _count(PLAIN_CALLS, form)
         return _packed_body(series_parts, ts_parts, values, session, dyn, **kw)
     _check(dev.type == "cuda", f"unsupported device {dev}")
     _check_tensor(session, "session", torch.int32, dev, 1)
     _check_tensor(dyn, "dyn", torch.int32, dev, 1)
     _check(session.shape[0] % 2 == 0, "session is [group map | allow list]")
+    n_f = len(numeric_filters)
+    _check(dyn.shape[0] >= n_f + 4, "dyn holds literals and four scalars")
+    arm = _arm(segment_impl, n_groups * n_buckets, n_agg_fields, need_minmax)
+    lib = _kernels()
+    a, n_rows = _cached_args(series_parts, ts_parts, values, layouts, ts_layout, series_layout,
+                             numeric_filters, n_agg_fields, n_buckets, dev)
+    a.session = session.data_ptr()
+    a.dyn = dyn.data_ptr()
+    a.n_rows = dyn.shape[0] - n_f - 4 if selective else n_rows
+    a.s1 = session.shape[0] // 2
+    packed = _packed_out(1, n_groups * n_buckets, n_agg_fields, need_minmax, dev)[0]
+    a.out = _out_of(packed.data_ptr(), n_groups * n_buckets, n_agg_fields, need_minmax)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _launch_error(
+        lib,
+        lib.scan_agg_cached_launch(ctypes.byref(a), _ARM_CODE[arm], int(selective), stream),
+        "scan_agg_cached",
+    )
+    _count(LAUNCHES[form], arm)
+    return packed
+
+
+def _cached_args(series_parts, ts_parts, values, layouts, ts_layout, series_layout,
+                 numeric_filters, n_agg_fields, n_buckets, dev) -> tuple[_CachedArgs, int]:
+    """Check the resident columns of a cached launch; returns the launch
+    arguments with their pointers and statics set (session, dyn, rows to
+    scan and outputs are the caller's) and the resident row count."""
     _check(len(values) == len(layouts), "one layout per value field")
     _check(len(values) <= MAX_FIELDS, f"at most {MAX_FIELDS} value fields")
     _check(n_agg_fields <= len(values), "more agg fields than value fields")
-    n_f = len(numeric_filters)
-    _check(dyn.shape[0] >= n_f + 4, "dyn holds literals and four scalars")
-    n_seg = n_groups * n_buckets
-    arm = _arm(segment_impl, n_seg, n_agg_fields, need_minmax)
-    lib = _kernels()
     n_rows = layout_rows(series_parts, series_layout)
     a = _CachedArgs()
     a.series = _int_column(series_parts, series_layout, dev, "series")
@@ -655,33 +758,166 @@ def cached_scan_agg_packed(
         a.fields[f] = _value_column(parts, lay, dev, f"value[{f}]")
         if lay[0] in ("raw", "bf16"):
             _check(parts[0].shape[0] == n_rows, f"value[{f}] has {parts[0].shape[0]} rows")
-    a.session = session.data_ptr()
-    a.dyn = dyn.data_ptr()
-    a.n_rows = dyn.shape[0] - n_f - 4 if selective else n_rows
-    a.s1 = session.shape[0] // 2
+    a.n_rows = n_rows
     a.n_buckets = n_buckets
     a.device = dev.index if dev.index is not None else torch.cuda.current_device()
     a.filt = _filters(numeric_filters, len(values))
-    planes = 3 if need_minmax else 1
-    packed = torch.empty(n_seg * (1 + planes * n_agg_fields), dtype=torch.float32, device=dev)
+    return a, n_rows
+
+
+def _packed_out(rows: int, n_seg: int, n_agg_fields: int, need_minmax: bool, dev):
+    """``rows`` packed outputs, f32[rows, packed_len], initialised as the
+    reductions start: counts (bits of int 0) and sums 0, mins +inf, maxs
+    -inf."""
     fs = n_agg_fields * n_seg
-    packed[: n_seg + fs].zero_()  # counts (bits of int 0) and sums
+    planes = 3 if need_minmax else 1
+    packed = torch.empty((rows, n_seg * (1 + planes * n_agg_fields)), dtype=torch.float32,
+                         device=dev)
+    packed[:, : n_seg + fs].zero_()
     if need_minmax:
-        packed[n_seg + fs : n_seg + 2 * fs].fill_(float("inf"))
-        packed[n_seg + 2 * fs :].fill_(float("-inf"))
-    base = packed.data_ptr()
-    a.out = _Out(
+        packed[:, n_seg + fs : n_seg + 2 * fs].fill_(float("inf"))
+        packed[:, n_seg + 2 * fs :].fill_(float("-inf"))
+    return packed
+
+
+def _out_of(base: int, n_seg: int, n_agg_fields: int, need_minmax: bool) -> _Out:
+    fs = n_agg_fields * n_seg
+    return _Out(
         base, base + 4 * n_seg, base + 4 * (n_seg + fs), base + 4 * (n_seg + 2 * fs),
         n_seg, n_agg_fields, int(need_minmax), 0,
     )
+
+
+def cached_scan_agg_cohort(
+    series_parts,
+    ts_parts,
+    values,
+    sessions,
+    dyns,
+    *,
+    n_groups: int,
+    n_buckets: int,
+    n_agg_fields: int,
+    numeric_filters: tuple[tuple[int, int], ...],
+    need_minmax: bool,
+    segment_impl: str = "scatter",
+    value_layouts: tuple = (),
+    ts_layout: tuple = ("raw",),
+    series_layout: tuple = ("raw",),
+):
+    """The cohort serving kernel: B shape-identical full-scan queries over
+    the same resident columns, one session row (int32[B, 2(S+1)]) and one
+    dyn row (int32[B, n_f + 4]) each; f32[B, packed_len], row b the packed
+    output ``cached_scan_agg_packed`` gives for member b (each row unpacks
+    with ``unpack_packed_state``). Selective gathers are per-member and
+    variable-length: cohort members always scan every row.
+
+    A CUDA input launches ``scan_agg_cohort``, which decodes each tile of
+    rows once and runs every member over it, with the arm ``cohort_arm``
+    gives; a CPU input runs ``_cohort_body``."""
+    dev = sessions.device
+    values = tuple(values)
+    layouts = value_layouts or tuple(_dense_layout(p) for p in values)
+    kw = dict(
+        n_groups=n_groups, n_buckets=n_buckets, n_agg_fields=n_agg_fields,
+        numeric_filters=numeric_filters, need_minmax=need_minmax,
+        segment_impl=segment_impl, value_layouts=layouts,
+        ts_layout=ts_layout, series_layout=series_layout,
+    )
+    if dev.type == "cpu":
+        _count(PLAIN_CALLS, "cached_cohort")
+        return _cohort_body(series_parts, ts_parts, values, sessions, dyns, **kw)
+    _check(dev.type == "cuda", f"unsupported device {dev}")
+    _check_tensor(sessions, "sessions", torch.int32, dev, 2)
+    _check_tensor(dyns, "dyns", torch.int32, dev, 2)
+    B = sessions.shape[0]
+    _check(dyns.shape[0] == B, "one dyn row per session row")
+    _check(sessions.shape[1] % 2 == 0, "session rows are [group map | allow list]")
+    n_f = len(numeric_filters)
+    _check(dyns.shape[1] >= n_f + 4, "dyn rows hold literals and four scalars")
+    n_seg = n_groups * n_buckets
+    arm = cohort_arm(segment_impl, B, len(values), n_seg, n_agg_fields, need_minmax)
+    packed = _packed_out(B, n_seg, n_agg_fields, need_minmax, dev)
+    if B == 0:
+        return packed
+    lib = _kernels()
+    c, _ = _cached_args(series_parts, ts_parts, values, layouts, ts_layout, series_layout,
+                        numeric_filters, n_agg_fields, n_buckets, dev)
+    c.s1 = sessions.shape[1] // 2
+    c.out = _out_of(packed.data_ptr(), n_seg, n_agg_fields, need_minmax)
+    a = _CohortArgs()
+    a.c = c
+    a.sessions, a.dyns = sessions.data_ptr(), dyns.data_ptr()
+    a.out_w, a.members = packed.shape[1], B
+    a.sess_w, a.dyn_w = sessions.shape[1], dyns.shape[1]
+    a.n_fields, a.tile = len(values), cohort_tile(len(values))
     stream = torch.cuda.current_stream(dev).cuda_stream
     _launch_error(
-        lib,
-        lib.scan_agg_cached_launch(ctypes.byref(a), _ARM_CODE[arm], int(selective), stream),
-        "scan_agg_cached",
+        lib, lib.scan_agg_cohort_launch(ctypes.byref(a), _ARM_CODE[arm], stream),
+        "scan_agg_cohort",
     )
-    LAUNCHES[form][arm] += 1
+    _count(LAUNCHES["cached_cohort"], arm)
     return packed
+
+
+def selective_cached_scan_agg(
+    row_idx,
+    series_codes,
+    ts_rel,
+    values,
+    group_of_series,
+    allowed_series,
+    literals,
+    lo_rel,
+    hi_rel,
+    t0_rel,
+    bucket_ms,
+    *,
+    n_groups: int,
+    n_buckets: int,
+    n_agg_fields: int,
+    numeric_filters: tuple[tuple[int, int], ...],
+    need_minmax: bool = True,
+    segment_impl: str = "auto",
+    hash_slots: int = 0,
+):
+    """The cached kernel over a GATHERED subset of raw resident rows
+    (``row_idx`` int32[M], pad slots pointing at a masked pad row), in the
+    reference's unpacked form: (counts int32[G, B], sums/mins/maxs
+    f32[F, G, B]) on the inputs' device.
+
+    It packs the session and the dyn row (with the index) and calls
+    ``cached_scan_agg_packed(..., selective=True)``: the SELECTIVE
+    ``scan_agg_cached`` kernel for CUDA tensors, its plain version for CPU
+    ones. ``segment_impl`` resolves as every launch's does
+    (``resolve_segment_impl``); ``hash_slots`` is accepted for the
+    signature and unused."""
+    dev = series_codes.device
+    n_seg = n_groups * n_buckets
+    impl = resolve_segment_impl(n_seg, segment_impl, n_agg_fields, need_minmax)
+    session = torch.cat([group_of_series.to(dev, torch.int32),
+                         allowed_series.to(dev, torch.int32)])
+    scalars = torch.tensor([int(lo_rel), int(hi_rel), int(t0_rel), int(bucket_ms)],
+                           dtype=torch.int32, device=dev)
+    lits = literals.to(dev, torch.float32).contiguous().view(torch.int32)
+    dyn = torch.cat([lits, scalars, row_idx.to(dev, torch.int32)])
+    rows = values if isinstance(values, (list, tuple)) else list(values.unbind(0))
+    packed = cached_scan_agg_packed(
+        (series_codes.contiguous(),), (ts_rel.contiguous(),),
+        tuple((v.contiguous(),) for v in rows), session, dyn,
+        n_groups=n_groups, n_buckets=n_buckets, n_agg_fields=n_agg_fields,
+        numeric_filters=numeric_filters, need_minmax=need_minmax,
+        segment_impl=impl, selective=True,
+    )
+    fs = n_agg_fields * n_seg
+    shape = (n_agg_fields, n_groups, n_buckets)
+    counts = packed[:n_seg].view(torch.int32).view(n_groups, n_buckets)
+    sums = packed[n_seg:n_seg + fs].view(shape)
+    if need_minmax:
+        return counts, sums, packed[n_seg + fs:n_seg + 2 * fs].view(shape), \
+            packed[n_seg + 2 * fs:].view(shape)
+    zero = torch.zeros_like(sums)
+    return counts, sums, zero, zero
 
 
 # ---- host-facing helpers ---------------------------------------------------

@@ -31,7 +31,9 @@ CPU tensors. For a CUDA tensor the wrappers launch the kernels or raise.
 Packed entry points keep the reference's serving discipline: one
 content-cached session upload (the allow-list), one per-query int32 dyn
 upload (filter literals bitcast + time bounds + key seeds), one int32
-fetch.
+fetch. ``raw_topk_cohort`` serves B top-k queries of one shape (stacked
+session and dyn rows) in one launch sequence per 32 members; like the
+reference, no executor route calls it yet.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import torch
 from ..utils.env import env_int
 from .encoding import decode_layouts, layout_rows, next_pow2
 from .scan_agg import (
+    _COUNTS_LOCK,
     MAX_FIELDS,
     MAX_FILTERS,
     _Column,
@@ -54,6 +57,7 @@ from .scan_agg import (
     _apply_filters,
     _check,
     _check_tensor,
+    _count,
     _dense_layout,
     _filters,
     _int_column,
@@ -62,16 +66,19 @@ from .scan_agg import (
 
 _I32_MIN = -(2**31)
 
-# Kernel launches, counted where each wrapper launches its kernel;
-# PLAIN_CALLS counts the plain versions the wrappers ran for CPU tensors.
-LAUNCHES = {"raw_topk": 0, "raw_select": 0}
-PLAIN_CALLS = {"raw_topk": 0, "raw_select": 0}
+# Kernel launches, counted where each wrapper launches its kernel (a
+# cohort counts one launch per launch sequence); PLAIN_CALLS counts the
+# plain versions the wrappers ran for CPU tensors. Counts move under
+# scan_agg's lock (``_count``): wrappers run on several threads at once.
+LAUNCHES = {"raw_topk": 0, "raw_select": 0, "raw_topk_cohort": 0}
+PLAIN_CALLS = {"raw_topk": 0, "raw_select": 0, "raw_topk_cohort": 0}
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
-        for k in d:
-            d[k] = 0
+    with _COUNTS_LOCK:
+        for d in (LAUNCHES, PLAIN_CALLS):
+            for k in d:
+                d[k] = 0
 
 
 def raw_device_enabled() -> bool:
@@ -301,6 +308,16 @@ def raw_select_plain(series_parts, ts_parts, values, session, dyn, *, select_slo
     return torch.cat([head, out])
 
 
+def raw_topk_cohort_plain(series_parts, ts_parts, values, sessions, dyns, **kw):
+    """Plain version of ``raw_topk_cohort``: ``raw_topk_plain`` per member
+    (row b of ``sessions`` and ``dyns``); int32[B, k]."""
+    rows = [raw_topk_plain(series_parts, ts_parts, values, sessions[b], dyns[b], **kw)
+            for b in range(sessions.shape[0])]
+    if rows:
+        return torch.stack(rows)
+    return torch.empty((0, kw["k"]), dtype=torch.int32, device=sessions.device)
+
+
 # ---- the kernels and their wrappers -----------------------------------------
 
 
@@ -326,10 +343,27 @@ class _RawArgs(ctypes.Structure):
     ]
 
 
-# rows per tile of the kernels' ordered compaction, and the state and
-# histogram words at the head of their scratch (checked at load)
+class _CohortRawArgs(ctypes.Structure):
+    """Mirror of ``CohortRawArgs`` in ops/csrc/scan_topk.cu."""
+
+    _fields_ = [
+        ("r", _RawArgs),
+        ("sessions", ctypes.c_void_p),
+        ("dyns", ctypes.c_void_p),
+        ("member_words", ctypes.c_longlong),
+        ("members", ctypes.c_int),
+        ("sess_w", ctypes.c_int),
+        ("dyn_w", ctypes.c_int),
+        ("pad_", ctypes.c_int),
+    ]
+
+
+# rows per tile of the kernels' ordered compaction, the state and
+# histogram words at the head of their scratch, and the members of one
+# cohort launch sequence (checked at load)
 TILE = 4096
 _HEAD_WORDS = 16 + 256
+MAX_COHORT = 32
 
 _lib = None
 
@@ -347,35 +381,40 @@ def _kernels():
         for fn in ("raw_topk_launch", "raw_select_launch"):
             getattr(lib, fn).argtypes = [ctypes.POINTER(_RawArgs), ctypes.c_void_p]
             getattr(lib, fn).restype = ctypes.c_int
+        lib.raw_topk_cohort_launch.argtypes = [ctypes.POINTER(_CohortRawArgs), ctypes.c_void_p]
+        lib.raw_topk_cohort_launch.restype = ctypes.c_int
         lib.scan_topk_error_string.argtypes = [ctypes.c_int]
         lib.scan_topk_error_string.restype = ctypes.c_char_p
-        sizes = (ctypes.c_longlong * 5)()
+        sizes = (ctypes.c_longlong * 7)()
         lib.scan_topk_abi(sizes)
-        want = [ctypes.sizeof(_RawArgs), MAX_FIELDS, MAX_FILTERS, TILE, _HEAD_WORDS]
+        want = [ctypes.sizeof(_RawArgs), MAX_FIELDS, MAX_FILTERS, TILE, _HEAD_WORDS,
+                ctypes.sizeof(_CohortRawArgs), MAX_COHORT]
         if list(sizes) != want:
             raise RuntimeError(f"scan_topk ABI mismatch: kernel {list(sizes)} vs {want}")
         _lib = lib
     return _lib
 
 
-def _scratch_words(n_rows: int) -> int:
+def _scratch_words(n_rows: int, cohort: bool = False) -> int:
     """int32 words of the kernels' scratch for ``n_rows`` rows: state and
-    histogram, two streams of per-tile counts and of ballot bit words."""
+    histogram, two streams of per-tile counts and of ballot bit words; a
+    cohort member's adds the bit words of the rows it passes."""
     tiles = -(-n_rows // TILE)
-    return _HEAD_WORDS + 2 * tiles + 2 * tiles * (TILE // 32)
+    return _HEAD_WORDS + 2 * tiles + (3 if cohort else 2) * tiles * (TILE // 32)
 
 
 def _args(series_parts, ts_parts, values, session, dyn, numeric_filters, value_layouts,
-          ts_layout, series_layout) -> tuple[_RawArgs, int]:
+          ts_layout, series_layout, ndim: int = 1) -> tuple[_RawArgs, int]:
     """Check the inputs of a CUDA launch; returns the launch arguments
-    (pointers of the columns, session and dyn) and the row count."""
+    (pointers of the columns, session and dyn) and the row count. A
+    cohort's ``session`` and ``dyn`` are its stacked rows (``ndim`` 2)."""
     dev = session.device
     _check(dev.type == "cuda", f"unsupported device {dev}")
-    _check_tensor(session, "session", torch.int32, dev, 1)
-    _check_tensor(dyn, "dyn", torch.int32, dev, 1)
+    _check_tensor(session, "session", torch.int32, dev, ndim)
+    _check_tensor(dyn, "dyn", torch.int32, dev, ndim)
     _check(len(values) == len(value_layouts), "one layout per value field")
     _check(len(values) <= MAX_FIELDS, f"at most {MAX_FIELDS} value fields")
-    _check(dyn.shape[0] >= len(numeric_filters) + 4, "dyn holds literals and four scalars")
+    _check(dyn.shape[-1] >= len(numeric_filters) + 4, "dyn holds literals and four scalars")
     n_rows = layout_rows(series_parts, series_layout)
     _check(n_rows < 2**31, "row ids must fit int32")
     a = _RawArgs()
@@ -424,7 +463,7 @@ def raw_topk_packed(series_parts, ts_parts, values, session, dyn, *, k: int,
     _check(key_is_ts or 0 <= key_field < len(values), f"key field {key_field} out of range")
     dev = session.device
     if dev.type == "cpu":
-        PLAIN_CALLS["raw_topk"] += 1
+        _count(PLAIN_CALLS, "raw_topk")
         return raw_topk_plain(series_parts, ts_parts, values, session, dyn, **kw)
     a, n_rows = _args(series_parts, ts_parts, values, session, dyn, numeric_filters, layouts,
                       ts_layout, series_layout)
@@ -436,7 +475,62 @@ def raw_topk_packed(series_parts, ts_parts, values, session, dyn, *, k: int,
     a.k = k
     a.descending, a.key_is_ts, a.key_field = int(descending), int(key_is_ts), key_field
     _run(lib, "raw_topk_launch", a, dev)
-    LAUNCHES["raw_topk"] += 1
+    _count(LAUNCHES, "raw_topk")
+    return out
+
+
+def raw_topk_cohort(series_parts, ts_parts, values, sessions, dyns, *, k: int,
+                    descending: bool, key_is_ts: bool, key_field: int, numeric_filters,
+                    value_layouts: tuple = (), ts_layout: tuple = ("raw",),
+                    series_layout: tuple = ("raw",)):
+    """-> int32[B, k]: row b the slots ``raw_topk_packed`` gives for session
+    row b (int32[B, S + 1]) and dyn row b (int32[B, n_f + 4]) over the same
+    resident columns; -1 in slots with no passing row.
+
+    A CUDA input launches the cohort top-k (csrc/scan_topk.cu) once per
+    MAX_COHORT members; a CPU input runs ``raw_topk_cohort_plain``. The
+    scratch is one int32 key per row, shared by the members, and for each
+    member of a launch sequence its state, tile counts and three bit
+    words per 32 rows (at 2**26 rows: 256 MB of keys and 25 MB a member)."""
+    values = tuple(values)
+    layouts = value_layouts or tuple(_dense_layout(p) for p in values)
+    kw = dict(k=k, descending=descending, key_is_ts=key_is_ts, key_field=key_field,
+              numeric_filters=numeric_filters, value_layouts=layouts, ts_layout=ts_layout,
+              series_layout=series_layout)
+    _check(k >= 1, f"k {k} must be at least 1")
+    _check(key_is_ts or 0 <= key_field < len(values), f"key field {key_field} out of range")
+    dev = sessions.device
+    if dev.type == "cpu":
+        _count(PLAIN_CALLS, "raw_topk_cohort")
+        return raw_topk_cohort_plain(series_parts, ts_parts, values, sessions, dyns, **kw)
+    a, n_rows = _args(series_parts, ts_parts, values, sessions, dyns, numeric_filters, layouts,
+                      ts_layout, series_layout, ndim=2)
+    B = sessions.shape[0]
+    _check(dyns.shape[0] == B, "one dyn row per session row")
+    out = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    lib = _kernels()
+    words = _scratch_words(n_rows, cohort=True)
+    keys = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    scratch = torch.empty(min(B, MAX_COHORT) * words, dtype=torch.int32, device=dev)
+    a.keys, a.scratch, a.k = keys.data_ptr(), scratch.data_ptr(), k
+    a.descending, a.key_is_ts, a.key_field = int(descending), int(key_is_ts), key_field
+    c = _CohortRawArgs()
+    c.member_words, c.sess_w, c.dyn_w = words, sessions.shape[1], dyns.shape[1]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for b0 in range(0, B, MAX_COHORT):
+        c.members = min(MAX_COHORT, B - b0)
+        a.out = out[b0].data_ptr()
+        c.r = a
+        c.sessions, c.dyns = sessions[b0].data_ptr(), dyns[b0].data_ptr()
+        err = lib.raw_topk_cohort_launch(ctypes.byref(c), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"raw_topk_cohort_launch failed: {lib.scan_topk_error_string(err).decode()} "
+                f"({err})"
+            )
+        _count(LAUNCHES, "raw_topk_cohort")
     return out
 
 
@@ -452,7 +546,7 @@ def raw_select_packed(series_parts, ts_parts, values, session, dyn, *, select_sl
     _check(select_slots >= 0, f"select_slots {select_slots} is negative")
     dev = session.device
     if dev.type == "cpu":
-        PLAIN_CALLS["raw_select"] += 1
+        _count(PLAIN_CALLS, "raw_select")
         return raw_select_plain(series_parts, ts_parts, values, session, dyn,
                                 select_slots=select_slots, numeric_filters=numeric_filters,
                                 value_layouts=layouts, ts_layout=ts_layout,
@@ -464,5 +558,5 @@ def raw_select_packed(series_parts, ts_parts, values, session, dyn, *, select_sl
     out = torch.empty(1 + select_slots, dtype=torch.int32, device=dev)
     a.scratch, a.out, a.k = scratch.data_ptr(), out.data_ptr(), select_slots
     _run(lib, "raw_select_launch", a, dev)
-    LAUNCHES["raw_select"] += 1
+    _count(LAUNCHES, "raw_select")
     return out

@@ -19,6 +19,9 @@ aggregates skip NULL inputs.
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+import threading
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
@@ -35,6 +38,22 @@ from ..table_engine.predicate import NUMPY_CMP, FilterOp, Predicate
 from ..utils import querystats
 from . import ast
 from .plan import AggCall, GroupKey, QueryPlan
+
+logger = logging.getLogger("horaedb_tpu_torch.query.executor")
+
+# Cohorts whose fused dispatch raised as a whole (execute_cohort): each
+# such cohort's members were served solo instead, so their answers stand,
+# but the cohort kernel did not serve them. A card run fails when it is not
+# 0 (chip_smoke.py).
+COHORT_FALLBACKS = 0
+_FALLBACKS_LOCK = threading.Lock()
+
+
+def reset_counts() -> None:
+    global COHORT_FALLBACKS
+    with _FALLBACKS_LOCK:
+        COHORT_FALLBACKS = 0
+
 
 @dataclass
 class ResultSet:
@@ -445,8 +464,10 @@ class CachedAggPrep:
     the "plan -> device spec" half (Executor.prepare_cached_agg) and the
     input of the "spec -> dispatch" half. Everything per-query the
     kernel needs is HERE (small host arrays + scalars), so shape-
-    identical preps could be merged into one batched dispatch before any
-    device work happens (Executor.dispatch_cached_agg)."""
+    identical preps merge into one batched dispatch before any device
+    work happens: ``Executor.dispatch_cached_agg`` serves one,
+    ``Executor.dispatch_cached_agg_cohort`` a group agreeing on
+    ``fuse_key``."""
 
     plan: Any
     m: dict
@@ -478,6 +499,47 @@ class CachedAggPrep:
     delta: Any
     # static per-field layout descriptors of the resident value columns
     value_layouts: tuple = ()
+    # each delta row's index into entry.series_tsids (_delta_series_index)
+    delta_sidx: Any = None
+
+    def fuse_key(self, i: int) -> tuple:
+        """Grouping key for cohort merging: preps agreeing on the cache
+        entry, the static spec, and the value-column layout share one
+        fused dispatch. The router's arm is not part of it: the cohort
+        launch takes its first member's arm (``ops.scan_agg.cohort_arm``
+        then fits it to the cohort), so a member the router sent to probe
+        another arm still rides its cohort's launch. Selective (gathered)
+        dispatches cannot ride the cohort kernel — they stay solo
+        (index-unique key)."""
+        if self.row_idx is not None:
+            return ("solo", i)
+        return (
+            id(self.entry), dataclasses.replace(self.spec, segment_impl=""),
+            tuple(self.value_names), self.value_layouts,
+        )
+
+
+def _delta_series_index(entry, delta) -> np.ndarray:
+    """Each delta row's index into ``entry.series_tsids`` (its sorted
+    unique tsids): where the row's tsid is, or would be inserted. Computed
+    once per prepared query and shared by the soundness check and the
+    fold."""
+    schema = delta.schema
+    return np.searchsorted(
+        entry.series_tsids, delta.columns[schema.columns[schema.tsid_index].name]
+    )
+
+
+def _has_duplicate_pairs(a: np.ndarray, b: np.ndarray) -> bool:
+    """True when some (a[i], b[i]) pair occurs twice: sorted by (a, b),
+    equal pairs are neighbours. A lexsort of the two keys, where
+    ``np.unique(np.stack([a, b]), axis=1)`` sorts the pairs as opaque
+    records, ten times slower at a memtable's 4000 rows."""
+    if len(a) < 2:
+        return False
+    order = np.lexsort((b, a))
+    a, b = a[order], b[order]
+    return bool(((a[1:] == a[:-1]) & (b[1:] == b[:-1])).any())
 
 
 class Executor:
@@ -982,12 +1044,13 @@ class Executor:
         return self.dispatch_cached_agg(prep)
 
     def prepare_cached_agg(
-        self, plan: QueryPlan, table, m: dict
+        self, plan: QueryPlan, table, m: dict, allow_selective: bool = True
     ) -> Optional["CachedAggPrep"]:
         """The "plan -> device spec" half: everything up to (but not
         including) the kernel dispatch. Returns None exactly where the
         cached path bails (caller falls through to the uncached
-        paths)."""
+        paths). ``allow_selective=False`` (cohort members) keeps the full
+        scan, so the prep can merge with its cohort."""
         schema = plan.schema
         if schema.tsid_index is None or not table.physical_datas():
             return None
@@ -1046,7 +1109,10 @@ class Executor:
                 return None
         # Unflushed delta rows fold into the aggregate ON TOP of the HBM
         # base — but only when provably sound (see _delta_soundness).
-        if len(delta) and not self._delta_soundness(table, entry, delta, agg_cols):
+        delta_sidx = _delta_series_index(entry, delta) if len(delta) else None
+        if len(delta) and not self._delta_soundness(
+            table, entry, delta, agg_cols, delta_sidx
+        ):
             return None
         # Eligibility confirmed: only now record cache facts (a bail-out
         # above must not leave 'cache' lying in a host-path metric tree).
@@ -1068,10 +1134,8 @@ class Executor:
         if tag_keys or series_filters:
             series_rows = entry.series_rows  # derived at build, one row/series
         if tag_keys:
-            from ..ops.encoding import _codes_from_columns
-
-            series_group, key_values = _codes_from_columns(
-                [series_rows.columns[k.column] for k in tag_keys]
+            series_group, key_values = entry.group_codes(
+                tuple(k.column for k in tag_keys)
             )
             num_groups = len(key_values[0])
         else:
@@ -1142,7 +1206,9 @@ class Executor:
         # groups the allowed series can actually reach (exact on the
         # group axis, ceiling on the bucket axis).
         if scan_allowed.any():
-            active_groups = len(np.unique(series_group[scan_allowed]))
+            active_groups = int(np.count_nonzero(np.bincount(
+                series_group[scan_allowed], minlength=max(num_groups, 1)
+            )))
         else:
             active_groups = 1
         spec, krec = self._route_kernel(
@@ -1151,8 +1217,6 @@ class Executor:
         )
         # Resolve "auto"/pin to the CONCRETE arm on host: the launch
         # below takes it as an argument.
-        import dataclasses
-
         from ..ops.scan_agg import resolve_segment_impl
 
         spec = dataclasses.replace(
@@ -1202,7 +1266,7 @@ class Executor:
             value_layouts, entry.ts_layout, entry.series_layout,
         )
         row_idx = None
-        if not empty_range:
+        if allow_selective and not empty_range:
             row_idx = self._selective_row_idx(entry, scan_allowed, lo, hi)
             if row_idx is not None:
                 m["cache_rows"] = int((row_idx != entry.n_valid).sum())
@@ -1216,7 +1280,7 @@ class Executor:
             lo_rel=lo_rel, hi_rel=hi_rel, t0_rel=t0_rel, width_i=width_i,
             kernel_key=kernel_key,
             tag_keys=tag_keys, key_values=key_values, agg_cols=agg_cols,
-            num_groups=num_groups, delta=delta,
+            num_groups=num_groups, delta=delta, delta_sidx=delta_sidx,
             value_layouts=value_layouts,
         )
 
@@ -1239,7 +1303,7 @@ class Executor:
         )
         from .scan_cache import _to_device
 
-        plan, m, entry, spec = prep.plan, prep.m, prep.entry, prep.spec
+        m, entry, spec = prep.m, prep.entry, prep.spec
         row_idx = prep.row_idx
         values_dev = entry.values_for(prep.value_names)
         t_kernel = _time.perf_counter()
@@ -1279,29 +1343,215 @@ class Executor:
         self._finish_kernel(
             prep.krec, spec, m, state, _time.perf_counter() - t_kernel
         )
+        return self._fold_and_assemble(prep, state)
+
+    def _fold_and_assemble(self, prep: "CachedAggPrep", state) -> ResultSet:
+        """One prep's host half after its kernel state came back: fold its
+        unflushed delta rows into ``state``, then assemble its result."""
         if len(prep.delta) and not prep.empty_range:
             self._fold_delta(
-                state, prep.delta, entry, plan.schema, prep.gos, prep.allow,
-                prep.agg_cols, prep.value_names, prep.device_filters,
-                prep.lo, prep.hi, prep.t0, prep.width, prep.n_buckets,
+                state, prep.delta, prep.delta_sidx, prep.gos, prep.allow,
+                prep.agg_cols, prep.device_filters, prep.lo, prep.hi,
+                prep.t0, prep.width, prep.n_buckets,
             )
         return self._assemble_agg_result(
-            plan, prep.tag_keys, prep.key_values, prep.agg_cols, state,
+            prep.plan, prep.tag_keys, prep.key_values, prep.agg_cols, state,
             max(prep.num_groups, 1), prep.n_buckets, prep.t0, prep.width,
         )
 
-    def execute_cohort(self, plans: list, table) -> list:
-        """Execute a cohort of shape-identical plans against one table
-        (wlm/batch hands cohorts here via the interpreter). Each member is
-        served by ``execute`` — one kernel launch per query until the
-        batched cohort kernel is ported. Returns one ResultSet-or-exception
-        per plan, positionally; error isolation is per member."""
-        outcomes: list = []
-        for plan in plans:
+    def dispatch_cached_agg_cohort(
+        self, preps: list["CachedAggPrep"]
+    ) -> list:
+        """ONE fused device dispatch serving every prep in ``preps``
+        (all sharing one cache entry and one static spec — the caller
+        groups by ``CachedAggPrep.fuse_key``). The per-query session and
+        dyn buffers stack into ``[B, ...]`` rows and the cohort kernel
+        (``cached_scan_agg_cohort``, members on its grid) serves the whole
+        cohort in one launch; each member's state then demuxes, folds its
+        own delta, and assembles its own ResultSet. Returns one
+        ResultSet-or-exception per prep, positionally (error isolation: a
+        member whose demux/assembly fails poisons only its own slot). No
+        padding of B: the kernel has no compiled-shape cache to bound."""
+        import time as _time
+
+        from ..obs.device import timed_dispatch
+        from ..ops.scan_agg import (
+            cached_scan_agg_cohort,
+            encode_filter_ops,
+            pack_dyn,
+            pack_session,
+            unpack_packed_state,
+        )
+        from .scan_cache import _to_device
+
+        p0 = preps[0]
+        entry, spec = p0.entry, p0.spec
+        sessions = np.stack(
+            [pack_session(p.gos, p.allow_scan) for p in preps]
+        )
+        dyns = np.stack(
+            [
+                pack_dyn(p.literals, p.lo_rel, p.hi_rel, p.t0_rel, p.width_i)
+                for p in preps
+            ]
+        )
+        B = len(preps)
+        values_dev = entry.values_for(p0.value_names)
+        t_kernel = _time.perf_counter()
+        sessions_dev = _to_device(sessions, self.device)
+        dyns_dev = _to_device(dyns, self.device)
+        packed = timed_dispatch(
+            "cached_cohort",
+            lambda: cached_scan_agg_cohort(
+                entry.series_parts,
+                entry.ts_parts,
+                values_dev,
+                sessions_dev,
+                dyns_dev,
+                n_groups=spec.n_groups,
+                n_buckets=spec.n_buckets,
+                n_agg_fields=spec.n_agg_fields,
+                numeric_filters=encode_filter_ops(spec.numeric_filters),
+                need_minmax=spec.need_minmax,
+                segment_impl=spec.segment_impl,
+                value_layouts=p0.value_layouts,
+                ts_layout=entry.ts_layout,
+                series_layout=entry.series_layout,
+            ),
+            self.device,
+        )
+        rows = packed.cpu().numpy()  # one copy back for the cohort
+        elapsed = _time.perf_counter() - t_kernel
+        querystats.note_kernel_dispatch(
+            ("cached-cohort", B, *p0.kernel_key), elapsed,
+            kind="cached_cohort",
+        )
+        outs: list = []
+        for j, p in enumerate(preps):
             try:
-                outcomes.append(self.execute(plan, table))
+                state = unpack_packed_state(rows[j], spec)
+                # router/cardinality feedback once per DISPATCH (j == 0),
+                # with the elapsed AMORTIZED over the cohort — the
+                # router's per-shape EWMA mixes these with solo-dispatch
+                # samples, and a raw B-wide wall time would make the
+                # serving arm look up to Bx slower than it is per query
+                self._finish_kernel(
+                    p.krec if j == 0 else None, spec, p.m, state,
+                    elapsed / B,
+                )
+                p.m["batch_cohort"] = B
+                outs.append(self._fold_and_assemble(p, state))
             except BaseException as e:
-                outcomes.append(e)
+                outs.append(e)
+        return outs
+
+    def execute_cohort(self, plans: list, table) -> list:
+        """Execute a cohort of shape-identical plans against one table,
+        fusing as many as possible into single cohort-kernel launches
+        (wlm/batch hands cohorts here via the interpreter). Returns one
+        ResultSet-or-exception per plan, positionally — error isolation
+        is per member. Members the cached path cannot serve (cache
+        bail-out, memory-bounded scans) take the ordinary solo
+        ``execute`` path; a lone member regains its selective gather. A
+        fused dispatch that raises as a whole is served member by member
+        through ``execute``, logged and counted in ``COHORT_FALLBACKS``."""
+        global COHORT_FALLBACKS
+        import os
+        import time as _time
+
+        outcomes: list = [None] * len(plans)
+        preps: list[tuple[int, CachedAggPrep, float]] = []
+        cache_on = os.environ.get("HORAEDB_SCAN_CACHE", "1") != "0"
+        fusable_table = not hasattr(table, "sub_tables")
+        for i, plan in enumerate(plans):
+            t_start = _time.perf_counter()
+            prep = None
+            tried_cached = False
+            if plan.is_aggregate and cache_on and fusable_table and table.physical_datas():
+                # mirror execute()'s memory bound: the cache build would
+                # materialize the whole table, so over-cap scans must
+                # take the partial machinery instead
+                from .partial import _agg_memory_cap_bytes, _scan_estimate_bytes
+
+                cap = _agg_memory_cap_bytes()
+                bounded = bool(cap) and _scan_estimate_bytes(
+                    table, plan.predicate, self._projection(plan)
+                ) > cap
+                if not bounded:
+                    m = {"table": plan.table}
+                    tried_cached = True
+                    try:
+                        prep = self.prepare_cached_agg(
+                            plan, table, m, allow_selective=False
+                        )
+                    except BaseException as e:
+                        outcomes[i] = e
+                        continue
+            if prep is None:
+                try:
+                    outcomes[i] = self.execute(
+                        plan, table, _skip_cached_agg=tried_cached
+                    )
+                except BaseException as e:
+                    outcomes[i] = e
+            else:
+                preps.append((i, prep, t_start))
+        groups: dict = {}
+        for i, prep, t_start in preps:
+            groups.setdefault(prep.fuse_key(i), []).append((i, prep, t_start))
+        for grp in groups.values():
+            if len(grp) == 1:
+                i, prep, t_start = grp[0]
+                try:
+                    if prep.row_idx is None and not prep.empty_range:
+                        # a lone member pays no merge constraint:
+                        # restore the solo path's selective row-gather
+                        # that prepare skipped for cohort mergeability
+                        # (allow_scan minus the pad slot IS the pruned
+                        # series allow-list prepare derived it from)
+                        prep.row_idx = self._selective_row_idx(
+                            prep.entry, prep.allow_scan[:-1],
+                            prep.lo, prep.hi,
+                        )
+                        if prep.row_idx is not None:
+                            prep.m["cache_rows"] = int(
+                                (prep.row_idx != prep.entry.n_valid).sum()
+                            )
+                    out = self.dispatch_cached_agg(prep)
+                    outcomes[i] = self._finish_metrics(
+                        prep.m, t_start, "device-cached", out
+                    )
+                except BaseException as e:
+                    outcomes[i] = e
+                continue
+            try:
+                results = self.dispatch_cached_agg_cohort(
+                    [p for _, p, _ in grp]
+                )
+            except BaseException:
+                # wholesale fused failure: per-member solo fallback, so
+                # one bad cohort cannot take its members down with it —
+                # logged and counted, so a run can tell that the cohort
+                # kernel did not serve them
+                with _FALLBACKS_LOCK:
+                    COHORT_FALLBACKS += 1
+                logger.exception(
+                    "fused cohort dispatch of %d members failed; serving "
+                    "them solo", len(grp),
+                )
+                for i, prep, t_start in grp:
+                    try:
+                        outcomes[i] = self.execute(plans[i], table)
+                    except BaseException as e:
+                        outcomes[i] = e
+                continue
+            for (i, prep, t_start), r in zip(grp, results):
+                if isinstance(r, BaseException):
+                    outcomes[i] = r
+                else:
+                    outcomes[i] = self._finish_metrics(
+                        prep.m, t_start, "device-cached", r
+                    )
         return outcomes
 
     def _selective_row_idx(
@@ -1344,13 +1594,14 @@ class Executor:
         # pad slots point at the explicit pad row (code n_series, masked)
         return pad_to_bucket(idx, total, fill=np.int32(entry.n_valid))
 
-    def _delta_soundness(self, table, entry, delta, agg_cols) -> bool:
+    def _delta_soundness(self, table, entry, delta, agg_cols, sidx) -> bool:
         """May ``delta`` be ADDED on top of the cached base aggregate?
 
         Sound when: no NULL agg inputs, every delta series already exists
         in the base (group mapping is per-series), and — for OVERWRITE
         tables — no delta row can overwrite a base row (strictly newer
         timestamps) nor another delta row (unique keys within the delta).
+        ``sidx`` is ``_delta_series_index(entry, delta)``.
         """
         from ..engine.options import UpdateMode
 
@@ -1368,7 +1619,6 @@ class Executor:
         tsid_name = schema.columns[schema.tsid_index].name
         d_tsid = delta.columns[tsid_name]
         n_series = len(entry.series_tsids)
-        sidx = np.searchsorted(entry.series_tsids, d_tsid)
         known = sidx < n_series
         safe_idx = np.clip(sidx, 0, n_series - 1)
         known &= entry.series_tsids[safe_idx] == d_tsid
@@ -1378,23 +1628,22 @@ class Executor:
             d_ts = delta.timestamps
             if int(d_ts.min()) <= entry.max_ts:
                 return False  # could overwrite a base row
-            pairs = np.stack([d_tsid.astype(np.int64), d_ts.astype(np.int64)])
-            if np.unique(pairs, axis=1).shape[1] != len(delta):
+            if _has_duplicate_pairs(d_tsid, d_ts):
                 return False  # delta overwrites within itself
         return True
 
     def _fold_delta(
-        self, state, delta, entry, schema, gos, allow,
-        agg_cols, value_names, device_filters,
+        self, state, delta, sidx, gos, allow,
+        agg_cols, device_filters,
         lo, hi, t0, width, n_buckets,
     ) -> None:
         """Accumulate unflushed rows into the kernel's host-side partials.
+        ``sidx`` is ``_delta_series_index(entry, delta)``, which
+        ``_delta_soundness`` has checked.
 
         The delta is small (one memtable's worth at most), so vectorized
         numpy accumulation costs microseconds while the many-million-row
         base stays in HBM untouched."""
-        tsid_name = schema.columns[schema.tsid_index].name
-        sidx = np.searchsorted(entry.series_tsids, delta.columns[tsid_name])
         d_ts = delta.timestamps
         mask = allow[sidx] & (d_ts >= lo) & (d_ts < hi)
         for col, op, lit in device_filters:
@@ -1806,11 +2055,7 @@ class Executor:
             return False
         schema = delta.schema
         tsid_name = schema.columns[schema.tsid_index].name
-        pairs = np.stack([
-            delta.columns[tsid_name].astype(np.int64),
-            d_ts.astype(np.int64),
-        ])
-        return np.unique(pairs, axis=1).shape[1] == len(delta)
+        return not _has_duplicate_pairs(delta.columns[tsid_name], d_ts)
 
     def _raw_delta_rows(self, plan: QueryPlan, delta):
         """Delta rows passing the query's time range + FULL residual

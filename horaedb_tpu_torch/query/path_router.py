@@ -17,6 +17,28 @@ PROBE_EVERY = 16  # serve the winner; re-probe the losers every Nth call
 MAX_KEYS = 512  # LRU bound on tracked query shapes
 
 
+MEMO_PLANS = 1024  # plans whose shape keys memo_by_plan keeps
+
+
+def memo_by_plan(memo: dict, plan, key_of):
+    """``key_of(plan)``, computed once per plan object. Plans are frozen
+    and the plan cache hands the same object to every repeat of a SQL
+    text, so a dashboard's repeats pay for the key once. ``memo`` maps
+    id(plan) -> (plan, key); holding the plan keeps its id from being
+    reused while the entry lives. Cleared whole at MEMO_PLANS entries."""
+    hit = memo.get(id(plan))
+    if hit is not None and hit[0] is plan:
+        return hit[1]
+    key = key_of(plan)
+    if len(memo) >= MEMO_PLANS:
+        memo.clear()
+    memo[id(plan)] = (plan, key)
+    return key
+
+
+_PLAN_SHAPES: dict = {}
+
+
 def plan_shape_key(plan) -> tuple:
     """(table, normalized-select) with literal VALUES masked out.
 
@@ -24,20 +46,21 @@ def plan_shape_key(plan) -> tuple:
     filter literals every refresh; masking literals makes those one shape,
     so the router's samples accumulate instead of restarting (and the
     stats table stays bounded)."""
-    return (plan.table, _shape(plan.select))
+    return memo_by_plan(_PLAN_SHAPES, plan, lambda p: (p.table, _shape(p.select)))
+
+
+_FIELD_NAMES: dict = {}  # dataclass type -> its field names
 
 
 def _shape(node):
-    if dataclasses.is_dataclass(node) and not isinstance(node, type):
-        if type(node).__name__ == "Literal":
+    cls = type(node)
+    names = _FIELD_NAMES.get(cls)
+    if names is None and dataclasses.is_dataclass(cls):
+        names = _FIELD_NAMES[cls] = tuple(f.name for f in dataclasses.fields(cls))
+    if names is not None:
+        if cls.__name__ == "Literal":
             return ("?",)  # value masked; shape only
-        return (
-            type(node).__name__,
-            *(
-                (f.name, _shape(getattr(node, f.name)))
-                for f in dataclasses.fields(node)
-            ),
-        )
+        return (cls.__name__, *((n, _shape(getattr(node, n))) for n in names))
     if isinstance(node, (tuple, list)):
         return tuple(_shape(x) for x in node)
     return node

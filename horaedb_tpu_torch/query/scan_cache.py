@@ -192,6 +192,8 @@ class CachedTableScan:
     # raw (non-aggregate) reads ship only the allow-list — their own
     # content-keyed session cache (ops.scan_topk packed serving path)
     _raw_sessions: dict = None
+    # GROUP BY tag columns -> (series group code, key values): group_codes
+    _group_codes: dict = None
     # the connection's device: every tensor of the entry lives there
     device: torch.device = None
     # Derived host state that SURVIVES dropping ``rows`` (ref analog: the
@@ -257,6 +259,26 @@ class CachedTableScan:
             dev = build()
         cache[key] = dev
         return dev
+
+    def group_codes(self, columns: tuple) -> tuple:
+        """(series group code, key values per column) of the GROUP BY tag
+        ``columns`` over this entry's series rows, computed once per
+        column tuple: the series rows never change once built, and every
+        query of a shape that groups by the same tags reuses the codes."""
+        from ..ops.encoding import _codes_from_columns
+
+        if self._group_codes is None:
+            self._group_codes = {}
+        hit = self._group_codes.get(columns)
+        if hit is None:
+            codes, key_values = _codes_from_columns(
+                [self.series_rows.columns[c] for c in columns]
+            )
+            for a in (codes, *key_values):
+                if isinstance(a, np.ndarray):
+                    a.setflags(write=False)  # shared by every later query
+            hit = self._group_codes[columns] = (codes, key_values)
+        return hit
 
     def session_for(self, gos: np.ndarray, allow: np.ndarray):
         """Device handle for the packed [group map | allow list] upload,

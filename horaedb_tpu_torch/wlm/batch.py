@@ -117,17 +117,23 @@ def _member_error(err: BaseException) -> BaseException:
     return err
 
 
+_BATCH_KEYS: dict = {}
+
+
 def batch_plan_key(plan) -> tuple:
     """Normalized plan-shape key for cohort grouping: the path router's
     literal-masked shape with LIMIT/OFFSET additionally masked (mixed
     LIMITs demux per member AFTER the shared dispatch, so they must not
-    split a cohort)."""
+    split a cohort). Computed once per plan object (memo_by_plan)."""
     import dataclasses
 
-    from ..query.path_router import _shape
+    from ..query.path_router import _shape, memo_by_plan
 
-    sel = dataclasses.replace(plan.select, limit=None, offset=0)
-    return (plan.table, _shape(sel))
+    def key_of(p) -> tuple:
+        sel = dataclasses.replace(p.select, limit=None, offset=0)
+        return (p.table, _shape(sel))
+
+    return memo_by_plan(_BATCH_KEYS, plan, key_of)
 
 
 class _Member:

@@ -160,7 +160,8 @@ def test_baseline_query_matches_reference(dbs, query):
         assert len(got) > 0
         rows_match(want, got, _scale(query))
         if path == "device":
-            assert calls == {"direct": 1, "cached": 0, "cached_selective": 0}
+            assert calls == {"direct": 1, "cached": 0, "cached_selective": 0,
+                             "cached_cohort": 0}
         else:
             assert path == "device-cached", path
             assert calls["direct"] == 0
