@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Card: name and power limit (nvidia-smi), torch and CUDA versions.
 2. Build: the four CUDA kernel libraries from ``horaedb_tpu_torch/ops/csrc``,
-   one nvcc per source, one after the other.
+   one nvcc per source, all started together.
 3. Kernel vs plain: every entry point (direct, cached full, cached
    selective) and arm (single, shared, scatter) against its plain PyTorch
    version on the same CUDA tensors, over every resident layout, all six
@@ -119,6 +119,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    resident columns for 32 lastpoint-host members (hosts 0-31, k 16),
    bit-equal to 32 solo top-k launches, and timed against them and
    torch.topk; B1d timed at single-groupby-5-8-1's gather.
+19. Hash arm vs plain (B2d, beside the resident cpu table): the hash arm of
+   the direct, cached and SELECTIVE cached kernels against
+   hash_segment_agg_plain on the same CUDA tensors: every resident layout,
+   F in {0, 1, 5, 10} with and without min/max, H in {16, 2048, 4096},
+   rounds in {1, 2, 4}, a block at load 1.0 probed in full (no row may
+   overflow), tables that overflow (at least one case must), NaN and +-0,
+   an empty mask, and bench.py's groupby shapes at 2**18 rows. Counts,
+   mins and maxs bit-equal; sums within SUM_RTOL of sum |x|.
+20. Sparse-domain panels, on phase 4's connection and resident cpu table:
+   sparse-8x1h (TSBS single-groupby-5-8-1 grouped by host too: n_seg
+   4096 x 64, 480 live) and sparse-16x12h (16 hosts, 12 h: n_seg
+   4096 x 1024, 11,520 live) through ``Connection.execute``, REPEATS times
+   routed (the router seeds hash; the first cached call must report it and
+   the hash launch count must move), once pinned to scatter; every answer
+   bit-equal to numpy and to the scatter answer. Each query's hash call
+   replayed (kernel against plain, overflow rows of the per-block tables
+   and of the plain version's one table) and timed against the scatter and
+   shared arms, its bound, index_add_ and plain; the packed output's
+   memset, copy back and host unpack apart; bench.py's groupby shapes
+   timed the same way (direct form, 2**18 rows).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -200,15 +220,19 @@ def phase_card(torch) -> str:
 
 
 def phase_build() -> None:
-    """The kernel libraries, one nvcc each, one after the other."""
+    """The kernel libraries, one nvcc each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from horaedb_tpu_torch.ops import livewindow, merge_dedup, scan_agg, scan_topk
 
     loaders = {"scan_agg": scan_agg._kernels, "merge_dedup": merge_dedup._kernels,
                "livewindow": livewindow._kernels, "scan_topk": scan_topk._kernels}
     t0 = time.perf_counter()
-    for name, fn in loaders.items():
-        # builds and loads the library and checks its struct layouts
-        lib = fn()
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        # each builds and loads its library and checks its struct layouts
+        futures = {name: pool.submit(fn) for name, fn in loaders.items()}
+        libs = {name: f.result() for name, f in futures.items()}
+    for name, lib in libs.items():
         say(f"build: {name}.cu in {lib.build_seconds:.2f} s of nvcc")
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -404,6 +428,18 @@ def _resident_case(rng, n_series, per, series_layout, ts_layout, kinds):
 
 def _cached_case(torch, rng, layout_case, arm, selective, need_minmax, op, G=1, B=1,
                  n_series=40, per=3001):
+    args, kw, kind, form = _cached_inputs(torch, rng, layout_case, arm, selective, need_minmax,
+                                          op, G, B, n_series, per)
+    err, n_counted = _check_call(torch, form, args, kw, kind)
+    check(n_counted > 0, f"{kind}: no row passed")
+    return err
+
+
+def _cached_inputs(torch, rng, layout_case, arm, selective, need_minmax, op, G=1, B=1,
+                   n_series=40, per=3001):
+    """A resident table of ``n_series`` series x ``per`` rows in
+    ``layout_case``'s layouts and one query over it: (args, kw, kind, form)
+    of a cached launch."""
     import numpy as np
 
     from horaedb_tpu_torch.convert import entry_from_reference
@@ -437,10 +473,7 @@ def _cached_case(torch, rng, layout_case, arm, selective, need_minmax, op, G=1, 
               **entry.layout_kwargs())
     kind = f"cached/{arm}/{'sel' if selective else 'full'}/{layout_case}"
     form = "cached_selective" if selective else "cached"
-    err, n_counted = _check_call(torch, form, (*entry.kernel_args().values(), session, dyn),
-                                 kw, kind)
-    check(n_counted > 0, f"{kind}: no row passed")
-    return err
+    return (*entry.kernel_args().values(), session, dyn), kw, kind, form
 
 
 def _with_bf16(torch, entry, kinds):
@@ -663,6 +696,7 @@ def phase_main(torch) -> dict:
         f"in {t_cpu - t_gen:.1f} s; {DEMO_ROWS} demo rows in {t_load - t_cpu:.1f} s")
     exp = _expected(tsbs, rows, demo)
     raw_exp = _raw_expected(tsbs, rows)
+    hash_exp = _hash_expected(tsbs, rows)
     flood_exp = _flood_expected(tsbs, rows)
     del rows
 
@@ -714,7 +748,7 @@ def phase_main(torch) -> dict:
     DETAIL["launches"] = launches
     DETAIL["peak_bytes"] = peak
     return {"db": db, "results": results, "launches": launches, "peak": peak, "rec": rec,
-            "raw_expected": raw_exp, "flood_expected": flood_exp}
+            "raw_expected": raw_exp, "flood_expected": flood_exp, "hash_expected": hash_exp}
 
 
 # ---- phase 5: timings ---------------------------------------------------------
@@ -771,17 +805,19 @@ def _bytes_of(t) -> int:
     return int(t.numel() * t.element_size())
 
 
-def _kernel_bounds(form, args, kw) -> tuple[float, str, dict]:
+def _kernel_bounds(form, args, kw, out_segments=None) -> tuple[float, str, dict]:
     """Least time for the work: the bytes it must move over HBM bandwidth,
-    or its f32 operations over the f32 peak, whichever is larger."""
+    or its f32 operations over the f32 peak, whichever is larger. The
+    output counts every segment, or only ``out_segments`` of them where
+    the launch writes no others (its fill is a separate memset)."""
     if form == "direct":
         g, b, m, v, lits = args
         n = g.shape[0]
         # codes, buckets and mask of every row; values of unmasked rows
         nbytes = sum(_bytes_of(x) for x in (g, b, m, lits))
         nbytes += int(_bytes_of(v) * float(m.float().mean()))
-        n_out = kw["n_groups"] * kw["n_buckets"] * (1 + 3 * kw["n_agg_fields"])
-        nbytes += 4 * n_out
+        n_seg = kw["n_groups"] * kw["n_buckets"] if out_segments is None else out_segments
+        nbytes += 4 * n_seg * (1 + 3 * kw["n_agg_fields"])
         rows = n
     else:
         from horaedb_tpu_torch.ops import encoding as E
@@ -815,7 +851,8 @@ def _kernel_bounds(form, args, kw) -> tuple[float, str, dict]:
             frac = float(in_range.float().mean())
             nbytes += sum(share(parts, frac) for parts in vals)
         planes = 3 if kw["need_minmax"] else 1
-        nbytes += 4 * kw["n_groups"] * kw["n_buckets"] * (1 + planes * kw["n_agg_fields"])
+        n_seg = kw["n_groups"] * kw["n_buckets"] if out_segments is None else out_segments
+        nbytes += 4 * n_seg * (1 + planes * kw["n_agg_fields"])
     ops = rows * (len(kw["numeric_filters"]) + 4 + 3 * kw["n_agg_fields"])
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_F32_OPS_S * 1e3
@@ -3633,6 +3670,406 @@ def phase_flood_timings(torch, main, flood, raw, card) -> list:
     return kernels
 
 
+# ---- phases 19-20: the hash arm (B2d) ------------------------------------------
+
+HASH_REPLACES = "horaedb_tpu/ops/hash_agg.py:83"
+HASH_ROWS = 1 << 18
+# bench.py's BENCH_CONFIG=groupby shapes: (label, domain, live groups present)
+GROUPBY_SHAPES = (
+    ("uniform-8", 8, 8),
+    ("uniform-64", 64, 64),
+    ("uniform-512", 512, 512),
+    ("uniform-4k", 4096, 4096),
+    ("uniform-32k", 32768, 32768),
+    ("uniform-256k", 262144, 262144),
+    ("skew-64k-live4", 65536, 4),
+    ("skew-256k-live16", 262144, 16),
+)
+
+
+def sparse_queries() -> list:
+    """(name, hosts, hours) of the sparse-domain panels on the cpu table:
+    TSBS single-groupby-5-8-1 grouped by host as well, and the same over
+    16 hosts spread across the table and 12 h."""
+    return [("sparse-8x1h", list(range(8)), 1),
+            ("sparse-16x12h", [i * (HOSTS // 16) for i in range(16)], HC_HOURS)]
+
+
+def sparse_sql(hosts, hours: int) -> str:
+    from horaedb_tpu_torch.tools import tsbs
+
+    fields = ", ".join(f"max({f}) AS max_{f}" for f in tsbs.CPU_FIELDS[:5])
+    host_list = ", ".join(f"'host_{h}'" for h in hosts)
+    return (f"SELECT hostname, time_bucket(ts, '1m') AS minute, {fields} FROM cpu "
+            f"WHERE hostname IN ({host_list}) AND ts >= 0 AND ts < {hours * 3_600_000} "
+            "GROUP BY hostname, time_bucket(ts, '1m') ORDER BY hostname, minute")
+
+
+def _hash_expected(tsbs, rows) -> dict:
+    """Per sparse query, the per-(host, minute) max of the first five fields
+    from the generated rows (time-major: tick, then host), on the float32
+    values the device columns hold: f32[5, minutes, hosts]."""
+    import numpy as np
+
+    n_ticks = HOURS * 3_600_000 // tsbs.INTERVAL_MS
+    per_min = 60_000 // tsbs.INTERVAL_MS
+    out = {}
+    for name, hosts, hours in sparse_queries():
+        ticks = hours * 3_600_000 // tsbs.INTERVAL_MS
+        out[name] = np.stack([
+            rows.columns[f].reshape(n_ticks, HOSTS)[:ticks, hosts].astype(np.float32)
+            .reshape(ticks // per_min, per_min, len(hosts)).max(axis=1)
+            for f in tsbs.CPU_FIELDS[:5]])
+    return out
+
+
+def _check_sparse(name, res, hosts, exp) -> None:
+    """Every (host, minute) of the panel once, each max bit-equal to numpy."""
+    import numpy as np
+
+    from horaedb_tpu_torch.tools import tsbs
+
+    _, minutes, nh = exp.shape
+    check(res.num_rows == minutes * nh, f"{name}: {res.num_rows} rows, want {minutes * nh}")
+    pos = {h: i for i, h in enumerate(hosts)}
+    hi = np.array([pos[int(h[5:])] for h in res.column("hostname")])
+    mi = np.asarray(res.column("minute")) // 60_000
+    check(len(set(zip(hi.tolist(), mi.tolist()))) == minutes * nh, f"{name}: repeated groups")
+    for k, f in enumerate(tsbs.CPU_FIELDS[:5]):
+        got = np.asarray(res.column(f"max_{f}"), dtype=np.float32)
+        check(np.array_equal(got, exp[k][mi, hi]), f"{name}: max_{f} differs from numpy")
+
+
+def _same_result(a, b, what) -> None:
+    """Two ResultSets with the same names and bit-equal columns."""
+    import numpy as np
+
+    check(a.names == b.names, f"{what}: columns {a.names} vs {b.names}")
+    for n, x, y in zip(a.names, a.columns, b.columns):
+        check(np.array_equal(np.asarray(x), np.asarray(y)), f"{what}: column {n} differs")
+
+
+def _hash_check(torch, form, args, kw, kind, rounds=2) -> tuple[float, int, int, int]:
+    """The hash arm's kernel against its plain version on the same tensors
+    (``_compare``), both with ``rounds`` probe rounds
+    (HORAEDB_HASH_PROBE_ROUNDS); returns the largest |sum difference|, the
+    kernel's and the plain version's overflow rows (the kernel's tables
+    are per block, the plain version's one global table) and the rows
+    counted."""
+    from horaedb_tpu_torch.ops import scan_agg as S
+
+    dev = args[3].device if form != "direct" else args[0].device
+    ov_k = torch.zeros(1, dtype=torch.int64, device=dev)
+    ov_p = torch.zeros(1, dtype=torch.int64, device=dev)
+    before = os.environ.get("HORAEDB_HASH_PROBE_ROUNDS")
+    os.environ["HORAEDB_HASH_PROBE_ROUNDS"] = str(rounds)
+    try:
+        if form == "direct":
+            got = S.fused_scan_agg(*args, overflow=ov_k, **kw)
+            _sync(torch)
+            want = S.scan_agg_body(*args, overflow=ov_p, **kw)
+        else:
+            got = _split(torch, S.cached_scan_agg_packed(*args, overflow=ov_k, **kw), kw)
+            _sync(torch)
+            want = _split(torch, S._packed_body(*args, overflow=ov_p, **kw), kw)
+    finally:
+        if before is None:
+            del os.environ["HORAEDB_HASH_PROBE_ROUNDS"]
+        else:
+            os.environ["HORAEDB_HASH_PROBE_ROUNDS"] = before
+    abs_sums = _abs_sums(torch, form, args, {**kw, "segment_impl": "scatter"})
+    err = _compare(kind, *got, want, abs_sums, kw["need_minmax"])
+    return err, int(ov_k.item()), int(ov_p.item()), int(got[0].sum())
+
+
+def _groupby_inputs(torch, rng, n, domain, live, F=1, op=None, need_minmax=True, sort=False,
+                    special=False, empty=False, every_row=False):
+    """bench.py's groupby batch: ``n`` rows over ``live`` groups scattered
+    across a ``domain``-wide dense encoding (all of it when live ==
+    domain; each live group on one row at least), one bucket; 3% of the
+    rows masked (none with ``every_row``, all with ``empty``); (args, kw)
+    of a direct launch, hash arm."""
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import encoding as E, scan_agg as S
+
+    dev = torch.device(DEV)
+    if live < domain:
+        groups = np.sort(rng.choice(domain, size=live, replace=False))
+        pick = np.concatenate([np.arange(live), rng.integers(0, live, n - live)])
+        codes = groups[rng.permutation(pick)].astype(np.int32)
+    else:
+        codes = rng.integers(0, domain, n).astype(np.int32)
+    if sort:
+        codes = np.sort(codes)
+    m = np.zeros(n, bool) if empty else (rng.random(n) < 0.97) | every_row
+    n_fields = F + (op is not None)
+    vals = rng.normal(0, 50, (n_fields, n)).astype(np.float32)
+    vals[F:] = np.round(vals[F:])
+    if special:
+        # NaN and signed zeros on kept rows of a few segments
+        m[:64] = True
+        vals[:, 1:64:7], vals[:, 2:64:7], vals[:, 3:64:7] = np.nan, -0.0, 0.0
+    batch = E.build_padded_batch(codes, np.zeros(n, np.int32), m, list(vals))
+    filters = ((F, S._FILTER_OPS[op]),) if op is not None else ()
+    lits = torch.tensor([3.0] * len(filters), dtype=torch.float32, device=dev)
+    args = tuple(torch.from_numpy(x).to(dev) for x in (batch.group_codes, batch.bucket_ids,
+                                                      batch.mask, batch.values)) + (lits,)
+    kw = dict(n_groups=E.next_pow2(domain, floor=8), n_buckets=1, n_agg_fields=F,
+              numeric_filters=filters, need_minmax=need_minmax, segment_impl="hash")
+    return args, kw
+
+
+def phase_hash_kernels(torch) -> None:
+    """B2d against hash_segment_agg_plain on the card: the direct, cached
+    and SELECTIVE forms, every layout, F in {0, 1, 5, 10} with and
+    without min/max, H in {16, 2048, 4096}, rounds in {1, 2, 4}, a block
+    at load 1.0 and blocks that overflow, NaN and +-0, empty masks, and
+    bench.py's groupby shapes at 2**18 rows."""
+    import numpy as np
+
+    from horaedb_tpu_torch.ops.hash_agg import hash_slots_for
+
+    rng = np.random.default_rng(SEED + 8)
+    cases = []
+
+    def run(form, args, kw, what, rounds):
+        kind = f"hash {form} {what} (H {kw['hash_slots']}, rounds {rounds})"
+        err, ov_k, ov_p, counted = _hash_check(torch, form, args, kw, kind, rounds)
+        cases.append({"case": kind, "err": err, "overflow": ov_k, "plain_overflow": ov_p,
+                      "counted": counted})
+        return ov_k
+
+    for label, domain, live in GROUPBY_SHAPES:
+        args, kw = _groupby_inputs(torch, rng, HASH_ROWS, domain, live)
+        run("direct", args, {**kw, "hash_slots": hash_slots_for(domain, live)}, label, 2)
+    slots, rounds = (16, 2048, 4096), (1, 2, 4)
+    for i, F in enumerate((0, 1, 5, 10)):
+        for need_minmax in (True, False):
+            j = 2 * i + need_minmax
+            args, kw = _groupby_inputs(torch, rng, 100_003, 65536, 1000, F, OPS[j % 6],
+                                       need_minmax, sort=bool(j % 2))
+            run("direct", args, {**kw, "hash_slots": slots[j % 3]}, f"F={F} minmax={need_minmax}",
+                rounds[j % 3])
+    # one block sees every row (2048 real rows, the rest of the launch
+    # pads): exactly H distinct segments, probed in full, fill it
+    for H in (16, 2048):
+        args, kw = _groupby_inputs(torch, rng, 2048, 65536, H, sort=H == 16, every_row=True)
+        ov = run("direct", args, {**kw, "hash_slots": H}, f"one block at load 1.0 ({H} segments)",
+                 H)
+        check(ov == 0, f"a full probe of {H} slots left {ov} rows of {H} segments unplaced")
+    args, kw = _groupby_inputs(torch, rng, 50_000, 65536, 300, F=3, special=True)
+    run("direct", args, {**kw, "hash_slots": 2048}, "NaN and +-0", 2)
+    args, kw = _groupby_inputs(torch, rng, 50_000, 65536, 300, F=2, empty=True)
+    run("direct", args, {**kw, "hash_slots": 16}, "empty mask", 1)
+    for c, case in enumerate(LAYOUT_CASES):
+        for selective in (False, True):
+            j = 2 * c + selective
+            args, kw, kind, form = _cached_inputs(torch, rng, case, "hash", selective,
+                                                  bool(j % 2), OPS[j % 6], 4096, 64)
+            kw["hash_slots"] = slots[j % 3]
+            run(form, args, kw, kind, rounds[j % 3])
+    _sync(torch)
+    check(any(c["overflow"] > 0 for c in cases), "no hash case overflowed a block's table")
+    errs = {f: max((c["err"] for c in cases if f" {f} " in c["case"]), default=0.0)
+            for f in ("direct", "cached", "cached_selective")}
+    say(f"hash kernels vs plain: {len(cases)} cases passed; max |sum diff| {errs}; overflow "
+        f"rows (kernel / plain) " + ", ".join(
+            f"{c['case'].split(' (')[0][5:]}: {c['overflow']}/{c['plain_overflow']}"
+            for c in cases[:len(GROUPBY_SHAPES)]))
+    DETAIL["hash_kernel_cases"] = cases
+
+
+def _live_segments(torch, form, args, kw) -> int:
+    """Segments a launch counts rows into: the only ones its output
+    writes (the rest keep the fill, a memset before the kernel)."""
+    from horaedb_tpu_torch.ops import scan_agg as S
+
+    if form == "direct":
+        counts = S.fused_scan_agg(*args, **kw)[0]
+    else:
+        counts = _split(torch, S.cached_scan_agg_packed(*args, **kw), kw)[0]
+    return int((counts != 0).sum())
+
+
+def _hash_bound(torch, form, args, kw) -> tuple[float, str, dict]:
+    """Least time of a hash launch: the real rows' bytes (pad slots of a
+    gather left out) plus the output of the segments it writes (the live
+    ones), over HBM bandwidth, or its f32 operations over the f32 peak."""
+    live = _live_segments(torch, form, args, kw)
+    if form != "cached_selective":
+        bound, by, work = _kernel_bounds(form, args, kw, live)
+        return bound, by, {**work, "live": live}
+    from horaedb_tpu_torch.ops import encoding as E
+
+    sp, tp, vals, session, dyn = args
+    n_f = len(kw["numeric_filters"])
+    idx = dyn[n_f + 4:].long()
+    # the gather's pad slots point at the pad row, whose series code is the
+    # session's last (n_series)
+    sc = E.decode_series(sp, kw["series_layout"], E.layout_rows(sp, kw["series_layout"]))
+    real = int((sc[idx] < session.shape[0] // 2 - 1).sum())
+    bound, by, work = _kernel_bounds(form, (sp, tp, vals, session, dyn[:n_f + 4 + real]), kw,
+                                     live)
+    return bound, by, {**work, "real": real, "live": live}
+
+
+def _arm_ms(torch, form, args, kw, arm, flush, reps=10):
+    """Device ms of one launch of ``arm`` on the inputs of a hash call."""
+    from horaedb_tpu_torch.ops import scan_agg as S
+
+    k = {**kw, "segment_impl": arm}
+    fn = (lambda: S.fused_scan_agg(*args, **k)) if form == "direct" \
+        else (lambda: S.cached_scan_agg_packed(*args, **k))
+    name = "scan_agg_direct" if form == "direct" else "scan_agg_cached"
+    ms = _device_ms(torch, fn, name, reps=reps, flush=flush)
+    return ms if ms is not None else _time_launch(torch, fn, reps=reps, flush=flush)
+
+
+def _time_hash(torch, form, args, kw, what, flush, card) -> dict:
+    """A hash call's device ms against the scatter and shared arms (shared
+    where its partials fit), its bound, index_add_ and the plain version."""
+    from horaedb_tpu_torch.ops import scan_agg as S
+
+    n_seg = kw["n_groups"] * kw["n_buckets"]
+    ms = {"hash": _arm_ms(torch, form, args, kw, "hash", flush),
+          "scatter": _arm_ms(torch, form, args, kw, "scatter", flush),
+          "shared": (_arm_ms(torch, form, args, kw, "shared", flush)
+                     if S.shared_fits(n_seg, kw["n_agg_fields"], kw["need_minmax"]) else None)}
+    plain = (lambda: S.scan_agg_body(*args, **kw)) if form == "direct" \
+        else (lambda: S._packed_body(*args, **kw))
+    plain_ms = _time_launch(torch, plain, reps=3, flush=flush)
+    lib_ms = _time_launch(torch, _library_call(torch, S, form, args, kw), reps=5, flush=flush)
+    bound_ms, bound_by, work = _hash_bound(torch, form, args, kw)
+    H = S.block_hash_slots(kw.get("hash_slots") or S.default_hash_slots(n_seg),
+                           kw["n_agg_fields"], kw["need_minmax"])
+    say(f"hash {what} ({form}, n_seg {n_seg}, H {kw.get('hash_slots')} -> {H} a block, "
+        f"{work['rows']} rows, {work['live']} live segments): hash {ms['hash']:.4f} ms, scatter {ms['scatter']:.4f} ms, "
+        f"shared {ms['shared'] if ms['shared'] is None else round(ms['shared'], 4)} ms on "
+        f"the device timeline; plain {plain_ms:.4f} ms; index_add_ {lib_ms:.4f} ms; bound "
+        f"{bound_ms:.6f} ms ({bound_by}, {work['bytes']} B) [{card}]")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "block_slots": H, **work}
+
+
+def phase_hash_main(torch, main, card) -> list:
+    """The sparse-domain panels through ``Connection.execute`` on phase
+    4's resident cpu table: each REPEATS times unrouted (the router seeds
+    the hash arm; the first cached call must report it), once pinned to
+    scatter; every answer bit-equal to numpy and to the scatter answer.
+    Then each query's hash call replayed (kernel against plain, overflow
+    rows) and timed against the scatter and shared arms, its bound,
+    index_add_ and plain; for sparse-16x12h the packed output's memset,
+    copy back and host unpack apart; then bench.py's groupby shapes
+    timed the same way (direct form, 2**18 rows)."""
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import scan_agg as S
+    from horaedb_tpu_torch.ops.hash_agg import hash_slots_for
+
+    db = main["db"]
+    exp = main["hash_expected"]
+    rec = Recorder(S)
+    results = {}
+    S.reset_counts()  # the hash path's launches start here
+    try:
+        for name, hosts, hours in sparse_queries():
+            sql = sparse_sql(hosts, hours)
+            runs = []
+            first_cached = None
+            for r in range(REPEATS):
+                t = time.perf_counter()
+                out = db.execute(sql)
+                secs = time.perf_counter() - t
+                path = db.interpreters.executor.last_path
+                runs.append({"seconds": secs, "path": path, "kernel": out.metrics.get("kernel"),
+                             "cache": out.metrics.get("cache")})
+                _check_sparse(name, out, hosts, exp[name])
+                calls = rec.take()
+                if path == "device-cached" and first_cached is None:
+                    first_cached = out.metrics.get("kernel")
+                    check(first_cached == "hash",
+                          f"{name}: first cached call served by {first_cached}, not hash")
+                    call = calls.get("cached_selective") or calls["cached"]
+                if r == 0:
+                    answer = out
+            check(first_cached is not None, f"{name}: never served from the cache")
+            os.environ["HORAEDB_SEGMENT_IMPL"] = "scatter"
+            try:
+                t = time.perf_counter()
+                pinned = db.execute(sql)
+                pinned_s = time.perf_counter() - t
+            finally:
+                del os.environ["HORAEDB_SEGMENT_IMPL"]
+            check(pinned.metrics.get("kernel") == "scatter", f"{name}: pin not honoured")
+            _same_result(answer, pinned, f"{name}: hash vs scatter-pinned answer")
+            say(f"{name}: runs {[round(x['seconds'] * 1e3, 3) for x in runs]} ms, paths "
+                f"{[x['path'] for x in runs]}, kernels {[x['kernel'] for x in runs]}; "
+                f"scatter-pinned {pinned_s * 1e3:.3f} ms; every answer equals numpy "
+                f"({answer.num_rows} rows)")
+            results[name] = {"runs": runs, "pinned_scatter_s": pinned_s, "call": call}
+    finally:
+        S.fused_scan_agg, S.cached_scan_agg_packed = rec.orig_fused, rec.orig_cached
+    launches = {form: dict(arms) for form, arms in S.LAUNCHES.items()}
+    n_hash = sum(arms["hash"] for arms in launches.values())
+    if DEV == "cuda":
+        check(launches["cached_selective"]["hash"] + launches["cached"]["hash"] > 0,
+              f"the sparse panels never launched the hash arm: {launches}")
+        check(not any(S.PLAIN_CALLS.values()), f"plain versions ran: {S.PLAIN_CALLS}")
+    say(f"hash main path launches: {launches}")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    timings, err = {}, 0.0
+    for name, res in results.items():
+        args, kw = res["call"]
+        form = "cached_selective" if kw.get("selective") else "cached"
+        e, ov_k, ov_p, counted = _hash_check(torch, form, args, kw, f"main path {name}")
+        err = max(err, e)
+        tm = _time_hash(torch, form, args, kw, name, flush, card)
+        tm.update(overflow=ov_k, plain_overflow=ov_p, counted=counted,
+                  warm_ms=statistics.median([x["seconds"] for x in res["runs"][2:]]) * 1e3)
+        n_seg = kw["n_groups"] * kw["n_buckets"]
+        spec = S.ScanAggSpec(n_groups=kw["n_groups"], n_buckets=kw["n_buckets"],
+                             n_agg_fields=kw["n_agg_fields"], need_minmax=kw["need_minmax"])
+        packed = S.cached_scan_agg_packed(*args, **kw)
+        memset_ms = _time_launch(torch, lambda: S._packed_out(
+            1, n_seg, kw["n_agg_fields"], kw["need_minmax"], packed.device), reps=3)
+        t = time.perf_counter()
+        host = packed.cpu().numpy()
+        t_copy = time.perf_counter() - t
+        t = time.perf_counter()
+        S.unpack_packed_state(host, spec)
+        t_unpack = time.perf_counter() - t
+        tm.update(out_bytes=_bytes_of(packed), memset_ms=memset_ms,
+                  copy_back_ms=t_copy * 1e3, unpack_ms=t_unpack * 1e3)
+        del packed, host
+        say(f"hash {name}: kernel = plain (max |sum diff| {e}, {counted} rows counted), "
+            f"overflow rows {ov_k} (per-block tables) / {ov_p} (one table of "
+            f"{kw.get('hash_slots')}); warm execute {tm['warm_ms']:.3f} ms; packed output "
+            f"{tm['out_bytes']} B: memset {tm['memset_ms']:.4f} ms, copy back "
+            f"{tm['copy_back_ms']:.3f} ms, host unpack {tm['unpack_ms']:.3f} ms [{card}]")
+        timings[name] = tm
+    rng = np.random.default_rng(SEED + 9)
+    shapes = {}
+    for label, domain, live in GROUPBY_SHAPES:
+        args, kw = _groupby_inputs(torch, rng, HASH_ROWS, domain, live)
+        kw["hash_slots"] = hash_slots_for(domain, live)
+        shapes[label] = _time_hash(torch, "direct", args, kw, label, flush, card)
+    del flush
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    DETAIL["hash_main"] = {"launches": launches, "queries": {
+        n: {k: v for k, v in r.items() if k != "call"} for n, r in results.items()},
+        "timings": timings, "groupby": shapes}
+    head = timings["sparse-16x12h"]
+    return [{
+        "name": "hash_segment_agg", "route": "cuda", "source": SRC, "replaces": HASH_REPLACES,
+        "launches": int(n_hash), "max_abs_err": err, "ms": head["ms"]["hash"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+    }]
+
+
 def main() -> int:
     try:
         import torch
@@ -3673,6 +4110,8 @@ def main() -> int:
     timed(phase_cohort_kernels, torch)
     flood = timed(phase_flood, torch, main_out)
     kernels += timed(phase_flood_timings, torch, main_out, flood, raw, card)
+    timed(phase_hash_kernels, torch)
+    kernels += timed(phase_hash_main, torch, main_out, card)
     del raw, flood
     main_out["db"].close()
     del main_out

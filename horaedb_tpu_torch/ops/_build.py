@@ -33,7 +33,8 @@ NVCC_FLAGS = [
     "-v",
 ]
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _libs and _name_locks
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -95,16 +96,24 @@ def _build(src: str, out: str) -> tuple[float, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``ops/csrc/<name>.cu``, built on first use.
-    One build at a time: a second caller waits for the first.
+    One build of a library at a time: a second caller of the same name
+    waits for the first; different libraries build side by side.
 
     The library carries ``build_seconds`` and ``build_log`` (0.0 and ""
     when an earlier build of the same source was found)."""
     with _lock:
         lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
+        with _lock:
+            lib = _libs.get(name)
         if lib is None:
             src, out = _target(name)
             secs, log = _build(src, out) if not os.path.exists(out) else (0.0, "")
             lib = ctypes.CDLL(out)
             lib.build_seconds, lib.build_log = secs, log
-            _libs[name] = lib
+            with _lock:
+                _libs[name] = lib
         return lib

@@ -7,6 +7,7 @@
 //   horaedb_tpu/ops/scan_agg.py  _cohort_body / cached_scan_agg_cohort   (B1e)
 //   horaedb_tpu/ops/scan_agg.py  _single_segment_agg, _scatter_segment_agg,
 //                                _mxu_counts / _mxu_segment_agg          (B2a-c)
+//   horaedb_tpu/ops/hash_agg.py  hash_segment_agg                        (B2d)
 //   horaedb_tpu/ops/encoding.py  unpack_bits, decode_series/ts/value,
 //                                decode_layouts                          (B3)
 //
@@ -52,7 +53,23 @@
 //            per block and field;
 //   shared   small n_seg: each block keeps count/sum/min/max of every
 //            segment in shared memory and merges them with global atomics;
-//   scatter  large n_seg: run partials go straight to global atomics.
+//   scatter  large n_seg: run partials go straight to global atomics;
+//   hash     a large n_seg of which few segments are live (B2d): each block
+//            keeps an open-addressing table in shared memory, a key (the
+//            segment id, EMPTY when free) and count/sum/min/max partials
+//            per slot. A run partial (or a row) hashes its segment with
+//            the Fibonacci multiply-shift, claims or finds its slot with
+//            atomicCAS on the key over at most ``hash_rounds`` linear
+//            probes and accumulates there with shared-memory atomics; one
+//            that finds no slot goes to global atomics in the output (the
+//            reference's exact scatter fallback) and, when the launch
+//            carries an overflow counter, counts its rows there. At block
+//            end every occupied slot merges into its segment with global
+//            atomics. The table is a block's own (``hash_slots`` slots,
+//            sized by the wrapper to fit shared memory), not one global
+//            table as in the reference: which rows overflow differs,
+//            the outputs do not. Bound: the same bytes as scatter; what it
+//            saves is global atomics on a wide output.
 // Counts are int32 atomicAdd, sums f32 atomicAdd. Min and max are exact
 // and follow the reference's scatter arm: NaN propagates, and -0.0 < +0.0.
 
@@ -65,7 +82,10 @@
 #define BLOCK 256
 #define FULL_MASK 0xffffffffu
 
-enum { ARM_SINGLE = 0, ARM_SHARED = 1, ARM_SCATTER = 2 };
+enum { ARM_SINGLE = 0, ARM_SHARED = 1, ARM_SCATTER = 2, ARM_HASH = 3 };
+
+// a free slot of the hash arm's table; segment ids are below it
+#define EMPTY_KEY 0x7fffffff
 
 struct Out {
   int* counts;   // [n_seg]
@@ -75,7 +95,10 @@ struct Out {
   int n_seg;
   int n_agg;
   int minmax;
+  int hash_slots;   // ARM_HASH: slots of a block's table, a power of two
+  int hash_rounds;  // ARM_HASH: linear probes before a row overflows
   int pad_;
+  unsigned long long* overflow;  // ARM_HASH: rows that found no slot, or NULL
 };
 
 struct DirectArgs {
@@ -245,33 +268,106 @@ struct CachedSource : QueryRows<ResidentCols> {
 
 // ---- reduction core --------------------------------------------------------
 
+// count/sum/min/max partials of n_seg segments (in global or shared
+// memory), accumulated with atomics
 struct Target {
   int* counts;
   float* sums;
   float* mins;
   float* maxs;
   int n_seg;
-};
 
-// commit one run partial: lane 0 the count, lane f field f
-__device__ __forceinline__ void commit(const Target& t, int seg, int cnt, float s, float mn,
-                                       float mx, int lane, int n_agg, bool minmax) {
-  if (seg < 0 || cnt == 0) return;
-  if (lane == 0) atomicAdd(&t.counts[seg], cnt);
-  if (lane < n_agg) {
-    long long o = (long long)lane * t.n_seg + seg;
-    atomicAdd(&t.sums[o], s);
-    if (minmax) {
-      atomic_extreme<true>(&t.mins[o], mn);
-      atomic_extreme<false>(&t.maxs[o], mx);
+  // one run partial, from the whole warp: lane 0 the count, lane f field f
+  __device__ __forceinline__ void commit(int seg, int cnt, float s, float mn, float mx,
+                                         int lane, int n_agg, bool minmax) const {
+    if (seg < 0 || cnt == 0) return;
+    if (lane == 0) atomicAdd(&counts[seg], cnt);
+    if (lane < n_agg) {
+      long long o = (long long)lane * n_seg + seg;
+      atomicAdd(&sums[o], s);
+      if (minmax) {
+        atomic_extreme<true>(&mins[o], mn);
+        atomic_extreme<false>(&maxs[o], mx);
+      }
     }
   }
-}
 
-// one warp reduces rows [begin, end) into ``t`` and commits its last run
-template <int ARM, class Src>
+  // one row, from one lane
+  template <class Src>
+  __device__ __forceinline__ void add_row(const Src& src, int seg, long long i, int n_agg,
+                                          bool minmax) const {
+    atomicAdd(&counts[seg], 1);
+    for (int f = 0; f < n_agg; ++f) {
+      const float v = src.value(f, i);
+      const long long o = (long long)f * n_seg + seg;
+      atomicAdd(&sums[o], v);
+      if (minmax) {
+        atomic_extreme<true>(&mins[o], v);
+        atomic_extreme<false>(&maxs[o], v);
+      }
+    }
+  }
+};
+
+// The hash arm's target: a block's slot table (keys, and partials of
+// ``H`` slots in ``slots``) in front of the output ``out``.
+struct HashTarget {
+  int* keys;
+  Target slots;
+  Target out;
+  int H;
+  int rounds;
+  unsigned shift;  // 32 - log2(H)
+  unsigned long long* overflow;
+
+  // the slot holding ``seg``, claimed if need be, or -1 after ``rounds``
+  // probes; a key, once set, never changes, so every row of a segment
+  // finds the same slot or none
+  __device__ __forceinline__ int find(int seg) const {
+    const unsigned h0 = ((unsigned)seg * 2654435769u) >> shift;
+    for (int r = 0; r < rounds; ++r) {
+      const int slot = (int)((h0 + (unsigned)r) & (unsigned)(H - 1));
+      const int k = ((volatile int*)keys)[slot];
+      if (k == seg) return slot;
+      if (k == EMPTY_KEY) {
+        const int prev = atomicCAS(&keys[slot], EMPTY_KEY, seg);
+        if (prev == EMPTY_KEY || prev == seg) return slot;
+      }
+    }
+    return -1;
+  }
+
+  __device__ __forceinline__ void commit(int seg, int cnt, float s, float mn, float mx,
+                                         int lane, int n_agg, bool minmax) const {
+    if (seg < 0 || cnt == 0) return;
+    int slot = lane == 0 ? find(seg) : 0;
+    slot = __shfl_sync(FULL_MASK, slot, 0);
+    if (slot >= 0) {
+      slots.commit(slot, cnt, s, mn, mx, lane, n_agg, minmax);
+    } else {
+      out.commit(seg, cnt, s, mn, mx, lane, n_agg, minmax);
+      if (lane == 0 && overflow) atomicAdd(overflow, (unsigned long long)cnt);
+    }
+  }
+
+  template <class Src>
+  __device__ __forceinline__ void add_row(const Src& src, int seg, long long i, int n_agg,
+                                          bool minmax) const {
+    const int slot = find(seg);
+    if (slot >= 0) {
+      slots.add_row(src, slot, i, n_agg, minmax);
+    } else {
+      out.add_row(src, seg, i, n_agg, minmax);
+      if (overflow) atomicAdd(overflow, 1ULL);
+    }
+  }
+};
+
+// one warp reduces rows [begin, end) into ``t`` (a Target or a
+// HashTarget) and commits its last run
+template <int ARM, class Src, class Sink>
 __device__ void reduce_range(const Src& src, long long begin, long long end, const Out& out,
-                             const Target& t) {
+                             const Sink& t) {
   const int lane = threadIdx.x & 31;
   const int n_agg = out.n_agg;
   const bool minmax = out.minmax != 0;
@@ -291,7 +387,7 @@ __device__ void reduce_range(const Src& src, long long begin, long long end, con
     const bool uniform = (ARM == ARM_SINGLE) || __all_sync(FULL_MASK, !valid || seg == seg0);
     if (uniform) {
       if (seg0 != run_seg) {
-        commit(t, run_seg, run_cnt, run_sum, run_min, run_max, lane, n_agg, minmax);
+        t.commit(run_seg, run_cnt, run_sum, run_min, run_max, lane, n_agg, minmax);
         run_seg = seg0;
         run_cnt = 0;
         run_sum = 0.f;
@@ -316,24 +412,15 @@ __device__ void reduce_range(const Src& src, long long begin, long long end, con
         }
       }
     } else if (valid) {
-      atomicAdd(&t.counts[seg], 1);
-      for (int f = 0; f < n_agg; ++f) {
-        const float v = src.value(f, i);
-        const long long o = (long long)f * t.n_seg + seg;
-        atomicAdd(&t.sums[o], v);
-        if (minmax) {
-          atomic_extreme<true>(&t.mins[o], v);
-          atomic_extreme<false>(&t.maxs[o], v);
-        }
-      }
+      t.add_row(src, seg, i, n_agg, minmax);
     }
   }
-  commit(t, run_seg, run_cnt, run_sum, run_min, run_max, lane, n_agg, minmax);
+  t.commit(run_seg, run_cnt, run_sum, run_min, run_max, lane, n_agg, minmax);
 }
 
 // each warp of the grid takes a contiguous run of rows, a multiple of 32
-template <int ARM, class Src>
-__device__ void reduce_rows(const Src& src, long long n_rows, const Out& out, const Target& t) {
+template <int ARM, class Src, class Sink>
+__device__ void reduce_rows(const Src& src, long long n_rows, const Out& out, const Sink& t) {
   const long long warp = ((long long)blockIdx.x * BLOCK + threadIdx.x) >> 5;
   const long long n_warps = ((long long)gridDim.x * BLOCK) >> 5;
   long long chunk = (n_rows + n_warps - 1) / n_warps;
@@ -366,18 +453,22 @@ __device__ __forceinline__ void init_partials(const Target& t, const Out& out) {
   }
 }
 
-// merge a block's partials into the output with global atomics
-__device__ __forceinline__ void flush_partials(const Target& t, const Out& out) {
-  for (int s = threadIdx.x; s < out.n_seg; s += BLOCK) {
+// merge a block's partials into the output with global atomics: slot s of
+// ``t`` goes to segment keys[s] (segment s without keys; EMPTY_KEY: none)
+__device__ __forceinline__ void flush_partials(const Target& t, const Out& out,
+                                               const int* keys = nullptr) {
+  for (int s = threadIdx.x; s < t.n_seg; s += BLOCK) {
+    const int seg = keys ? keys[s] : s;
     const int c = t.counts[s];
-    if (c == 0) continue;
-    atomicAdd(&out.counts[s], c);
+    if (seg == EMPTY_KEY || c == 0) continue;
+    atomicAdd(&out.counts[seg], c);
     for (int f = 0; f < out.n_agg; ++f) {
-      const long long o = (long long)f * out.n_seg + s;
-      atomicAdd(&out.sums[o], t.sums[o]);
+      const long long p = (long long)f * t.n_seg + s;
+      const long long o = (long long)f * out.n_seg + seg;
+      atomicAdd(&out.sums[o], t.sums[p]);
       if (out.minmax) {
-        atomic_extreme<true>(&out.mins[o], t.mins[o]);
-        atomic_extreme<false>(&out.maxs[o], t.maxs[o]);
+        atomic_extreme<true>(&out.mins[o], t.mins[p]);
+        atomic_extreme<false>(&out.maxs[o], t.maxs[p]);
       }
     }
   }
@@ -385,19 +476,34 @@ __device__ __forceinline__ void flush_partials(const Target& t, const Out& out) 
 
 template <int ARM, class Src>
 __device__ void scan_agg(const Src& src, long long n_rows, const Out& out) {
-  if (ARM == ARM_SCATTER) {
-    Target t{out.counts, out.sums, out.mins, out.maxs, out.n_seg};
-    reduce_rows<ARM>(src, n_rows, out, t);
-    return;
-  }
-  // single / shared: block-private partials of every segment in shared memory
   extern __shared__ float smem[];
-  const Target t = smem_target(smem, out);
-  init_partials(t, out);
-  __syncthreads();
-  reduce_rows<ARM>(src, n_rows, out, t);
-  __syncthreads();
-  flush_partials(t, out);
+  const Target global{out.counts, out.sums, out.mins, out.maxs, out.n_seg};
+  if constexpr (ARM == ARM_SCATTER) {
+    reduce_rows<ARM>(src, n_rows, out, global);
+  } else if constexpr (ARM == ARM_HASH) {
+    // the block's table: hash_slots keys, then the slots' partials
+    const int H = out.hash_slots;
+    int* keys = (int*)smem;
+    Out slot_out = out;
+    slot_out.n_seg = H;
+    const Target slots = smem_target(smem + H, slot_out);
+    for (int k = threadIdx.x; k < H; k += BLOCK) keys[k] = EMPTY_KEY;
+    init_partials(slots, slot_out);
+    __syncthreads();
+    const HashTarget t{keys, slots, global, H, out.hash_rounds, (unsigned)__clz(H) + 1u,
+                       out.overflow};
+    reduce_rows<ARM>(src, n_rows, out, t);
+    __syncthreads();
+    flush_partials(slots, out, keys);
+  } else {
+    // single / shared: block-private partials of every segment in shared memory
+    const Target t = smem_target(smem, out);
+    init_partials(t, out);
+    __syncthreads();
+    reduce_rows<ARM>(src, n_rows, out, t);
+    __syncthreads();
+    flush_partials(t, out);
+  }
 }
 
 template <int ARM>
@@ -517,7 +623,16 @@ __global__ void __launch_bounds__(BLOCK) scan_agg_cohort(const __grid_constant__
 static size_t smem_bytes(int arm, const Out& out) {
   if (arm == ARM_SCATTER) return 0;
   const size_t planes = out.minmax ? 3 : 1;
-  return ((size_t)out.n_seg * (1 + planes * (size_t)out.n_agg)) * sizeof(float);
+  const size_t per = 1 + planes * (size_t)out.n_agg;
+  if (arm == ARM_HASH) return (size_t)out.hash_slots * (1 + per) * sizeof(float);
+  return ((size_t)out.n_seg * per) * sizeof(float);
+}
+
+// the hash arm's table: a power of two of at least 2 slots, probed at
+// least once and at most once per slot
+static bool hash_ok(const Out& out) {
+  const int h = out.hash_slots;
+  return h >= 2 && (h & (h - 1)) == 0 && out.hash_rounds >= 1 && out.hash_rounds <= h;
 }
 
 // ``smem`` < 0: the arm's partials (smem_bytes); a cohort passes its own
@@ -573,6 +688,9 @@ int scan_agg_direct_launch(const DirectArgs* a, int arm, void* stream) {
       return launch(scan_agg_direct<ARM_SHARED>, arm, a->device, a->n_rows, a->out, s, a);
     case ARM_SCATTER:
       return launch(scan_agg_direct<ARM_SCATTER>, arm, a->device, a->n_rows, a->out, s, a);
+    case ARM_HASH:
+      if (!hash_ok(a->out)) return cudaErrorInvalidValue;
+      return launch(scan_agg_direct<ARM_HASH>, arm, a->device, a->n_rows, a->out, s, a);
   }
   return cudaErrorInvalidValue;
 }
@@ -587,6 +705,9 @@ int scan_agg_cached_launch(const CachedArgs* a, int arm, int selective, void* st
         return launch(scan_agg_cached<ARM_SHARED, true>, arm, a->device, a->n_rows, a->out, s, a);
       case ARM_SCATTER:
         return launch(scan_agg_cached<ARM_SCATTER, true>, arm, a->device, a->n_rows, a->out, s, a);
+      case ARM_HASH:
+        if (!hash_ok(a->out)) return cudaErrorInvalidValue;
+        return launch(scan_agg_cached<ARM_HASH, true>, arm, a->device, a->n_rows, a->out, s, a);
     }
   } else {
     switch (arm) {
@@ -596,6 +717,9 @@ int scan_agg_cached_launch(const CachedArgs* a, int arm, int selective, void* st
         return launch(scan_agg_cached<ARM_SHARED, false>, arm, a->device, a->n_rows, a->out, s, a);
       case ARM_SCATTER:
         return launch(scan_agg_cached<ARM_SCATTER, false>, arm, a->device, a->n_rows, a->out, s, a);
+      case ARM_HASH:
+        if (!hash_ok(a->out)) return cudaErrorInvalidValue;
+        return launch(scan_agg_cached<ARM_HASH, false>, arm, a->device, a->n_rows, a->out, s, a);
     }
   }
   return cudaErrorInvalidValue;

@@ -17,8 +17,9 @@ Layout contract (prepared by ops.encoding on host):
 
 Each kernel wrapper checks its inputs and, for a CUDA tensor, launches the
 kernel; for a CPU tensor it runs the plain PyTorch version beside it in
-this module (``scan_agg_body``, ``_packed_body``, ``_cohort_body``).
-Nothing else chooses between them.
+this module (``scan_agg_body``, ``_packed_body``, ``_cohort_body``; the
+``hash`` arm's is ``hash_agg.hash_segment_agg_plain``). Nothing else
+chooses between them.
 
 ``cached_scan_agg_cohort`` serves a cohort of B shape-identical queries
 (one session and dyn row each) in one launch that decodes each tile of
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from .encoding import PaddedBatch, decode_layouts as _decode_layouts, layout_rows, next_pow2
+from .hash_agg import default_hash_slots, hash_segment_agg_plain, probe_rounds
 
 AGG_OPS = ("count", "sum", "min", "max", "avg")
 
@@ -52,10 +54,14 @@ _FILTER_OPS = {"=": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
 #   shared  — block-private count/sum/min/max per segment in shared memory,
 #             merged with global atomics; the arm for small segment counts
 #             (the counterpart of the reference's one-hot "mxu" arm);
-#   scatter — global atomics per segment; any segment count.
-SEGMENT_KERNELS = ("shared", "scatter")
+#   scatter — global atomics per segment; any segment count;
+#   hash    — a block-private slot table in shared memory keyed by segment
+#             id, merged with global atomics; rows that find no slot go
+#             to global atomics (the reference's "hash" arm, B2d; for a
+#             domain whose live segments are few, see ops/hash_agg.py).
+SEGMENT_KERNELS = ("shared", "scatter", "hash")
 ARMS = ("single",) + SEGMENT_KERNELS
-_ARM_CODE = {"single": 0, "shared": 1, "scatter": 2}
+_ARM_CODE = {"single": 0, "shared": 1, "scatter": 2, "hash": 3}
 # The opt-in dynamic shared memory one block may use on Hopper.
 SHARED_MEM_BYTES = 232_448
 MAX_FIELDS = 32
@@ -92,10 +98,23 @@ def shared_fits(n_seg: int, n_agg_fields: int, need_minmax: bool = True) -> bool
     return n_seg * (1 + planes * n_agg_fields) * 4 <= SHARED_MEM_BYTES
 
 
+def block_hash_slots(hash_slots: int, n_agg_fields: int, need_minmax: bool = True) -> int:
+    """Slots of the hash arm's table in one block: ``hash_slots`` where the
+    table fits shared memory at 4 B of key and (1 + planes * F) * 4 B of
+    partials a slot, else the largest power of two that fits."""
+    planes = 3 if need_minmax else 1
+    per_slot = 4 + (1 + planes * n_agg_fields) * 4
+    h = int(hash_slots)
+    while h > 2 and h * per_slot > SHARED_MEM_BYTES:
+        h //= 2
+    return h
+
+
 def pinned_segment_impl() -> str:
     """The HORAEDB_SEGMENT_IMPL pin: ONE arm for every query shape (exists
-    to bisect the arms). ``mxu`` names the reference's small-segment arm
-    and maps to ``shared``. Empty string means auto. Read per call."""
+    to bisect the arms): ``shared``, ``scatter`` or ``hash``; ``mxu`` names
+    the reference's small-segment arm and maps to ``shared``. Empty string
+    means auto. Read per call."""
     v = os.environ.get("HORAEDB_SEGMENT_IMPL", "auto")
     if v == "mxu":
         return "shared"
@@ -106,14 +125,17 @@ def resolve_segment_impl(
     n_seg: int, requested: str = "auto", n_agg_fields: int = 0,
     need_minmax: bool = True,
 ) -> str:
-    """Which arm a launch takes for ``n_seg`` — "single", "shared" or
-    "scatter". ``shared`` is taken only where its partials fit shared
-    memory; otherwise the launch falls back to ``scatter``."""
+    """Which arm a launch takes for ``n_seg`` — "single", "shared",
+    "scatter" or "hash". A pin wins for every shape; ``hash`` is taken
+    where pinned or requested (on any n_seg >= 2 unpinned); ``shared``
+    only where its partials fit shared memory, else ``scatter``."""
     pinned = pinned_segment_impl()
     choice = pinned or requested
     if not pinned and n_seg == 1:
         # Global aggregate: a block reduction is the bandwidth floor.
         return "single"
+    if choice == "hash":
+        return "hash"
     if choice == "shared" and shared_fits(n_seg, n_agg_fields, need_minmax):
         return "shared"
     return "scatter"
@@ -134,6 +156,9 @@ class ScanAggSpec:
     # Reduction arm for this launch: "auto" or one of ARMS, as chosen by
     # the learned router.
     segment_impl: str = "auto"
+    # Hash-arm slot-table size (power of 2; 0 = derive from n_seg), sized
+    # by the router from its cardinality estimate.
+    hash_slots: int = 0
 
     def padded(self) -> "ScanAggSpec":
         # Ungrouped specs (n_groups == 1) skip group padding: padding to 8
@@ -148,6 +173,7 @@ class ScanAggSpec:
             numeric_filters=self.numeric_filters,
             need_minmax=self.need_minmax,
             segment_impl=self.segment_impl,
+            hash_slots=self.hash_slots,
         )
 
 
@@ -235,10 +261,15 @@ def scan_agg_body(
     numeric_filters: tuple[tuple[int, int], ...] = (),
     need_minmax: bool = True,
     segment_impl: str = "auto",
+    hash_slots: int = 0,
+    overflow=None,
 ):
     """Plain version of ``scan_agg_direct``: filter, segment = group·B +
     bucket, per-segment count/sum/min/max. ``values`` is an (F, N) tensor
-    or a list of per-field rows (an encoded-layout decode)."""
+    or a list of per-field rows (an encoded-layout decode). The ``hash``
+    arm runs ``hash_segment_agg_plain`` with ``hash_slots`` slots (0:
+    ``default_hash_slots``), adding its unplaced rows to ``overflow``;
+    every other arm computes the same function as ``_segment_agg``."""
     m = _apply_filters(mask, values, literals, numeric_filters)
     n_seg = n_groups * n_buckets
     seg_raw = group_codes.to(torch.int64) * n_buckets + bucket_ids.to(torch.int64)
@@ -251,7 +282,13 @@ def scan_agg_body(
             agg_vals = values[:n_agg_fields]
     else:
         agg_vals = None
-    counts, sums, mins, maxs = _segment_agg(seg_raw, m, agg_vals, n_seg, need_minmax)
+    if segment_impl == "hash":
+        counts, sums, mins, maxs = hash_segment_agg_plain(
+            seg_raw, m, agg_vals, n_seg, need_minmax, hash_slots or default_hash_slots(n_seg),
+            overflow,
+        )
+    else:
+        counts, sums, mins, maxs = _segment_agg(seg_raw, m, agg_vals, n_seg, need_minmax)
     counts = counts.reshape(n_groups, n_buckets)
     if n_agg_fields:
         shape = (n_agg_fields, n_groups, n_buckets)
@@ -278,6 +315,8 @@ def cached_scan_agg_body(
     numeric_filters: tuple[tuple[int, int], ...],
     need_minmax: bool = True,
     segment_impl: str = "auto",
+    hash_slots: int = 0,
+    overflow=None,
     value_layouts: tuple = (),
     ts_layout: tuple = ("raw",),
     series_layout: tuple = ("raw",),
@@ -303,7 +342,7 @@ def cached_scan_agg_body(
         groups, bucket, mask, vals, literals,
         n_groups=n_groups, n_buckets=n_buckets, n_agg_fields=n_agg_fields,
         numeric_filters=numeric_filters, need_minmax=need_minmax,
-        segment_impl=segment_impl,
+        segment_impl=segment_impl, hash_slots=hash_slots, overflow=overflow,
     )
 
 
@@ -320,6 +359,8 @@ def _packed_body(
     numeric_filters: tuple[tuple[int, int], ...],
     need_minmax: bool,
     segment_impl: str = "auto",
+    hash_slots: int = 0,
+    overflow=None,
     selective: bool = False,
     value_layouts: tuple = (),
     ts_layout: tuple = ("raw",),
@@ -338,7 +379,8 @@ def _packed_body(
         series_codes, ts_rel, values, gos, allow, literals, lo, hi, t0, width,
         n_groups=n_groups, n_buckets=n_buckets, n_agg_fields=n_agg_fields,
         numeric_filters=numeric_filters, need_minmax=need_minmax,
-        segment_impl=segment_impl, value_layouts=value_layouts,
+        segment_impl=segment_impl, hash_slots=hash_slots, overflow=overflow,
+        value_layouts=value_layouts,
         ts_layout=ts_layout, series_layout=series_layout, idx=idx,
     )
     parts = [counts.reshape(-1).view(torch.float32), sums.reshape(-1)]
@@ -388,7 +430,10 @@ class _Out(ctypes.Structure):
         ("n_seg", ctypes.c_int),
         ("n_agg", ctypes.c_int),
         ("minmax", ctypes.c_int),
+        ("hash_slots", ctypes.c_int),  # the hash arm: slots of a block's table
+        ("hash_rounds", ctypes.c_int),  # the hash arm: linear-probe rounds
         ("pad_", ctypes.c_int),
+        ("overflow", ctypes.c_void_p),  # int64 the hash arm adds unplaced rows to, or NULL
     ]
 
 
@@ -465,9 +510,13 @@ def cohort_arm(segment_impl: str, members: int, n_fields: int, n_seg: int,
                n_agg_fields: int, need_minmax: bool) -> str:
     """The arm a cohort launch takes: ``single`` and ``shared`` keep every
     member's partials in shared memory beside the tile, so they hold only
-    where all of them fit there together; otherwise ``scatter``."""
+    where all of them fit there together; otherwise ``scatter``. ``hash``
+    takes ``shared`` where that fits, else ``scatter``: B slot tables do
+    not fit beside the tile (at B = 32, about 5.6 KB a member)."""
     _check(segment_impl in ARMS, f"segment_impl {segment_impl!r} not in {ARMS}")
     _check(segment_impl != "single" or n_seg == 1, "single arm needs n_seg == 1")
+    if segment_impl == "hash":
+        segment_impl = "shared" if shared_fits(n_seg, n_agg_fields, need_minmax) else "scatter"
     tile_bytes = cohort_tile(n_fields) * (2 + n_fields) * 4
     parts = members * packed_len(1, n_seg, n_agg_fields, need_minmax) * 4
     if segment_impl != "scatter" and tile_bytes + parts > SHARED_MEM_BYTES:
@@ -552,6 +601,10 @@ def _filters(numeric_filters, n_fields: int) -> _Filters:
 
 
 def _arm(segment_impl: str, n_seg: int, n_agg_fields: int, need_minmax: bool) -> str:
+    """The arm of a solo launch: a concrete one as given, or ``auto``
+    resolved (``resolve_segment_impl``, which honours the pin)."""
+    if segment_impl == "auto":
+        segment_impl = resolve_segment_impl(n_seg, "auto", n_agg_fields, need_minmax)
     _check(segment_impl in ARMS, f"segment_impl {segment_impl!r} not in {ARMS}")
     _check(segment_impl != "single" or n_seg == 1, "single arm needs n_seg == 1")
     _check(
@@ -559,6 +612,23 @@ def _arm(segment_impl: str, n_seg: int, n_agg_fields: int, need_minmax: bool) ->
         "shared arm partials exceed shared memory",
     )
     return segment_impl
+
+
+def _set_hash(out: _Out, arm: str, hash_slots: int, overflow, dev) -> None:
+    """The hash arm's launch fields of ``out``: a block's table size
+    (``block_hash_slots`` of ``hash_slots``, 0 meaning
+    ``default_hash_slots``), its probe rounds (HORAEDB_HASH_PROBE_ROUNDS)
+    and the overflow counter."""
+    if overflow is not None:
+        _check_tensor(overflow, "overflow", torch.int64, dev, 1)
+        _check(overflow.shape[0] == 1, "overflow is one int64")
+        out.overflow = overflow.data_ptr()
+    if arm != "hash":
+        return
+    slots = hash_slots or default_hash_slots(out.n_seg)
+    _check(slots >= 2 and slots & (slots - 1) == 0, f"hash_slots {slots} not a power of 2")
+    out.hash_slots = block_hash_slots(slots, out.n_agg, bool(out.minmax))
+    out.hash_rounds = probe_rounds(out.hash_slots)
 
 
 def fused_scan_agg(
@@ -574,20 +644,31 @@ def fused_scan_agg(
     numeric_filters: tuple[tuple[int, int], ...] = (),
     need_minmax: bool = True,
     segment_impl: str = "scatter",
+    hash_slots: int = 0,
+    overflow=None,
 ):
     """(counts i32[G,B], sums/mins/maxs f32[F,G,B]) over one padded batch.
+
+    ``segment_impl`` is an arm of ARMS or ``auto`` (resolved, honouring
+    HORAEDB_SEGMENT_IMPL). The ``hash`` arm takes ``hash_slots`` (0:
+    ``default_hash_slots``) and HORAEDB_HASH_PROBE_ROUNDS probe rounds,
+    and adds the rows that found no slot to ``overflow`` (int64[1]) when
+    one is given.
 
     A CUDA input launches ``scan_agg_direct``; a CPU input runs
     ``scan_agg_body``."""
     dev = group_codes.device
+    n_seg = n_groups * n_buckets
+    arm = _arm(segment_impl, n_seg, n_agg_fields, need_minmax)
     kw = dict(
         n_groups=n_groups, n_buckets=n_buckets, n_agg_fields=n_agg_fields,
         numeric_filters=numeric_filters, need_minmax=need_minmax,
-        segment_impl=segment_impl,
+        segment_impl=arm, hash_slots=hash_slots,
     )
     if dev.type == "cpu":
         _count(PLAIN_CALLS, "direct")
-        return scan_agg_body(group_codes, bucket_ids, mask, values, literals, **kw)
+        return scan_agg_body(group_codes, bucket_ids, mask, values, literals, overflow=overflow,
+                             **kw)
     _check(dev.type == "cuda", f"unsupported device {dev}")
     n = group_codes.shape[0]
     _check_tensor(group_codes, "group_codes", torch.int32, dev, 1)
@@ -600,8 +681,6 @@ def fused_scan_agg(
     _check(n_agg_fields <= values.shape[0], "more agg fields than value rows")
     _check(n_agg_fields <= MAX_FIELDS, f"at most {MAX_FIELDS} agg fields")
     _check(literals.shape[0] == len(numeric_filters), "one literal per filter")
-    n_seg = n_groups * n_buckets
-    arm = _arm(segment_impl, n_seg, n_agg_fields, need_minmax)
     lib = _kernels()
     counts = torch.zeros(n_seg, dtype=torch.int32, device=dev)
     sums = torch.zeros((n_agg_fields, n_seg), dtype=torch.float32, device=dev)
@@ -623,8 +702,9 @@ def fused_scan_agg(
     a.filt = _filters(numeric_filters, values.shape[0])
     a.out = _Out(
         counts.data_ptr(), sums.data_ptr(), mins.data_ptr(), maxs.data_ptr(),
-        n_seg, n_agg_fields, int(need_minmax), 0,
+        n_seg, n_agg_fields, int(need_minmax),
     )
+    _set_hash(a.out, arm, hash_slots, overflow, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _launch_error(
         lib, lib.scan_agg_direct_launch(ctypes.byref(a), _ARM_CODE[arm], stream),
@@ -689,6 +769,8 @@ def cached_scan_agg_packed(
     numeric_filters: tuple[tuple[int, int], ...],
     need_minmax: bool,
     segment_impl: str = "scatter",
+    hash_slots: int = 0,
+    overflow=None,
     selective: bool = False,
     value_layouts: tuple = (),
     ts_layout: tuple = ("raw",),
@@ -698,30 +780,32 @@ def cached_scan_agg_packed(
     tuples, one session buffer [group map | allow list], one dyn buffer
     [literals bitcast | lo, hi, t0, width | row idx], one packed f32 out
     [counts bitcast | sums | mins | maxs] (mins/maxs only with
-    ``need_minmax``).
+    ``need_minmax``). ``segment_impl``, ``hash_slots`` and ``overflow`` as
+    for ``fused_scan_agg``.
 
     A CUDA input launches ``scan_agg_cached``; a CPU input runs
     ``_packed_body``."""
     dev = session.device
     values = tuple(values)
     layouts = value_layouts or tuple(_dense_layout(p) for p in values)
+    arm = _arm(segment_impl, n_groups * n_buckets, n_agg_fields, need_minmax)
     kw = dict(
         n_groups=n_groups, n_buckets=n_buckets, n_agg_fields=n_agg_fields,
         numeric_filters=numeric_filters, need_minmax=need_minmax,
-        segment_impl=segment_impl, selective=selective, value_layouts=layouts,
+        segment_impl=arm, hash_slots=hash_slots, selective=selective, value_layouts=layouts,
         ts_layout=ts_layout, series_layout=series_layout,
     )
     form = "cached_selective" if selective else "cached"
     if dev.type == "cpu":
         _count(PLAIN_CALLS, form)
-        return _packed_body(series_parts, ts_parts, values, session, dyn, **kw)
+        return _packed_body(series_parts, ts_parts, values, session, dyn, overflow=overflow,
+                            **kw)
     _check(dev.type == "cuda", f"unsupported device {dev}")
     _check_tensor(session, "session", torch.int32, dev, 1)
     _check_tensor(dyn, "dyn", torch.int32, dev, 1)
     _check(session.shape[0] % 2 == 0, "session is [group map | allow list]")
     n_f = len(numeric_filters)
     _check(dyn.shape[0] >= n_f + 4, "dyn holds literals and four scalars")
-    arm = _arm(segment_impl, n_groups * n_buckets, n_agg_fields, need_minmax)
     lib = _kernels()
     a, n_rows = _cached_args(series_parts, ts_parts, values, layouts, ts_layout, series_layout,
                              numeric_filters, n_agg_fields, n_buckets, dev)
@@ -731,6 +815,7 @@ def cached_scan_agg_packed(
     a.s1 = session.shape[0] // 2
     packed = _packed_out(1, n_groups * n_buckets, n_agg_fields, need_minmax, dev)[0]
     a.out = _out_of(packed.data_ptr(), n_groups * n_buckets, n_agg_fields, need_minmax)
+    _set_hash(a.out, arm, hash_slots, overflow, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _launch_error(
         lib,
@@ -784,7 +869,7 @@ def _out_of(base: int, n_seg: int, n_agg_fields: int, need_minmax: bool) -> _Out
     fs = n_agg_fields * n_seg
     return _Out(
         base, base + 4 * n_seg, base + 4 * (n_seg + fs), base + 4 * (n_seg + 2 * fs),
-        n_seg, n_agg_fields, int(need_minmax), 0,
+        n_seg, n_agg_fields, int(need_minmax),
     )
 
 
@@ -818,10 +903,13 @@ def cached_scan_agg_cohort(
     dev = sessions.device
     values = tuple(values)
     layouts = value_layouts or tuple(_dense_layout(p) for p in values)
+    n_seg = n_groups * n_buckets
+    arm = cohort_arm(segment_impl, sessions.shape[0], len(values), n_seg, n_agg_fields,
+                     need_minmax)
     kw = dict(
         n_groups=n_groups, n_buckets=n_buckets, n_agg_fields=n_agg_fields,
         numeric_filters=numeric_filters, need_minmax=need_minmax,
-        segment_impl=segment_impl, value_layouts=layouts,
+        segment_impl=arm, value_layouts=layouts,
         ts_layout=ts_layout, series_layout=series_layout,
     )
     if dev.type == "cpu":
@@ -835,8 +923,6 @@ def cached_scan_agg_cohort(
     _check(sessions.shape[1] % 2 == 0, "session rows are [group map | allow list]")
     n_f = len(numeric_filters)
     _check(dyns.shape[1] >= n_f + 4, "dyn rows hold literals and four scalars")
-    n_seg = n_groups * n_buckets
-    arm = cohort_arm(segment_impl, B, len(values), n_seg, n_agg_fields, need_minmax)
     packed = _packed_out(B, n_seg, n_agg_fields, need_minmax, dev)
     if B == 0:
         return packed
@@ -880,6 +966,7 @@ def selective_cached_scan_agg(
     need_minmax: bool = True,
     segment_impl: str = "auto",
     hash_slots: int = 0,
+    overflow=None,
 ):
     """The cached kernel over a GATHERED subset of raw resident rows
     (``row_idx`` int32[M], pad slots pointing at a masked pad row), in the
@@ -890,8 +977,8 @@ def selective_cached_scan_agg(
     ``cached_scan_agg_packed(..., selective=True)``: the SELECTIVE
     ``scan_agg_cached`` kernel for CUDA tensors, its plain version for CPU
     ones. ``segment_impl`` resolves as every launch's does
-    (``resolve_segment_impl``); ``hash_slots`` is accepted for the
-    signature and unused."""
+    (``resolve_segment_impl``); ``hash_slots`` and ``overflow`` go to the
+    launch, as for ``fused_scan_agg``."""
     dev = series_codes.device
     n_seg = n_groups * n_buckets
     impl = resolve_segment_impl(n_seg, segment_impl, n_agg_fields, need_minmax)
@@ -907,7 +994,7 @@ def selective_cached_scan_agg(
         tuple((v.contiguous(),) for v in rows), session, dyn,
         n_groups=n_groups, n_buckets=n_buckets, n_agg_fields=n_agg_fields,
         numeric_filters=numeric_filters, need_minmax=need_minmax,
-        segment_impl=impl, selective=True,
+        segment_impl=impl, hash_slots=hash_slots, overflow=overflow, selective=True,
     )
     fs = n_agg_fields * n_seg
     shape = (n_agg_fields, n_groups, n_buckets)
@@ -1024,6 +1111,7 @@ def scan_aggregate(
         numeric_filters=encode_filter_ops(spec.numeric_filters),
         need_minmax=spec.need_minmax,
         segment_impl=impl,
+        hash_slots=spec.hash_slots,
     )
     t0 = _time.perf_counter()
     counts, sums, mins, maxs = timed_dispatch(
@@ -1032,7 +1120,7 @@ def scan_aggregate(
     state = state_to_host(counts, sums, mins, maxs)
     note_kernel_dispatch(
         ("fused", batch.values.shape, spec.n_groups, spec.n_buckets,
-         spec.n_agg_fields, spec.numeric_filters, spec.need_minmax, impl),
+         spec.n_agg_fields, spec.numeric_filters, spec.need_minmax, impl, spec.hash_slots),
         _time.perf_counter() - t0,
         kind="fused",
     )

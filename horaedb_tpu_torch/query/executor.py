@@ -505,16 +505,18 @@ class CachedAggPrep:
     def fuse_key(self, i: int) -> tuple:
         """Grouping key for cohort merging: preps agreeing on the cache
         entry, the static spec, and the value-column layout share one
-        fused dispatch. The router's arm is not part of it: the cohort
-        launch takes its first member's arm (``ops.scan_agg.cohort_arm``
-        then fits it to the cohort), so a member the router sent to probe
-        another arm still rides its cohort's launch. Selective (gathered)
-        dispatches cannot ride the cohort kernel — they stay solo
-        (index-unique key)."""
+        fused dispatch. The router's arm (and the hash arm's table size)
+        is not part of it: the cohort launch takes its first member's arm
+        (``ops.scan_agg.cohort_arm`` then fits it to the cohort, ``hash``
+        as ``shared`` or ``scatter``), so a member the router sent to
+        probe another arm still rides its cohort's launch. Selective
+        (gathered) dispatches cannot ride the cohort kernel — they stay
+        solo (index-unique key)."""
         if self.row_idx is not None:
             return ("solo", i)
         return (
-            id(self.entry), dataclasses.replace(self.spec, segment_impl=""),
+            id(self.entry),
+            dataclasses.replace(self.spec, segment_impl="", hash_slots=0),
             tuple(self.value_names), self.value_layouts,
         )
 
@@ -1263,7 +1265,7 @@ class Executor:
         kernel_key = (
             spec.n_groups, spec.n_buckets, spec.n_agg_fields,
             spec.numeric_filters, spec.need_minmax, spec.segment_impl,
-            value_layouts, entry.ts_layout, entry.series_layout,
+            spec.hash_slots, value_layouts, entry.ts_layout, entry.series_layout,
         )
         row_idx = None
         if allow_selective and not empty_range:
@@ -1327,6 +1329,7 @@ class Executor:
                 numeric_filters=encode_filter_ops(spec.numeric_filters),
                 need_minmax=spec.need_minmax,
                 segment_impl=spec.segment_impl,
+                hash_slots=spec.hash_slots,
                 selective=row_idx is not None,
                 value_layouts=prep.value_layouts,
                 ts_layout=entry.ts_layout,
@@ -2300,9 +2303,15 @@ def route_segment_kernel(shape_key, spec, n_rows: int, est_distinct,
         est = max(1, min(int(est), n_seg, max(int(n_rows), 1)))
     import dataclasses
 
-    candidates = candidate_kernels(n_seg, spec.n_agg_fields, spec.need_minmax)
-    impl = KERNEL_ROUTER.choose(key, seed_kernel(device), candidates)
-    spec = dataclasses.replace(spec, segment_impl=impl)
+    from ..ops.hash_agg import hash_slots_for
+
+    candidates = candidate_kernels(n_seg, n_rows, est, spec.n_agg_fields, spec.need_minmax)
+    impl = KERNEL_ROUTER.choose(key, seed_kernel(n_seg, est, device), candidates)
+    spec = dataclasses.replace(
+        spec,
+        segment_impl=impl,
+        hash_slots=hash_slots_for(n_seg, est) if impl == "hash" else 0,
+    )
     # Decision plane: journal the pick with the EWMA's own prediction of
     # what this impl costs for this shape (None until the impl has a
     # clean sample — those picks resolve ungraded). The id rides the

@@ -68,11 +68,14 @@ def _shape(node):
 
 # ---- learned segment-kernel routing ---------------------------------------
 #
-# The device group-by has two multi-segment reduction arms
-# (ops/scan_agg.py: "shared" — block-private partials in shared memory —
-# and "scatter" — global atomics) and the winner flips with segment count
-# and skew. An EWMA with periodic re-probes, keyed by (plan shape,
-# segment-count bucket), chooses the ARM the kernel launches.
+# The device group-by has three multi-segment reduction arms
+# (ops/scan_agg.py: "shared" — block-private partials in shared memory,
+# the counterpart of the reference's "mxu" —, "scatter" — global atomics —
+# and "hash" — a block-private slot table keyed by segment id) and the
+# winner flips with segment count, live cardinality and skew. An EWMA
+# with periodic re-probes, keyed by (plan shape, segment-count bucket),
+# chooses the ARM the kernel launches; a never-measured shape starts from
+# its estimated cardinality, as in the reference.
 
 
 def kernel_routing_enabled() -> bool:
@@ -83,21 +86,30 @@ def kernel_routing_enabled() -> bool:
     )
 
 
-def candidate_kernels(n_seg: int, n_agg_fields: int, need_minmax: bool) -> tuple:
+def candidate_kernels(n_seg: int, n_rows: int, est_distinct, n_agg_fields: int,
+                      need_minmax: bool) -> tuple:
     """Arms worth PROBING for this shape: ``scatter`` always, ``shared``
-    where one block's partials of every segment fit shared memory."""
+    where one block's partials of every segment fit shared memory, and
+    ``hash`` where the reference proposes it: a domain of more than 64
+    segments whose estimated live cardinality (if known) fills at most a
+    quarter of it (a near-full table only routes rows to the overflow)."""
     from ..ops.scan_agg import shared_fits
 
     cands = ["scatter"]
     if shared_fits(n_seg, n_agg_fields, need_minmax):
         cands.append("shared")
+    if n_seg > 64 and (est_distinct is None or est_distinct * 4 <= n_seg):
+        cands.append("hash")
     return tuple(cands)
 
 
-def seed_kernel(device) -> str:
-    """Starting arm for a never-measured shape: ``scatter`` on every
-    device (the reference's seed off the TPU); the router's probes find
-    where ``shared`` wins."""
+def seed_kernel(n_seg: int, est_distinct, device) -> str:
+    """Starting arm for a never-measured shape: ``hash`` for a sparse
+    domain (more than 512 segments, at most an eighth of them estimated
+    live), else ``scatter`` (the reference's seed off the TPU); the
+    router's probes find where another arm wins."""
+    if est_distinct is not None and n_seg > 512 and est_distinct * 8 <= n_seg:
+        return "hash"
     return "scatter"
 
 

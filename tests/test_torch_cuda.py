@@ -244,3 +244,53 @@ def test_raw_reads_on_the_card_launch_the_kernels(card):
             db.close()
     for sql, (cpu, cuda) in answers.items():
         assert cpu == cuda, sql
+
+
+@pytest.mark.parametrize("label,domain,live", chip_smoke.GROUPBY_SHAPES)
+def test_hash_direct_kernel_matches_plain(card, label, domain, live):
+    """The hash arm (B2d) of the direct kernel against its plain version
+    at bench.py's groupby shapes (chip_smoke.py's phase 19 at test size):
+    counts, mins and maxs bit-equal, sums within SUM_RTOL of sum |x|."""
+    from horaedb_tpu_torch.ops.hash_agg import hash_slots_for
+
+    rng = np.random.default_rng(domain + live)
+    args, kw = chip_smoke._groupby_inputs(torch, rng, 1 << 16, domain, live)
+    kw.update(hash_slots=hash_slots_for(domain, live))
+    chip_smoke._hash_check(torch, "direct", args, kw, label)
+
+
+@pytest.mark.parametrize("case", chip_smoke.LAYOUT_CASES, ids=lambda c: "-".join([c[0], c[1], *c[2]]))
+@pytest.mark.parametrize("selective", [False, True])
+@pytest.mark.parametrize("slots,rounds", [(16, 1), (2048, 2), (4096, 4)])
+def test_hash_cached_kernel_matches_plain(card, case, selective, slots, rounds):
+    rng = np.random.default_rng(slots + rounds + selective)
+    args, kw, kind, form = chip_smoke._cached_inputs(torch, rng, case, "hash", selective, True,
+                                                     ">", 4096, 64, n_series=20, per=1001)
+    kw.update(hash_slots=slots)
+    chip_smoke._hash_check(torch, form, args, kw, kind, rounds)
+
+
+def test_hash_tables_fill_and_overflow(card):
+    """A block that sees exactly H segments and probes all H slots places
+    every row; a table of 16 slots over 2**18 segments overflows."""
+    rng = np.random.default_rng(5)
+    for H in (16, 2048):
+        args, kw = chip_smoke._groupby_inputs(torch, rng, 2048, 65536, H, every_row=True)
+        _, ov, _, counted = chip_smoke._hash_check(
+            torch, "direct", args, {**kw, "hash_slots": H}, f"load 1.0 H={H}", H)
+        assert ov == 0 and counted == 2048
+    args, kw = chip_smoke._groupby_inputs(torch, rng, 1 << 16, 262144, 262144)
+    _, ov, _, _ = chip_smoke._hash_check(
+        torch, "direct", args, {**kw, "hash_slots": 16}, "overflow", 1)
+    assert ov > 0
+
+
+def test_hash_pin_launches_the_hash_kernel(card, monkeypatch):
+    from horaedb_tpu_torch.ops import scan_agg as S
+
+    monkeypatch.setenv("HORAEDB_SEGMENT_IMPL", "hash")
+    args, kw = chip_smoke._groupby_inputs(torch, np.random.default_rng(9), 5000, 65536, 100)
+    before = S.LAUNCHES["direct"]["hash"]
+    S.fused_scan_agg(*args, **{**kw, "segment_impl": "auto"})
+    torch.cuda.synchronize()
+    assert S.LAUNCHES["direct"]["hash"] == before + 1

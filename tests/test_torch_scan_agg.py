@@ -372,8 +372,12 @@ def test_resolve_segment_impl_arms(monkeypatch):
     assert port.resolve_segment_impl(64) == "scatter"
     monkeypatch.setenv("HORAEDB_SEGMENT_IMPL", "mxu")
     assert port.resolve_segment_impl(64, "scatter", 5) == "shared"
-    monkeypatch.setenv("HORAEDB_SEGMENT_IMPL", "hash")  # not a port arm: auto
-    assert port.resolve_segment_impl(64, "scatter", 5) == "scatter"
+    monkeypatch.setenv("HORAEDB_SEGMENT_IMPL", "hash")  # the pin wins on every shape
+    assert port.resolve_segment_impl(64, "scatter", 5) == "hash"
+    assert port.resolve_segment_impl(1) == "hash"
+    monkeypatch.delenv("HORAEDB_SEGMENT_IMPL")
+    assert port.resolve_segment_impl(64, "hash", 5) == "hash"
+    assert port.resolve_segment_impl(1, "hash") == "single"
 
 
 def test_cuda_wrapper_rejects_bad_inputs_before_launch():
