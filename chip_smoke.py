@@ -2,6 +2,11 @@
 """Drive the PyTorch/CUDA port (``horaedb_tpu_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-only   # phases 1, 2, 4, 15 and 22 only
+
+Every phase but 22 serves from one card, also on a host of several cards;
+phase 22 shards over every card where there are two or more (run it there
+with ``--mesh-only``), else over 4 logical shards of the one card.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -32,10 +37,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    n_valid = 0, and a stress set through the dispatcher (exact duplicates,
    all-ones real keys, +-2**62 timestamps with a 64-bit seq span) that
    must reach its kind by the counters. perm and keep bit-equal.
-8. Main path of BASELINE config 5: 64 overlapping L0 SSTs, 100M rows,
-   written through the engine's SstWriter and manifest; the SELECT before
-   compaction (the f32 read merge), ``Compactor.compact()`` (16 rk chunk
-   launches), the SELECT after and a GROUP BY, all checked against an
+8. Main path of BASELINE config 5: 64 overlapping L0 SSTs, 40M rows (the
+   config's 100M, cut for the script's time limit), written through the
+   engine's SstWriter and manifest; the SELECT before compaction (the f32
+   read merge), ``Compactor.compact()`` (one rk launch a chunk), the SELECT
+   after and a GROUP BY, all checked against an
    independent numpy merge, as are the L1 SST's rows and order; host
    stage seconds.
 9. Merge replay and timings: the last f32 and rk main-path calls, kernel
@@ -50,7 +56,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    increments within SUM_RTOL of the cell's sum of |x|.
 11. Live-window main path: the TSBS cpu table at 4000 hosts (append mode),
    one hour of history, five per-field open-tail panels promoted at the
-   default knobs, three hours of live commits (1080 x 4000 rows; the
+   default knobs, 90 minutes of live commits (540 x 4000 rows; the
    128-bucket ring rolls over), one late batch inside the ring and one
    below its tail, every panel refreshed each simulated minute. Every
    answer equals an independent numpy group-by; at six checkpoints the
@@ -103,7 +109,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 18. The dashboard flood, on phase 4's connection and resident cpu table:
    32 threads send 32 distinct texts of one shape (hostname count/sum/max
    of usage_user over a sliding start and a usage_user literal) through
-   ``Proxy`` with [wlm.batch] on (window 5 ms, cohorts up to 32), in the
+   ``Proxy`` with [wlm.batch] on (window 40 ms, cohorts up to 32), in the
    reference flood's closed loop (each thread takes the next query number
    from one shared counter and sends it as soon as its last is answered):
    64 warm-up queries, 256 measured; then the same 256 through a Proxy
@@ -139,6 +145,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shared arms, its bound, index_add_ and plain; the packed output's
    memset, copy back and host unpack apart; bench.py's groupby shapes
    timed the same way (direct form, 2**18 rows).
+21. Mesh combine vs plain (B7a): ``mesh_combine`` against its plain version
+   on CUDA tensors, S in {1, 2, 3, 4, 8} shards, the packed form (S buffers
+   and one [S, L] buffer) and the state form, F in {0, 1, 10}, need_minmax
+   both ways, empty segments in some shards, -0.0 and +0.0 split across
+   shards both ways, NaN in one shard's sum, min and max, and
+   sparse-16x12h's packed size (4,194,304 segments, F = 5: 268 MB a shard)
+   over 4 shards. Counts, mins and maxs bit-equal, sums within SUM_RTOL.
+22. The sharded main path, on phase 4's connection and cpu table with phase
+   15's host-copy budget: the single-device answers first, then the entry
+   evicted and a mesh installed (4 logical shards on the card, or every
+   card where there are two or more). Through ``Connection.execute``:
+   high-cpu-all cold (the sharded direct path), single-groupby-5-8-1 (which
+   builds the sharded entry), double-groupby-all, sparse-16x12h (the hash
+   arm on every shard, then the 268 MB combine), lastpoint-host and
+   high-cpu-1, each equal to numpy and to the single-device answer
+   (counts, mins and maxs bit-equal, raw rows in order); every run reports
+   the mesh and moves the counters by one launch a shard and one combine
+   an aggregate. The per-shard real rows (at 2**26 padded rows the last of
+   four shards is all padding). dist_merge_dedup at a compaction chunk's
+   shape (6,299,325 rows) bit-equal to the one-device f32 merge. The last
+   combine, the last run's shard top-k (lastpoint-host, with the keys it
+   ranked by) and selection (high-cpu-1) launches and the merge's shard
+   sorts replayed against their plain versions and timed against their
+   bounds and library calls (torch.sum/amin/amax, torch.topk,
+   torch.nonzero); warm executes against the single-device ones. Every
+   launch count comes from the kernels' own counters, counted where each
+   kernel launches; no plain version runs on the path.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Details go to chiprun_out/chip_smoke.json.
@@ -163,6 +196,7 @@ HC_HOURS = 12
 DEMO_ROWS = 1_000_000
 SEED = 123
 REPEATS = 5
+REPEATS_MESH = 3
 SUM_RTOL = 1e-5
 # rows in the one segment that must count past 2**24
 BIG_SEGMENT = (1 << 24) + 4096
@@ -184,6 +218,7 @@ KERNEL_NAMES = {
 DETAIL: dict = {}
 # the card; a rehearsal of the phases on the CPU sets "cpu"
 DEV = "cuda"
+MESH_ONLY = False  # --mesh-only: phases 1, 2, 4, 15 and 22
 
 
 def say(*parts) -> None:
@@ -748,6 +783,7 @@ def phase_main(torch) -> dict:
     DETAIL["launches"] = launches
     DETAIL["peak_bytes"] = peak
     return {"db": db, "results": results, "launches": launches, "peak": peak, "rec": rec,
+            "expected": exp,
             "raw_expected": raw_exp, "flood_expected": flood_exp, "hash_expected": hash_exp}
 
 
@@ -1151,7 +1187,9 @@ def phase_merge_kernels(torch) -> None:
 # SSTs, 100M rows, k-way merge-dedup"; the table of bench.py's compaction
 # config (1000 series in one 2 h segment window, seed 7).
 COMPACTION_SSTS = 64
-COMPACTION_ROWS = 100_000_000
+# cut from the config's 100M rows so the whole script ends well inside its
+# time limit; the SSTs, series and collision share stay the config's
+COMPACTION_ROWS = 40_000_000
 COMPACTION_SERIES = 1000
 COMPACTION_SEED = 7
 
@@ -1722,11 +1760,11 @@ def phase_lw_kernels(torch) -> float:
 
 LW_FIELDS = 5                    # per-field panels: the first five cpu fields
 LW_HISTORY_MIN = 60              # one hour written before promotion
-LW_LIVE_COMMITS = 1080           # three hours of 10 s scrapes, one commit each
-LW_LATE_AT = 700                 # after this commit: a batch 30 min back (in the ring)
-LW_OLD_AT = 900                  # after this commit: a batch 130 min back (below the tail)
-LW_CHECKPOINTS = (1, 30, 61, 100, 150, 180)  # refresh minutes also rescanned
-LW_TRACE = (714, 726)  # commits [lo, hi) traced for the device's idle share: minutes 120-121
+LW_LIVE_COMMITS = 540            # 90 min of 10 s scrapes, one commit each: 150 min > 128
+LW_LATE_AT = 350                 # after this commit: a batch 30 min back (in the ring)
+LW_OLD_AT = 450                  # after this commit: a batch 130 min back (below the tail)
+LW_CHECKPOINTS = (1, 30, 61, 90)  # refresh minutes also rescanned
+LW_TRACE = (414, 426)  # commits [lo, hi) traced for the device's idle share: minutes 69-71
 LW_T0 = 1_786_000_000_000 // 3_600_000 * 3_600_000  # the simulated clock's start
 
 
@@ -1848,7 +1886,7 @@ class LwRecorder:
 
 def phase_lw_main(torch) -> dict:
     """Five per-field open-tail panels over the TSBS cpu table at 4000
-    hosts: one hour of history, promotion at the default knobs, three hours
+    hosts: one hour of history, promotion at the default knobs, 90 minutes
     of live commits (the 128-bucket ring rolls over), one late batch in the
     ring and one below its tail, a refresh of every panel each simulated
     minute. Every answer equals the independent cells; at the checkpoints
@@ -2440,16 +2478,20 @@ def _raw_check(torch, kind, cols, session, dyn, kw, what) -> int:
     from horaedb_tpu_torch.ops import scan_topk as T
 
     if kind == "raw_topk":
-        got = T.raw_topk_packed(*cols, session, dyn, **kw)
+        # the slots alone, then with the keys they were ranked by (the
+        # sharded top-k's form): the same slots, the keys as the plain ones
+        alone = T.raw_topk_packed(*cols, session, dyn, **kw)
+        got = T.raw_topk_packed(*cols, session, dyn, with_keys=True, **kw)
         _sync(torch)
-        want = T.raw_topk_plain(*cols, session, dyn, **kw)
+        want = T.raw_topk_plain(*cols, session, dyn, with_keys=True, **kw)
+        check(torch.equal(got[0], alone), f"{what}: the slots with keys differ from alone")
     else:
         got = T.raw_select_packed(*cols, session, dyn, **kw)
         _sync(torch)
         want = T.raw_select_plain(*cols, session, dyn, **kw)
     check(got.shape == want.shape and torch.equal(got, want.to(got.device)),
-          f"{what}: kernel {got[:12].tolist()} vs plain {want[:12].tolist()}")
-    return int((got[1:] >= 0).sum()) if kind == "raw_select" else int((got >= 0).sum())
+          f"{what}: kernel {got[..., :12].tolist()} vs plain {want[..., :12].tolist()}")
+    return int((got[1:] >= 0).sum()) if kind == "raw_select" else int((got[0] >= 0).sum())
 
 
 def _raw_cases(torch, rng, n, layout, ks, keys, op_at) -> int:
@@ -2858,7 +2900,7 @@ def _raw_bound(torch, kind, args, kw) -> tuple[float, str, dict]:
         m = T._raw_mask(sc, tr, dv, session != 0, lits, lo, hi, kw["numeric_filters"])
         if not kw["key_is_ts"] and kw["key_field"] not in fields:
             nbytes += share(vals[kw["key_field"]], float(m.float().mean()) if n else 0.0)
-        nbytes += 4 * kw["k"]
+        nbytes += 4 * kw["k"] * (2 if kw.get("with_keys") else 1)  # slots, keys
     else:
         nbytes += 4 * (1 + kw["select_slots"])
     return nbytes / PEAK_BYTES_S * 1e3, "bytes", {"bytes": nbytes, "rows": n, "real": n_real}
@@ -3207,6 +3249,13 @@ def _b1d_case(torch, rng, arm, G, nb, need_minmax) -> None:
 # ---- phase 18: the dashboard flood through the Proxy ---------------------------
 
 FLOOD_THREADS = 32
+# The batcher's window for the fused arm. A cohort holds the members whose
+# host work (parse, plan, join) ends inside the window, so its size scales
+# with the window over the host's speed under the GIL: the reference
+# bench's 5 ms gave cohorts of up to 15-19 on one H100 host and of at most
+# 5 on a host about 4x slower at the tail. 40 ms keeps cohorts of 8 on a
+# host 8x slower than the first; a cohort still closes early at max_cohort.
+FLOOD_WINDOW_S = 0.040
 FLOOD_WARMUP = 64
 FLOOD_MEASURED = 256
 FLOOD_H3 = 3 * 3_600_000
@@ -3348,7 +3397,8 @@ def phase_flood(torch, main) -> dict:
     rec = CohortRecorder(S)
     out = {}
     try:
-        fused = Proxy(db, batch_cfg=BatchSection(enabled=True, window_s=0.005, max_cohort=32))
+        fused = Proxy(db, batch_cfg=BatchSection(enabled=True, window_s=FLOOD_WINDOW_S,
+                                                  max_cohort=32))
         try:
             X.reset_counts()  # fallbacks count from the first warm-up query on
             _flood_arm(torch, fused, texts, FLOOD_WARMUP)
@@ -3406,7 +3456,7 @@ def phase_flood(torch, main) -> dict:
             "qps": FLOOD_MEASURED / a["wall"], "launches": a["launches"],
         }
     summary["fused"].update(
-        fused_cohorts=f["fused_cohorts"], members_fused=members,
+        window_ms=FLOOD_WINDOW_S * 1e3, fused_cohorts=f["fused_cohorts"], members_fused=members,
         mean_cohort=members / f["fused_cohorts"] if f["fused_cohorts"] else 0.0,
         max_cohort=max(f["sizes"]), cohort_buckets=f["buckets"],
         gc_runs_by_generation=f["gc_runs"], threads_alive=f["threads"])
@@ -3414,7 +3464,8 @@ def phase_flood(torch, main) -> dict:
         say(f"flood {name}: {d['dispatches_per_query']:.4f} dispatches a query, p50 "
             f"{d['p50_ms']:.3f} ms, p99 {d['p99_ms']:.3f} ms, {d['qps']:.1f} qps; launches "
             f"{d['launches']}")
-    say(f"flood fused: {f['fused_cohorts']} fused cohorts served {members} of "
+    say(f"flood fused (window {FLOOD_WINDOW_S * 1e3:g} ms): {f['fused_cohorts']} fused "
+        f"cohorts served {members} of "
         f"{FLOOD_MEASURED} queries (mean {summary['fused']['mean_cohort']:.2f}, largest "
         f"{summary['fused']['max_cohort']}; horaedb_batch_cohort_total {f['buckets']}); "
         f"every answer of both arms equals numpy; no fallback; gc runs by generation "
@@ -4070,7 +4121,531 @@ def phase_hash_main(torch, main, card) -> list:
     }]
 
 
-def main() -> int:
+# ---- phase 21: mesh_combine against its plain version -------------------------
+
+MESH_REPLACES = {
+    "combine": "horaedb_tpu/parallel/dist_agg.py:61",
+    "raw_topk": "horaedb_tpu/parallel/dist_raw.py:53",
+    "raw_select": "horaedb_tpu/parallel/dist_raw.py:86",
+    "merge": "horaedb_tpu/parallel/dist_merge.py:20",
+}
+MESH_SHARDS = 4                 # the logical mesh's shards on one card
+MESH_SIZES = (1, 2, 3, 4, 8)
+MESH_SEGMENTS = 4096 + 13       # a ragged segment count
+SPARSE_SEGMENTS = 4096 * 1024   # sparse-16x12h's n_seg: 268 MB a packed partial at F = 5
+MERGE_CHUNK_ROWS = 6_299_325    # a compaction chunk of config 5 at 100M rows
+
+
+def _combine_parts(torch, S, n_seg, F, need_minmax, special, seed):
+    """S shards' packed partials f32[packed_len] on the card: random counts,
+    sums, mins and maxs, a fifth of the segments empty (0, +inf, -inf) in
+    each shard; with ``special``, element 0 and 1 of the min and max planes
+    hold -0.0 and +0.0 split across the shards both ways, and element 2 of
+    shard S // 2's sum, min and max planes a NaN."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    fs = F * n_seg
+    parts = []
+    for d in range(S):
+        c = torch.randint(0, 1000, (n_seg,), dtype=torch.int32, device=DEV, generator=g)
+        s = torch.randn(fs, device=DEV, generator=g) * 100
+        mn = torch.randn(fs, device=DEV, generator=g) * 20 - 50
+        mx = torch.randn(fs, device=DEV, generator=g) * 20 + 50
+        empty = torch.rand(n_seg, device=DEV, generator=g) < 0.2
+        c[empty] = 0
+        e = empty.repeat(F)
+        s[e], mn[e], mx[e] = 0.0, float("inf"), float("-inf")
+        if special and fs >= 3:
+            mn[0] = mx[0] = -0.0 if d == 0 else 0.0
+            mn[1] = mx[1] = 0.0 if d == 0 else -0.0
+            if d == S // 2:
+                s[2] = mn[2] = mx[2] = float("nan")
+        planes = [c.view(torch.float32), s] + ([mn, mx] if need_minmax else [])
+        parts.append(torch.cat(planes))
+    return parts
+
+
+def _combine_compare(torch, S_mod, got, parts, n_seg, F, need_minmax, what) -> float:
+    """The kernel's packed result against the plain version on the same
+    partials: counts and (canonical) mins and maxs bit-equal, sums within
+    SUM_RTOL of the shards' sum of |partial sum|. Returns max |sum diff|."""
+    split = [S_mod._packed_planes(p, n_seg, F, need_minmax) for p in parts]
+    planes = [[s[p] for s in split] if split[0][p] is not None else [] for p in range(4)]
+    want = S_mod.combine_planes_plain(planes)
+    mine = S_mod._packed_planes(got, n_seg, F, need_minmax)
+    check(torch.equal(mine[0].view(torch.int32), want[0].view(torch.int32)), f"{what}: counts")
+    err = 0.0
+    if F:
+        scale = torch.stack([t.abs() for t in planes[1]]).sum(0)
+        d = (mine[1].double() - want[1].double()).abs()
+        both_nan = torch.isnan(mine[1]) & torch.isnan(want[1])
+        check(bool(((d <= SUM_RTOL * scale.double()) | both_nan).all()), f"{what}: sums")
+        err = float(torch.where(both_nan, torch.zeros_like(d), d).max())
+    if need_minmax and F:
+        for p, name in ((2, "mins"), (3, "maxs")):
+            check((_canon(mine[p]) == _canon(want[p])).all(), f"{what}: {name}")
+    return err
+
+
+def phase_mesh_kernels(torch) -> float:
+    """mesh_combine (B7a) against its plain version on the card: S in
+    MESH_SIZES, the packed form (S buffers and one [S, L] buffer) and the
+    state form, F in {0, 1, 10}, need_minmax both ways, empty segments in
+    some shards, +-0 split across shards both ways and NaN in one shard's
+    sum, min and max; then sparse-16x12h's packed size (4,194,304 segments,
+    F = 5, min/max: 268 MB a shard) over MESH_SHARDS shards."""
+    from horaedb_tpu_torch.ops import scan_agg as S
+
+    n_cases, err, seed = 0, 0.0, SEED + 21
+    for n_shards in MESH_SIZES:
+        for F in (0, 1, 10):
+            for need_minmax in (True, False):
+                for special in ((False, True) if F and need_minmax else (False,)):
+                    seed += 1
+                    parts = _combine_parts(torch, n_shards, MESH_SEGMENTS, F, need_minmax,
+                                           special, seed)
+                    kw = dict(n_seg=MESH_SEGMENTS, n_agg_fields=F, need_minmax=need_minmax)
+                    what = f"combine S={n_shards} F={F} minmax={need_minmax} special={special}"
+                    for form, src in (("list", parts), ("stacked", torch.stack(parts))):
+                        got = S.mesh_combine(src, **kw)
+                        err = max(err, _combine_compare(torch, S, got, parts, MESH_SEGMENTS, F,
+                                                        need_minmax, f"{what} {form}"))
+                        n_cases += 1
+                    if special and n_shards > 1:
+                        mins = S._packed_planes(got, MESH_SEGMENTS, F, True)[2]
+                        maxs = S._packed_planes(got, MESH_SEGMENTS, F, True)[3]
+                        check(_canon(mins[:2]).tolist() == _canon(
+                            torch.tensor([-0.0, -0.0])).tolist(), f"{what}: -0 is the min")
+                        check(_canon(maxs[:2]).tolist() == _canon(
+                            torch.tensor([0.0, 0.0])).tolist(), f"{what}: +0 is the max")
+                        check(bool(torch.isnan(mins[2]) and torch.isnan(maxs[2])),
+                              f"{what}: NaN wins")
+                    # the state form on the same partials, as (G, B) = (n_seg, 1)
+                    split = [S._packed_planes(p, MESH_SEGMENTS, F, need_minmax) for p in parts]
+                    fs_shape = (F, MESH_SEGMENTS, 1)
+                    zero = torch.zeros(fs_shape, device=DEV)
+                    states = [(sp[0].view(torch.int32).view(MESH_SEGMENTS, 1),
+                               sp[1].view(fs_shape),
+                               sp[2].view(fs_shape) if need_minmax else zero,
+                               sp[3].view(fs_shape) if need_minmax else zero) for sp in split]
+                    c, s, mn, mx = S.mesh_combine_state(states, need_minmax=need_minmax)
+                    packed = torch.cat([c.reshape(-1).view(torch.float32), s.reshape(-1)]
+                                       + ([mn.reshape(-1), mx.reshape(-1)] if need_minmax else []))
+                    err = max(err, _combine_compare(torch, S, packed, parts, MESH_SEGMENTS, F,
+                                                    need_minmax, f"{what} state"))
+                    n_cases += 1
+    parts = _combine_parts(torch, MESH_SHARDS, SPARSE_SEGMENTS, 5, True, True, SEED + 299)
+    kw = dict(n_seg=SPARSE_SEGMENTS, n_agg_fields=5, need_minmax=True)
+    got = S.mesh_combine(parts, **kw)
+    err = max(err, _combine_compare(torch, S, got, parts, SPARSE_SEGMENTS, 5, True,
+                                    "combine at sparse-16x12h's size"))
+    n_cases += 1
+    _sync(torch)
+    del parts, got
+    say(f"mesh_combine: kernel = plain in {n_cases} cases (S {MESH_SIZES}, both forms, "
+        f"F 0/1/10, +-0 and NaN across shards, {4 * S.packed_len(1, SPARSE_SEGMENTS, 5, True)} "
+        f"B a shard at sparse-16x12h's size); max |sum diff| {err}")
+    DETAIL["mesh_kernels"] = {"cases": n_cases, "max_abs_err": err}
+    return err
+
+
+# ---- phase 22: the sharded main path ------------------------------------------
+
+
+class MeshRecorder:
+    """Keeps the last mesh_combine call and, while ``keep_raw`` is set, the
+    per-shard top-k and selection calls, by wrapping the module functions
+    the sharded steps call; ``restore`` puts them back."""
+
+    def __init__(self, S, T):
+        self.S, self.T = S, T
+        self.orig = (S.mesh_combine, T.raw_topk_packed, T.raw_select_packed)
+        self.combine = None
+        self.raw: dict = {"raw_topk": [], "raw_select": []}
+        self.keep_raw = False
+        orig_combine, orig_topk, orig_select = self.orig
+
+        def combine(parts, **kw):
+            self.combine = (list(parts), kw)
+            return orig_combine(parts, **kw)
+
+        def keep(kind, orig):
+            def call(*a, **k):
+                if self.keep_raw:
+                    self.raw[kind].append((a, k))
+                return orig(*a, **k)
+            return call
+
+        S.mesh_combine = combine
+        T.raw_topk_packed = keep("raw_topk", orig_topk)
+        T.raw_select_packed = keep("raw_select", orig_select)
+
+    def restore(self) -> None:
+        self.S.mesh_combine, self.T.raw_topk_packed, self.T.raw_select_packed = self.orig
+
+
+def _bits_equal(a, b, what) -> None:
+    """Two ResultSets with the same columns; every column bit-equal except
+    the avgs (sums differ by summation order; held to numpy instead)."""
+    import numpy as np
+
+    check(a.names == b.names, f"{what}: columns {a.names} vs {b.names}")
+    for n, x, y in zip(a.names, a.columns, b.columns):
+        if n.startswith("avg_"):
+            continue
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype.kind == "f":
+            x, y = x.astype(np.float64).view(np.int64), y.astype(np.float64).view(np.int64)
+        check(x.shape == y.shape and np.array_equal(x, y), f"{what}: column {n} differs")
+
+
+def _mesh_counts(S, T, md) -> dict:
+    """The kernels' launch counters, counted where each kernel launches, that
+    the sharded path moves (on a CPU rehearsal the plain versions' calls;
+    the hash arm's then unknown)."""
+    card = DEV == "cuda"
+    agg = (lambda f: sum(S.LAUNCHES[f].values())) if card else S.PLAIN_CALLS.__getitem__
+    comb = S.COMBINE_LAUNCHES if card else S.COMBINE_PLAIN_CALLS
+    raw = T.LAUNCHES if card else T.PLAIN_CALLS
+    merge = md.LAUNCHES if card else md.PLAIN_CALLS
+    return {"direct": agg("direct"), "cached": agg("cached"),
+            "cached_hash": S.LAUNCHES["cached"]["hash"] if card else None,
+            "cached_selective": agg("cached_selective"),
+            "combine_state": comb["state"], "combine_packed": comb["packed"],
+            "raw_topk": raw["raw_topk"], "raw_select": raw["raw_select"],
+            "merge_f32": merge["f32"]}
+
+
+def _merge_chunk(n: int):
+    """A compaction chunk of config 5: 1000 series, keys drawn from a space
+    of three quarters of the rows (about a third of the rows collide), the
+    run's sequence 1..64."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 22)
+    ts_space = (n // COMPACTION_SERIES) * 3 // 4
+    tsid_pool = rng.integers(0, 2**63, COMPACTION_SERIES, dtype=np.uint64)
+    key = rng.integers(0, COMPACTION_SERIES * ts_space, n)
+    return (tsid_pool[key // ts_space], (key % ts_space).astype(np.int64),
+            rng.integers(1, COMPACTION_SSTS + 1, n).astype(np.uint64))
+
+
+def phase_mesh_main(torch, main, card) -> list:
+    """The sharded main path on phase 4's connection and cpu table (34.56M
+    rows, 10 fields; the host-copy budget phase 15 raised): each query's
+    single-device answer first, then the cpu entry evicted and a mesh
+    installed (MESH_SHARDS logical shards on the card, or every card where
+    there are two or more). Through ``Connection.execute``: the first cold
+    query (high-cpu-all) on the sharded direct path; the BASELINE queries
+    (the first builds the sharded entry), sparse-16x12h (its hash arm per
+    shard, then a 268 MB combine), and the raw reads lastpoint-host and
+    high-cpu-1. Every answer equals numpy and the single-device answer
+    (counts, mins and maxs bit-equal, raw rows in order); every run reports
+    the mesh and moves the counters by one launch a shard and one
+    mesh_combine an aggregate. Then dist_merge_dedup at a compaction
+    chunk's shape against the single-device f32 merge; the last combine,
+    the last top-k's and selection's shard launches and the merge's shard
+    launches replayed against their plain versions and timed against their
+    bounds and library calls; warm executes against the single-device
+    ones."""
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import merge_dedup as md, scan_agg as S, scan_topk as T
+    from horaedb_tpu_torch.parallel import dist_merge
+    from horaedb_tpu_torch.parallel.mesh import Mesh, on_device, use_mesh
+    from horaedb_tpu_torch.tools import tsbs
+
+    db = main["db"]
+    exp, raw_exp, hash_exp = main["expected"], main["raw_expected"], main["hash_expected"]
+    cache = db.interpreters.executor.scan_cache
+    n_cards = torch.cuda.device_count() if DEV == "cuda" else 1
+    if n_cards >= 2:
+        mesh = Mesh([torch.device("cuda", i) for i in range(n_cards)])
+    else:
+        mesh = Mesh.logical(torch.device(DEV, 0) if DEV == "cuda" else "cpu", MESH_SHARDS)
+    n_sh = mesh.size
+    raw_q = {name: (sql, kernel) for name, sql, kernel in raw_queries(raw_exp["hc_host"])}
+    sparse = {name: (hosts, hours) for name, hosts, hours in sparse_queries()}
+    queries = [
+        ("high-cpu-all", tsbs.high_cpu_all(HC_HOURS).sql, "agg"),
+        ("single-groupby-5-8-1", tsbs.single_groupby(5, 8, 1).sql, "agg"),
+        ("double-groupby-all", tsbs.double_groupby_all(HOURS).sql, "agg"),
+        ("sparse-16x12h", sparse_sql(*sparse["sparse-16x12h"]), "agg"),
+        ("lastpoint-host", raw_q["lastpoint-host"][0], "topk"),
+        ("high-cpu-1", raw_q["high-cpu-1"][0], "select"),
+    ]
+    # the single-device answers, on phase 4's warm entry: the second run warm
+    single = {}
+    for name, sql, kind in queries:
+        for _ in range(2):
+            t = time.perf_counter()
+            res = db.execute(sql)
+            secs = time.perf_counter() - t
+        check("mesh_devices" not in res.metrics, f"{name}: single-device run on a mesh")
+        single[name] = {"res": res, "warm_s": secs}
+    cache.invalidate("cpu")
+    cache._candidate.pop("cpu", None)  # the next read is a first sighting: the direct path
+
+    rec = MeshRecorder(S, T)
+    results = {}
+    _sync(torch)
+    for mod in (S, T, md):
+        mod.reset_counts()  # the sharded main path's launches start here
+    t_path = time.perf_counter()
+    try:
+        with use_mesh(mesh):
+            for i, (name, sql, kind) in enumerate(queries):
+                runs = []
+                for r in range(1 if i == 0 else REPEATS_MESH):
+                    before = _mesh_counts(S, T, md)
+                    rec.keep_raw = kind != "agg" and r == REPEATS_MESH - 1
+                    t = time.perf_counter()
+                    res = db.execute(sql)
+                    secs = time.perf_counter() - t
+                    after = _mesh_counts(S, T, md)
+                    moved = {k: after[k] - before[k] for k in after
+                             if after[k] is not None and after[k] != before[k]}
+                    m = res.metrics
+                    path = db.interpreters.executor.last_path
+                    check(m.get("mesh_devices") == n_sh,
+                          f"{name} run {r}: mesh_devices {m.get('mesh_devices')} ({path})")
+                    if i == 0:
+                        check(path == "device-dist" and moved.get("direct") == n_sh
+                              and moved.get("combine_state") == 1,
+                              f"{name}: cold run {path}, launches {moved}")
+                    elif kind == "agg":
+                        check(path == "device-cached" and moved.get("cached") == n_sh
+                              and moved.get("combine_packed") == 1
+                              and not moved.get("cached_selective"),
+                              f"{name} run {r}: {path}, launches {moved}")
+                    else:
+                        check(path == "raw_device" and m.get("raw_kernel") == kind
+                              and moved.get(f"raw_{kind}") == n_sh,
+                              f"{name} run {r}: {path}, launches {moved}")
+                    _bits_equal(res, single[name]["res"], f"{name} run {r} vs single-device")
+                    runs.append({"seconds": secs, "path": path, "cache": m.get("cache"),
+                                 "kernel": m.get("kernel") or m.get("raw_kernel"),
+                                 "launches": moved})
+                if name in exp:
+                    _check_answer(name, res.to_pylist(), exp[name])
+                elif name in hash_exp:
+                    check(DEV != "cuda" or any(x["launches"].get("cached_hash") == n_sh
+                                               for x in runs),
+                          f"{name}: no run launched the hash arm on every shard")
+                    _check_sparse(name, res, sparse[name][0], hash_exp[name])
+                elif name == "lastpoint-host":
+                    # phase 15's unflushed tick is the newest row
+                    got = res.to_pylist()
+                    check(got[0]["ts"] == 2 * H12, f"{name}: first row {got[0]}")
+                    _same_rows(got[1:], raw_exp[name][:9], f"{name} vs numpy")
+                else:
+                    _same_rows(res.to_pylist(), raw_exp[name], f"{name} vs numpy")
+                results[name] = {"runs": runs, "single_warm_s": single[name]["warm_s"]}
+        path_s = time.perf_counter() - t_path
+        launches = _mesh_counts(S, T, md)  # the sharded main path's, from reset_counts on
+        entry = cache._entries["cpu"]
+        check(entry.mesh is mesh, "the cpu entry is not on the mesh")
+        per = entry.padded_rows // n_sh
+        real = [max(0, min(per, entry.n_valid - d * per)) for d in range(n_sh)]
+        # dist_merge_dedup at a compaction chunk's shape, against one device
+        tsid, ts, seq = _merge_chunk(MERGE_CHUNK_ROWS)
+        f32_before = _mesh_counts(S, T, md)["merge_f32"]
+        perm, keep = md.merge_dedup_permutation(tsid, ts, seq, device=mesh.first)
+        f32_one = _mesh_counts(S, T, md)["merge_f32"]
+        check(f32_one == f32_before + 1, "the one-device merge did not sort with the f32 kind")
+        want = perm[keep]
+        t = time.perf_counter()
+        got = dist_merge.dist_merge_dedup(mesh, tsid, ts, seq)
+        merge_s = time.perf_counter() - t
+        launches["dist_merge_f32"] = _mesh_counts(S, T, md)["merge_f32"] - f32_one
+        check(np.array_equal(got, want), "dist_merge_dedup differs from the one-device merge")
+        n_collide = MERGE_CHUNK_ROWS - len(want)
+        check(launches["dist_merge_f32"] == n_sh, f"merge shard launches {launches}")
+        plain = {"scan_agg": dict(S.PLAIN_CALLS), "combine": dict(S.COMBINE_PLAIN_CALLS),
+                 "scan_topk": dict(T.PLAIN_CALLS), "merge_dedup": dict(md.PLAIN_CALLS)}
+    finally:
+        rec.restore()
+    if DEV == "cuda":
+        check(not any(v for d in plain.values() for v in d.values()),
+              f"plain versions ran: {plain}")
+    for kind, calls in rec.raw.items():
+        check(len(calls) == n_sh, f"{len(calls)} recorded shard launches of {kind}")
+        check(launches[kind] == REPEATS_MESH * n_sh, f"{kind} launches {launches}")
+    say(f"mesh: {mesh} ({n_sh} shards); real rows per shard {real} of {per} "
+        f"(the last shard{' is' if real[-1] == 0 else ' is not'} all padding); "
+        f"main path {path_s:.1f} s; launches {launches}")
+    check(sum(real) == entry.n_valid, f"real rows {real} vs {entry.n_valid}")
+    for name, res in results.items():
+        runs = res["runs"]
+        warm = statistics.median([x["seconds"] for x in runs[1:]]) if len(runs) > 1 else None
+        res["warm_s"] = warm
+        phase4 = main["results"].get(name)
+        p4 = (statistics.median([x["seconds"] for x in phase4["runs"][2:]]) * 1e3
+              if phase4 else None)
+        say(f"mesh {name}: runs {[round(x['seconds'] * 1e3, 3) for x in runs]} ms "
+            f"({[x['cache'] for x in runs]}); warm {warm * 1e3 if warm else 0:.3f} ms against "
+            f"one device {res['single_warm_s'] * 1e3:.3f} ms here"
+            + (f", {p4:.3f} ms in phase 4" if p4 else "") + f"; equal to numpy and to one "
+            f"device [{card}]")
+    say(f"dist_merge_dedup: {MERGE_CHUNK_ROWS} rows ({n_collide} collide) over {n_sh} shards "
+        f"in {merge_s:.2f} s, bit-equal to the one-device f32 merge")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    rows = []
+    # B7a: the last combine (sparse-16x12h's), replayed and timed
+    parts, kw = rec.combine
+    got = S.mesh_combine(parts, **kw)
+    err = _combine_compare(torch, S, got, parts, kw["n_seg"], kw["n_agg_fields"],
+                           kw["need_minmax"], "the last combine")
+    fn = lambda: S.mesh_combine(parts, **kw)  # noqa: E731
+    ms = _device_ms(torch, fn, "mesh_combine", reps=10) or _time_launch(torch, fn)
+    split = [S._packed_planes(p, kw["n_seg"], kw["n_agg_fields"], kw["need_minmax"])
+             for p in parts]
+    planes = [[s[p] for s in split] if split[0][p] is not None else [] for p in range(4)]
+    plain_ms = _time_launch(torch, lambda: S.combine_planes_plain(planes), reps=3)
+    stacked = torch.stack(parts)
+    n_seg, fs = kw["n_seg"], kw["n_seg"] * kw["n_agg_fields"]
+
+    def library():
+        stacked[:, :n_seg].view(torch.int32).sum(0, dtype=torch.int32)
+        stacked[:, n_seg:n_seg + fs].sum(0)
+        stacked[:, n_seg + fs:n_seg + 2 * fs].amin(0)
+        stacked[:, n_seg + 2 * fs:].amax(0)
+
+    lib_ms = _time_launch(torch, library)
+    nbytes = (len(parts) + 1) * _bytes_of(parts[0])
+    bound = nbytes / PEAK_BYTES_S * 1e3
+    del stacked, got
+    rows.append({"name": "mesh_combine", "route": "cuda", "source": SRC,
+                 "replaces": MESH_REPLACES["combine"],
+                 "launches": launches["combine_state"] + launches["combine_packed"],
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                 "bound_by": "bytes", "library_ms": lib_ms})
+    say(f"kernel mesh_combine at sparse-16x12h ({len(parts)} x {_bytes_of(parts[0])} B): "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sum/amin/amax {lib_ms:.4f} ms, bound "
+        f"{bound:.4f} ms (bytes), kernel = plain (max |sum diff| {err}) [{card}]")
+    del parts, planes, split
+    def every_card(fn):
+        """``fn``, then on a mesh of several cards a wait for each, so that
+        the first card's events time every shard's work."""
+        if len(set(mesh.devices)) == 1:
+            return fn
+        return lambda: [fn(), *(torch.cuda.synchronize(d) for d in mesh.devices)]
+
+    # B7b: the last run's per-shard top-k (lastpoint-host) and selection
+    # (high-cpu-1) launches, replayed (each on its shard's card) and timed
+    for kind, query, plain_fn, lib_name in (
+            ("raw_topk", "lastpoint-host", T.raw_topk_plain, "torch.topk"),
+            ("raw_select", "high-cpu-1", T.raw_select_plain, "torch.nonzero")):
+        calls, launch = rec.raw[kind], getattr(T, f"{kind}_packed")
+
+        def shards(fn, calls=calls):
+            out = []
+            for a, k in calls:
+                with on_device(a[3].device):
+                    out.append(fn(*a, **k))
+            return out
+
+        for got, want in zip(shards(launch), shards(plain_fn)):
+            check(torch.equal(got, want), f"{query} shard {kind}: kernel != plain")
+        ms_b = _time_launch(torch, every_card(lambda: shards(launch)), flush=flush)
+        plain_b = _time_launch(torch, every_card(lambda: shards(plain_fn)), reps=3)
+        libs = [_raw_library(torch, kind, a, k) for a, k in calls]
+        lib_b = _time_launch(torch, every_card(lambda: [f() for f in libs]), flush=flush)
+        bound_b = sum(_raw_bound(torch, kind, a, k)[0] for a, k in calls)
+        rows.append({"name": f"dist_{kind} ({kind} per shard)", "route": "cuda",
+                     "source": RAW_SRC, "replaces": MESH_REPLACES[kind],
+                     "launches": launches[kind], "max_abs_err": 0.0, "ms": ms_b,
+                     "plain_ms": plain_b, "bound_ms": bound_b, "bound_by": "bytes",
+                     "library_ms": lib_b})
+        size = (f"k {calls[0][1]['k']}, keys out" if kind == "raw_topk"
+                else f"{calls[0][1]['select_slots']} slots")
+        say(f"kernel dist_{kind} at {query} ({n_sh} shard launches, {size}): {ms_b:.4f} ms, "
+            f"plain {plain_b:.4f} ms, {lib_name} x{n_sh} {lib_b:.4f} ms, bound "
+            f"{bound_b:.6f} ms (bytes), kernel = plain [{card}]")
+        del libs
+    # B7c: the merge's per-shard sorts, replayed and timed
+    idxs, words, masks = dist_merge.shard_words(mesh, tsid, ts, seq)
+    for idx, w in zip(idxs, words):
+        n = w[0].shape[0]
+        kp, kk = (x[:len(idx)] for x in md.unpack(md.sort_dedup("f32", w, masks, len(idx), True),
+                                                   n)[:2])
+        pp, pk = md._plain("f32", w, masks, len(idx), True)
+        check(torch.equal(kp, pp[:len(idx)]) and torch.equal(kk, pk[:len(idx)]),
+              "a shard's merge sort: kernel != plain")
+    ms_c = _time_launch(torch, every_card(lambda: [md.sort_dedup("f32", w, masks, len(i), True)
+                                                    for i, w in zip(idxs, words)]), flush=flush)
+    plain_c = _time_launch(torch, every_card(lambda: [md._plain("f32", w, masks, len(i), True)
+                                                       for i, w in zip(idxs, words)]), reps=3)
+    bound_c = sum(_merge_bound(w, len(i), "f32")[0] for i, w in zip(idxs, words))
+    rows.append({"name": "dist_merge_dedup (merge_dedup f32 per shard)", "route": "cuda",
+                 "source": MERGE_SRC, "replaces": MESH_REPLACES["merge"],
+                 "launches": launches["dist_merge_f32"], "max_abs_err": 0.0, "ms": ms_c,
+                 "plain_ms": plain_c, "bound_ms": bound_c, "bound_by": "bytes",
+                 "library_ms": None})
+    say(f"kernel dist_merge_dedup at {MERGE_CHUNK_ROWS} rows ({[len(i) for i in idxs]} a "
+        f"shard): {ms_c:.4f} ms, plain {plain_c:.4f} ms, bound {bound_c:.4f} ms (bytes), "
+        f"kernel = plain [{card}]")
+    del idxs, words, flush
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    DETAIL["mesh_main"] = {"mesh": str(mesh), "real_rows": real, "shard_rows": per,
+                           "launches": launches, "path_s": path_s, "merge_s": merge_s,
+                           "queries": results, "rows": rows}
+    return rows
+
+
+def every_phase(torch, timed, card) -> list:
+    """Phases 3-22 and the later ones in order; returns the kernel table."""
+    timed(phase_kernels, torch)
+    timed(phase_merge_kernels, torch)
+    timed(phase_lw_kernels, torch)
+    main_out = timed(phase_main, torch)
+    errs = timed(phase_replay, torch, main_out)
+    kernels = timed(phase_timings, torch, main_out, errs, card)
+    timed(phase_raw_kernels, torch)
+    raw = timed(phase_raw_main, torch, main_out)
+    kernels += timed(phase_raw_timings, torch, raw, card)
+    timed(phase_cohort_kernels, torch)
+    flood = timed(phase_flood, torch, main_out)
+    kernels += timed(phase_flood_timings, torch, main_out, flood, raw, card)
+    timed(phase_hash_kernels, torch)
+    kernels += timed(phase_hash_main, torch, main_out, card)
+    timed(phase_mesh_kernels, torch)
+    kernels += timed(phase_mesh_main, torch, main_out, card)
+    del raw, flood
+    main_out["db"].close()
+    del main_out
+    comp = timed(phase_compaction, torch, COMPACTION_ROWS)
+    passes = timed(phase_merge_replay, torch, comp)
+    kernels += timed(phase_merge_timings, torch, comp, passes, card)
+    del comp
+    lw_main = timed(phase_lw_main, torch)
+    kernels += timed(phase_lw_timings, torch, lw_main, card)
+    lw_main["db"].close()
+    del lw_main
+    timed(phase_lw_promql, torch)
+    return kernels
+
+
+def mesh_only(torch, timed, card) -> list:
+    """``--mesh-only``: the sharded main path (phase 22) and what it is held
+    to, phases 4 and 15 (the cpu table, its single-device answers and the
+    raised host-copy budget), for a host of several cards, where phase 22
+    shards over every card. Returns phase 22's kernel rows."""
+    main_out = timed(phase_main, torch)
+    timed(phase_raw_main, torch, main_out)
+    kernels = timed(phase_mesh_main, torch, main_out, card)
+    main_out["db"].close()
+    return kernels
+
+
+def main(argv) -> int:
+    global MESH_ONLY
+    if argv not in ([], ["--mesh-only"]):
+        print(f"usage: python3 chip_smoke.py [--mesh-only] (got {argv})", file=sys.stderr)
+        return 2
+    MESH_ONLY = argv == ["--mesh-only"]
     try:
         import torch
     except ImportError:
@@ -4096,40 +4671,25 @@ def main() -> int:
         DETAIL["phase_seconds"][fn.__name__] = time.perf_counter() - t
         return out
 
-    card = timed(phase_card, torch)
-    timed(phase_build)
-    timed(phase_kernels, torch)
-    timed(phase_merge_kernels, torch)
-    timed(phase_lw_kernels, torch)
-    main_out = timed(phase_main, torch)
-    errs = timed(phase_replay, torch, main_out)
-    kernels = timed(phase_timings, torch, main_out, errs, card)
-    timed(phase_raw_kernels, torch)
-    raw = timed(phase_raw_main, torch, main_out)
-    kernels += timed(phase_raw_timings, torch, raw, card)
-    timed(phase_cohort_kernels, torch)
-    flood = timed(phase_flood, torch, main_out)
-    kernels += timed(phase_flood_timings, torch, main_out, flood, raw, card)
-    timed(phase_hash_kernels, torch)
-    kernels += timed(phase_hash_main, torch, main_out, card)
-    del raw, flood
-    main_out["db"].close()
-    del main_out
-    comp = timed(phase_compaction, torch, COMPACTION_ROWS)
-    passes = timed(phase_merge_replay, torch, comp)
-    kernels += timed(phase_merge_timings, torch, comp, passes, card)
-    del comp
-    lw_main = timed(phase_lw_main, torch)
-    kernels += timed(phase_lw_timings, torch, lw_main, card)
-    lw_main["db"].close()
-    del lw_main
-    timed(phase_lw_promql, torch)
+    from horaedb_tpu_torch.parallel.mesh import use_mesh
+
+    # every phase serves from one card (phase 22 installs its own mesh), on
+    # a host of several cards too
+    with use_mesh(None):
+        card = timed(phase_card, torch)
+        timed(phase_build)
+        if MESH_ONLY:
+            kernels = mesh_only(torch, timed, card)
+        else:
+            kernels = every_phase(torch, timed, card)
     say("phase seconds: " + json.dumps({k: round(v, 1)
                                          for k, v in DETAIL["phase_seconds"].items()}))
     DETAIL["run_seconds"] = time.perf_counter() - t_run
-    say(f"chip_smoke: every phase passed in {DETAIL['run_seconds']:.1f} s")
+    say(f"chip_smoke: every phase{' of --mesh-only' if MESH_ONLY else ''} passed in "
+        f"{DETAIL['run_seconds']:.1f} s")
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+    name = "chip_smoke_mesh.json" if MESH_ONLY else "chip_smoke.json"
+    with open(os.path.join(OUT_DIR, name), "w") as f:
         json.dump(DETAIL, f, indent=1, default=str)
     say(card)
     say(json.dumps({"kernels": kernels}))
@@ -4141,7 +4701,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except Exception:
         traceback.print_exc()
         sys.exit(1)

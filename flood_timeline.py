@@ -6,7 +6,7 @@ phase 15 leaves it for phase 18 (every flood query then folds that
 delta, outside its time range, on the host), then drives chip_smoke's
 flood (32 threads on one shared query counter, the
 reference flood's closed loop) through ``Proxy.handle_sql``: the fused
-arm ([wlm.batch] on, window 5 ms, cohorts up to 32), the solo arm, the
+arm ([wlm.batch] on, chip_smoke's window, cohorts up to 32), the solo arm, the
 fused arm again. Each arm records, per query, when it entered
 ``handle_sql``, joined the batcher, came back and left, and how long the
 executor's prepare, dispatch and assembly took, under the GIL contention
@@ -155,8 +155,8 @@ def main() -> int:
     instrument(tl)
     os.makedirs(C.OUT_DIR, exist_ok=True)
     for i, arm in enumerate(("fused", "solo", "fused")):
-        cfg = BatchSection(enabled=True, window_s=0.005, max_cohort=32) if arm == "fused" \
-            else None
+        cfg = (BatchSection(enabled=True, window_s=C.FLOOD_WINDOW_S, max_cohort=32)
+               if arm == "fused" else None)
         proxy = Proxy(db, batch_cfg=cfg)
         handle = proxy.handle_sql
 

@@ -52,12 +52,16 @@ from ..utils.metrics import REGISTRY
 # like SEGMENT_KERNEL_LABELS / RAW_SCAN_PATHS).
 DEVICE_KERNEL_KINDS = (
     "cached_packed",   # packed cached agg over the resident columns
+    "cached_dist",     # its sharded form: one launch a shard + mesh_combine
     "cached_cohort",   # cohort cached agg: B queries in one launch (wlm/batch)
     "fused",           # direct fused scan-agg over a host batch
+    "fused_dist",      # its sharded form (parallel/dist_agg)
     "merge_dedup",     # merge-dedup sort of a read merge or compaction chunk
     "state_fold",      # live-window ring fold/gather (ops/livewindow)
     "raw_topk",        # raw-read fused filter + top-k (ops/scan_topk)
     "raw_select",      # raw-read bounded selection (ops/scan_topk)
+    "raw_topk_dist",   # sharded raw variants (parallel/dist_raw)
+    "raw_select_dist",
 )
 
 # Occupancy row components: "column" rows sum to the scan cache's own

@@ -10,6 +10,7 @@
 //   horaedb_tpu/ops/hash_agg.py  hash_segment_agg                        (B2d)
 //   horaedb_tpu/ops/encoding.py  unpack_bits, decode_series/ts/value,
 //                                decode_layouts                          (B3)
+//   horaedb_tpu/parallel/dist_agg.py  _combine (psum/pmin/pmax)          (B7a)
 //
 // Two entry points share one reduction core:
 //   scan_agg_direct  rows of a host-built padded batch (group code, bucket
@@ -72,6 +73,17 @@
 //            saves is global atomics on a wide output.
 // Counts are int32 atomicAdd, sums f32 atomicAdd. Min and max are exact
 // and follow the reference's scatter arm: NaN propagates, and -0.0 < +0.0.
+//
+// mesh_combine (B7a) is the aggregation monoid over the S partials of a
+// sharded aggregate, one launch per combine: counts int32 add, sums f32
+// add in shard order, mins fmin_t and maxs fmax_t (the order every arm
+// keeps, so a sharded answer is bit-equal to the single-device one where
+// the reference's pmin/pmax drop NaN and order +-0 by shard). Each of the
+// four planes (counts, sums, mins, maxs) is a row of the grid; a thread
+// reads element i of every shard's plane and writes it once. It serves
+// the cached path's packed buffers (planes at offsets of one buffer) and
+// the direct path's four arrays alike. Bound: S planes read and one
+// written, over HBM bandwidth.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -618,6 +630,39 @@ __global__ void __launch_bounds__(BLOCK) scan_agg_cohort(const __grid_constant__
   }
 }
 
+// ---- mesh_combine: the monoid over the shards' partials (B7a) ---------------
+
+#define MAX_SHARDS 64
+
+struct CombineArgs {
+  const float* src[4][MAX_SHARDS];  // plane p of shard d (counts: int32 bits)
+  float* dst[4];                    // plane p of the result
+  long long len[4];                 // elements of plane p; 0 when absent
+  int shards;
+  int device;
+};
+
+__global__ void __launch_bounds__(BLOCK) mesh_combine(const __grid_constant__ CombineArgs a) {
+  const int p = blockIdx.y;
+  const long long n = a.len[p];
+  const long long stride = (long long)gridDim.x * BLOCK;
+  const int S = a.shards;
+  for (long long i = (long long)blockIdx.x * BLOCK + threadIdx.x; i < n; i += stride) {
+    if (p == 0) {
+      int acc = 0;
+      for (int d = 0; d < S; ++d) acc += ((const int*)a.src[0][d])[i];
+      ((int*)a.dst[0])[i] = acc;
+    } else {
+      float acc = a.src[p][0][i];
+      for (int d = 1; d < S; ++d) {
+        const float v = a.src[p][d][i];
+        acc = p == 1 ? acc + v : (p == 2 ? fmin_t(acc, v) : fmax_t(acc, v));
+      }
+      a.dst[p][i] = acc;
+    }
+  }
+}
+
 // ---- host launch (plain C interface, loaded with ctypes) --------------------
 
 static size_t smem_bytes(int arm, const Out& out) {
@@ -676,7 +721,30 @@ int scan_agg_abi(long long* sizes) {
   sizes[5] = MAX_FIELDS;
   sizes[6] = MAX_FILTERS;
   sizes[7] = sizeof(CohortArgs);
+  sizes[8] = sizeof(CombineArgs);
+  sizes[9] = MAX_SHARDS;
   return 0;
+}
+
+int scan_agg_combine_launch(const CombineArgs* a, void* stream) {
+  if (a->shards < 1 || a->shards > MAX_SHARDS) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(a->device);
+  if (err != cudaSuccess) return err;
+  long long longest = 0;
+  for (int p = 0; p < 4; ++p) longest = a->len[p] > longest ? a->len[p] : longest;
+  if (longest == 0) return cudaSuccess;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, a->device);
+  if (err != cudaSuccess) return err;
+  // a few waves of blocks over the longest plane, grid-striding past them
+  long long want = (longest + BLOCK * 4 - 1) / (BLOCK * 4);
+  long long cap = (long long)sms * 8;
+  int grid = (int)(want < cap ? want : cap);
+  void* params[] = {(void*)a};
+  err = cudaLaunchKernel((const void*)mesh_combine, dim3(grid, 4), dim3(BLOCK), params, 0,
+                         (cudaStream_t)stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 int scan_agg_direct_launch(const DirectArgs* a, int arm, void* stream) {

@@ -36,7 +36,10 @@
 //                strict rows first, in row order, then ties in row order;
 //                tiles whose offset is past the last slot return at once;
 //   raw_fill     slots past the rows written get -1 (or n_rows where the
-//                reference's searchsorted runs past its stream).
+//                reference's searchsorted runs past its stream); where the
+//                caller asks (key_out), every slot's key too, INT32_MIN for
+//                a slot that holds no row (the reference's keys output,
+//                which the sharded top-k merges on).
 // No host round trip between launches: one copy of the k slots comes back.
 //
 // Selection: raw_flags decodes and masks (the ballot words are the mask),
@@ -102,6 +105,7 @@ struct RawArgs {
   int* keys;           // [n_rows] (top-k only)
   int* scratch;        // [state | hist 256 | counts 2 x tiles | bits 2 x tiles x WORDS]
   int* out;            // top-k [k]; selection [1 + k]
+  int* key_out;        // top-k: the slots' keys [k], or null
   long long n_rows;
   long long k;         // top-k slots, or the selection's slots
   int descending;
@@ -461,7 +465,8 @@ __global__ void __launch_bounds__(WORDS) raw_write(const __grid_constant__ RawAr
 // n_rows there; never with seeds that bracket the keys). Selection: -1
 // from min(count, slots) on.
 __device__ __forceinline__ void fill_slots(const Scratch& s, long long n_rows, long long k,
-                                           int* out, int mode, long long blk, long long nblk) {
+                                           int* out, int mode, long long blk, long long nblk,
+                                           const int* keys = nullptr, int* key_out = nullptr) {
   const long long stride = nblk * BLOCK;
   if (mode == MODE_SELECT) {
     const long long count = s.st[ST_TOTAL];
@@ -472,12 +477,15 @@ __device__ __forceinline__ void fill_slots(const Scratch& s, long long n_rows, l
   const long long n_strict = s.st[ST_STRICT], n_tie = s.st[ST_TIE], limit = s.st[ST_LIMIT];
   for (long long j = blk * BLOCK + threadIdx.x; j < k; j += stride) {
     const bool written = j < n_strict || (j < limit && j - n_strict < n_tie);
-    if (!written) out[j] = j < limit ? (int)n_rows : -1;
+    const int row = written ? out[j] : (j < limit ? (int)n_rows : -1);
+    if (!written) out[j] = row;
+    if (key_out) key_out[j] = row >= 0 && row < n_rows ? keys[row] : KEY_MASKED;
   }
 }
 
 __global__ void __launch_bounds__(BLOCK) raw_fill(const __grid_constant__ RawArgs a, int mode) {
-  fill_slots(scratch_of(a), a.n_rows, a.k, a.out, mode, blockIdx.x, gridDim.x);
+  fill_slots(scratch_of(a), a.n_rows, a.k, a.out, mode, blockIdx.x, gridDim.x, a.keys,
+             a.key_out);
 }
 
 // ---- cohort top-k (B4c) ---------------------------------------------------------

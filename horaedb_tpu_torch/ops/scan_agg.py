@@ -21,6 +21,11 @@ this module (``scan_agg_body``, ``_packed_body``, ``_cohort_body``; the
 ``hash`` arm's is ``hash_agg.hash_segment_agg_plain``). Nothing else
 chooses between them.
 
+``mesh_combine`` (packed buffers) and ``mesh_combine_state`` (the four
+arrays) combine the S partials of a sharded aggregate (parallel/dist_agg)
+in one launch of the ``mesh_combine`` kernel; ``combine_planes_plain`` is
+their plain version.
+
 ``cached_scan_agg_cohort`` serves a cohort of B shape-identical queries
 (one session and dyn row each) in one launch that decodes each tile of
 resident rows once for all members; ``selective_cached_scan_agg`` is the
@@ -75,6 +80,10 @@ MAX_FILTERS = 16
 _FORMS = ("direct", "cached", "cached_selective", "cached_cohort")
 LAUNCHES = {form: {arm: 0 for arm in ARMS} for form in _FORMS}
 PLAIN_CALLS = {form: 0 for form in _FORMS}
+# mesh_combine launches and plain calls by form: "packed" buffers or the
+# four "state" arrays
+COMBINE_LAUNCHES = {"packed": 0, "state": 0}
+COMBINE_PLAIN_CALLS = {"packed": 0, "state": 0}
 _COUNTS_LOCK = threading.Lock()
 
 
@@ -90,6 +99,9 @@ def reset_counts() -> None:
                 form[arm] = 0
         for k in PLAIN_CALLS:
             PLAIN_CALLS[k] = 0
+        for d in (COMBINE_LAUNCHES, COMBINE_PLAIN_CALLS):
+            for k in d:
+                d[k] = 0
 
 
 def shared_fits(n_seg: int, n_agg_fields: int, need_minmax: bool = True) -> bool:
@@ -395,6 +407,37 @@ def packed_len(n_groups: int, n_buckets: int, n_agg_fields: int, need_minmax: bo
     return n_groups * n_buckets * (1 + planes * n_agg_fields)
 
 
+def combine_planes_plain(planes) -> list:
+    """Plain version of ``mesh_combine``: ``planes`` is four lists (counts,
+    sums, mins, maxs), each of the S shards' tensors of that plane, or an
+    empty list for an absent plane. Counts add as int32 (their bits, in
+    float32 or int32 tensors), sums as f32 in shard order, mins and maxs by
+    the order key of ``_order_key`` (-0.0 below +0.0) with NaN winning, as
+    the kernel's ``fmin_t``/``fmax_t``. One tensor per plane (None where
+    absent)."""
+    out: list = []
+    for p, parts in enumerate(planes):
+        if not parts:
+            out.append(None)
+        elif p == 0:
+            acc = parts[0].contiguous().view(torch.int32).clone()
+            for t in parts[1:]:
+                acc += t.contiguous().view(torch.int32)
+            out.append(acc.view(parts[0].dtype))
+        elif p == 1:
+            acc = parts[0].clone()
+            for t in parts[1:]:
+                acc += t
+            out.append(acc)
+        else:
+            keys = torch.stack([_order_key(t) for t in parts])
+            best = keys.amin(0) if p == 2 else keys.amax(0)
+            nan = torch.stack([torch.isnan(t) for t in parts]).any(0)
+            res = _from_key(best)
+            out.append(torch.where(nan, torch.full_like(res, float("nan")), res))
+    return out
+
+
 def _cohort_body(series_codes, ts_rel, values, sessions, dyns, **kw):
     """Plain version of the cohort kernel: ``_packed_body`` once per
     member (row b of ``sessions`` int32[B, 2(S+1)] and ``dyns`` int32[B,
@@ -524,6 +567,21 @@ def cohort_arm(segment_impl: str, members: int, n_fields: int, n_seg: int,
     return segment_impl
 
 
+MAX_SHARDS = 64
+
+
+class _CombineArgs(ctypes.Structure):
+    """Mirror of ``CombineArgs`` in ops/csrc/scan_agg.cu."""
+
+    _fields_ = [
+        ("src", (ctypes.c_void_p * MAX_SHARDS) * 4),
+        ("dst", ctypes.c_void_p * 4),
+        ("len", ctypes.c_longlong * 4),
+        ("shards", ctypes.c_int),
+        ("device", ctypes.c_int),
+    ]
+
+
 # column layout codes of the kernel (ops/csrc/scan_agg.cu)
 _LAY_RAW, _LAY_BF16, _LAY_DICT, _LAY_CODES, _LAY_DELTA, _LAY_TSDICT = range(6)
 
@@ -552,14 +610,17 @@ def _kernels():
             ctypes.POINTER(_CohortArgs), ctypes.c_int, ctypes.c_void_p,
         ]
         lib.scan_agg_cohort_launch.restype = ctypes.c_int
+        lib.scan_agg_combine_launch.argtypes = [ctypes.POINTER(_CombineArgs), ctypes.c_void_p]
+        lib.scan_agg_combine_launch.restype = ctypes.c_int
         lib.scan_agg_error_string.argtypes = [ctypes.c_int]
         lib.scan_agg_error_string.restype = ctypes.c_char_p
-        sizes = (ctypes.c_longlong * 8)()
+        sizes = (ctypes.c_longlong * 10)()
         lib.scan_agg_abi(sizes)
         want = [
             ctypes.sizeof(_Column), ctypes.sizeof(_Out), ctypes.sizeof(_Filters),
             ctypes.sizeof(_DirectArgs), ctypes.sizeof(_CachedArgs),
             MAX_FIELDS, MAX_FILTERS, ctypes.sizeof(_CohortArgs),
+            ctypes.sizeof(_CombineArgs), MAX_SHARDS,
         ]
         if list(sizes) != want:
             raise RuntimeError(f"scan_agg ABI mismatch: kernel {list(sizes)} vs {want}")
@@ -1005,6 +1066,103 @@ def selective_cached_scan_agg(
             packed[n_seg + 2 * fs:].view(shape)
     zero = torch.zeros_like(sums)
     return counts, sums, zero, zero
+
+
+def _combine(planes, outs, form: str) -> None:
+    """One ``mesh_combine`` launch: plane p of the result into ``outs[p]``
+    from ``planes[p]`` (one tensor per shard, all on one card; an empty
+    list and None for an absent plane)."""
+    dev = outs[0].device
+    shards = len(planes[0])
+    _check(1 <= shards <= MAX_SHARDS, f"{shards} shards, at most {MAX_SHARDS}")
+    a = _CombineArgs()
+    for p, (parts, out) in enumerate(zip(planes, outs)):
+        if not parts:
+            continue
+        _check(len(parts) == shards, f"plane {p} has {len(parts)} shards, not {shards}")
+        n = out.numel()
+        for d, t in enumerate(parts):
+            _check(t.device == dev, f"shard {d} plane {p} on {t.device}, expected {dev}")
+            _check(t.dtype == out.dtype and t.is_contiguous() and t.numel() == n,
+                   f"shard {d} plane {p}: {t.dtype} [{t.numel()}], expected {out.dtype} [{n}]")
+            a.src[p][d] = t.data_ptr()
+        a.dst[p] = out.data_ptr()
+        a.len[p] = n
+    a.shards = shards
+    a.device = dev.index if dev.index is not None else torch.cuda.current_device()
+    lib = _kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _launch_error(lib, lib.scan_agg_combine_launch(ctypes.byref(a), stream), "mesh_combine")
+    _count(COMBINE_LAUNCHES, form)
+
+
+def _packed_planes(buf, n_seg: int, n_agg_fields: int, need_minmax: bool) -> list:
+    """The four planes of one packed buffer as views (an absent plane:
+    None)."""
+    fs = n_agg_fields * n_seg
+    planes = [buf[:n_seg], buf[n_seg:n_seg + fs]]
+    if need_minmax:
+        planes += [buf[n_seg + fs:n_seg + 2 * fs], buf[n_seg + 2 * fs:n_seg + 3 * fs]]
+    else:
+        planes += [None, None]
+    return planes
+
+
+def mesh_combine(parts, *, n_seg: int, n_agg_fields: int, need_minmax: bool):
+    """The sharded cached path's combine: ``parts`` is f32[S, packed_len]
+    or S packed buffers f32[packed_len] (``cached_scan_agg_packed``'s
+    output, all on one device) -> one packed buffer of the combined state
+    on that device, so the host still makes one fetch.
+
+    A CUDA input launches ``mesh_combine``; a CPU input runs
+    ``combine_planes_plain``."""
+    parts = list(parts)
+    _check(len(parts) >= 1, "no partials to combine")
+    length = packed_len(1, n_seg, n_agg_fields, need_minmax)
+    for d, t in enumerate(parts):
+        _check(isinstance(t, torch.Tensor) and t.dtype == torch.float32 and t.dim() == 1
+               and t.shape[0] == length, f"partial {d} is not f32[{length}]")
+    dev = parts[0].device
+    split = [_packed_planes(t, n_seg, n_agg_fields, need_minmax) for t in parts]
+    planes = [[s[p] for s in split] if split[0][p] is not None else [] for p in range(4)]
+    if dev.type == "cpu":
+        _count(COMBINE_PLAIN_CALLS, "packed")
+        return torch.cat([x for x in combine_planes_plain(planes) if x is not None])
+    _check(dev.type == "cuda", f"unsupported device {dev}")
+    out = torch.empty(length, dtype=torch.float32, device=dev)
+    _combine(planes, _packed_planes(out, n_seg, n_agg_fields, need_minmax), "packed")
+    return out
+
+
+def mesh_combine_state(states, *, need_minmax: bool):
+    """The sharded direct path's combine: ``states`` is S tuples (counts
+    int32[G, B], sums/mins/maxs f32[F, G, B]), all on one device (the
+    ``fused_scan_agg`` outputs) -> one such tuple on that device. Without
+    ``need_minmax`` the mins and maxs are zeros, as the kernel gives them.
+
+    A CUDA input launches ``mesh_combine``; a CPU input runs
+    ``combine_planes_plain``."""
+    states = [tuple(s) for s in states]
+    _check(len(states) >= 1, "no partials to combine")
+    c0, s0, _, _ = states[0]
+    dev = c0.device
+    planes = [[st[p].reshape(-1) for st in states] for p in range(4)]
+    if not need_minmax or s0.numel() == 0:
+        planes[2] = planes[3] = []
+    if s0.numel() == 0:
+        planes[1] = []
+    if dev.type == "cpu":
+        _count(COMBINE_PLAIN_CALLS, "state")
+        res = combine_planes_plain(planes)
+    else:
+        _check(dev.type == "cuda", f"unsupported device {dev}")
+        res = [torch.empty_like(planes[p][0]) if planes[p] else None for p in range(4)]
+        _combine(planes, res, "state")
+    counts = res[0].view(c0.shape)
+    sums = res[1].view(s0.shape) if res[1] is not None else torch.zeros_like(s0)
+    mins = res[2].view(s0.shape) if res[2] is not None else torch.zeros_like(s0)
+    maxs = res[3].view(s0.shape) if res[3] is not None else torch.zeros_like(s0)
+    return counts, sums, mins, maxs
 
 
 # ---- host-facing helpers ---------------------------------------------------

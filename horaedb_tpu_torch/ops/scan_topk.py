@@ -240,10 +240,12 @@ def _compact(mask, slots: int):
 
 def raw_topk_body(series_codes, ts_rel, values, allowed_series, literals, lo_rel, hi_rel,
                   key_lo, key_hi, *, k: int, descending: bool, key_is_ts: bool,
-                  key_field: int, numeric_filters):
+                  key_field: int, numeric_filters, with_keys: bool = False):
     """-> row idx int32[k]: the top-k rows by key, ties broken toward the
     smaller resident row id; strict rows first in row order, then ties;
-    -1 in slots with no passing row."""
+    -1 in slots with no passing row. ``with_keys``: int32[2, k], the slots
+    and then their keys (INT32_MIN where a slot holds no row), as the
+    reference's body returns them."""
     m = _raw_mask(series_codes, ts_rel, values, allowed_series, literals, lo_rel, hi_rel,
                   numeric_filters)
     key = _sort_key(ts_rel, values, m, descending=descending, key_is_ts=key_is_ts,
@@ -258,7 +260,14 @@ def raw_topk_body(series_codes, ts_rel, values, allowed_series, literals, lo_rel
     # strict rows fill the first n_strict slots; lowest-row-id ties the rest
     idx = torch.where(j < n_strict, i_strict, i_tie[(j - n_strict).clamp(0, k - 1)])
     valid = j < min(k, total)
-    return torch.where(valid, idx, torch.full_like(idx, -1))
+    idx = torch.where(valid, idx, torch.full_like(idx, -1))
+    if not with_keys:
+        return idx
+    n = key.shape[0]
+    held = (idx >= 0) & (idx < n)  # a slot past the tie stream holds n_rows: no key
+    keys = key[idx.long().clamp(0, n - 1)] if n else torch.zeros_like(idx)
+    keys = torch.where(held, keys.to(torch.int32), torch.full_like(idx, _I32_MIN))
+    return torch.stack([idx, keys])
 
 
 def raw_select_body(series_codes, ts_rel, values, allowed_series, literals, lo_rel, hi_rel,
@@ -284,14 +293,16 @@ def _unpack_dyn(dyn, numeric_filters):
 def raw_topk_plain(series_parts, ts_parts, values, session, dyn, *, k: int,
                    descending: bool, key_is_ts: bool, key_field: int, numeric_filters,
                    value_layouts: tuple = (), ts_layout: tuple = ("raw",),
-                   series_layout: tuple = ("raw",)):
-    """Plain version of ``raw_topk_packed``: the same inputs, int32[k]."""
+                   series_layout: tuple = ("raw",), with_keys: bool = False):
+    """Plain version of ``raw_topk_packed``: the same inputs, int32[k]
+    (int32[2, k] ``with_keys``)."""
     literals, lo, hi, key_lo, key_hi = _unpack_dyn(dyn, numeric_filters)
     sc, tr, vals = decode_layouts(series_parts, ts_parts, values, series_layout, ts_layout,
                                   value_layouts)
     return raw_topk_body(sc, tr, vals, session != 0, literals, lo, hi, key_lo, key_hi,
                          k=k, descending=descending, key_is_ts=key_is_ts,
-                         key_field=key_field, numeric_filters=numeric_filters)
+                         key_field=key_field, numeric_filters=numeric_filters,
+                         with_keys=with_keys)
 
 
 def raw_select_plain(series_parts, ts_parts, values, session, dyn, *, select_slots: int,
@@ -333,6 +344,7 @@ class _RawArgs(ctypes.Structure):
         ("keys", ctypes.c_void_p),
         ("scratch", ctypes.c_void_p),
         ("out", ctypes.c_void_p),
+        ("key_out", ctypes.c_void_p),
         ("n_rows", ctypes.c_longlong),
         ("k", ctypes.c_longlong),
         ("descending", ctypes.c_int),
@@ -447,8 +459,10 @@ def _run(lib, fn: str, a: _RawArgs, dev) -> None:
 def raw_topk_packed(series_parts, ts_parts, values, session, dyn, *, k: int,
                     descending: bool, key_is_ts: bool, key_field: int, numeric_filters,
                     value_layouts: tuple = (), ts_layout: tuple = ("raw",),
-                    series_layout: tuple = ("raw",)):
-    """-> int32[k] resident row indices, -1 in slots with no passing row.
+                    series_layout: tuple = ("raw",), with_keys: bool = False):
+    """-> int32[k] resident row indices, -1 in slots with no passing row;
+    ``with_keys``: int32[2, k], the slots and then the int32 keys the
+    kernel ranked them by (INT32_MIN in a slot with no row), one buffer.
 
     Resident series/ts/value part tuples, one session buffer (the allow
     list, int32[S + 1]), one dyn buffer [literals bitcast | lo, hi,
@@ -458,7 +472,7 @@ def raw_topk_packed(series_parts, ts_parts, values, session, dyn, *, k: int,
     layouts = value_layouts or tuple(_dense_layout(p) for p in values)
     kw = dict(k=k, descending=descending, key_is_ts=key_is_ts, key_field=key_field,
               numeric_filters=numeric_filters, value_layouts=layouts, ts_layout=ts_layout,
-              series_layout=series_layout)
+              series_layout=series_layout, with_keys=with_keys)
     _check(k >= 1, f"k {k} must be at least 1")
     _check(key_is_ts or 0 <= key_field < len(values), f"key field {key_field} out of range")
     dev = session.device
@@ -470,8 +484,10 @@ def raw_topk_packed(series_parts, ts_parts, values, session, dyn, *, k: int,
     lib = _kernels()
     keys = torch.empty(n_rows, dtype=torch.int32, device=dev)
     scratch = torch.empty(_scratch_words(n_rows), dtype=torch.int32, device=dev)
-    out = torch.empty(k, dtype=torch.int32, device=dev)
+    out = torch.empty((2, k) if with_keys else k, dtype=torch.int32, device=dev)
     a.keys, a.scratch, a.out = keys.data_ptr(), scratch.data_ptr(), out.data_ptr()
+    if with_keys:
+        a.key_out = out[1].data_ptr()
     a.k = k
     a.descending, a.key_is_ts, a.key_field = int(descending), int(key_is_ts), key_field
     _run(lib, "raw_topk_launch", a, dev)

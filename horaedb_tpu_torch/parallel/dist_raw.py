@@ -1,0 +1,131 @@
+"""Sharded raw reads: fused filter + top-k / selection over a mesh.
+
+When a table's scan-cache entry is sharded over the mesh (contiguous row
+blocks, one per device, raw layouts), raw reads run the SAME kernels as
+the single-device path (ops/scan_topk, B4) once per shard, on the shard's
+device:
+
+- **top-k**: each shard computes its local top-k (the caller clamps k to
+  the shard length: a shard shorter than k contributes all its passing
+  rows, still a superset of the global top-k). Local row ids become GLOBAL
+  resident ids (+ shard index x shard length); each launch hands back its
+  slots with the keys it ranked them by (one buffer, one fetch), and the
+  host merges the n_dev lists with ``np.lexsort``
+  (key descending, row id ascending) and cuts them at the count the
+  caller needs, never at the shard-clamped k.
+- **selection**: each shard compacts its passing rows into its own
+  bounded buffer; the shards' valid prefixes stitch in shard order, which
+  is the global resident (series, ts) order.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.scan_topk import RawScanSpec
+from .dist_agg import _on
+from .mesh import Mesh, on_device
+
+
+def _per_device(mesh: Mesh, tensors) -> dict:
+    """Each distinct device of the mesh -> ``tensors`` on it."""
+    out: dict = {}
+    for dev in mesh.devices:
+        if dev not in out:
+            out[dev] = tuple(_on(t, dev) for t in tensors)
+    return out
+
+
+def _layouts(spec: RawScanSpec, n_fields: int) -> dict:
+    return dict(
+        value_layouts=spec.value_layouts or tuple(("raw",) for _ in range(n_fields)),
+        ts_layout=spec.ts_layout, series_layout=spec.series_layout,
+    )
+
+
+def merge_topk(keys: np.ndarray, ids: np.ndarray, need: int, key_lo: int) -> np.ndarray:
+    """The top ``need`` candidates by key descending, row id ascending (the
+    single-device tie rule), in the single-device kernel's slot order: the
+    rows above the ``need``-th key in row order, then its ties in row order.
+    With fewer than ``need`` candidates the threshold is ``key_lo + 1``,
+    where the kernel's search for the k-th key ends when fewer rows pass."""
+    order = np.lexsort((ids, -keys))
+    top = order[:need]
+    thr = keys[order[need - 1]] if len(order) >= need else key_lo + 1
+    k, i = keys[top], ids[top]
+    strict = np.sort(i[k > thr])
+    ties = np.sort(i[k == thr])
+    return np.concatenate([strict, ties])
+
+
+def dist_raw_topk(
+    mesh: Mesh, spec: RawScanSpec, series_shards, ts_shards, value_shards, session, dyn,
+    *, need: int, key_lo: int,
+) -> np.ndarray:
+    """Run the top-k on every shard (``spec.k``, which the caller clamps to
+    the shard length) and merge the candidates on the host: global resident
+    row ids of the top ``need`` passing rows in the slot order the
+    single-device kernel gives for k = ``need`` (``merge_topk``; ``key_lo``
+    is the dyn row's lower key seed). ``need`` may exceed ``spec.k``: the
+    union holds up to n_dev * k candidates and is cut at the requested
+    count. ``session`` (the allow list) and ``dyn`` [literals | lo, hi,
+    key_lo, key_hi] lie on ``mesh.first``."""
+    from ..ops import scan_topk
+    from ..ops.encoding import layout_rows
+    from ..ops.scan_agg import encode_filter_ops
+
+    nfilters = encode_filter_ops(spec.numeric_filters)
+    inputs = _per_device(mesh, (session, dyn))
+    outs, offsets = [], []
+    offset = 0
+    for d, dev in enumerate(mesh.devices):
+        lay = _layouts(spec, len(value_shards[d]))
+        with on_device(dev):
+            outs.append(scan_topk.raw_topk_packed(
+                series_shards[d], ts_shards[d], value_shards[d], *inputs[dev], k=spec.k,
+                descending=spec.descending, key_is_ts=spec.key_is_ts,
+                key_field=spec.key_field, numeric_filters=nfilters, with_keys=True, **lay,
+            ))
+        offsets.append(offset)
+        offset += layout_rows(series_shards[d], lay["series_layout"])
+    keys, ids = [], []
+    for out, off in zip(outs, offsets):
+        slots, key = out.cpu().numpy().astype(np.int64)
+        local = slots >= 0
+        keys.append(key[local])
+        ids.append(slots[local] + off)
+    ids = np.concatenate(ids)
+    if not len(ids):
+        return ids
+    return merge_topk(np.concatenate(keys), ids, need, key_lo)
+
+
+def dist_raw_select(
+    mesh: Mesh, spec: RawScanSpec, series_shards, ts_shards, value_shards, session, dyn,
+) -> tuple[np.ndarray, int]:
+    """Run the selection on every shard -> (global row ids in resident
+    order, total passing count). A total past ``len(ids)`` means a shard
+    overflowed its buffer: the caller's bound was wrong, and the caller
+    raises."""
+    from ..ops import scan_topk
+    from ..ops.encoding import layout_rows
+    from ..ops.scan_agg import encode_filter_ops
+
+    nfilters = encode_filter_ops(spec.numeric_filters)
+    inputs = _per_device(mesh, (session, dyn))
+    parts, total = [], 0
+    offset = 0
+    for d, dev in enumerate(mesh.devices):
+        lay = _layouts(spec, len(value_shards[d]))
+        with on_device(dev):
+            got = scan_topk.raw_select_packed(
+                series_shards[d], ts_shards[d], value_shards[d], *inputs[dev],
+                select_slots=spec.select_slots, numeric_filters=nfilters, **lay,
+            ).cpu().numpy()
+        n = int(got[0])
+        total += n
+        # a shard past its buffer: its count is the truth, its slots are cut
+        parts.append(got[1:1 + min(n, spec.select_slots)].astype(np.int64) + offset)
+        offset += layout_rows(series_shards[d], lay["series_layout"])
+    return np.concatenate(parts), total

@@ -510,9 +510,9 @@ class CachedAggPrep:
         (``ops.scan_agg.cohort_arm`` then fits it to the cohort, ``hash``
         as ``shared`` or ``scatter``), so a member the router sent to
         probe another arm still rides its cohort's launch. Selective
-        (gathered) dispatches cannot ride the cohort kernel — they stay
-        solo (index-unique key)."""
-        if self.row_idx is not None:
+        (gathered) and mesh-sharded dispatches cannot ride the cohort
+        kernel — they stay solo (index-unique key)."""
+        if self.row_idx is not None or self.entry.mesh is not None:
             return ("solo", i)
         return (
             id(self.entry),
@@ -681,7 +681,7 @@ class Executor:
         if plan.is_aggregate and self._device_capable(plan, rows):
             with _span("aggregate", path="device"):
                 out = self._execute_agg_device(plan, rows, m)
-            path = "device"
+            path = "device-dist" if "mesh_devices" in m else "device"
         elif plan.is_aggregate:
             path = "host"
             with _span("aggregate", path="host"):
@@ -956,10 +956,25 @@ class Executor:
             est_distinct=max(enc.num_groups, 1) * n_buckets,
         )
 
+        # Large scans shard over the device mesh (partial agg per device,
+        # then the mesh_combine kernel); small ones stay single-device where
+        # dispatch overhead dominates. The SAME kernel either way
+        # (parallel/dist_agg wraps ops/scan_agg — the routed segment_impl
+        # rides the spec to every shard).
         import time as _time
 
+        from ..parallel.mesh import dist_min_rows, serving_mesh
+
+        mesh = serving_mesh(device=self.device)
         t_kernel = _time.perf_counter()
-        state = scan_aggregate(batch, spec, literals, device=self.device)
+        if mesh is not None and batch.n_valid >= dist_min_rows():
+            from ..parallel.dist_agg import dist_scan_aggregate
+
+            state = dist_scan_aggregate(mesh, batch, spec, literals)
+            if m is not None:
+                m["mesh_devices"] = mesh.size
+        else:
+            state = scan_aggregate(batch, spec, literals, device=self.device)
         if m is not None:
             self._finish_kernel(
                 krec, spec, m, state,
@@ -1268,7 +1283,7 @@ class Executor:
             spec.hash_slots, value_layouts, entry.ts_layout, entry.series_layout,
         )
         row_idx = None
-        if allow_selective and not empty_range:
+        if entry.mesh is None and allow_selective and not empty_range:
             row_idx = self._selective_row_idx(entry, scan_allowed, lo, hi)
             if row_idx is not None:
                 m["cache_rows"] = int((row_idx != entry.n_valid).sum())
@@ -1289,7 +1304,9 @@ class Executor:
     def dispatch_cached_agg(self, prep: "CachedAggPrep") -> ResultSet:
         """The "spec -> dispatch" half for ONE prepared query: the packed
         kernel launch (one content-cached session upload, one dyn upload,
-        one launch, one packed fetch), delta fold, result assembly."""
+        one launch, one packed fetch), or on a sharded entry one launch per
+        shard and the ``mesh_combine`` launch; then the delta fold and the
+        result assembly."""
         from ..utils.deadline import checkpoint as _deadline_checkpoint
 
         # last cheap exit before committing to the device dispatch
@@ -1314,35 +1331,50 @@ class Executor:
             prep.literals, prep.lo_rel, prep.hi_rel, prep.t0_rel, prep.width_i,
             row_idx,
         )
-        dyn_dev = _to_device(dyn, self.device)
-        packed = timed_dispatch(
-            "cached_packed",
-            lambda: cached_scan_agg_packed(
-                entry.series_parts,
-                entry.ts_parts,
-                values_dev,
-                session_dev,
-                dyn_dev,
-                n_groups=spec.n_groups,
-                n_buckets=spec.n_buckets,
-                n_agg_fields=spec.n_agg_fields,
-                numeric_filters=encode_filter_ops(spec.numeric_filters),
-                need_minmax=spec.need_minmax,
-                segment_impl=spec.segment_impl,
-                hash_slots=spec.hash_slots,
-                selective=row_idx is not None,
-                value_layouts=prep.value_layouts,
-                ts_layout=entry.ts_layout,
-                series_layout=entry.series_layout,
-            ),
-            self.device,
-        )
+        dyn_dev = _to_device(dyn, entry.device)
+        if entry.mesh is not None:
+            # Sharded entry: the row arrays live split across the mesh — one
+            # full-scan launch per shard, then the combine (the DEFAULT
+            # multi-device serving path).
+            from ..parallel.dist_agg import dist_cached_step
+
+            series_shards, ts_shards = entry.shard_parts()
+            packed = timed_dispatch(
+                "cached_dist",
+                lambda: dist_cached_step(entry.mesh, spec, series_shards, ts_shards,
+                                         values_dev, session_dev, dyn_dev,
+                                         value_layouts=prep.value_layouts),
+                entry.device,
+            )
+            m["mesh_devices"] = entry.mesh.size
+            kind, key = "cached_dist", ("cached-dist", entry.mesh.size, *prep.kernel_key)
+        else:
+            packed = timed_dispatch(
+                "cached_packed",
+                lambda: cached_scan_agg_packed(
+                    entry.series_parts,
+                    entry.ts_parts,
+                    values_dev,
+                    session_dev,
+                    dyn_dev,
+                    n_groups=spec.n_groups,
+                    n_buckets=spec.n_buckets,
+                    n_agg_fields=spec.n_agg_fields,
+                    numeric_filters=encode_filter_ops(spec.numeric_filters),
+                    need_minmax=spec.need_minmax,
+                    segment_impl=spec.segment_impl,
+                    hash_slots=spec.hash_slots,
+                    selective=row_idx is not None,
+                    value_layouts=prep.value_layouts,
+                    ts_layout=entry.ts_layout,
+                    series_layout=entry.series_layout,
+                ),
+                self.device,
+            )
+            kind, key = "cached_packed", ("cached-packed", row_idx is not None,
+                                          *prep.kernel_key)
         state = unpack_packed_state(packed, spec)
-        querystats.note_kernel_dispatch(
-            ("cached-packed", row_idx is not None, *prep.kernel_key),
-            _time.perf_counter() - t_kernel,
-            kind="cached_packed",
-        )
+        querystats.note_kernel_dispatch(key, _time.perf_counter() - t_kernel, kind=kind)
         self._finish_kernel(
             prep.krec, spec, m, state, _time.perf_counter() - t_kernel
         )
@@ -1506,7 +1538,8 @@ class Executor:
             if len(grp) == 1:
                 i, prep, t_start = grp[0]
                 try:
-                    if prep.row_idx is None and not prep.empty_range:
+                    if prep.row_idx is None and prep.entry.mesh is None \
+                            and not prep.empty_range:
                         # a lone member pays no merge constraint:
                         # restore the solo path's selective row-gather
                         # that prepare skipped for cohort mergeability
@@ -1915,10 +1948,16 @@ class Executor:
         if not empty_range:
             values_dev = entry.values_for(value_names)
             allow_arr = np.append(allowed, False)  # pad series masked
+            mesh = entry.mesh
+            n_dev = mesh.size if mesh is not None else 1
             if kind == "topk":
-                # k keeps the reference's padding: see padded_k
+                # k keeps the reference's padding: see padded_k. A sharded
+                # entry clamps each shard's k to the shard length (a shard
+                # shorter than k contributes ALL its rows — still a superset
+                # of the global top-k) and cuts the merge at k.
+                k = padded_k(entry.n_valid, limit + offset)
                 spec = RawScanSpec(
-                    k=padded_k(entry.n_valid, limit + offset),
+                    k=min(k, entry.padded_rows // n_dev),
                     descending=not order[2],
                     key_is_ts=order[1],
                     numeric_filters=nfilters,
@@ -1932,7 +1971,7 @@ class Executor:
                 # nothing is compiled per shape).
                 spec = RawScanSpec(select_slots=estimate, numeric_filters=nfilters)
             kernel_key = (
-                "raw", kind, spec.k, spec.select_slots,
+                "raw", kind, n_dev, spec.k, spec.select_slots,
                 spec.descending, spec.key_is_ts, spec.key_field, nfilters,
                 value_layouts, entry.ts_layout, entry.series_layout,
             )
@@ -1943,15 +1982,37 @@ class Executor:
                 )
             session_dev = entry.raw_session_for(allow_arr)
             dyn = _to_device(
-                pack_raw_dyn(literals, lo_rel, hi_rel, key_lo, key_hi), self.device
+                pack_raw_dyn(literals, lo_rel, hi_rel, key_lo, key_hi), entry.device
             )
             layouts = dict(
                 value_layouts=value_layouts,
                 ts_layout=entry.ts_layout,
                 series_layout=entry.series_layout,
             )
-            dkind = "raw_" + kind
-            if kind == "topk":
+            dkind = "raw_" + kind + ("_dist" if mesh is not None else "")
+            if mesh is not None:
+                from ..parallel.dist_raw import dist_raw_select, dist_raw_topk
+
+                m["mesh_devices"] = n_dev
+                spec = dataclasses.replace(spec, **layouts)
+                shards = (*entry.shard_parts(), values_dev, session_dev, dyn)
+                if kind == "topk":
+                    idx = timed_dispatch(
+                        dkind,
+                        lambda: dist_raw_topk(mesh, spec, *shards, need=k, key_lo=key_lo),
+                        entry.device,
+                    )
+                else:
+                    idx, total = timed_dispatch(
+                        dkind, lambda: dist_raw_select(mesh, spec, *shards), entry.device
+                    )
+                    if total > len(idx):
+                        # a fault, not a route (see the single-device arm)
+                        raise RuntimeError(
+                            f"raw selection passed {total} rows into shard buffers of "
+                            f"{spec.select_slots} sized from an exact bound"
+                        )
+            elif kind == "topk":
                 packed = timed_dispatch(
                     dkind,
                     lambda: raw_topk_packed(
@@ -2008,7 +2069,11 @@ class Executor:
         m["raw_candidates"] = int(len(idx))
         with _span("raw_project", table=plan.table):
             out = self._execute_projection(plan, combined, m)
-        querystats.note_raw_scan(kind, kernel="raw_" + kind, rows=out.num_rows)
+        querystats.note_raw_scan(
+            kind + ("_dist" if entry.mesh is not None else ""),
+            kernel="raw_" + kind,
+            rows=out.num_rows,
+        )
         return out
 
     def _raw_candidate_estimate(

@@ -332,10 +332,17 @@ def _partial_kernel(
 
     import time as _time
 
+    from ..parallel.mesh import dist_min_rows, serving_mesh
+
+    mesh = serving_mesh(device=device)
+    literals = [lit for _, _, lit in spec["device_filters"]]
     t_kernel = _time.perf_counter()
-    state = scan_aggregate(
-        batch, kspec, [lit for _, _, lit in spec["device_filters"]], device=device
-    )
+    if mesh is not None and batch.n_valid >= dist_min_rows():
+        from ..parallel.dist_agg import dist_scan_aggregate
+
+        state = dist_scan_aggregate(mesh, batch, kspec, literals)
+    else:
+        state = scan_aggregate(batch, kspec, literals, device=device)
     finish_segment_kernel(
         krec, kspec, m if m is not None else {}, state,
         _time.perf_counter() - t_kernel, n_valid=batch.n_valid,

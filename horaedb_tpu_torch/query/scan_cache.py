@@ -117,6 +117,23 @@ class EncodedColumn:
         return ("dict", self.width, full_decode)
 
 
+@dataclass
+class ShardedColumn:
+    """A value column of a sharded entry: one raw (f32 or bf16) tensor per
+    shard, shard d on the mesh's device d. Duck-types the accounting
+    surface of a plain tensor (``nbytes`` over every shard, ``dtype``)."""
+
+    shards: tuple
+
+    @property
+    def nbytes(self) -> int:
+        return int(sum(t.nbytes for t in self.shards))
+
+    @property
+    def dtype(self):
+        return self.shards[0].dtype
+
+
 def _to_device(arr: np.ndarray, device) -> torch.Tensor:
     """Upload one host column; uint32 word streams travel as int32 bits."""
     if arr.dtype == np.uint32:
@@ -156,8 +173,14 @@ class CachedTableScan:
     series_first_idx: np.ndarray
     n_series: int
     # device value columns by name, shape (padded,): plain f32/bf16
-    # tensors or EncodedColumn wrappers (dictionary layouts)
+    # tensors or EncodedColumn wrappers (dictionary layouts); on a sharded
+    # entry ShardedColumn wrappers
     value_cols_dev: dict
+    # the mesh the row arrays are sharded over (None = single device):
+    # ``series_parts``/``ts_parts`` then hold one raw tensor per shard, in
+    # shard order, and queries on the entry MUST use the sharded kernels
+    # (parallel/dist_agg, parallel/dist_raw)
+    mesh: object = None
     # owning table name — keys the cache's per-column usage map (dtype
     # auto-tuning) from extend paths that only hold the entry.
     table_name: str = ""
@@ -234,9 +257,23 @@ class CachedTableScan:
             return dev.layout(full_decode)
         return ("bf16",) if dev.dtype == torch.bfloat16 else ("raw",)
 
+    def shard_parts(self) -> tuple:
+        """A sharded entry's (series part tuples, ts part tuples), one
+        raw part tuple per shard."""
+        return (
+            tuple((t,) for t in self.series_parts),
+            tuple((t,) for t in self.ts_parts),
+        )
+
     def values_for(self, names: list[str]) -> tuple:
         """Per-field device part tuples, in ``names`` order: the kernel
-        reads each column where it lives, so nothing is stacked."""
+        reads each column where it lives, so nothing is stacked. On a
+        sharded entry: one such tuple per shard."""
+        if self.mesh is not None:
+            cols = [self.value_cols_dev[n] for n in names]
+            return tuple(
+                tuple((c.shards[d],) for c in cols) for d in range(self.mesh.size)
+            )
         return tuple(
             dev.parts if isinstance(dev, EncodedColumn) else (dev,)
             for dev in (self.value_cols_dev[n] for n in names)
@@ -632,8 +669,16 @@ class ScanCache:
         table), or when the base state hasn't been stable long enough.
         """
         base_fp = _base_fingerprint(table)
+        from ..parallel.mesh import serving_mesh
+
+        mesh_now = serving_mesh(device=self.device)
         with self._lock:
             entry = self._entries.get(table.name)
+            if entry is not None and entry.mesh is not None and entry.mesh is not mesh_now:
+                # The mesh changed: the entry's shards are placed on the old
+                # one — rebuild from scratch.
+                self._resolve_pending_evicted(self._entries.pop(table.name))
+                entry = None
             hit = entry is not None and entry.fingerprint == base_fp
             if not hit and self._candidate.get(table.name) != base_fp:
                 # first sighting of this base state: don't build yet
@@ -774,12 +819,28 @@ class ScanCache:
             n + 1,
             fill=np.int32(-1),
         )
+        # Multi-device: the row arrays live SHARDED across the mesh, so
+        # steady-state serving is itself distributed (each device holds
+        # and scans one contiguous block of rows; the combine is one
+        # kernel). Small tables stay single-device — the same threshold as
+        # the uncached path. Sharded entries keep raw series and ts
+        # layouts: the delta and dict encodings are single-device only.
+        from ..parallel.mesh import dist_min_rows, serving_mesh
+
+        mesh = serving_mesh(device=self.device) if n >= dist_min_rows() else None
+        series_layout = ts_layout = ("raw",)
+        series_parts = ts_parts = None
+        padded_rows = len(codes)
+        if mesh is not None:
+            from ..parallel.mesh import shard_rows
+
+            padded_rows += -padded_rows % mesh.size
+            series_parts = tuple(shard_rows(torch.from_numpy(codes), mesh, fill=n_series))
+            ts_parts = tuple(shard_rows(torch.from_numpy(ts_rel), mesh, fill=-1))
         # Compressed layouts. Both codecs are lossless and
         # roundtrip-verified; any rejection falls back to the dense
         # array, bit-identical to the raw layout.
-        series_layout = ts_layout = ("raw",)
-        series_parts = ts_parts = None
-        if _cache_layout_mode() == "auto":
+        elif _cache_layout_mode() == "auto":
             from ..obs.decisions import DECISION_JOURNAL, record_decision
             from ..ops.encoding import delta_for_encode, dict_encode
 
@@ -874,8 +935,9 @@ class ScanCache:
             ts_parts=ts_parts,
             series_layout=series_layout,
             ts_layout=ts_layout,
-            padded_rows=len(codes),
-            device=self.device,
+            padded_rows=padded_rows,
+            device=mesh.first if mesh is not None else self.device,
+            mesh=mesh,
         )
         # Serving-side state that outlives the host rows: per-series tag
         # rows, int32 relative timestamps, no-NULL flags, schema carrier.
@@ -984,9 +1046,13 @@ class ScanCache:
                 # stores as bit-packed dictionary codes + a small sorted
                 # f32 dictionary — lossless (bit-verified in dict_encode)
                 # and 4-8x smaller. bf16 columns keep the lossy half-size
-                # layout the dtype mode chose.
+                # layout the dtype mode chose; sharded entries stay raw.
                 enc = None
-                if _cache_layout_mode() == "auto" and dtype == torch.float32:
+                if (
+                    entry.mesh is None
+                    and _cache_layout_mode() == "auto"
+                    and dtype == torch.float32
+                ):
                     from ..ops.encoding import dict_encode
 
                     enc = dict_encode(padded, _dict_max_cardinality())
@@ -1019,6 +1085,12 @@ class ScanCache:
                     note_low_cardinality(
                         entry.table_name, c, len(enc.dict_host)
                     )
+                elif entry.mesh is not None:
+                    # one raw (f32 or bf16) block of rows per shard, each on
+                    # its device
+                    from ..parallel.mesh import shard_rows
+
+                    dev = ShardedColumn(tuple(shard_rows(host_col, entry.mesh)))
                 else:
                     dev = host_col.to(self.device)
                 entry.value_cols_dev[c] = dev

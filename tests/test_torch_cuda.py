@@ -294,3 +294,104 @@ def test_hash_pin_launches_the_hash_kernel(card, monkeypatch):
     S.fused_scan_agg(*args, **{**kw, "segment_impl": "auto"})
     torch.cuda.synchronize()
     assert S.LAUNCHES["direct"]["hash"] == before + 1
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3, 8])
+@pytest.mark.parametrize("F,need_minmax", [(0, True), (1, True), (10, True), (3, False)])
+def test_mesh_combine_matches_plain(card, shards, F, need_minmax):
+    """The combine of a sharded aggregate (chip_smoke.py's phase 21 at test
+    size): both packed forms against the plain version, +-0 and NaN across
+    shards."""
+    from horaedb_tpu_torch.ops import scan_agg as S
+
+    special = bool(F) and need_minmax
+    parts = chip_smoke._combine_parts(torch, shards, chip_smoke.MESH_SEGMENTS, F, need_minmax,
+                                      special, shards * 31 + F)
+    kw = dict(n_seg=chip_smoke.MESH_SEGMENTS, n_agg_fields=F, need_minmax=need_minmax)
+    for src in (parts, torch.stack(parts)):
+        got = S.mesh_combine(src, **kw)
+        chip_smoke._combine_compare(torch, S, got, parts, chip_smoke.MESH_SEGMENTS, F,
+                                    need_minmax, f"S={shards} F={F}")
+
+
+def test_sharded_sql_on_a_logical_mesh_launches_the_kernels(card, monkeypatch):
+    """SQL over a table sharded on 4 logical shards of the card: one launch a
+    shard and one combine per aggregate, the answer of one device."""
+    import horaedb_tpu_torch
+    from horaedb_tpu_torch.ops import scan_agg as S
+    from horaedb_tpu_torch.parallel.mesh import Mesh, use_mesh
+
+    monkeypatch.setenv("HORAEDB_DIST_MIN_ROWS", "1")
+    db = horaedb_tpu_torch.connect(None, device="cuda")
+    db.execute("CREATE TABLE t (h string TAG, v double, ts timestamp NOT NULL, "
+               "TIMESTAMP KEY(ts)) ENGINE=Analytic")
+    vals = ", ".join(f"('h{i % 7}', {float(i % 97) - 40.5}, {1000 + i})" for i in range(5000))
+    db.execute(f"INSERT INTO t (h, v, ts) VALUES {vals}")
+    sql = "SELECT h, count(v) AS c, min(v) AS mn, max(v) AS mx FROM t GROUP BY h ORDER BY h"
+    for _ in range(3):
+        one = db.execute(sql).to_pylist()
+    db.interpreters.executor.scan_cache.invalidate("t")
+    with use_mesh(Mesh.logical("cuda", 4)):
+        for _ in range(2):
+            db.execute(sql)
+        S.reset_counts()
+        out = db.execute(sql)
+        assert out.metrics["mesh_devices"] == 4
+        assert sum(S.LAUNCHES["cached"].values()) == 4 and S.COMBINE_LAUNCHES["packed"] == 1
+        assert out.to_pylist() == one
+    db.close()
+
+
+def test_sharded_sql_over_every_card(card, monkeypatch):
+    """On a host of two or more cards ``serving_mesh()`` takes them all: a
+    table sharded over the cards (peer copies of the partials to the first
+    card, one combine there) answers as one device does; the merge too."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    import horaedb_tpu_torch
+    from horaedb_tpu_torch.ops import merge_dedup as md, scan_agg as S
+    from horaedb_tpu_torch.parallel import dist_merge
+    from horaedb_tpu_torch.parallel.mesh import serving_mesh
+    from horaedb_tpu_torch.tools import tsbs
+
+    mesh = serving_mesh(device="cuda")
+    assert mesh is serving_mesh() and mesh.size == torch.cuda.device_count()
+    queries = [
+        tsbs.high_cpu_all(6).sql,
+        tsbs.single_groupby(5, 8, 1).sql,
+        "SELECT hostname, max(usage_user) AS m, count(usage_user) AS c FROM cpu "
+        "GROUP BY hostname ORDER BY hostname",
+        "SELECT * FROM cpu WHERE hostname = 'host_7' ORDER BY ts DESC LIMIT 10",
+        "SELECT * FROM cpu WHERE hostname = 'host_3' AND usage_user > 50",
+    ]
+    answers = {}
+    for floor in (1 << 40, 1):
+        monkeypatch.setenv("HORAEDB_DIST_MIN_ROWS", str(floor))
+        db = horaedb_tpu_torch.connect(None, device="cuda")
+        db.execute(chip_smoke._cpu_table_sql(tsbs))
+        t = db.catalog.open("cpu")
+        t.write(tsbs.generate_cpu(40, 6 * 3_600_000, seed=5))
+        t.flush()
+        for sql in queries:
+            before = S.COMBINE_LAUNCHES["packed"] + S.COMBINE_LAUNCHES["state"]
+            for _ in range(3):
+                out = db.execute(sql)
+            if floor == 1:
+                assert out.metrics.get("mesh_devices") == mesh.size, (sql, out.metrics)
+                if "ORDER BY ts" not in sql and "usage_user > 50" not in sql:
+                    assert S.COMBINE_LAUNCHES["packed"] + S.COMBINE_LAUNCHES["state"] > before
+                assert out.to_pylist() == answers[sql], sql
+            else:
+                assert "mesh_devices" not in out.metrics
+                answers[sql] = out.to_pylist()
+        entry = db.interpreters.executor.scan_cache._entries["cpu"]
+        if floor == 1:
+            assert entry.mesh is mesh
+            assert [p.device for p in entry.series_parts] == list(mesh.devices)
+        db.close()
+    rng = np.random.default_rng(9)
+    tsid = rng.integers(0, 2**63, 500, dtype=np.uint64)[rng.integers(0, 500, 300_000)]
+    ts = rng.integers(0, 50_000, 300_000).astype(np.int64)
+    seq = rng.integers(1, 9, 300_000).astype(np.uint64)
+    perm, keep = md.merge_dedup_permutation(tsid, ts, seq, device=mesh.first)
+    assert np.array_equal(dist_merge.dist_merge_dedup(mesh, tsid, ts, seq), perm[keep])
