@@ -17,8 +17,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    selective) and arm (single, shared, scatter) against its plain PyTorch
    version on the same CUDA tensors, over every resident layout, all six
    filter ops, both need_minmax values, F = 0, ragged N, NaN and signed
-   zeros, and one segment of more than 2**24 rows. Counts, mins and maxs
-   must be bit-equal; sums within SUM_RTOL of the segment's sum of |x|.
+   zeros, and one segment of more than 2**24 rows; then rows sorted in runs
+   of 1, 2, 5, 6, 7, 31, 32, 33, 64 and 1000 (TSBS rows grouped by minute
+   are runs of 6) on each arm and form, F in {0, 1, 5, 10} with and
+   without min/max, NaN and +-0 at the first, middle and last row of a run,
+   gathers ending in pad slots. Counts, mins and maxs must be bit-equal;
+   sums within SUM_RTOL of the segment's sum of |x|.
 4. Main path: ``connect(None, device="cuda")``, the TSBS cpu table at
    4000 hosts x 24 h (34,560,000 rows x 10 fields, seed 123) and the
    README demo table (1M rows), written and flushed through the engine;
@@ -129,10 +133,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the direct, cached and SELECTIVE cached kernels against
    hash_segment_agg_plain on the same CUDA tensors: every resident layout,
    F in {0, 1, 5, 10} with and without min/max, H in {16, 2048, 4096},
-   rounds in {1, 2, 4}, a block at load 1.0 probed in full (no row may
+   rounds in {1, 2, 4}, exactly H live segments probed in full (no row may
    overflow), tables that overflow (at least one case must), NaN and +-0,
-   an empty mask, and bench.py's groupby shapes at 2**18 rows. Counts,
-   mins and maxs bit-equal; sums within SUM_RTOL of sum |x|.
+   an empty mask, bench.py's groupby shapes at 2**18 rows, a 16-slot table
+   that every block fills (no row may overflow), phase 3's short runs on
+   the hash arm, and a 16-slot table probed once on runs of 6 in every
+   form (rows must overflow). Counts, mins and maxs bit-equal; sums within
+   SUM_RTOL of sum |x|.
 20. Sparse-domain panels, on phase 4's connection and resident cpu table:
    sparse-8x1h (TSBS single-groupby-5-8-1 grouped by host too: n_seg
    4096 x 64, 480 live) and sparse-16x12h (16 hosts, 12 h: n_seg
@@ -534,6 +541,178 @@ LAYOUT_CASES = [
 OPS = ("=", "!=", "<", "<=", ">", ">=")
 
 
+# Short sorted runs (the segmented core: SELECTIVE launches and the hash
+# arm): rows sorted by segment in runs of RUN_LENGTHS rows, the first run
+# of each stretch shortened so that runs start and end inside and across
+# 32-row steps; TSBS rows at 10 s grouped by minute are runs of 6.
+RUN_LENGTHS = (1, 2, 5, 6, 7, 31, 32, 33, 64, 1000)
+# (F, need_minmax) the run cases cycle through
+RUN_FIELDS = ((0, True), (1, True), (5, True), (10, True), (0, False), (1, False),
+              (5, False), (10, False))
+# an arm's (n_groups, n_buckets) for the direct form; the cached forms
+# group series by minute-like buckets (_run_cached_inputs)
+RUN_ARMS = {"single": (1, 1), "shared": (16, 8), "scatter": (512, 64), "hash": (4096, 64)}
+
+
+def _run_bounds(seg_rows):
+    """[start, end) of each run of equal consecutive ids."""
+    import numpy as np
+
+    cut = np.flatnonzero(np.diff(seg_rows) != 0) + 1
+    starts = np.concatenate([[0], cut])
+    return list(zip(starts.tolist(), np.concatenate([cut, [len(seg_rows)]]).tolist()))
+
+
+def _run_specials(vals, runs, keep):
+    """NaN, -0.0 among +0.0 and +0.0 among -0.0 at the first, middle and
+    last row of nine runs (of two rows or more, past the first), in every
+    agg field; those runs' rows are kept."""
+    import numpy as np
+
+    picked = [r for r in runs[1:] if r[1] - r[0] >= 2][:9]
+    for j, (a, b) in enumerate(picked):
+        at = (a, (a + b) // 2, b - 1)[j % 3]
+        keep[a:b] = True
+        if j < 3:
+            vals[:, at] = np.nan
+        else:
+            vals[:, a:b] = 0.0 if j < 6 else -0.0
+            vals[:, at] = -0.0 if j < 6 else 0.0
+    return len(picked)
+
+
+def _run_direct_inputs(torch, rng, run_len, arm, F, need_minmax, special=False, op=None):
+    """A padded batch whose valid rows come in sorted runs of ``run_len``
+    rows (consecutive runs in different segments; for ``single``, runs of
+    kept rows between dropped ones); 3% of the other rows masked. (args,
+    kw) of a direct launch."""
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import encoding as E, scan_agg as S
+
+    dev = torch.device(DEV)
+    G, B = RUN_ARMS[arm]
+    n_seg = G * B
+    n = max(2048, 8 * run_len) + 77
+    # the first run is shorter: boundaries fall inside steps
+    k = (np.arange(n) + run_len // 2) // run_len
+    seg_rows = (k * 7919 + 13) % n_seg if n_seg > 1 else np.zeros(n, np.int64)
+    keep = rng.random(n) >= 0.03
+    if arm == "single":
+        keep &= (np.arange(n) + run_len // 2) % (run_len + 1) != run_len
+    n_fields = F + (op is not None)
+    vals = rng.normal(0, 50, (n_fields, n)).astype(np.float32)
+    vals[F:] = np.round(vals[F:])
+    if special:
+        runs = _run_bounds(k if arm == "single" else seg_rows)
+        _run_specials(vals[:F], runs, keep)
+    batch = E.build_padded_batch((seg_rows // B).astype(np.int32), (seg_rows % B).astype(np.int32),
+                                 keep, list(vals))
+    filters = ((F, S._FILTER_OPS[op]),) if op is not None else ()
+    lits = torch.tensor([3.0] * len(filters), dtype=torch.float32, device=dev)
+    args = tuple(torch.from_numpy(x).to(dev) for x in (batch.group_codes, batch.bucket_ids,
+                                                      batch.mask, batch.values)) + (lits,)
+    kw = dict(n_groups=G, n_buckets=B, n_agg_fields=F, numeric_filters=filters,
+              need_minmax=need_minmax, segment_impl=arm)
+    return args, kw
+
+
+def _run_cached_inputs(torch, rng, run_len, arm, selective, F, need_minmax, special=False,
+                       op=None):
+    """Resident columns of 6 series sorted by time (10 apart, delta-coded
+    series codes, raw f32 values), bucketed ``run_len`` rows a bucket with
+    buckets shifted half a run, and one query grouping by series group and
+    bucket: runs of ``run_len`` rows (``single``: one segment). SELECTIVE
+    gathers four series and ends in pad slots that fill the last steps.
+    (args, kw, form) of a cached launch."""
+    import numpy as np
+
+    from horaedb_tpu_torch.convert import entry_from_reference
+    from horaedb_tpu_torch.ops import encoding as E, scan_agg as S
+
+    dev = torch.device(DEV)
+    n_series = 6
+    per = max(4 * run_len, 400) + 45
+    arrays, layouts = _resident_case(rng, n_series, per, "delta", "raw", ("raw",) * (F + 1))
+    n = n_series * per
+    k = np.tile((np.arange(per) + run_len // 2) // run_len, n_series)
+    series = np.repeat(np.arange(n_series), per)
+    nb = int(k.max()) + 1
+    if arm == "single":
+        G, B, gos = 1, 1, np.zeros(n_series + 1, np.int32)
+    else:
+        G = {"shared": 2, "scatter": n_series, "hash": 512}[arm]
+        B = E.next_pow2(nb)
+        gos = np.append((np.arange(n_series) * 97) % G, 0).astype(np.int32)
+    if special:
+        vals = np.stack([arrays[f"value/{f}/0"][:n] for f in range(F)]) if F else None
+        if F:
+            _run_specials(vals, _run_bounds(series * (nb + 1) + k), np.ones(n, bool))
+            for f in range(F):
+                arrays[f"value/{f}/0"][:n] = vals[f]
+    entry = entry_from_reference(arrays, layouts, dev)
+    allow = np.append(np.ones(n_series, bool), False)
+    idx = None
+    if selective:
+        idx = np.concatenate([np.arange(s * per, (s + 1) * per, dtype=np.int32)
+                              for s in (0, 1, 3, 4)] + [np.full(70, n, np.int32)])
+        idx = E.pad_to_bucket(idx, len(idx), fill=np.int32(n))
+    filters = ((F, S._FILTER_OPS[op]),) if op is not None else ()
+    dyn = S.pack_dyn([5.0] * len(filters), 0, per * 10, -10 * (run_len // 2), 10 * run_len, idx)
+    session = torch.from_numpy(S.pack_session(gos, allow)).to(dev)
+    kw = dict(n_groups=G, n_buckets=B, n_agg_fields=F, numeric_filters=filters,
+              need_minmax=need_minmax, segment_impl=arm, selective=selective,
+              **entry.layout_kwargs())
+    form = "cached_selective" if selective else "cached"
+    return (*entry.kernel_args().values(), session, torch.from_numpy(dyn).to(dev)), kw, form
+
+
+def _run_case(torch, rng, run_len, arm, form, F, need_minmax, special=False, op=None,
+              hash_slots=0, rounds=2) -> tuple[float, int]:
+    """One short-run case, kernel against plain (the hash arm through
+    ``_hash_check``, with ``hash_slots`` and ``rounds``); returns the
+    largest |sum difference| and, for the hash arm, the overflow rows."""
+    if form == "direct":
+        args, kw = _run_direct_inputs(torch, rng, run_len, arm, F, need_minmax, special, op)
+    else:
+        args, kw, form = _run_cached_inputs(torch, rng, run_len, arm, form == "cached_selective",
+                                            F, need_minmax, special, op)
+    kind = f"runs of {run_len} {form}/{arm} F={F} minmax={need_minmax}" + (
+        " specials" if special else "")
+    if arm == "hash":
+        kw["hash_slots"] = hash_slots
+        err, ov, _, counted = _hash_check(torch, form, args, kw, kind, rounds)
+    else:
+        (err, counted), ov = _check_call(torch, form, args, kw, kind), 0
+    check(counted > 0, f"{kind}: no row passed")
+    return err, ov
+
+
+def _run_cases(torch, arms) -> tuple[int, float]:
+    """Every run length of RUN_LENGTHS on every arm of ``arms`` and form,
+    (F, need_minmax) cycling through RUN_FIELDS and a filter op through
+    OPS; then NaN and +-0 at the first, middle and last row of a run of 6
+    and of 33 on each arm and form. Returns the cases and the largest
+    |sum difference|."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 10)
+    n, err = 0, 0.0
+    for a, arm in enumerate(arms):
+        for f, form in enumerate(("direct", "cached", "cached_selective")):
+            for j, run_len in enumerate(RUN_LENGTHS):
+                F, need_minmax = RUN_FIELDS[(j + f + a) % len(RUN_FIELDS)]
+                op = OPS[(j + 2 * f) % 6] if j % 2 else None
+                err = max(err, _run_case(torch, rng, run_len, arm, form, F, need_minmax,
+                                         op=op)[0])
+                n += 1
+            for run_len in (6, 33):
+                err = max(err, _run_case(torch, rng, run_len, arm, form, 3, True,
+                                         special=True)[0])
+                n += 1
+    return n, err
+
+
 def phase_kernels(torch) -> None:
     import numpy as np
 
@@ -571,10 +750,16 @@ def phase_kernels(torch) -> None:
                      "!=", G=1, B=2, n_series=2, per=BIG_SEGMENT // 2)
     errs["cached"] = max(errs["cached"], e)
     n_cases += 1
+    # short sorted runs through the segmented core (the SELECTIVE launches)
+    # and the run-partial core (the full scans) of every non-hash arm
+    n_runs, run_err = _run_cases(torch, ("single", "shared", "scatter"))
+    n_cases += n_runs
     _sync(torch)
-    say(f"kernels vs plain: {n_cases} cases passed; max |sum diff| {errs}")
+    say(f"kernels vs plain: {n_cases} cases passed ({n_runs} of short runs, max |sum diff| "
+        f"{run_err}); max |sum diff| {errs}")
     DETAIL["kernel_cases"] = n_cases
     DETAIL["kernel_cases_max_abs_err"] = errs
+    DETAIL["run_cases"] = {"cases": n_runs, "max_abs_err": run_err}
 
 
 # ---- phase 4: the main path -------------------------------------------------
@@ -795,6 +980,7 @@ def _device_ms(torch, fn, name: str, reps=20, flush=None):
     timeline (the launch alone, without the wrapper's host work), or None
     when the profiler records no such kernel in two traces (one trace of
     a run on the card recorded none of a kernel that had launched)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -812,6 +998,12 @@ def _device_ms(torch, fn, name: str, reps=20, flush=None):
             say(f"profiler unavailable ({e}); kernel times from CUDA events")
             return None
         us = [e.time_range.elapsed_us() for e in prof.events() if name in e.name]
+        # every launch of the window and the other kernels the card ran in
+        # it (another thread's or stream's work shares the SMs)
+        others = sorted({e.name[:80] for e in prof.events()
+                         if name not in e.name and e.device_type == DeviceType.CUDA})
+        DETAIL.setdefault("device_ms_windows", []).append(
+            {"name": name, "us": us, "other_kernels": others})
         if us:
             return sum(us) / len(us) / 1e3
         say(f"the profiler recorded no {name} kernel in {reps} launches")
@@ -1010,7 +1202,8 @@ def phase_timings(torch, main, errs, card) -> list:
             f"{work['rows']} rows, {work['bytes']} B): {ms:.4f} ms on the device timeline "
             f"({'profiler' if device_ms is not None else 'events'}), {launch_ms:.4f} ms "
             f"launch incl. wrapper, plain {plain_ms:.4f} ms, "
-            f"index_add_ {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+            f"index_add_ {lib_ms:.4f} ms ({ms / lib_ms:.2f}x index_add_), bound "
+            f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
     DETAIL["per_query"] = per_query
     DETAIL["kernels"] = kernels
     return kernels
@@ -3708,7 +3901,8 @@ def phase_flood_timings(torch, main, flood, raw, card) -> list:
     d_bound, d_by, d_work = _kernel_bounds("cached_selective", dargs, dkw)
     say(f"kernel selective_cached_scan_agg at single-groupby-5-8-1 ({d_work['rows']} gathered "
         f"rows of decoded f32 columns): {d_ms:.4f} ms on the device timeline; plain "
-        f"{dp_ms:.4f} ms; index_add_ {dl_ms:.4f} ms; bound {d_bound:.6f} ms ({d_by}); equal to "
+        f"{dp_ms:.4f} ms; index_add_ {dl_ms:.4f} ms ({d_ms / dl_ms:.2f}x index_add_); bound "
+        f"{d_bound:.6f} ms ({d_by}); equal to "
         f"the main path's SELECTIVE launch and to plain (largest |difference| {d_err}) [{card}]")
     kernels.append({
         "name": "selective_cached_scan_agg", "route": "cuda", "source": SRC,
@@ -3902,13 +4096,19 @@ def phase_hash_kernels(torch) -> None:
                                        need_minmax, sort=bool(j % 2))
             run("direct", args, {**kw, "hash_slots": slots[j % 3]}, f"F={F} minmax={need_minmax}",
                 rounds[j % 3])
-    # one block sees every row (2048 real rows, the rest of the launch
-    # pads): exactly H distinct segments, probed in full, fill it
+    # 2048 real rows (the rest of the launch pads) over exactly H distinct
+    # segments, probed in full: no block's table may overflow
     for H in (16, 2048):
         args, kw = _groupby_inputs(torch, rng, 2048, 65536, H, sort=H == 16, every_row=True)
         ov = run("direct", args, {**kw, "hash_slots": H}, f"one block at load 1.0 ({H} segments)",
                  H)
         check(ov == 0, f"a full probe of {H} slots left {ov} rows of {H} segments unplaced")
+    # a 16-slot table that every block of 256 rows fills: 16 segments in
+    # unsorted rows, probed in full
+    args, kw = _groupby_inputs(torch, rng, 4096, 65536, 16, every_row=True)
+    ov = run("direct", args, {**kw, "hash_slots": 16}, "every block at load 1.0 (16 segments)",
+             16)
+    check(ov == 0, f"a full probe of 16 slots left {ov} rows of 16 segments unplaced")
     args, kw = _groupby_inputs(torch, rng, 50_000, 65536, 300, F=3, special=True)
     run("direct", args, {**kw, "hash_slots": 2048}, "NaN and +-0", 2)
     args, kw = _groupby_inputs(torch, rng, 50_000, 65536, 300, F=2, empty=True)
@@ -3920,7 +4120,17 @@ def phase_hash_kernels(torch) -> None:
                                                   bool(j % 2), OPS[j % 6], 4096, 64)
             kw["hash_slots"] = slots[j % 3]
             run(form, args, kw, kind, rounds[j % 3])
+    # short sorted runs, and a 16-slot table probed once: rows overflow and
+    # the answers still equal the plain version's
+    n_runs, run_err = _run_cases(torch, ("hash",))
+    for form in ("direct", "cached", "cached_selective"):
+        _, ov = _run_case(torch, rng, 6, "hash", form, 5, True, hash_slots=16, rounds=1)
+        check(ov > 0, f"hash {form}: 16 slots probed once left no row unplaced")
+        cases.append({"case": f"hash {form} runs of 6 (H 16, rounds 1)", "err": 0.0,
+                      "overflow": ov, "plain_overflow": None, "counted": None})
     _sync(torch)
+    DETAIL["hash_run_cases"] = {"cases": n_runs, "max_abs_err": run_err}
+    say(f"hash short runs vs plain: {n_runs} cases passed, max |sum diff| {run_err}")
     check(any(c["overflow"] > 0 for c in cases), "no hash case overflowed a block's table")
     errs = {f: max((c["err"] for c in cases if f" {f} " in c["case"]), default=0.0)
             for f in ("direct", "cached", "cached_selective")}
@@ -3977,6 +4187,22 @@ def _arm_ms(torch, form, args, kw, arm, flush, reps=10):
     return ms if ms is not None else _time_launch(torch, fn, reps=reps, flush=flush)
 
 
+def _hash_geometry(torch, form, args, kw) -> tuple:
+    """(rows a block takes, slots of its table) of a hash launch on these
+    inputs, as the wrapper sets them; (None, None) off the card."""
+    from horaedb_tpu_torch.ops import encoding as E, scan_agg as S
+
+    if DEV != "cuda":
+        return None, None
+    n_f = len(kw["numeric_filters"])
+    n_rows = args[4].shape[0] - n_f - 4 if form == "cached_selective" else (
+        args[0].shape[0] if form == "direct" else E.layout_rows(args[0], kw["series_layout"]))
+    out = S._Out(0, 0, 0, 0, kw["n_groups"] * kw["n_buckets"], kw["n_agg_fields"],
+                 int(kw["need_minmax"]))
+    S._set_launch(out, "hash", kw.get("hash_slots", 0), None, torch.device("cuda"), n_rows, form)
+    return out.block_rows, out.hash_slots
+
+
 def _time_hash(torch, form, args, kw, what, flush, card) -> dict:
     """A hash call's device ms against the scatter and shared arms (shared
     where its partials fit), its bound, index_add_ and the plain version."""
@@ -3992,10 +4218,11 @@ def _time_hash(torch, form, args, kw, what, flush, card) -> dict:
     plain_ms = _time_launch(torch, plain, reps=3, flush=flush)
     lib_ms = _time_launch(torch, _library_call(torch, S, form, args, kw), reps=5, flush=flush)
     bound_ms, bound_by, work = _hash_bound(torch, form, args, kw)
-    H = S.block_hash_slots(kw.get("hash_slots") or S.default_hash_slots(n_seg),
-                           kw["n_agg_fields"], kw["need_minmax"])
-    say(f"hash {what} ({form}, n_seg {n_seg}, H {kw.get('hash_slots')} -> {H} a block, "
-        f"{work['rows']} rows, {work['live']} live segments): hash {ms['hash']:.4f} ms, scatter {ms['scatter']:.4f} ms, "
+    rows_a_block, H = _hash_geometry(torch, form, args, kw)
+    say(f"hash {what} ({form}, n_seg {n_seg}, H {kw.get('hash_slots')} -> {H} a block of "
+        f"{rows_a_block} rows, {work['rows']} rows, {work['live']} live segments): hash "
+        f"{ms['hash']:.4f} ms ({ms['hash'] / lib_ms:.2f}x index_add_), scatter "
+        f"{ms['scatter']:.4f} ms, "
         f"shared {ms['shared'] if ms['shared'] is None else round(ms['shared'], 4)} ms on "
         f"the device timeline; plain {plain_ms:.4f} ms; index_add_ {lib_ms:.4f} ms; bound "
         f"{bound_ms:.6f} ms ({bound_by}, {work['bytes']} B) [{card}]")
@@ -4112,12 +4339,15 @@ def phase_hash_main(torch, main, card) -> list:
     DETAIL["hash_main"] = {"launches": launches, "queries": {
         n: {k: v for k, v in r.items() if k != "call"} for n, r in results.items()},
         "timings": timings, "groupby": shapes}
-    head = timings["sparse-16x12h"]
+    head, small = timings["sparse-16x12h"], timings["sparse-8x1h"]
     return [{
         "name": "hash_segment_agg", "route": "cuda", "source": SRC, "replaces": HASH_REPLACES,
         "launches": int(n_hash), "max_abs_err": err, "ms": head["ms"]["hash"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        # the same kernel at sparse-8x1h, beside index_add_ on its inputs
+        "sparse_8x1h_ms": small["ms"]["hash"], "sparse_8x1h_library_ms": small["library_ms"],
+        "sparse_8x1h_bound_ms": small["bound_ms"],
     }]
 
 
@@ -4353,6 +4583,7 @@ def phase_mesh_main(torch, main, card) -> list:
     from horaedb_tpu_torch.ops import merge_dedup as md, scan_agg as S, scan_topk as T
     from horaedb_tpu_torch.parallel import dist_merge
     from horaedb_tpu_torch.parallel.mesh import Mesh, on_device, use_mesh
+    from horaedb_tpu_torch.query.path_router import KERNEL_ROUTER
     from horaedb_tpu_torch.tools import tsbs
 
     db = main["db"]
@@ -4385,6 +4616,10 @@ def phase_mesh_main(torch, main, card) -> list:
         single[name] = {"res": res, "warm_s": secs}
     cache.invalidate("cpu")
     cache._candidate.pop("cpu", None)  # the next read is a first sighting: the direct path
+    # the mesh starts the kernel router afresh: each shape's first sharded
+    # runs take its seed arm (sparse-16x12h: hash on every shard), not
+    # whichever arm phase 20's host-dominated dispatch times favoured
+    KERNEL_ROUTER.reset()
 
     rec = MeshRecorder(S, T)
     results = {}

@@ -12,7 +12,7 @@
 //                                decode_layouts                          (B3)
 //   horaedb_tpu/parallel/dist_agg.py  _combine (psum/pmin/pmax)          (B7a)
 //
-// Two entry points share one reduction core:
+// Three entry points share the reduction cores below:
 //   scan_agg_direct  rows of a host-built padded batch (group code, bucket
 //                    id, mask, values[F, N]);
 //   scan_agg_cached  rows of the resident scan cache: the prologue decodes
@@ -37,17 +37,46 @@
 //                    tile when they fit there together, else the launch
 //                    takes scatter (the wrapper decides).
 //
-// What bounds it: the bytes of the resident columns (one pass over codes,
-// timestamps and the touched value columns), or for small selective scans
-// the launch itself; for a cohort, the same bytes once plus B sessions,
-// dyns and outputs, while its work (decode, mask, reduce) grows with B.
-// The design keeps every decoded value in registers and cuts atomics:
-// each warp walks a contiguous run of rows (the cache is sorted by series
-// and time, so neighbouring rows mostly share a segment),
-// reduces each 32-row step with shuffles, carries the running partial of
-// the current segment in registers (lane f owns field f) and commits it
-// only when the segment changes. Rows of a step that do not share one
-// segment commit lane by lane.
+// Two reduction cores, chosen at compile time (scan_agg<ARM, SEGMENTED>):
+//
+// The run-partial core serves the full scans of the single, shared and
+// scatter arms (scan_agg_direct, scan_agg_cached) and the cohort. Bound:
+// the bytes of the resident columns (one pass over codes, timestamps and
+// the touched value columns); for a cohort the same bytes once plus B
+// sessions, dyns and outputs, while its work grows with B. Each warp walks
+// a contiguous run of 8 steps of 32 rows (BLOCK * 8 rows a block; the
+// cache is sorted by series and time, so neighbouring rows mostly share a
+// segment), reduces a step whose valid rows share one segment with
+// shuffles into the carried run partial of its segment (lane f owns field
+// f), committed when the segment changes; any other step commits lane by
+// lane, each min and max a read then a CAS.
+//
+// The segmented core serves the SELECTIVE launches of every arm (B1b
+// selective, B1d) and the hash arm in every form (B2d). What bounds a
+// selective launch of a few thousand gathered rows is latency: each step
+// is a chain of dependent loads (the index, the series code, the allow
+// list, the timestamp, the group map). So:
+//   - the grid: the wrapper's ``block_rows`` (ops/scan_agg.py
+//     ``segmented_geometry``): the fewest 32-row steps a warp whose blocks
+//     the card holds at once (scan_agg_blocks_per_sm, the occupancy at the
+//     launch's shared memory), one step a warp for a few thousand rows;
+//     every step of the launch runs at once;
+//   - a step loads all of its rows' values into registers (FCAP fields a
+//     pass) before any shuffle; for a gather before its keep chain, whose
+//     allow list, group map and timestamp load together (keep_eager);
+//   - a segmented warp reduction: a valid lane heads a run when its
+//     segment differs from the previous valid lane's; a 5-round shuffle
+//     scan leaves each run's count, sums, mins and maxs in its last lane;
+//     a step of more than 16 runs (unsorted rows) skips it and commits
+//     lane by lane, as the run-partial core does; the first
+//     run merges into the carried partial, the middle runs commit from
+//     their last lanes at once, the last becomes the carried partial. On
+//     TSBS rows (runs of 6) a step commits about 6 partials, not 32 rows;
+//   - commits and flushes take one atomic each for min and max, with no
+//     read back (red_min / red_max), and a block flushes one (slot, field)
+//     a thread.
+// Its bound is the gathered rows' bytes, which a launch of this size never
+// nears: what is left is one step's load chain and the launch.
 //
 // Reduction arms (template ARM):
 //   single   n_seg == 1: partials meet in shared memory, one global atomic
@@ -58,19 +87,23 @@
 //   hash     a large n_seg of which few segments are live (B2d): each block
 //            keeps an open-addressing table in shared memory, a key (the
 //            segment id, EMPTY when free) and count/sum/min/max partials
-//            per slot. A run partial (or a row) hashes its segment with
-//            the Fibonacci multiply-shift, claims or finds its slot with
-//            atomicCAS on the key over at most ``hash_rounds`` linear
-//            probes and accumulates there with shared-memory atomics; one
-//            that finds no slot goes to global atomics in the output (the
+//            per slot. A run partial hashes its segment with the Fibonacci
+//            multiply-shift, claims or finds its slot with atomicCAS on
+//            the key over at most ``hash_rounds`` linear probes and
+//            accumulates there with shared-memory atomics; one that finds
+//            no slot goes to global atomics in the output (the
 //            reference's exact scatter fallback) and, when the launch
-//            carries an overflow counter, counts its rows there. At block
-//            end every occupied slot merges into its segment with global
-//            atomics. The table is a block's own (``hash_slots`` slots,
-//            sized by the wrapper to fit shared memory), not one global
-//            table as in the reference: which rows overflow differs,
-//            the outputs do not. Bound: the same bytes as scatter; what it
-//            saves is global atomics on a wide output.
+//            carries an overflow counter, counts its rows there. A claim
+//            appends its slot to a list in shared memory, and at block end
+//            the claimed slots alone merge into their segments. The table
+//            is a block's own, fitted to it by the wrapper
+//            (``fitted_hash_slots``: a power of two of at least twice the
+//            rows the block takes, at most what fits shared memory), so a
+//            small launch clears and flushes a small table and blocks share
+//            an SM; it is not one global table as in the reference: which
+//            rows overflow differs, the outputs do not. Bound: the same
+//            bytes as scatter; what it saves is global atomics on a wide
+//            output.
 // Counts are int32 atomicAdd, sums f32 atomicAdd. Min and max are exact
 // and follow the reference's scatter arm: NaN propagates, and -0.0 < +0.0.
 //
@@ -109,7 +142,7 @@ struct Out {
   int minmax;
   int hash_slots;   // ARM_HASH: slots of a block's table, a power of two
   int hash_rounds;  // ARM_HASH: linear probes before a row overflows
-  int pad_;
+  int block_rows;   // segmented launches: rows one block takes (a multiple of BLOCK)
   unsigned long long* overflow;  // ARM_HASH: rows that found no slot, or NULL
 };
 
@@ -182,6 +215,32 @@ __device__ __forceinline__ void atomic_extreme(float* addr, float v) {
   }
 }
 
+// min / max of a float in memory with one atomic on its bits and no read
+// back (the segmented core): fmin_t's / fmax_t's order, -0.0 < +0.0, where
+// a non-negative value's bits order as signed ints and a negative one's
+// reversed as unsigned ints. A NaN goes in as the bits every later value
+// loses to (0xffffffff for min, 0x7fffffff for max), so NaN propagates;
+// which NaN differs from fmin_t's, the value does not.
+__device__ __forceinline__ void red_min(float* addr, float v) {
+  if (isnan(v)) {
+    atomicMax((unsigned*)addr, 0xffffffffu);
+  } else if (signbit(v)) {
+    atomicMax((unsigned*)addr, __float_as_uint(v));
+  } else {
+    atomicMin((int*)addr, __float_as_int(v));
+  }
+}
+
+__device__ __forceinline__ void red_max(float* addr, float v) {
+  if (isnan(v)) {
+    atomicMax((int*)addr, 0x7fffffff);
+  } else if (signbit(v)) {
+    atomicMin((unsigned*)addr, __float_as_uint(v));
+  } else {
+    atomicMax((int*)addr, __float_as_int(v));
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
@@ -202,12 +261,17 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // ---- row sources -----------------------------------------------------------
 
+// A row source gives, for launch row r, the row i to read (``index``),
+// whether i passes and its segment (``keep``), and its values; ``row`` is
+// the two together. ``kGathered``: the rows are a selective gather, whose
+// rows mostly pass, so the segmented core loads their values before it
+// knows.
 struct DirectSource {
+  static constexpr bool kGathered = false;
   const DirectArgs& a;
   __device__ DirectSource(const DirectArgs& args) : a(args) {}
-  // true when row r passes; sets its segment and the row to read values at
-  __device__ __forceinline__ bool row(long long r, int& seg, long long& i) const {
-    i = r;
+  __device__ __forceinline__ long long index(long long r) const { return r; }
+  __device__ __forceinline__ bool keep(long long r, int& seg) const {
     if (!a.mask[r]) return false;
     for (int k = 0; k < a.filt.n; ++k) {
       float v = a.values[(long long)a.filt.field[k] * a.n_rows + r];
@@ -215,6 +279,11 @@ struct DirectSource {
     }
     seg = a.group_codes[r] * a.n_buckets + a.bucket_ids[r];
     return seg >= 0 && seg < a.out.n_seg;  // out-of-range ids drop, as in a scatter
+  }
+  // true when row r passes; sets its segment and the row to read values at
+  __device__ __forceinline__ bool row(long long r, int& seg, long long& i) const {
+    i = r;
+    return keep(r, seg);
   }
   __device__ __forceinline__ float value(int f, long long i) const {
     return a.values[(long long)f * a.n_rows + i];
@@ -263,6 +332,23 @@ struct QueryRows {
     seg = session[code] * a.n_buckets + bucket_of(ts, t0, width, a.n_buckets);
     return seg >= 0 && seg < a.out.n_seg;
   }
+  // keep() for rows that mostly pass (a gather): the allow list, the group
+  // map and the timestamp load together once the code is known, one
+  // dependent load where keep() takes three
+  __device__ __forceinline__ bool keep_eager(long long i, int& seg) const {
+    const int code = cols.code(i);
+    if (code < 0) return false;
+    const int allowed = session[a.s1 + code];
+    const int group = session[code];
+    const int ts = cols.ts(i);
+    if (allowed == 0 || !(ts >= lo && ts < hi)) return false;
+    for (int k = 0; k < a.filt.n; ++k) {
+      if (!compare(cols.value(a.filt.field[k], i), a.filt.op[k], __int_as_float(dyn[k])))
+        return false;
+    }
+    seg = group * a.n_buckets + bucket_of(ts, t0, width, a.n_buckets);
+    return seg >= 0 && seg < a.out.n_seg;
+  }
   __device__ __forceinline__ float value(int f, long long i) const { return cols.value(f, i); }
 };
 
@@ -270,15 +356,23 @@ struct QueryRows {
 // row lists after the four scalars
 template <bool SELECTIVE>
 struct CachedSource : QueryRows<ResidentCols> {
+  static constexpr bool kGathered = SELECTIVE;
   __device__ CachedSource(const CachedArgs& args, const int* session_, const int* dyn_)
       : QueryRows<ResidentCols>(args, session_, dyn_, ResidentCols{args}) {}
+  __device__ __forceinline__ long long index(long long r) const {
+    return SELECTIVE ? (long long)dyn[a.filt.n + 4 + r] : r;
+  }
   __device__ __forceinline__ bool row(long long r, int& seg, long long& i) const {
-    i = SELECTIVE ? (long long)dyn[a.filt.n + 4 + r] : r;
+    i = index(r);
     return keep(i, seg);
   }
 };
 
-// ---- reduction core --------------------------------------------------------
+// ---- reduction cores -------------------------------------------------------
+
+// fields a lane of the segmented core holds in registers at once; wider
+// rows take their fields FCAP at a time, one pass over the rows each
+#define FCAP 10
 
 // count/sum/min/max partials of n_seg segments (in global or shared
 // memory), accumulated with atomics
@@ -289,7 +383,8 @@ struct Target {
   float* maxs;
   int n_seg;
 
-  // one run partial, from the whole warp: lane 0 the count, lane f field f
+  // run-partial core: one run partial, from the whole warp: lane 0 the
+  // count, lane f field f
   __device__ __forceinline__ void commit(int seg, int cnt, float s, float mn, float mx,
                                          int lane, int n_agg, bool minmax) const {
     if (seg < 0 || cnt == 0) return;
@@ -304,7 +399,7 @@ struct Target {
     }
   }
 
-  // one row, from one lane
+  // run-partial core: one row, from one lane
   template <class Src>
   __device__ __forceinline__ void add_row(const Src& src, int seg, long long i, int n_agg,
                                           bool minmax) const {
@@ -319,12 +414,51 @@ struct Target {
       }
     }
   }
+
+  // segmented core: the carried run partial, from the whole warp: lane 0
+  // the count (when ``with_count``), lane f field f0 + f of nf
+  __device__ __forceinline__ void commit_fields(int seg, int cnt, float s, float mn, float mx,
+                                                int lane, int f0, int nf, bool with_count,
+                                                bool minmax) const {
+    if (seg < 0 || cnt == 0) return;
+    if (with_count && lane == 0) atomicAdd(&counts[seg], cnt);
+    if (lane < nf) {
+      const long long o = (long long)(f0 + lane) * n_seg + seg;
+      atomicAdd(&sums[o], s);
+      if (minmax) {
+        red_min(&mins[o], mn);
+        red_max(&maxs[o], mx);
+      }
+    }
+  }
+
+  // segmented core: one run's partial, from the lane that holds it
+  __device__ __forceinline__ void add_run(int seg, int cnt, const float* s, const float* mn,
+                                          const float* mx, int f0, int nf, bool with_count,
+                                          bool minmax) const {
+    if (with_count) atomicAdd(&counts[seg], cnt);
+#pragma unroll
+    for (int f = 0; f < FCAP; ++f) {
+      if (f < nf) {
+        const long long o = (long long)(f0 + f) * n_seg + seg;
+        atomicAdd(&sums[o], s[f]);
+        if (minmax) {
+          red_min(&mins[o], mn[f]);
+          red_max(&maxs[o], mx[f]);
+        }
+      }
+    }
+  }
 };
 
 // The hash arm's target: a block's slot table (keys, and partials of
-// ``H`` slots in ``slots``) in front of the output ``out``.
+// ``H`` slots in ``slots``) in front of the output ``out``. Each slot a
+// segment claims is appended to ``claimed`` (``*n_claimed`` long), so the
+// block's flush visits the claimed slots only.
 struct HashTarget {
   int* keys;
+  int* claimed;
+  int* n_claimed;
   Target slots;
   Target out;
   int H;
@@ -343,40 +477,45 @@ struct HashTarget {
       if (k == seg) return slot;
       if (k == EMPTY_KEY) {
         const int prev = atomicCAS(&keys[slot], EMPTY_KEY, seg);
+        if (prev == EMPTY_KEY) claimed[atomicAdd(n_claimed, 1)] = slot;
         if (prev == EMPTY_KEY || prev == seg) return slot;
       }
     }
     return -1;
   }
 
-  __device__ __forceinline__ void commit(int seg, int cnt, float s, float mn, float mx,
-                                         int lane, int n_agg, bool minmax) const {
+  __device__ __forceinline__ void commit_fields(int seg, int cnt, float s, float mn, float mx,
+                                                int lane, int f0, int nf, bool with_count,
+                                                bool minmax) const {
     if (seg < 0 || cnt == 0) return;
     int slot = lane == 0 ? find(seg) : 0;
     slot = __shfl_sync(FULL_MASK, slot, 0);
     if (slot >= 0) {
-      slots.commit(slot, cnt, s, mn, mx, lane, n_agg, minmax);
+      slots.commit_fields(slot, cnt, s, mn, mx, lane, f0, nf, with_count, minmax);
     } else {
-      out.commit(seg, cnt, s, mn, mx, lane, n_agg, minmax);
-      if (lane == 0 && overflow) atomicAdd(overflow, (unsigned long long)cnt);
+      out.commit_fields(seg, cnt, s, mn, mx, lane, f0, nf, with_count, minmax);
+      if (with_count && lane == 0 && overflow) atomicAdd(overflow, (unsigned long long)cnt);
     }
   }
 
-  template <class Src>
-  __device__ __forceinline__ void add_row(const Src& src, int seg, long long i, int n_agg,
+  __device__ __forceinline__ void add_run(int seg, int cnt, const float* s, const float* mn,
+                                          const float* mx, int f0, int nf, bool with_count,
                                           bool minmax) const {
     const int slot = find(seg);
     if (slot >= 0) {
-      slots.add_row(src, slot, i, n_agg, minmax);
+      slots.add_run(slot, cnt, s, mn, mx, f0, nf, with_count, minmax);
     } else {
-      out.add_row(src, seg, i, n_agg, minmax);
-      if (overflow) atomicAdd(overflow, 1ULL);
+      out.add_run(seg, cnt, s, mn, mx, f0, nf, with_count, minmax);
+      if (with_count && overflow) atomicAdd(overflow, (unsigned long long)cnt);
     }
   }
 };
 
-// one warp reduces rows [begin, end) into ``t`` (a Target or a
-// HashTarget) and commits its last run
+// The run-partial core (full scans of the single, shared and scatter
+// arms; the cohort): one warp reduces rows [begin, end) into ``t`` and
+// commits its last run. A step whose valid rows share one segment reduces
+// with shuffles into the carried run partial; any other step commits its
+// rows lane by lane.
 template <int ARM, class Src, class Sink>
 __device__ void reduce_range(const Src& src, long long begin, long long end, const Out& out,
                              const Sink& t) {
@@ -430,15 +569,171 @@ __device__ void reduce_range(const Src& src, long long begin, long long end, con
   t.commit(run_seg, run_cnt, run_sum, run_min, run_max, lane, n_agg, minmax);
 }
 
-// each warp of the grid takes a contiguous run of rows, a multiple of 32
-template <int ARM, class Src, class Sink>
+// The segmented core (SELECTIVE launches, and the hash arm in every form):
+// one warp reduces fields [f0, f0 + nf) of rows [begin, end) into ``t``
+// (a Target or a HashTarget), and their counts when ``with_count``.
+//
+// A step loads every value of its 32 rows into registers first (before
+// the keep chain for a gather, whose rows mostly pass; after it
+// otherwise). A valid lane heads a run when its segment differs from the
+// previous valid lane's; invalid lanes hold the identity (0, +inf, -inf)
+// and head nothing. A step of more than 16 runs commits each valid row
+// from its lane. Otherwise a segmented inclusive scan (5 shuffle rounds)
+// leaves each run's count, sums, mins and maxs in its last valid lane (a
+// step of one-row runs skips it). The first run merges into the carried run
+// partial (lane f holds field f0 + f) when it continues its segment; the
+// middle runs commit from their last lanes, all at once; the last run
+// becomes the carried partial, committed when its segment ends.
+// the segmented core's carried run partial: its segment (-1: none) and
+// count, and in lane f the sum, min and max of field f0 + f
+struct Carried {
+  int seg = -1, cnt = 0;
+  float sum = 0.f, mn = INFINITY, mx = -INFINITY;
+
+  __device__ __forceinline__ void restart(int seg_) {
+    seg = seg_;
+    cnt = 0;
+    sum = 0.f;
+    mn = INFINITY;
+    mx = -INFINITY;
+  }
+
+  // fold in the run partial that lane ``e`` holds (count ``c`` there)
+  __device__ __forceinline__ void absorb(const float (&s)[FCAP], const float (&smin)[FCAP],
+                                         const float (&smax)[FCAP], int c, int e, int lane,
+                                         int nf) {
+    cnt += __shfl_sync(FULL_MASK, c, e);
+#pragma unroll
+    for (int f = 0; f < FCAP; ++f) {
+      if (f < nf) {
+        const float x = __shfl_sync(FULL_MASK, s[f], e);
+        const float xn = __shfl_sync(FULL_MASK, smin[f], e);
+        const float xx = __shfl_sync(FULL_MASK, smax[f], e);
+        if (lane == f) {
+          sum += x;
+          mn = fmin_t(mn, xn);
+          mx = fmax_t(mx, xx);
+        }
+      }
+    }
+  }
+
+  template <class Sink>
+  __device__ __forceinline__ void commit(const Sink& t, int lane, int f0, int nf,
+                                         bool with_count, bool minmax) const {
+    t.commit_fields(seg, cnt, sum, mn, mx, lane, f0, nf, with_count, minmax);
+  }
+};
+
+template <class Src, class Sink>
+__device__ void reduce_runs(const Src& src, long long begin, long long end, const Out& out,
+                            const Sink& t, int f0) {
+  const int lane = threadIdx.x & 31;
+  const unsigned upto = FULL_MASK >> (31 - lane);  // lanes 0..lane
+  const int nf = min(out.n_agg - f0, FCAP);
+  const bool with_count = f0 == 0;
+  const bool minmax = out.minmax != 0;
+  Carried run;
+
+  for (long long base = begin; base < end; base += 32) {
+    const long long r = base + lane;
+    float s[FCAP], mn[FCAP], mx[FCAP];
+    int seg = 0;
+    bool valid = false;
+    if (r < end) {
+      const long long i = src.index(r);
+      if constexpr (Src::kGathered) {
+#pragma unroll
+        for (int f = 0; f < FCAP; ++f) s[f] = f < nf ? src.value(f0 + f, i) : 0.f;
+        valid = src.keep_eager(i, seg);
+      } else {
+        valid = src.keep(i, seg);
+#pragma unroll
+        for (int f = 0; f < FCAP; ++f) s[f] = (valid && f < nf) ? src.value(f0 + f, i) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < FCAP; ++f) {
+      if (!valid) s[f] = 0.f;
+      mn[f] = valid ? s[f] : INFINITY;
+      mx[f] = valid ? s[f] : -INFINITY;
+    }
+    const unsigned vmask = __ballot_sync(FULL_MASK, valid);
+    if (vmask == 0) continue;
+    // heads: valid lanes whose segment differs from the previous valid lane's
+    const unsigned before = vmask & (upto >> 1);
+    const int prev_seg = __shfl_sync(FULL_MASK, seg, before ? 31 - __clz(before) : lane);
+    const unsigned heads = __ballot_sync(FULL_MASK, valid && (before == 0 || prev_seg != seg));
+    if (__popc(heads) > 16) {
+      // most runs are one row (unsorted segments): each valid lane commits
+      // its row; the carried run partial waits for its segment's end
+      if (valid) t.add_run(seg, 1, s, mn, mx, f0, nf, with_count, minmax);
+      continue;
+    }
+    // this lane's run starts at the highest head at or below it
+    const unsigned hb = heads & upto;
+    const int start = hb ? 31 - __clz(hb) : 0;
+    const int cnt = __popc(vmask & upto & ~((1u << start) - 1u));
+    // ends: valid lanes whose next valid lane heads a run, or that have none
+    const unsigned after = vmask & ~upto;
+    const bool is_end = valid && (after == 0 || ((heads >> (__ffs(after) - 1)) & 1u));
+    const unsigned ends = __ballot_sync(FULL_MASK, is_end);
+    if (heads != vmask) {  // some run holds two rows or more
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const bool take = lane - d >= start;
+#pragma unroll
+        for (int f = 0; f < FCAP; ++f) {
+          if (f < nf) {
+            const float os = __shfl_up_sync(FULL_MASK, s[f], d);
+            if (take) s[f] = os + s[f];
+            if (minmax) {
+              const float omn = __shfl_up_sync(FULL_MASK, mn[f], d);
+              const float omx = __shfl_up_sync(FULL_MASK, mx[f], d);
+              if (take) {
+                mn[f] = fmin_t(omn, mn[f]);
+                mx[f] = fmax_t(omx, mx[f]);
+              }
+            }
+          }
+        }
+      }
+    }
+    const int first = __ffs(vmask) - 1, last = 31 - __clz(vmask);
+    const int first_end = __ffs(ends) - 1;
+    const int seg_first = __shfl_sync(FULL_MASK, seg, first);
+    if (seg_first != run.seg) {
+      run.commit(t, lane, f0, nf, with_count, minmax);
+      run.restart(seg_first);
+    }
+    run.absorb(s, mn, mx, cnt, first_end, lane, nf);
+    if (first_end != last) {
+      run.commit(t, lane, f0, nf, with_count, minmax);
+      if (is_end && lane != first_end && lane != last)
+        t.add_run(seg, cnt, s, mn, mx, f0, nf, with_count, minmax);
+      run.restart(__shfl_sync(FULL_MASK, seg, last));
+      run.absorb(s, mn, mx, cnt, last, lane, nf);
+    }
+  }
+  run.commit(t, lane, f0, nf, with_count, minmax);
+}
+
+// each warp of the grid takes a contiguous run of rows, a multiple of 32;
+// the segmented core passes over them once per FCAP fields (once when the
+// launch aggregates none)
+template <int ARM, bool SEGMENTED, class Src, class Sink>
 __device__ void reduce_rows(const Src& src, long long n_rows, const Out& out, const Sink& t) {
   const long long warp = ((long long)blockIdx.x * BLOCK + threadIdx.x) >> 5;
   const long long n_warps = ((long long)gridDim.x * BLOCK) >> 5;
   long long chunk = (n_rows + n_warps - 1) / n_warps;
   chunk = (chunk + 31) & ~31LL;
   const long long begin = warp * chunk;
-  reduce_range<ARM>(src, begin, min(begin + chunk, n_rows), out, t);
+  const long long end = min(begin + chunk, n_rows);
+  if constexpr (SEGMENTED) {
+    for (int f0 = 0; f0 == 0 || f0 < out.n_agg; f0 += FCAP) reduce_runs(src, begin, end, out, t, f0);
+  } else {
+    reduce_range<ARM>(src, begin, end, out, t);
+  }
 }
 
 // block-private partials of every segment in shared memory at ``base``
@@ -465,18 +760,16 @@ __device__ __forceinline__ void init_partials(const Target& t, const Out& out) {
   }
 }
 
-// merge a block's partials into the output with global atomics: slot s of
-// ``t`` goes to segment keys[s] (segment s without keys; EMPTY_KEY: none)
-__device__ __forceinline__ void flush_partials(const Target& t, const Out& out,
-                                               const int* keys = nullptr) {
+// run-partial core: merge a block's partials of every segment into the
+// output with global atomics, one segment a thread
+__device__ __forceinline__ void flush_partials(const Target& t, const Out& out) {
   for (int s = threadIdx.x; s < t.n_seg; s += BLOCK) {
-    const int seg = keys ? keys[s] : s;
     const int c = t.counts[s];
-    if (seg == EMPTY_KEY || c == 0) continue;
-    atomicAdd(&out.counts[seg], c);
+    if (c == 0) continue;
+    atomicAdd(&out.counts[s], c);
     for (int f = 0; f < out.n_agg; ++f) {
       const long long p = (long long)f * t.n_seg + s;
-      const long long o = (long long)f * out.n_seg + seg;
+      const long long o = (long long)f * out.n_seg + s;
       atomicAdd(&out.sums[o], t.sums[p]);
       if (out.minmax) {
         atomic_extreme<true>(&out.mins[o], t.mins[p]);
@@ -486,48 +779,86 @@ __device__ __forceinline__ void flush_partials(const Target& t, const Out& out,
   }
 }
 
-template <int ARM, class Src>
+// segmented core: merge ``n`` of a block's partials into the output, one
+// (slot, plane) a thread (the count, or one field's sum, min and max), with
+// atomics that read nothing back; slot j is list[j] (j without a list),
+// its segment keys[slot] (the slot without keys)
+__device__ __forceinline__ void flush_runs(const Target& t, const Out& out, int n,
+                                           const int* list, const int* keys) {
+  const long long items = (long long)n * (1 + out.n_agg);
+  for (long long k = threadIdx.x; k < items; k += BLOCK) {
+    const int j = (int)(k % n);
+    const int f = (int)(k / n) - 1;  // -1: the count
+    const int s = list ? list[j] : j;
+    const int c = t.counts[s];
+    if (c == 0) continue;
+    const int seg = keys ? keys[s] : s;
+    if (f < 0) {
+      atomicAdd(&out.counts[seg], c);
+      continue;
+    }
+    const long long p = (long long)f * t.n_seg + s;
+    const long long o = (long long)f * out.n_seg + seg;
+    atomicAdd(&out.sums[o], t.sums[p]);
+    if (out.minmax) {
+      red_min(&out.mins[o], t.mins[p]);
+      red_max(&out.maxs[o], t.maxs[p]);
+    }
+  }
+}
+
+// SEGMENTED: the segmented core (and its flush), else the run-partial core
+template <int ARM, bool SEGMENTED, class Src>
 __device__ void scan_agg(const Src& src, long long n_rows, const Out& out) {
   extern __shared__ float smem[];
   const Target global{out.counts, out.sums, out.mins, out.maxs, out.n_seg};
   if constexpr (ARM == ARM_SCATTER) {
-    reduce_rows<ARM>(src, n_rows, out, global);
+    reduce_rows<ARM, SEGMENTED>(src, n_rows, out, global);
   } else if constexpr (ARM == ARM_HASH) {
-    // the block's table: hash_slots keys, then the slots' partials
+    static_assert(SEGMENTED, "the hash arm runs the segmented core");
+    // the block's table: the claim count (4 words), hash_slots keys, the
+    // claim list, then the slots' partials
     const int H = out.hash_slots;
-    int* keys = (int*)smem;
+    int* n_claimed = (int*)smem;
+    int* keys = n_claimed + 4;
+    int* claimed = keys + H;
     Out slot_out = out;
     slot_out.n_seg = H;
-    const Target slots = smem_target(smem + H, slot_out);
+    const Target slots = smem_target(smem + 4 + 2 * H, slot_out);
+    if (threadIdx.x == 0) *n_claimed = 0;
     for (int k = threadIdx.x; k < H; k += BLOCK) keys[k] = EMPTY_KEY;
     init_partials(slots, slot_out);
     __syncthreads();
-    const HashTarget t{keys, slots, global, H, out.hash_rounds, (unsigned)__clz(H) + 1u,
-                       out.overflow};
-    reduce_rows<ARM>(src, n_rows, out, t);
+    const HashTarget t{keys, claimed, n_claimed, slots, global, H, out.hash_rounds,
+                       (unsigned)__clz(H) + 1u, out.overflow};
+    reduce_rows<ARM, true>(src, n_rows, out, t);
     __syncthreads();
-    flush_partials(slots, out, keys);
+    flush_runs(slots, out, *n_claimed, claimed, keys);
   } else {
     // single / shared: block-private partials of every segment in shared memory
     const Target t = smem_target(smem, out);
     init_partials(t, out);
     __syncthreads();
-    reduce_rows<ARM>(src, n_rows, out, t);
+    reduce_rows<ARM, SEGMENTED>(src, n_rows, out, t);
     __syncthreads();
-    flush_partials(t, out);
+    if constexpr (SEGMENTED) {
+      flush_runs(t, out, out.n_seg, nullptr, nullptr);
+    } else {
+      flush_partials(t, out);
+    }
   }
 }
 
 template <int ARM>
 __global__ void __launch_bounds__(BLOCK) scan_agg_direct(const __grid_constant__ DirectArgs a) {
   DirectSource src(a);
-  scan_agg<ARM>(src, a.n_rows, a.out);
+  scan_agg<ARM, ARM == ARM_HASH>(src, a.n_rows, a.out);
 }
 
 template <int ARM, bool SELECTIVE>
 __global__ void __launch_bounds__(BLOCK) scan_agg_cached(const __grid_constant__ CachedArgs a) {
   CachedSource<SELECTIVE> src(a, a.session, a.dyn);
-  scan_agg<ARM>(src, a.n_rows, a.out);
+  scan_agg<ARM, SELECTIVE || ARM == ARM_HASH>(src, a.n_rows, a.out);
 }
 
 // B full-scan cached queries: c holds the columns and statics (its
@@ -669,7 +1000,9 @@ static size_t smem_bytes(int arm, const Out& out) {
   if (arm == ARM_SCATTER) return 0;
   const size_t planes = out.minmax ? 3 : 1;
   const size_t per = 1 + planes * (size_t)out.n_agg;
-  if (arm == ARM_HASH) return (size_t)out.hash_slots * (1 + per) * sizeof(float);
+  // the hash table: claim count (4 words), then per slot a key, a claim
+  // list entry and the partials
+  if (arm == ARM_HASH) return (4 + (size_t)out.hash_slots * (2 + per)) * sizeof(float);
   return ((size_t)out.n_seg * per) * sizeof(float);
 }
 
@@ -678,6 +1011,11 @@ static size_t smem_bytes(int arm, const Out& out) {
 static bool hash_ok(const Out& out) {
   const int h = out.hash_slots;
   return h >= 2 && (h & (h - 1)) == 0 && out.hash_rounds >= 1 && out.hash_rounds <= h;
+}
+
+// a segmented launch's rows a block: whole steps of every warp
+static bool rows_ok(const Out& out) {
+  return out.block_rows >= BLOCK && out.block_rows % BLOCK == 0;
 }
 
 // ``smem`` < 0: the arm's partials (smem_bytes); a cohort passes its own
@@ -698,8 +1036,9 @@ static cudaError_t launch(K kernel, int arm, int device, long long n_rows, const
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  // enough rows per warp that the carried run partial pays off (the solo
-  // kernels); one tile a block at least (the cohort)
+  // the run-partial core: enough rows per warp that the carried run
+  // partial pays off; the segmented core: the wrapper's block_rows; the
+  // cohort: one tile a block at least
   long long want = (n_rows + rows_per_block - 1) / rows_per_block;
   long long cap = (long long)sms * per_sm;
   int grid = (int)(want < 1 ? 1 : (want < cap ? want : cap));
@@ -707,6 +1046,21 @@ static cudaError_t launch(K kernel, int arm, int device, long long n_rows, const
   err = cudaLaunchKernel((const void*)kernel, dim3(grid), dim3(BLOCK), params, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// blocks of a segmented launch's kernel one SM holds at the shared memory
+// ``out`` asks for (``form``: 0 direct, 1 cached, 2 cached SELECTIVE), into
+// ``per_sm``: the wrapper sizes ``block_rows`` and the hash table by it
+template <class K>
+static cudaError_t resident(K kernel, int arm, int device, const Out& out, int* per_sm) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = smem_bytes(arm, out);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, BLOCK, smem);
 }
 
 extern "C" {
@@ -747,6 +1101,26 @@ int scan_agg_combine_launch(const CombineArgs* a, void* stream) {
   return cudaGetLastError();
 }
 
+int scan_agg_blocks_per_sm(const Out* out, int arm, int form, int device, int* per_sm) {
+  if (form == 0 && arm == ARM_HASH)
+    return resident(scan_agg_direct<ARM_HASH>, arm, device, *out, per_sm);
+  if (form == 1 && arm == ARM_HASH)
+    return resident(scan_agg_cached<ARM_HASH, false>, arm, device, *out, per_sm);
+  if (form == 2) {
+    switch (arm) {
+      case ARM_SINGLE:
+        return resident(scan_agg_cached<ARM_SINGLE, true>, arm, device, *out, per_sm);
+      case ARM_SHARED:
+        return resident(scan_agg_cached<ARM_SHARED, true>, arm, device, *out, per_sm);
+      case ARM_SCATTER:
+        return resident(scan_agg_cached<ARM_SCATTER, true>, arm, device, *out, per_sm);
+      case ARM_HASH:
+        return resident(scan_agg_cached<ARM_HASH, true>, arm, device, *out, per_sm);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
 int scan_agg_direct_launch(const DirectArgs* a, int arm, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (arm) {
@@ -757,25 +1131,32 @@ int scan_agg_direct_launch(const DirectArgs* a, int arm, void* stream) {
     case ARM_SCATTER:
       return launch(scan_agg_direct<ARM_SCATTER>, arm, a->device, a->n_rows, a->out, s, a);
     case ARM_HASH:
-      if (!hash_ok(a->out)) return cudaErrorInvalidValue;
-      return launch(scan_agg_direct<ARM_HASH>, arm, a->device, a->n_rows, a->out, s, a);
+      if (!hash_ok(a->out) || !rows_ok(a->out)) return cudaErrorInvalidValue;
+      return launch(scan_agg_direct<ARM_HASH>, arm, a->device, a->n_rows, a->out, s, a, -1,
+                    a->out.block_rows);
   }
   return cudaErrorInvalidValue;
 }
 
 int scan_agg_cached_launch(const CachedArgs* a, int arm, int selective, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (arm == ARM_HASH && !hash_ok(a->out)) return cudaErrorInvalidValue;
+  if ((selective || arm == ARM_HASH) && !rows_ok(a->out)) return cudaErrorInvalidValue;
+  const long long rows = a->out.block_rows;
   if (selective) {
     switch (arm) {
       case ARM_SINGLE:
-        return launch(scan_agg_cached<ARM_SINGLE, true>, arm, a->device, a->n_rows, a->out, s, a);
+        return launch(scan_agg_cached<ARM_SINGLE, true>, arm, a->device, a->n_rows, a->out, s,
+                      a, -1, rows);
       case ARM_SHARED:
-        return launch(scan_agg_cached<ARM_SHARED, true>, arm, a->device, a->n_rows, a->out, s, a);
+        return launch(scan_agg_cached<ARM_SHARED, true>, arm, a->device, a->n_rows, a->out, s,
+                      a, -1, rows);
       case ARM_SCATTER:
-        return launch(scan_agg_cached<ARM_SCATTER, true>, arm, a->device, a->n_rows, a->out, s, a);
+        return launch(scan_agg_cached<ARM_SCATTER, true>, arm, a->device, a->n_rows, a->out, s,
+                      a, -1, rows);
       case ARM_HASH:
-        if (!hash_ok(a->out)) return cudaErrorInvalidValue;
-        return launch(scan_agg_cached<ARM_HASH, true>, arm, a->device, a->n_rows, a->out, s, a);
+        return launch(scan_agg_cached<ARM_HASH, true>, arm, a->device, a->n_rows, a->out, s, a,
+                      -1, rows);
     }
   } else {
     switch (arm) {
@@ -786,8 +1167,8 @@ int scan_agg_cached_launch(const CachedArgs* a, int arm, int selective, void* st
       case ARM_SCATTER:
         return launch(scan_agg_cached<ARM_SCATTER, false>, arm, a->device, a->n_rows, a->out, s, a);
       case ARM_HASH:
-        if (!hash_ok(a->out)) return cudaErrorInvalidValue;
-        return launch(scan_agg_cached<ARM_HASH, false>, arm, a->device, a->n_rows, a->out, s, a);
+        return launch(scan_agg_cached<ARM_HASH, false>, arm, a->device, a->n_rows, a->out, s, a,
+                      -1, rows);
     }
   }
   return cudaErrorInvalidValue;

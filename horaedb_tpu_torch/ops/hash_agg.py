@@ -19,9 +19,9 @@ the JAX package's ``hash_segment_agg`` (``horaedb_tpu/ops/hash_agg.py``)
 computes it, except that the per-slot aggregate follows the scatter
 arm's special-float rule (NaN only from a kept row; -0.0 < +0.0) as
 every port arm does. The kernel is ``ARM_HASH`` in ``csrc/scan_agg.cu``:
-each block keeps its own slot table in shared memory (see
-``scan_agg.block_hash_slots``), so which rows overflow differs from this
-version; the outputs do not.
+each block keeps its own slot table in shared memory, fitted to the rows
+it takes (``scan_agg.fitted_hash_slots`` of ``scan_agg.block_hash_slots``),
+so which rows overflow differs from this version; the outputs do not.
 
 Not ported: ``host_segment_agg`` and ``host_scan_aggregate`` and the
 tiny-input host route that calls them (``HORAEDB_HASH_HOST_MAX_ROWS``).

@@ -69,6 +69,8 @@ ARMS = ("single",) + SEGMENT_KERNELS
 _ARM_CODE = {"single": 0, "shared": 1, "scatter": 2, "hash": 3}
 # The opt-in dynamic shared memory one block may use on Hopper.
 SHARED_MEM_BYTES = 232_448
+# threads of a kernel block (BLOCK in ops/csrc/scan_agg.cu)
+BLOCK = 256
 MAX_FIELDS = 32
 MAX_FILTERS = 16
 
@@ -111,15 +113,40 @@ def shared_fits(n_seg: int, n_agg_fields: int, need_minmax: bool = True) -> bool
 
 
 def block_hash_slots(hash_slots: int, n_agg_fields: int, need_minmax: bool = True) -> int:
-    """Slots of the hash arm's table in one block: ``hash_slots`` where the
-    table fits shared memory at 4 B of key and (1 + planes * F) * 4 B of
-    partials a slot, else the largest power of two that fits."""
+    """The most slots the hash arm's table may have in one block:
+    ``hash_slots`` where the table fits shared memory at 16 B of claim
+    count, then a slot's 4 B of key, 4 B of claim list and (1 + planes * F)
+    * 4 B of partials, else the largest power of two that fits."""
     planes = 3 if need_minmax else 1
-    per_slot = 4 + (1 + planes * n_agg_fields) * 4
+    per_slot = 8 + (1 + planes * n_agg_fields) * 4
     h = int(hash_slots)
-    while h > 2 and h * per_slot > SHARED_MEM_BYTES:
+    while h > 2 and 16 + h * per_slot > SHARED_MEM_BYTES:
         h //= 2
     return h
+
+
+def segmented_geometry(n_rows: int, sms: int, max_slots: int, resident) -> tuple[int, int]:
+    """(rows one block takes, slots of its hash table: 0 without one) of a
+    segmented launch (SELECTIVE, or the hash arm): the fewest whole 32-row
+    steps a warp, one, two, four and so on (BLOCK rows a step of a
+    block's 8 warps), whose ceil(n_rows / rows) blocks the card holds at
+    once, ``sms`` times ``resident(slots)`` blocks. With ``max_slots``
+    (``block_hash_slots``) a block's table is ``fitted_hash_slots`` of it
+    at those rows; ``resident`` gives the blocks one SM holds at a table's
+    shared memory (at least one is assumed)."""
+    rows = BLOCK
+    while True:
+        slots = fitted_hash_slots(max_slots, rows) if max_slots else 0
+        if -(-max(int(n_rows), 1) // rows) <= sms * max(1, resident(slots)):
+            return rows, slots
+        rows *= 2
+
+
+def fitted_hash_slots(max_slots: int, rows: int) -> int:
+    """Slots of a hash launch's table: a power of two of at least 2, twice
+    the ``rows`` one block takes or more (a block touches at most that many
+    segments), and at most ``max_slots`` (``block_hash_slots``)."""
+    return min(int(max_slots), next_pow2(2 * int(rows), floor=2))
 
 
 def pinned_segment_impl() -> str:
@@ -475,7 +502,7 @@ class _Out(ctypes.Structure):
         ("minmax", ctypes.c_int),
         ("hash_slots", ctypes.c_int),  # the hash arm: slots of a block's table
         ("hash_rounds", ctypes.c_int),  # the hash arm: linear-probe rounds
-        ("pad_", ctypes.c_int),
+        ("block_rows", ctypes.c_int),  # segmented launches: rows one block takes
         ("overflow", ctypes.c_void_p),  # int64 the hash arm adds unplaced rows to, or NULL
     ]
 
@@ -610,6 +637,11 @@ def _kernels():
             ctypes.POINTER(_CohortArgs), ctypes.c_int, ctypes.c_void_p,
         ]
         lib.scan_agg_cohort_launch.restype = ctypes.c_int
+        lib.scan_agg_blocks_per_sm.argtypes = [
+            ctypes.POINTER(_Out), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.scan_agg_blocks_per_sm.restype = ctypes.c_int
         lib.scan_agg_combine_launch.argtypes = [ctypes.POINTER(_CombineArgs), ctypes.c_void_p]
         lib.scan_agg_combine_launch.restype = ctypes.c_int
         lib.scan_agg_error_string.argtypes = [ctypes.c_int]
@@ -675,21 +707,69 @@ def _arm(segment_impl: str, n_seg: int, n_agg_fields: int, need_minmax: bool) ->
     return segment_impl
 
 
-def _set_hash(out: _Out, arm: str, hash_slots: int, overflow, dev) -> None:
-    """The hash arm's launch fields of ``out``: a block's table size
-    (``block_hash_slots`` of ``hash_slots``, 0 meaning
-    ``default_hash_slots``), its probe rounds (HORAEDB_HASH_PROBE_ROUNDS)
-    and the overflow counter."""
+_SM_COUNT: dict = {}
+_RESIDENT: dict = {}
+# a segmented launch's entry point, as scan_agg_blocks_per_sm names it
+_FORM_CODE = {"direct": 0, "cached": 1, "cached_selective": 2}
+
+
+def _sm_count(dev) -> int:
+    """Streaming multiprocessors of the card ``dev``."""
+    index = _device_index(dev)
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNT[index]
+
+
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _blocks_per_sm(out: _Out, arm: str, form: str, dev) -> int:
+    """Blocks of the launch's kernel one SM holds at the shared memory
+    ``out`` asks for (the library's occupancy query, kept per shape)."""
+    index = _device_index(dev)
+    n_seg = out.n_seg if arm == "shared" else 0
+    key = (index, form, arm, n_seg, out.n_agg, out.minmax, out.hash_slots)
+    if key not in _RESIDENT:
+        lib = _kernels()
+        per_sm = ctypes.c_int(0)
+        _launch_error(lib, lib.scan_agg_blocks_per_sm(ctypes.byref(out), _ARM_CODE[arm],
+                                                      _FORM_CODE[form], index,
+                                                      ctypes.byref(per_sm)),
+                      "scan_agg occupancy query")
+        _RESIDENT[key] = per_sm.value
+    return _RESIDENT[key]
+
+
+def _set_launch(out: _Out, arm: str, hash_slots: int, overflow, dev, n_rows: int,
+                form: str) -> None:
+    """The launch fields of ``out`` besides its planes: the overflow
+    counter; for a segmented launch (``form`` cached_selective, or the
+    hash arm) the rows a block takes and, for the hash arm, a block's table
+    (``segmented_geometry``, at most ``block_hash_slots`` of ``hash_slots``,
+    0 meaning ``default_hash_slots``) and its probe rounds
+    (HORAEDB_HASH_PROBE_ROUNDS)."""
     if overflow is not None:
         _check_tensor(overflow, "overflow", torch.int64, dev, 1)
         _check(overflow.shape[0] == 1, "overflow is one int64")
         out.overflow = overflow.data_ptr()
-    if arm != "hash":
+    if form != "cached_selective" and arm != "hash":
         return
-    slots = hash_slots or default_hash_slots(out.n_seg)
-    _check(slots >= 2 and slots & (slots - 1) == 0, f"hash_slots {slots} not a power of 2")
-    out.hash_slots = block_hash_slots(slots, out.n_agg, bool(out.minmax))
-    out.hash_rounds = probe_rounds(out.hash_slots)
+    max_slots = 0
+    if arm == "hash":
+        slots = hash_slots or default_hash_slots(out.n_seg)
+        _check(slots >= 2 and slots & (slots - 1) == 0, f"hash_slots {slots} not a power of 2")
+        max_slots = block_hash_slots(slots, out.n_agg, bool(out.minmax))
+
+    def resident(h: int) -> int:
+        out.hash_slots = h
+        return _blocks_per_sm(out, arm, form, dev)
+
+    out.block_rows, out.hash_slots = segmented_geometry(n_rows, _sm_count(dev), max_slots,
+                                                        resident)
+    if arm == "hash":
+        out.hash_rounds = probe_rounds(out.hash_slots)
 
 
 def fused_scan_agg(
@@ -765,7 +845,7 @@ def fused_scan_agg(
         counts.data_ptr(), sums.data_ptr(), mins.data_ptr(), maxs.data_ptr(),
         n_seg, n_agg_fields, int(need_minmax),
     )
-    _set_hash(a.out, arm, hash_slots, overflow, dev)
+    _set_launch(a.out, arm, hash_slots, overflow, dev, n, "direct")
     stream = torch.cuda.current_stream(dev).cuda_stream
     _launch_error(
         lib, lib.scan_agg_direct_launch(ctypes.byref(a), _ARM_CODE[arm], stream),
@@ -876,7 +956,7 @@ def cached_scan_agg_packed(
     a.s1 = session.shape[0] // 2
     packed = _packed_out(1, n_groups * n_buckets, n_agg_fields, need_minmax, dev)[0]
     a.out = _out_of(packed.data_ptr(), n_groups * n_buckets, n_agg_fields, need_minmax)
-    _set_hash(a.out, arm, hash_slots, overflow, dev)
+    _set_launch(a.out, arm, hash_slots, overflow, dev, a.n_rows, form)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _launch_error(
         lib,

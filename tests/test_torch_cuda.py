@@ -285,6 +285,59 @@ def test_hash_tables_fill_and_overflow(card):
     assert ov > 0
 
 
+_RUN_FORMS = ("direct", "cached", "cached_selective")
+
+
+@pytest.mark.parametrize("run_len", chip_smoke.RUN_LENGTHS)
+@pytest.mark.parametrize("arm", list(chip_smoke.RUN_ARMS))
+@pytest.mark.parametrize("form", _RUN_FORMS)
+def test_short_runs_match_plain(card, run_len, arm, form):
+    """Rows sorted in runs of ``run_len`` that start and end inside and
+    across 32-row steps, on every arm and form (the segmented core of the
+    SELECTIVE launches and of the hash arm; the run-partial core of the
+    other full scans), against the plain version: counts, mins and maxs
+    bit-equal, sums within SUM_RTOL of sum |x|. (F, need_minmax) cycles
+    through F in {0, 1, 5, 10} with and without min/max, and every other
+    case filters; SELECTIVE gathers end in pad slots that fill the last
+    steps."""
+    j = (chip_smoke.RUN_LENGTHS.index(run_len) + _RUN_FORMS.index(form)
+         + list(chip_smoke.RUN_ARMS).index(arm))
+    F, need_minmax = chip_smoke.RUN_FIELDS[j % len(chip_smoke.RUN_FIELDS)]
+    op = chip_smoke.OPS[j % 6] if j % 2 else None
+    rng = np.random.default_rng(1000 * run_len + j)
+    chip_smoke._run_case(torch, rng, run_len, arm, form, F, need_minmax, op=op)
+
+
+@pytest.mark.parametrize("run_len", [6, 33])
+@pytest.mark.parametrize("arm", list(chip_smoke.RUN_ARMS))
+@pytest.mark.parametrize("form", _RUN_FORMS)
+def test_short_run_specials_match_plain(card, run_len, arm, form):
+    """NaN, -0.0 among +0.0 and +0.0 among -0.0 at the first, middle and
+    last row of a run: NaN propagates and -0.0 < +0.0, bit-equal to the
+    plain version."""
+    rng = np.random.default_rng(run_len + len(arm) + len(form))
+    chip_smoke._run_case(torch, rng, run_len, arm, form, 3, True, special=True)
+
+
+@pytest.mark.parametrize("form", _RUN_FORMS)
+def test_short_run_hash_overflow_counts_and_answers(card, form):
+    """A 16-slot table probed once: rows overflow (the counter is above 0)
+    and the answers still equal the plain version's."""
+    _, ov = chip_smoke._run_case(torch, np.random.default_rng(16), 6, "hash", form, 5, True,
+                                 hash_slots=16, rounds=1)
+    assert ov > 0
+
+
+def test_short_run_hash_fitted_table_at_load_one(card):
+    """Every block of 256 unsorted rows fills a 16-slot table with its 16
+    segments; probed in full, no row overflows."""
+    args, kw = chip_smoke._groupby_inputs(torch, np.random.default_rng(17), 4096, 65536, 16,
+                                          every_row=True)
+    _, ov, _, counted = chip_smoke._hash_check(
+        torch, "direct", args, {**kw, "hash_slots": 16}, "load 1.0 in every block", 16)
+    assert ov == 0 and counted == 4096
+
+
 def test_hash_pin_launches_the_hash_kernel(card, monkeypatch):
     from horaedb_tpu_torch.ops import scan_agg as S
 

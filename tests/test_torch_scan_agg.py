@@ -390,3 +390,75 @@ def test_cuda_wrapper_rejects_bad_inputs_before_launch():
             g, g, g.bool(), torch.zeros((1, 8), device=meta), torch.zeros(0, device=meta),
             n_groups=1, n_buckets=1, n_agg_fields=1,
         )
+
+
+# ---- the segmented launches' geometry ----------------------------------------
+
+
+def _smem_resident(per_slot: int, regs_limit: int = 3):
+    """Blocks a SM holds: ``regs_limit`` by registers, fewer where a table
+    of ``per_slot`` B a slot leaves less shared memory (228 KB a SM)."""
+    return lambda slots: max(0, min(regs_limit, 233_472 // max(1, 16 + slots * per_slot)))
+
+
+@pytest.mark.parametrize("n_rows", [0, 1, 255, 256, 257, 2880, 4096, 69_120, 131_072,
+                                    1 << 18, 1 << 24])
+@pytest.mark.parametrize("sms", [1, 4, 132])
+@pytest.mark.parametrize("max_slots", [0, 16, 2048, 4096])
+def test_segmented_geometry_whole_steps_all_resident(n_rows, sms, max_slots):
+    """A block takes whole 32-row steps of its 8 warps (a multiple of
+    BLOCK rows, a power of two of steps), every block is resident at once,
+    and no fewer rows would do; a table is a power of two of at least
+    twice the rows (or its limit) and at most the limit."""
+    resident = _smem_resident(72)
+    rows, slots = port.segmented_geometry(n_rows, sms, max_slots, resident)
+    steps = rows // port.BLOCK
+    assert rows % port.BLOCK == 0 and steps & (steps - 1) == 0
+    blocks = -(-max(n_rows, 1) // rows)
+    assert blocks <= sms * max(1, resident(slots))
+    if rows > port.BLOCK:
+        fewer = port.fitted_hash_slots(max_slots, rows // 2) if max_slots else 0
+        assert -(-n_rows // (rows // 2)) > sms * max(1, resident(fewer))
+    if max_slots:
+        assert slots == port.fitted_hash_slots(max_slots, rows)
+    else:
+        assert slots == 0
+
+
+def test_segmented_geometry_at_the_main_path_shapes():
+    """On 132 SMs holding 3 blocks each: single-groupby-5-8-1's and
+    sparse-8x1h's 4,096 gathered rows take one step a warp (16 blocks; the
+    hash table 512 slots); sparse-16x12h's 131,072 (69,120
+    real, padded) take two (256 blocks, 1,024 slots); bench.py's 2**18-row
+    groupby shapes four."""
+    resident = _smem_resident(72)
+    assert port.segmented_geometry(4096, 132, 0, resident) == (256, 0)
+    assert port.segmented_geometry(4096, 132, 2048, resident) == (256, 512)
+    assert port.segmented_geometry(131_072, 132, 2048, resident) == (512, 1024)
+    assert port.segmented_geometry(1 << 18, 132, 32, resident) == (1024, 32)
+    # one block a SM (a 2048-slot table's shared memory) over 2**24 rows
+    assert port.segmented_geometry(1 << 24, 132, 2048, lambda h: 1)[0] == 131_072
+
+
+@pytest.mark.parametrize("max_slots", [2, 16, 256, 2048, 4096])
+@pytest.mark.parametrize("rows", [256, 512, 768, 2048, 1 << 20])
+def test_fitted_hash_slots(max_slots, rows):
+    """A power of two, at least 2, at most the block's limit, and at least
+    twice the rows a block takes unless the limit is lower."""
+    h = port.fitted_hash_slots(max_slots, rows)
+    assert h >= 2 and h & (h - 1) == 0
+    assert h <= max_slots
+    assert h >= 2 * rows or h == max_slots
+    assert h < 4 * rows  # the least power of two that holds 2 x rows
+
+
+def test_block_hash_slots_leave_room_for_the_claim_list():
+    """The table fits shared memory with its claim count, keys, claim list
+    and partials; the next power of two would not."""
+    for slots in (16, 2048, 4096, 1 << 16):
+        for F in (0, 1, 5, 10, 32):
+            for minmax in (True, False):
+                h = port.block_hash_slots(slots, F, minmax)
+                per = 8 + (1 + (3 if minmax else 1) * F) * 4
+                assert 16 + h * per <= port.SHARED_MEM_BYTES or h == 2
+                assert h == slots or 16 + 2 * h * per > port.SHARED_MEM_BYTES
