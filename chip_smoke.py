@@ -1683,11 +1683,14 @@ MERGE_KERNELS = ("init_hist", "plan_passes", "tile_hist", "digit_scan", "tile_sc
                  "epilogue")
 
 
-def _family_device_ms(torch, fn, names, reps=5):
+def _family_device_ms(torch, fn, names, reps=5, label=None):
     """Mean device ms of one call of ``fn``: the sum of its kernels (every
     event whose kernel name, without its signature and template arguments,
-    is one of ``names``) on the profiler's device timeline; None without
-    CUPTI tracing or when two traces record none of them."""
+    is one of ``names``; a memset is "Memset", a copy from the host "HtoD")
+    on the profiler's device timeline; None without
+    CUPTI tracing or when two traces record none of them. With ``label``,
+    the window's mean ms a call of each kernel goes to
+    DETAIL["device_ms_windows"] and to the phase's output."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1701,10 +1704,18 @@ def _family_device_ms(torch, fn, names, reps=5):
         except RuntimeError as e:
             say(f"profiler unavailable ({e}); times from CUDA events")
             return None
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.name.split("(")[0].split(" ")[-1].split("<")[0] in names]
-        if us:
-            return sum(us) / reps / 1e3
+        split: dict = {}
+        for e in prof.events():
+            base = e.name.split("(")[0].strip().split(" ")[-1].split("<")[0]
+            if base in names:
+                split[base] = split.get(base, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+        if split:
+            if label is not None:
+                DETAIL.setdefault("device_ms_windows", []).append(
+                    {"name": label, "ms_a_call": split})
+                say(f"  device ms a call of {label}: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in split.items()))
+            return sum(split.values())
         say(f"the profiler recorded none of {names} in {reps} calls")
     return None
 
@@ -2573,6 +2584,7 @@ RAW_BIG = (1 << 25) + 4096
 RAW_KS = (1, 16, 128, 4096)
 # (key_is_ts, descending)
 RAW_KEYS = ((True, True), (True, False), (False, True), (False, False))
+MAX_WINDOW_RUNS = 20_000  # window sets of one window a run of passing rows
 
 
 def _raw_values(rng, n, kind):
@@ -2667,7 +2679,9 @@ def _raw_inputs(torch, rng, S, allow_frac, lits, lo, hi, key_lo=0, key_hi=0):
 
 def _raw_check(torch, kind, cols, session, dyn, kw, what) -> int:
     """One launch of the ``kind`` kernel and its plain version on the same
-    tensors; fails unless bit-equal. Returns the rows the answer holds."""
+    tensors; fails unless bit-equal (a selection's ``windows`` reach only
+    the kernel: the plain version scans every row). Returns the rows the
+    answer holds."""
     from horaedb_tpu_torch.ops import scan_topk as T
 
     if kind == "raw_topk":
@@ -2685,6 +2699,119 @@ def _raw_check(torch, kind, cols, session, dyn, kw, what) -> int:
     check(got.shape == want.shape and torch.equal(got, want.to(got.device)),
           f"{what}: kernel {got[..., :12].tolist()} vs plain {want[..., :12].tolist()}")
     return int((got[1:] >= 0).sum()) if kind == "raw_select" else int((got[0] >= 0).sum())
+
+
+def _runs(flags):
+    """int64[W, 2]: the maximal [start, end) runs of True in ``flags``."""
+    import numpy as np
+
+    f = np.concatenate([[False], np.asarray(flags, dtype=bool), [False]])
+    edges = np.flatnonzero(f[1:] != f[:-1])
+    return edges.reshape(-1, 2).astype(np.int64)
+
+
+def _in_windows(windows, n):
+    """bool[n]: the rows inside the [start, end) ``windows``."""
+    import numpy as np
+
+    w = np.asarray(windows, dtype=np.int64).reshape(-1, 2)
+    edge = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(edge, w[:, 0], 1)
+    np.add.at(edge, w[:, 1], -1)
+    return np.cumsum(edge)[:n] > 0
+
+
+def _union(windows):
+    """Sorted, merged [start, end) windows (overlapping or touching ones
+    joined)."""
+    import numpy as np
+
+    w = np.asarray(windows, dtype=np.int64).reshape(-1, 2)
+    w = w[np.argsort(w[:, 0], kind="stable")]
+    out = []
+    for a, b in w:
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return np.array(out, dtype=np.int64).reshape(-1, 2)
+
+
+def _window_sets(torch, rng, cols, lay, session, dyn, filters, full: bool) -> dict:
+    """Row windows that cover every row the selection's mask passes (the
+    promise the executor's windows keep), by name: ``series`` the allowed
+    series' in-range rows, as the executor builds them; ``real`` one
+    window of every real row; ``exact`` the runs of passing rows (windows
+    that end inside a tile and start inside a 128-row delta block);
+    ``padded`` those widened by 0-150 rows a side; ``singles`` a window of
+    one row for each of the first 3000 passing rows, then one over the
+    rest; ``short`` the series windows cut into pieces of 1-300 rows;
+    ``empty`` the empty list where no row passes. ``full``: every set,
+    else ``series`` and ``real``; the sets built from the passing rows'
+    runs only where there are at most MAX_WINDOW_RUNS runs (a tile each)."""
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import encoding as E, scan_topk as T
+
+    sp, tp, vals = cols
+    n = E.layout_rows(sp, lay["series_layout"])
+    sc, tr, dv = E.decode_layouts(sp, tp, vals, lay["series_layout"], lay["ts_layout"],
+                                  lay["value_layouts"])
+    lits, lo, hi, _, _ = T._unpack_dyn(dyn.cpu(), filters)
+    allow = session.cpu().numpy() != 0
+    codes, ts = sc.cpu().numpy().astype(np.int64), tr.cpu().numpy()
+    base = allow[codes] & (ts >= lo) & (ts < hi)
+    m = T._raw_mask(sc, tr, dv, session != 0, lits.to(sc.device), lo, hi, filters)
+    m = m.cpu().numpy()
+    n_real = int((codes < len(allow) - 1).sum())
+    sets = {"series": _runs(base), "real": np.array([[0, n_real]] if n_real else [],
+                                                   dtype=np.int64).reshape(-1, 2)}
+    ex = _runs(m)
+    if not m.any():
+        sets["empty"] = np.empty((0, 2), dtype=np.int64)
+    if full and len(ex) <= MAX_WINDOW_RUNS:
+        sets["exact"] = ex
+        grow = rng.integers(0, 151, ex.shape)
+        sets["padded"] = _union(np.clip(ex + grow * np.array([-1, 1]), 0, n_real))
+    if full:
+        hit = np.flatnonzero(m)
+        one = np.stack([hit[:3000], hit[:3000] + 1], axis=1)
+        rest = [[int(hit[3000]), n_real]] if len(hit) > 3000 else []
+        sets["singles"] = np.concatenate([one, np.array(rest, dtype=np.int64).reshape(-1, 2)])
+        pieces = []
+        for a, b in sets["series"]:
+            cuts = np.cumsum(rng.integers(1, 301, (b - a) // 150 + 2)) + a
+            edges = np.concatenate([[a], cuts[cuts < b], [b]])
+            pieces.append(np.stack([edges[:-1], edges[1:]], axis=1))
+        sets["short"] = (np.concatenate(pieces) if pieces
+                         else np.empty((0, 2), dtype=np.int64))
+    for name, w in sets.items():  # each covers every passing row
+        check(bool(_in_windows(w, n)[m].all()), f"window set {name} misses a row")
+    return sets
+
+
+def _raw_window_cases(torch, rng, cols, lay, session, dyn, filters, what, full=True) -> int:
+    """The selection over each of ``_window_sets``' window sets against its
+    plain version (which scans every row), bit-equal, with as many slots
+    as rows pass; the tiles a launch walks are the windows' tiles."""
+    from horaedb_tpu_torch.ops import encoding as E, scan_topk as T
+
+    n = E.layout_rows(cols[0], lay["series_layout"])
+    count = int(T.raw_select_plain(*cols, session, dyn, select_slots=0,
+                                   numeric_filters=filters, **lay)[0])
+    n_cases = 0
+    for name, w in _window_sets(torch, rng, cols, lay, session, dyn, filters, full).items():
+        tiles = T.TILES["raw_select"]
+        _raw_check(torch, "raw_select", cols, session, dyn,
+                   dict(select_slots=count, numeric_filters=filters, windows=w, **lay),
+                   f"{what} windows={name} ({len(w)}) count {count}")
+        if DEV == "cuda":
+            walked = T.TILES["raw_select"] - tiles
+            check(walked == len(T.select_tiles(w, n)) == int(
+                ((w[:, 1] - w[:, 0] + T.TILE - 1) // T.TILE).sum()),
+                  f"{what} windows={name}: {walked} tiles walked")
+        n_cases += 1
+    return n_cases
 
 
 def _raw_cases(torch, rng, n, layout, ks, keys, op_at) -> int:
@@ -2714,6 +2841,15 @@ def _raw_cases(torch, rng, n, layout, ks, keys, op_at) -> int:
                        dict(select_slots=slots, numeric_filters=filters, **lay),
                        f"raw_select n={n} {layout} {op} slots={slots} (count {count})")
             n_cases += 1
+        what = f"raw_select n={n} {layout} {op} [{lo}, {hi})"
+        big = n >= 1 << 24  # over 2^24 rows, the windows of one key's allow list
+        if j == 0 or not big:
+            n_cases += _raw_window_cases(torch, rng, cols, lay, session, dyn, filters, what,
+                                         full=not big)
+        if j == 0:  # an allow list that passes no row: the empty window list
+            none, _ = _raw_inputs(torch, rng, n_series, 0.0, [5.0], lo, hi)
+            n_cases += _raw_window_cases(torch, rng, cols, lay, none, dyn, filters,
+                                         what + " allow none", full=False)
     return n_cases
 
 
@@ -2897,6 +3033,27 @@ def _key_rows(rows, key):
     return [(r["hostname"], r["ts"]) for r in sorted(rows, key=key)]
 
 
+def _select_geometry(T, kw, n_valid, walked, what) -> None:
+    """The executor's windows of one selection: sorted, disjoint, inside
+    the real rows [0, n_valid) (no pad row), as many rows as the buffer's
+    slots; on the card the launch walked ceil(rows / TILE) tiles a window
+    and no others."""
+    import numpy as np
+
+    w = np.asarray(kw["windows"], dtype=np.int64).reshape(-1, 2)
+    rows = w[:, 1] - w[:, 0]
+    tiles = int(((rows + T.TILE - 1) // T.TILE).sum())
+    check(len(w) > 0 and bool((rows > 0).all() and (w[1:, 0] > w[:-1, 1]).all())
+          and int(w[0, 0]) >= 0 and int(w[-1, 1]) <= n_valid,
+          f"{what}: windows {w[:4].tolist()}... outside the {n_valid} real rows")
+    check(int(rows.sum()) == kw["select_slots"],
+          f"{what}: windows of {int(rows.sum())} rows, {kw['select_slots']} slots")
+    check(DEV != "cuda" or walked == tiles,
+          f"{what}: the launch walked {walked} tiles, the windows hold {tiles}")
+    DETAIL.setdefault("select_geometry", {})[what] = {
+        "windows": len(w), "rows": int(rows.sum()), "tiles": tiles, "walked": walked}
+
+
 class RawRecorder:
     """Wraps the raw-read wrappers during the main path to keep, per query,
     the last main-path call of its kernel (args and kwargs) for phase 16."""
@@ -2970,6 +3127,7 @@ def phase_raw_main(torch, main) -> dict:
             rec.query = name
             runs = []
             for _ in range(REPEATS):
+                tiles = T.TILES["raw_select"]
                 t = time.perf_counter()
                 res = db.execute(sql)
                 secs = time.perf_counter() - t
@@ -2977,6 +3135,9 @@ def phase_raw_main(torch, main) -> dict:
                 check(m.get("path") == "raw_device" and m.get("raw_kernel") == kernel,
                       f"{name}: path {m.get('path')} kernel {m.get('raw_kernel')} "
                       f"({m.get('raw_host')})")
+                if kernel == "select":
+                    _select_geometry(T, rec.calls[name][2], cache._entries["cpu"].n_valid,
+                                     T.TILES["raw_select"] - tiles, name)
                 got = res.to_pylist()
                 _same_rows(got, exp[name], f"{name} vs numpy")
                 runs.append({"seconds": secs, "cache": m.get("cache"),
@@ -3044,6 +3205,9 @@ def phase_raw_main(torch, main) -> dict:
               f"raw main path launches {launches}")
         check(not any(plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
     say(f"raw main path launches: {launches}")
+    for what, g in DETAIL.get("select_geometry", {}).items():
+        say(f"raw {what} selection geometry: {g['windows']} windows of {g['rows']} rows in "
+            f"{g['tiles']} tiles (walked {g['walked']}), inside the real rows")
     out.update(launches=launches, calls=rec.calls, default_budget_s=default_s,
                host_bytes=host_bytes)
     DETAIL["raw_main"] = {k: v for k, v in out.items() if k != "calls"}
@@ -3052,8 +3216,10 @@ def phase_raw_main(torch, main) -> dict:
 
 # ---- phase 16: raw-read replay and timings -----------------------------------
 
+# the selection's device work is its memset, the copy of its tile table and
+# the raw_select launch
 RAW_KERNELS = ("raw_init", "raw_keys", "topk_hist", "topk_pick", "raw_flags", "raw_scan",
-               "raw_write", "raw_fill")
+               "raw_write", "raw_fill", "raw_select", "Memset", "HtoD")
 
 
 def _raw_bound(torch, kind, args, kw) -> tuple[float, str, dict]:
@@ -3062,9 +3228,11 @@ def _raw_bound(torch, kind, args, kw) -> tuple[float, str, dict]:
     rows in range, the key field of masked-in rows, each at its resident
     width), each output written once, over HBM bandwidth. Rows past the
     cache entry's real rows are pads (series code S, the allow list's
-    last entry, always 0) that no answer needs, so they count nothing. No
-    operation side: the kernels do a few integer compares per row, far
-    below what the bytes cost, and no count of them is derived here."""
+    last entry, always 0) that no answer needs, so they count nothing. A
+    selection given its row windows needs only their rows (no other row
+    can pass) and reads its tile table once. No operation side: the
+    kernels do a few integer compares per row, far below what the bytes
+    cost, and no count of them is derived here."""
     from horaedb_tpu_torch.ops import encoding as E, scan_topk as T
 
     sp, tp, vals, session, dyn = args
@@ -3076,13 +3244,19 @@ def _raw_bound(torch, kind, args, kw) -> tuple[float, str, dict]:
     lo, hi = (int(x) for x in dyn[n_f:n_f + 2].tolist())
     allowed = session[sc] != 0
     in_range = allowed & (tr >= lo) & (tr < hi)
-    n_real = int((sc < session.numel() - 1).sum())
+    real = sc < session.numel() - 1
+    nbytes = 0
+    if kw.get("windows") is not None:
+        inside = torch.from_numpy(_in_windows(kw["windows"], n)).to(sc.device)
+        real, allowed, in_range = real & inside, allowed & inside, in_range & inside
+        nbytes += 8 * len(T.select_tiles(kw["windows"], n))
+    n_real = int(real.sum())
 
     def share(parts, frac):
         return sum(_bytes_of(p) if p.numel() < 65536 else int(_bytes_of(p) * frac)
                    for p in parts)
 
-    nbytes = _bytes_of(session) + _bytes_of(dyn) + share(sp, n_real / n if n else 0.0)
+    nbytes += _bytes_of(session) + _bytes_of(dyn) + share(sp, n_real / n if n else 0.0)
     nbytes += share(tp, float(allowed.float().mean()) if n else 0.0)
     fields = {f for f, _ in kw["numeric_filters"]}
     frac = float(in_range.float().mean()) if n else 0.0
@@ -3141,7 +3315,8 @@ def phase_raw_timings(torch, raw, card) -> list:
         launch = lambda f=launch_fn, a=args, k=kw: f(*a, **k)  # noqa: E731
         plain = lambda f=plain_fn, a=args, k=kw: f(*a, **k)  # noqa: E731
         launch_ms = _time_launch(torch, launch)
-        device_ms = _family_device_ms(torch, launch, RAW_KERNELS, reps=10)
+        device_ms = _family_device_ms(torch, launch, RAW_KERNELS, reps=10,
+                                      label=f"{kind} at {name}")
         ms = device_ms if device_ms is not None else launch_ms
         plain_ms = _time_launch(torch, plain, reps=3)
         lib_ms = _time_launch(torch, _raw_library(torch, kind, args, kw))
@@ -4417,13 +4592,64 @@ def _combine_compare(torch, S_mod, got, parts, n_seg, F, need_minmax, what) -> f
     return err
 
 
+# the combine's edges: n_seg % 4 of 0-3 (a packed plane after the counts
+# starts off 16 bytes unless n_seg % 4 == 0; stacked rows then sit at
+# other offsets), planes shorter than a float4, and S up to MAX_SHARDS
+COMBINE_EDGE_SEGMENTS = (1, 2, 3, 4, 4096, 4097, 4098, 4099)
+COMBINE_EDGE_SHARDS = (1, 2, 3, 8, 64)
+
+
+def _combine_forms(torch, S_mod, parts, n_seg, F, need_minmax, what) -> float:
+    """mesh_combine of ``parts`` as a list and as one stacked tensor, and
+    mesh_combine_state of the same planes as (G, B) = (n_seg, 1) states,
+    each against the plain version; returns max |sum diff|."""
+    kw = dict(n_seg=n_seg, n_agg_fields=F, need_minmax=need_minmax)
+    err = 0.0
+    for form, src in (("list", parts), ("stacked", torch.stack(parts))):
+        got = S_mod.mesh_combine(src, **kw)
+        err = max(err, _combine_compare(torch, S_mod, got, parts, n_seg, F, need_minmax,
+                                        f"{what} {form}"))
+    split = [S_mod._packed_planes(p, n_seg, F, need_minmax) for p in parts]
+    fs_shape = (F, n_seg, 1)
+    zero = torch.zeros(fs_shape, device=parts[0].device)
+    states = [(sp[0].view(torch.int32).view(n_seg, 1), sp[1].view(fs_shape),
+               sp[2].view(fs_shape) if need_minmax else zero,
+               sp[3].view(fs_shape) if need_minmax else zero) for sp in split]
+    c, s, mn, mx = S_mod.mesh_combine_state(states, need_minmax=need_minmax)
+    packed = torch.cat([c.reshape(-1).view(torch.float32), s.reshape(-1)]
+                       + ([mn.reshape(-1), mx.reshape(-1)] if need_minmax else []))
+    return max(err, _combine_compare(torch, S_mod, packed, parts, n_seg, F, need_minmax,
+                                     f"{what} state"))
+
+
+def _combine_edges(torch, n_seg, seed) -> tuple[int, float]:
+    """``_combine_forms`` at ``n_seg`` over every S of COMBINE_EDGE_SHARDS
+    (F = 1 and F = 3, min/max, +-0 split across the shards both ways and a
+    NaN in one shard where there are three elements a plane; F = 2 without
+    min/max). Returns (cases, max |sum diff|)."""
+    from horaedb_tpu_torch.ops import scan_agg as S
+
+    n_cases, err = 0, 0.0
+    for n_shards in COMBINE_EDGE_SHARDS:
+        for F, need_minmax in ((1, True), (3, True), (2, False)):
+            seed += 1
+            special = need_minmax and F * n_seg >= 3
+            parts = _combine_parts(torch, n_shards, n_seg, F, need_minmax, special, seed)
+            err = max(err, _combine_forms(torch, S, parts, n_seg, F, need_minmax,
+                                          f"combine edge n_seg={n_seg} S={n_shards} F={F}"))
+            n_cases += 3
+    return n_cases, err
+
+
 def phase_mesh_kernels(torch) -> float:
     """mesh_combine (B7a) against its plain version on the card: S in
     MESH_SIZES, the packed form (S buffers and one [S, L] buffer) and the
     state form, F in {0, 1, 10}, need_minmax both ways, empty segments in
     some shards, +-0 split across shards both ways and NaN in one shard's
-    sum, min and max; then sparse-16x12h's packed size (4,194,304 segments,
-    F = 5, min/max: 268 MB a shard) over MESH_SHARDS shards."""
+    sum, min and max; the edges of ``_combine_edges`` (n_seg % 4 of 0-3,
+    planes shorter than a float4, S up to 64); then sparse-16x12h's packed
+    size (4,194,304 segments, F = 5, min/max: 268 MB a shard) over
+    MESH_SHARDS shards."""
     from horaedb_tpu_torch.ops import scan_agg as S
 
     n_cases, err, seed = 0, 0.0, SEED + 21
@@ -4434,14 +4660,13 @@ def phase_mesh_kernels(torch) -> float:
                     seed += 1
                     parts = _combine_parts(torch, n_shards, MESH_SEGMENTS, F, need_minmax,
                                            special, seed)
-                    kw = dict(n_seg=MESH_SEGMENTS, n_agg_fields=F, need_minmax=need_minmax)
                     what = f"combine S={n_shards} F={F} minmax={need_minmax} special={special}"
-                    for form, src in (("list", parts), ("stacked", torch.stack(parts))):
-                        got = S.mesh_combine(src, **kw)
-                        err = max(err, _combine_compare(torch, S, got, parts, MESH_SEGMENTS, F,
-                                                        need_minmax, f"{what} {form}"))
-                        n_cases += 1
+                    err = max(err, _combine_forms(torch, S, parts, MESH_SEGMENTS, F,
+                                                  need_minmax, what))
+                    n_cases += 3
                     if special and n_shards > 1:
+                        got = S.mesh_combine(parts, n_seg=MESH_SEGMENTS, n_agg_fields=F,
+                                             need_minmax=True)
                         mins = S._packed_planes(got, MESH_SEGMENTS, F, True)[2]
                         maxs = S._packed_planes(got, MESH_SEGMENTS, F, True)[3]
                         check(_canon(mins[:2]).tolist() == _canon(
@@ -4450,20 +4675,10 @@ def phase_mesh_kernels(torch) -> float:
                             torch.tensor([0.0, 0.0])).tolist(), f"{what}: +0 is the max")
                         check(bool(torch.isnan(mins[2]) and torch.isnan(maxs[2])),
                               f"{what}: NaN wins")
-                    # the state form on the same partials, as (G, B) = (n_seg, 1)
-                    split = [S._packed_planes(p, MESH_SEGMENTS, F, need_minmax) for p in parts]
-                    fs_shape = (F, MESH_SEGMENTS, 1)
-                    zero = torch.zeros(fs_shape, device=DEV)
-                    states = [(sp[0].view(torch.int32).view(MESH_SEGMENTS, 1),
-                               sp[1].view(fs_shape),
-                               sp[2].view(fs_shape) if need_minmax else zero,
-                               sp[3].view(fs_shape) if need_minmax else zero) for sp in split]
-                    c, s, mn, mx = S.mesh_combine_state(states, need_minmax=need_minmax)
-                    packed = torch.cat([c.reshape(-1).view(torch.float32), s.reshape(-1)]
-                                       + ([mn.reshape(-1), mx.reshape(-1)] if need_minmax else []))
-                    err = max(err, _combine_compare(torch, S, packed, parts, MESH_SEGMENTS, F,
-                                                    need_minmax, f"{what} state"))
-                    n_cases += 1
+    for n_seg in COMBINE_EDGE_SEGMENTS:
+        cases, e = _combine_edges(torch, n_seg, SEED + 1000 * n_seg)
+        n_cases += cases
+        err = max(err, e)
     parts = _combine_parts(torch, MESH_SHARDS, SPARSE_SEGMENTS, 5, True, True, SEED + 299)
     kw = dict(n_seg=SPARSE_SEGMENTS, n_agg_fields=5, need_minmax=True)
     got = S.mesh_combine(parts, **kw)
@@ -4473,7 +4688,8 @@ def phase_mesh_kernels(torch) -> float:
     _sync(torch)
     del parts, got
     say(f"mesh_combine: kernel = plain in {n_cases} cases (S {MESH_SIZES}, both forms, "
-        f"F 0/1/10, +-0 and NaN across shards, {4 * S.packed_len(1, SPARSE_SEGMENTS, 5, True)} "
+        f"F 0/1/10, +-0 and NaN across shards, n_seg {COMBINE_EDGE_SEGMENTS} at S "
+        f"{COMBINE_EDGE_SHARDS}, {4 * S.packed_len(1, SPARSE_SEGMENTS, 5, True)} "
         f"B a shard at sparse-16x12h's size); max |sum diff| {err}")
     DETAIL["mesh_kernels"] = {"cases": n_cases, "max_abs_err": err}
     return err
@@ -4543,6 +4759,7 @@ def _mesh_counts(S, T, md) -> dict:
             "cached_selective": agg("cached_selective"),
             "combine_state": comb["state"], "combine_packed": comb["packed"],
             "raw_topk": raw["raw_topk"], "raw_select": raw["raw_select"],
+            "select_tiles": T.TILES["raw_select"] if card else None,
             "merge_f32": merge["f32"]}
 
 
@@ -4706,6 +4923,17 @@ def phase_mesh_main(torch, main, card) -> list:
     for kind, calls in rec.raw.items():
         check(len(calls) == n_sh, f"{len(calls)} recorded shard launches of {kind}")
         check(launches[kind] == REPEATS_MESH * n_sh, f"{kind} launches {launches}")
+    # the selection's windows, clipped per shard: inside the shard's real
+    # rows, and on the card the last run walked their tiles and no others
+    tiles = 0
+    for d, (a, k) in enumerate(rec.raw["raw_select"]):
+        w = np.asarray(k["windows"], dtype=np.int64).reshape(-1, 2)
+        check(len(w) == 0 or (int(w[0, 0]) >= 0 and int(w[-1, 1]) <= real[d]),
+              f"high-cpu-1 shard {d}: windows {w.tolist()} outside its {real[d]} real rows")
+        tiles += len(T.select_tiles(w, per))
+    walked = results["high-cpu-1"]["runs"][-1]["launches"].get("select_tiles", 0)
+    check(DEV != "cuda" or walked == tiles,
+          f"high-cpu-1 on the mesh walked {walked} tiles, its shard windows hold {tiles}")
     say(f"mesh: {mesh} ({n_sh} shards); real rows per shard {real} of {per} "
         f"(the last shard{' is' if real[-1] == 0 else ' is not'} all padding); "
         f"main path {path_s:.1f} s; launches {launches}")
@@ -4757,7 +4985,8 @@ def phase_mesh_main(torch, main, card) -> list:
                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                  "bound_by": "bytes", "library_ms": lib_ms})
     say(f"kernel mesh_combine at sparse-16x12h ({len(parts)} x {_bytes_of(parts[0])} B): "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.sum/amin/amax {lib_ms:.4f} ms, bound "
+        f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
+        f"torch.sum/amin/amax {lib_ms:.4f} ms ({nbytes / lib_ms / 1e6:.1f} GB/s), bound "
         f"{bound:.4f} ms (bytes), kernel = plain (max |sum diff| {err}) [{card}]")
     del parts, planes, split
     def every_card(fn):
@@ -4784,6 +5013,11 @@ def phase_mesh_main(torch, main, card) -> list:
         for got, want in zip(shards(launch), shards(plain_fn)):
             check(torch.equal(got, want), f"{query} shard {kind}: kernel != plain")
         ms_b = _time_launch(torch, every_card(lambda: shards(launch)), flush=flush)
+        # the same launches on the device timeline: the events above also
+        # hold the wrappers' host work between the shards' launches
+        dev_b = (_family_device_ms(torch, lambda: shards(launch), RAW_KERNELS, reps=10,
+                                   label=f"dist_{kind} at {query}")
+                 if DEV == "cuda" else None)
         plain_b = _time_launch(torch, every_card(lambda: shards(plain_fn)), reps=3)
         libs = [_raw_library(torch, kind, a, k) for a, k in calls]
         lib_b = _time_launch(torch, every_card(lambda: [f() for f in libs]), flush=flush)
@@ -4792,10 +5026,12 @@ def phase_mesh_main(torch, main, card) -> list:
                      "source": RAW_SRC, "replaces": MESH_REPLACES[kind],
                      "launches": launches[kind], "max_abs_err": 0.0, "ms": ms_b,
                      "plain_ms": plain_b, "bound_ms": bound_b, "bound_by": "bytes",
-                     "library_ms": lib_b})
+                     "library_ms": lib_b, "device_ms": dev_b})
         size = (f"k {calls[0][1]['k']}, keys out" if kind == "raw_topk"
-                else f"{calls[0][1]['select_slots']} slots")
-        say(f"kernel dist_{kind} at {query} ({n_sh} shard launches, {size}): {ms_b:.4f} ms, "
+                else f"{[k['select_slots'] for _, k in calls]} slots a shard")
+        dev_text = f"{dev_b:.4f} ms" if dev_b is not None else "not measured"
+        say(f"kernel dist_{kind} at {query} ({n_sh} shard launches, {size}): {ms_b:.4f} ms "
+            f"(events, wrappers included), {dev_text} on the device timeline, "
             f"plain {plain_b:.4f} ms, {lib_name} x{n_sh} {lib_b:.4f} ms, bound "
             f"{bound_b:.6f} ms (bytes), kernel = plain [{card}]")
         del libs

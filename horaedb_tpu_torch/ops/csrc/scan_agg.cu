@@ -111,12 +111,26 @@
 // sharded aggregate, one launch per combine: counts int32 add, sums f32
 // add in shard order, mins fmin_t and maxs fmax_t (the order every arm
 // keeps, so a sharded answer is bit-equal to the single-device one where
-// the reference's pmin/pmax drop NaN and order +-0 by shard). Each of the
-// four planes (counts, sums, mins, maxs) is a row of the grid; a thread
-// reads element i of every shard's plane and writes it once. It serves
+// the reference's pmin/pmax drop NaN and order +-0 by shard). It serves
 // the cached path's packed buffers (planes at offsets of one buffer) and
 // the direct path's four arrays alike. Bound: S planes read and one
-// written, over HBM bandwidth.
+// written, over HBM bandwidth (sparse-16x12h: 4 x 268 MB read, 268 MB
+// written), and nothing else: so the design is a bandwidth-shaped
+// elementwise pass.
+//   - One 1-D grid over the planes laid end to end: the host puts each
+//     plane's first block in CombineArgs (COMBINE_CHUNK elements a block),
+//     so the counts plane, 1/F of the others, takes only its own blocks.
+//     A block finds its plane once and runs a loop templated on the
+//     plane's operation: no branch per element.
+//   - 16-byte loads and stores, read-once hints: a thread loads the
+//     float4 of COMBINE_GROUP shards for COMBINE_UNROLL vectors before it
+//     combines any (__ldcs), in shard order, and stores with __stcs.
+//   - What was hard: alignment. A packed plane after the counts starts
+//     off 16 bytes when n_seg % 4 != 0, and the rows of a torch.stack of
+//     such buffers each at another offset. A plane whose pointers share
+//     their offset in 16 bytes peels a scalar head up to the boundary and
+//     a scalar tail (block 0 of the plane); a plane whose pointers do not
+//     runs the same operation on scalars. Both inside this kernel.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -964,33 +978,107 @@ __global__ void __launch_bounds__(BLOCK) scan_agg_cohort(const __grid_constant__
 // ---- mesh_combine: the monoid over the shards' partials (B7a) ---------------
 
 #define MAX_SHARDS 64
+#define COMBINE_GROUP 4   // shards whose vectors a thread loads before combining
+#define COMBINE_UNROLL 2  // vectors a thread takes, loaded together
+#define COMBINE_CHUNK (BLOCK * COMBINE_UNROLL * 4)  // elements of a plane a block
 
 struct CombineArgs {
   const float* src[4][MAX_SHARDS];  // plane p of shard d (counts: int32 bits)
   float* dst[4];                    // plane p of the result
   long long len[4];                 // elements of plane p; 0 when absent
+  long long first_block[5];         // plane p's first block (the launch sets it); [4]: grid
   int shards;
   int device;
 };
 
-__global__ void __launch_bounds__(BLOCK) mesh_combine(const __grid_constant__ CombineArgs a) {
-  const int p = blockIdx.y;
-  const long long n = a.len[p];
-  const long long stride = (long long)gridDim.x * BLOCK;
+enum { OP_ADD_I32 = 0, OP_ADD_F32 = 1, OP_MIN = 2, OP_MAX = 3 };
+
+// the plane's operation on one element (counts: int32 bits in a float)
+template <int OP>
+__device__ __forceinline__ float combine_op(float acc, float v) {
+  if (OP == OP_ADD_I32) return __int_as_float(__float_as_int(acc) + __float_as_int(v));
+  if (OP == OP_ADD_F32) return acc + v;
+  if (OP == OP_MIN) return fmin_t(acc, v);
+  return fmax_t(acc, v);
+}
+
+template <int OP>
+__device__ __forceinline__ float4 combine_op4(float4 acc, float4 v) {
+  return make_float4(combine_op<OP>(acc.x, v.x), combine_op<OP>(acc.y, v.y),
+                     combine_op<OP>(acc.z, v.z), combine_op<OP>(acc.w, v.w));
+}
+
+// element i of every shard, combined in shard order and stored
+template <int OP>
+__device__ __forceinline__ void combine_one(const float* const* src, float* dst, int S,
+                                            long long i) {
+  float acc = __ldcs(src[0] + i);
+  for (int d = 1; d < S; ++d) acc = combine_op<OP>(acc, __ldcs(src[d] + i));
+  __stcs(dst + i, acc);
+}
+
+// block ``blk`` of plane p: COMBINE_UNROLL * BLOCK float4 vectors of its
+// 16-byte body, and for block 0 the scalar head and tail; or, where the
+// plane's pointers do not share their offset in 16 bytes, COMBINE_CHUNK
+// scalar elements
+template <int OP>
+__device__ __forceinline__ void combine_plane(const CombineArgs& a, int p, long long blk) {
   const int S = a.shards;
-  for (long long i = (long long)blockIdx.x * BLOCK + threadIdx.x; i < n; i += stride) {
-    if (p == 0) {
-      int acc = 0;
-      for (int d = 0; d < S; ++d) acc += ((const int*)a.src[0][d])[i];
-      ((int*)a.dst[0])[i] = acc;
-    } else {
-      float acc = a.src[p][0][i];
-      for (int d = 1; d < S; ++d) {
-        const float v = a.src[p][d][i];
-        acc = p == 1 ? acc + v : (p == 2 ? fmin_t(acc, v) : fmax_t(acc, v));
-      }
-      a.dst[p][i] = acc;
-    }
+  const float* const* src = a.src[p];
+  float* dst = a.dst[p];
+  const long long n = a.len[p];
+  const unsigned off = (unsigned)((uintptr_t)dst & 15u);
+  bool shared = true;
+  for (int d = 0; d < S; ++d) shared &= (unsigned)((uintptr_t)src[d] & 15u) == off;
+  if (!shared) {
+    const long long end = (blk + 1) * COMBINE_CHUNK < n ? (blk + 1) * COMBINE_CHUNK : n;
+    for (long long i = blk * COMBINE_CHUNK + threadIdx.x; i < end; i += BLOCK)
+      combine_one<OP>(src, dst, S, i);
+    return;
+  }
+  long long head = ((16u - off) & 15u) / 4;
+  if (head > n) head = n;
+  const long long nv = (n - head) / 4;  // float4 vectors of the body
+  long long v[COMBINE_UNROLL];
+#pragma unroll
+  for (int j = 0; j < COMBINE_UNROLL; ++j)
+    v[j] = blk * (BLOCK * COMBINE_UNROLL) + j * BLOCK + threadIdx.x;
+  float4 acc[COMBINE_UNROLL];
+  for (int d0 = 0; d0 < S; d0 += COMBINE_GROUP) {
+    float4 x[COMBINE_UNROLL][COMBINE_GROUP];
+#pragma unroll
+    for (int j = 0; j < COMBINE_UNROLL; ++j)
+#pragma unroll
+      for (int g = 0; g < COMBINE_GROUP; ++g)
+        if (v[j] < nv && d0 + g < S)
+          x[j][g] = __ldcs(reinterpret_cast<const float4*>(src[d0 + g] + head) + v[j]);
+#pragma unroll
+    for (int j = 0; j < COMBINE_UNROLL; ++j)
+#pragma unroll
+      for (int g = 0; g < COMBINE_GROUP; ++g)
+        if (v[j] < nv && d0 + g < S)
+          acc[j] = d0 + g == 0 ? x[j][g] : combine_op4<OP>(acc[j], x[j][g]);
+  }
+#pragma unroll
+  for (int j = 0; j < COMBINE_UNROLL; ++j)
+    if (v[j] < nv) __stcs(reinterpret_cast<float4*>(dst + head) + v[j], acc[j]);
+  if (blk == 0) {
+    const long long t = threadIdx.x;
+    if (t < head) combine_one<OP>(src, dst, S, t);
+    if (head + 4 * nv + t < n) combine_one<OP>(src, dst, S, head + 4 * nv + t);
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK) mesh_combine(const __grid_constant__ CombineArgs a) {
+  const long long b = blockIdx.x;
+  int p = 0;
+  while (p < 3 && b >= a.first_block[p + 1]) ++p;
+  const long long blk = b - a.first_block[p];
+  switch (p) {
+    case 0: combine_plane<OP_ADD_I32>(a, 0, blk); break;
+    case 1: combine_plane<OP_ADD_F32>(a, 1, blk); break;
+    case 2: combine_plane<OP_MIN>(a, 2, blk); break;
+    default: combine_plane<OP_MAX>(a, 3, blk);
   }
 }
 
@@ -1080,23 +1168,25 @@ int scan_agg_abi(long long* sizes) {
   return 0;
 }
 
-int scan_agg_combine_launch(const CombineArgs* a, void* stream) {
-  if (a->shards < 1 || a->shards > MAX_SHARDS) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(a->device);
+// one launch: the planes end to end on a 1-D grid, COMBINE_CHUNK elements a
+// block (first_block is set here from len)
+int scan_agg_combine_launch(const CombineArgs* in, void* stream) {
+  if (in->shards < 1 || in->shards > MAX_SHARDS) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(in->device);
   if (err != cudaSuccess) return err;
-  long long longest = 0;
-  for (int p = 0; p < 4; ++p) longest = a->len[p] > longest ? a->len[p] : longest;
-  if (longest == 0) return cudaSuccess;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, a->device);
-  if (err != cudaSuccess) return err;
-  // a few waves of blocks over the longest plane, grid-striding past them
-  long long want = (longest + BLOCK * 4 - 1) / (BLOCK * 4);
-  long long cap = (long long)sms * 8;
-  int grid = (int)(want < cap ? want : cap);
-  void* params[] = {(void*)a};
-  err = cudaLaunchKernel((const void*)mesh_combine, dim3(grid, 4), dim3(BLOCK), params, 0,
-                         (cudaStream_t)stream);
+  CombineArgs a = *in;
+  long long blocks = 0;
+  for (int p = 0; p < 4; ++p) {
+    if (a.len[p] < 0) return cudaErrorInvalidValue;
+    a.first_block[p] = blocks;
+    blocks += (a.len[p] + COMBINE_CHUNK - 1) / COMBINE_CHUNK;
+  }
+  a.first_block[4] = blocks;
+  if (blocks == 0) return cudaSuccess;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  void* params[] = {(void*)&a};
+  err = cudaLaunchKernel((const void*)mesh_combine, dim3((unsigned)blocks), dim3(BLOCK), params,
+                         0, (cudaStream_t)stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

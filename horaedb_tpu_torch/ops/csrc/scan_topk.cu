@@ -42,13 +42,40 @@
 //                which the sharded top-k merges on).
 // No host round trip between launches: one copy of the k slots comes back.
 //
-// Selection: raw_flags decodes and masks (the ballot words are the mask),
-// raw_scan writes the count, raw_write the masked-in row ids in row order,
-// never past ``slots``; raw_fill pads with -1.
-//
-// What bounds it: the bytes of the resident columns (one decode pass) and
-// of the key buffer (written once, read four times); the picks and the
+// What bounds top-k: the bytes of the resident columns (one decode pass)
+// and of the key buffer (written once, read four times); the picks and the
 // scan are single-block steps of a few microseconds each.
+//
+// Selection (B4 select; B7b select is it once a shard) visits only the rows
+// that can pass. The cache is sorted by (series, ts), so the allowed
+// series' rows inside the time range are a few row WINDOWS, which the
+// executor knows before the launch (its candidate estimate walks them).
+// The launcher cuts them into a tile table (raw_select_tiles: tiles of at
+// most TILE rows, each inside one window, in row order) and copies it to
+// the card. Then one launch, raw_select, one block a tile:
+//   - the block takes its tile from a ticket counter (tiles start in order);
+//   - it decodes and masks the tile's rows into ballot words in shared
+//     memory, issuing each row's loads (series code, timestamp, the first
+//     filter fields) before the allow list answers: inside the windows
+//     nearly every row is allowed and in range, so a row costs two
+//     dependent loads, not four;
+//   - a decoupled look-back over the tiles' status words (aggregate, then
+//     inclusive prefix) gives its offset; the last tile writes the count;
+//   - it writes its rows' ids in row order, never past ``slots``; a memset
+//     before the launch left -1 in every slot and the look-back state.
+// The whole mask still runs inside the windows (allow list, time range,
+// every filter), so any cover of the passing rows gives the same answer;
+// a pad row or a row outside the windows is never read, and an empty table
+// still writes count 0. What bounds it: the window rows' column bytes (a
+// few hundred kB at high-cpu-16, against 2^26 padded rows before); at that
+// size the launch and one chain of dependent loads set its time. The
+// first redesign kept raw_flags, raw_scan, raw_write and raw_fill over the
+// table: on the card the three after raw_flags and the host cost of four
+// launches then made most of the time, so they were fused. What was hard:
+// row ids stay physical and in row order across windows that start inside
+// a 128-row delta block and end inside a tile (a tile is a row range, not
+// a multiple of TILE), and the look-back cannot deadlock: a block spins
+// only on tiles whose tickets came before its own, which are running.
 //
 // Cohort top-k (B4c): B queries of one shape (the same k, key and filter
 // fields; their own allow lists, time ranges and literals) in one launch
@@ -94,7 +121,7 @@ enum {
   ST_LIMIT = 7,   // min(k, total): slots that hold a row
   ST_WORDS = 16,
 };
-enum { MODE_STRICT = 0, MODE_TIE = 1, MODE_SELECT = 2 };
+enum { MODE_STRICT = 0, MODE_TIE = 1 };
 
 struct RawArgs {
   Column series;
@@ -103,9 +130,12 @@ struct RawArgs {
   const int* session;  // allow list [S + 1]
   const int* dyn;      // [literal bits (n_f) | lo, hi, key_lo, key_hi]
   int* keys;           // [n_rows] (top-k only)
-  int* scratch;        // [state | hist 256 | counts 2 x tiles | bits 2 x tiles x WORDS]
+  int* scratch;        // top-k [state | hist 256 | counts 2 x tiles | bits 2 x tiles x
+                       // WORDS]; selection [status 2 x n_tiles | ticket], out after it
   int* out;            // top-k [k]; selection [1 + k]
   int* key_out;        // top-k: the slots' keys [k], or null
+  const int* tiles;    // selection: [n_tiles][2] rows [row0, row1) of each tile
+  long long n_tiles;   // selection: tiles of the table
   long long n_rows;
   long long k;         // top-k slots, or the selection's slots
   int descending;
@@ -155,6 +185,29 @@ __device__ __forceinline__ bool row_mask(const RawArgs& a, long long i, int lo, 
     if (!compare(v, a.filt.op[f], __int_as_float(a.dyn[f]))) return false;
   }
   return true;
+}
+
+// The selection's row_mask with a row's loads issued together: the series
+// code, the timestamp and the first EAGER_FILTERS filter fields, then the
+// allow list.
+#define EAGER_FILTERS 2
+
+__device__ __forceinline__ bool row_mask_eager(const RawArgs& a, long long i, int lo, int hi) {
+  const int nf = a.filt.n;
+  const int code = load_int(a.series, i);
+  const int ts = load_int(a.ts, i);
+  float v[EAGER_FILTERS];
+#pragma unroll
+  for (int f = 0; f < EAGER_FILTERS; ++f)
+    v[f] = f < nf ? load_value(a.fields[a.filt.field[f]], i) : 0.0f;
+  bool ok = (a.session[code] != 0) & (ts >= lo) & (ts < hi);
+#pragma unroll
+  for (int f = 0; f < EAGER_FILTERS; ++f)
+    if (f < nf) ok &= compare(v[f], a.filt.op[f], __int_as_float(a.dyn[f]));
+  for (int f = EAGER_FILTERS; ok && f < nf; ++f)
+    ok = compare(load_value(a.fields[a.filt.field[f]], i), a.filt.op[f],
+                 __int_as_float(a.dyn[f]));
+  return ok;
 }
 
 // int32 negation that wraps, as the reference's does
@@ -334,16 +387,12 @@ __global__ void __launch_bounds__(BLOCK) topk_pick(const __grid_constant__ RawAr
 
 // ---- ordered compaction -------------------------------------------------------
 
-// Ballot bit words and per-tile counts: top-k, the rows strictly above the
-// threshold (stream 0) and the ties (stream 1) from the key buffer;
-// selection, the masked-in rows (stream 0) from the columns.
-template <bool TOPK>
+// Ballot bit words and per-tile counts of the rows strictly above the
+// threshold (stream 0) and the ties (stream 1), from the key buffer.
 __global__ void __launch_bounds__(BLOCK) raw_flags(const __grid_constant__ RawArgs a) {
   __shared__ int wsum[2][BLOCK / 32];
   const Scratch s = scratch_of(a);
-  const int nf = a.filt.n;
-  const int lo = a.dyn[nf], hi = a.dyn[nf + 1];
-  const int thr = TOPK ? s.st[ST_THR] : 0;
+  const int thr = s.st[ST_THR];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const long long nt = n_tiles_of(a.n_rows);
   for (long long tile = blockIdx.x; tile < nt; tile += gridDim.x) {
@@ -352,21 +401,16 @@ __global__ void __launch_bounds__(BLOCK) raw_flags(const __grid_constant__ RawAr
       const long long i = tile * TILE + j * BLOCK + threadIdx.x;
       bool f0 = false, f1 = false;
       if (i < a.n_rows) {
-        if (TOPK) {
-          const int key = a.keys[i];
-          f0 = key > thr;
-          f1 = key != KEY_MASKED && key == thr;
-        } else {
-          int ts = 0;
-          f0 = row_mask(a, i, lo, hi, ts);
-        }
+        const int key = a.keys[i];
+        f0 = key > thr;
+        f1 = key != KEY_MASKED && key == thr;
       }
       const unsigned b0 = __ballot_sync(FULL_MASK, f0);
       const unsigned b1 = __ballot_sync(FULL_MASK, f1);
       if (lane == 0) {
         const long long word = tile * WORDS + j * (BLOCK / 32) + w;
         s.bits[0][word] = b0;
-        if (TOPK) s.bits[1][word] = b1;
+        s.bits[1][word] = b1;
         c0 += __popc(b0);
         c1 += __popc(b1);
       }
@@ -383,18 +427,16 @@ __global__ void __launch_bounds__(BLOCK) raw_flags(const __grid_constant__ RawAr
         t1 += wsum[1][k];
       }
       s.cnt[0][tile] = t0;
-      if (TOPK) s.cnt[1][tile] = t1;
+      s.cnt[1][tile] = t1;
     }
     __syncthreads();
   }
 }
 
-// One block: exclusive prefix sums of the tile counts of ``streams``
-// streams, in place; the totals go to the state (top-k) or to out[0], the
-// selection's count.
-__device__ __forceinline__ void scan_tiles(const Scratch& s, long long nt, int streams,
-                                           int* count_out) {
-  for (int q = 0; q < streams; ++q) {
+// One block: exclusive prefix sums of the tile counts of both streams, in
+// place; the totals go to the state.
+__device__ __forceinline__ void scan_tiles(const Scratch& s, long long nt) {
+  for (int q = 0; q < 2; ++q) {
     int* cnt = s.cnt[q];
     int carry = 0;
     for (long long base = 0; base < nt; base += SCAN_THREADS) {
@@ -405,26 +447,18 @@ __device__ __forceinline__ void scan_tiles(const Scratch& s, long long nt, int s
       if (t < nt) cnt[t] = carry + excl;
       carry += total;
     }
-    if (threadIdx.x == 0) {
-      if (streams == 2) {
-        s.st[q == 0 ? ST_STRICT : ST_TIE] = carry;
-      } else {
-        s.st[ST_TOTAL] = carry;
-        count_out[0] = carry;
-      }
-    }
+    if (threadIdx.x == 0) s.st[q == 0 ? ST_STRICT : ST_TIE] = carry;
   }
 }
 
-__global__ void __launch_bounds__(SCAN_THREADS) raw_scan(const __grid_constant__ RawArgs a,
-                                                         int streams) {
-  scan_tiles(scratch_of(a), n_tiles_of(a.n_rows), streams, a.out);
+__global__ void __launch_bounds__(SCAN_THREADS) raw_scan(const __grid_constant__ RawArgs a) {
+  scan_tiles(scratch_of(a), n_tiles_of(a.n_rows));
 }
 
 // Each tile writes the row ids of its set bits, in row order, to slots
 // [first + offset, ...) below ``limit``: strict rows from slot 0 and below
-// k; ties from slot n_strict and below min(k, total); selected rows from
-// out[1] and below 1 + slots. One thread per bit word.
+// k; ties from slot n_strict and below min(k, total). One thread per bit
+// word.
 // blocks ``blk`` of ``nblk`` share the tiles
 __device__ __forceinline__ void write_slots(const Scratch& s, long long n_rows, long long k,
                                             int* out, int mode, long long blk, long long nblk) {
@@ -433,12 +467,9 @@ __device__ __forceinline__ void write_slots(const Scratch& s, long long n_rows, 
   if (mode == MODE_STRICT) {
     first = 0;
     limit = k;
-  } else if (mode == MODE_TIE) {
+  } else {
     first = s.st[ST_STRICT];
     limit = s.st[ST_LIMIT];
-  } else {
-    first = 1;
-    limit = 1 + k;
   }
   const long long nt = n_tiles_of(n_rows);
   for (long long tile = blk; tile < nt; tile += nblk) {
@@ -460,20 +491,13 @@ __global__ void __launch_bounds__(WORDS) raw_write(const __grid_constant__ RawAr
   write_slots(scratch_of(a), a.n_rows, a.k, a.out, mode, blockIdx.x, gridDim.x);
 }
 
-// Slots no tile wrote. Top-k: -1 from min(k, total) on; below it only
-// where the reference's tie stream runs out (its searchsorted returns
-// n_rows there; never with seeds that bracket the keys). Selection: -1
-// from min(count, slots) on.
+// Slots no tile wrote: -1 from min(k, total) on; below it only where the
+// reference's tie stream runs out (its searchsorted returns n_rows there;
+// never with seeds that bracket the keys).
 __device__ __forceinline__ void fill_slots(const Scratch& s, long long n_rows, long long k,
-                                           int* out, int mode, long long blk, long long nblk,
+                                           int* out, long long blk, long long nblk,
                                            const int* keys = nullptr, int* key_out = nullptr) {
   const long long stride = nblk * BLOCK;
-  if (mode == MODE_SELECT) {
-    const long long count = s.st[ST_TOTAL];
-    const long long from = count < k ? count : k;
-    for (long long j = from + blk * BLOCK + threadIdx.x; j < k; j += stride) out[1 + j] = -1;
-    return;
-  }
   const long long n_strict = s.st[ST_STRICT], n_tie = s.st[ST_TIE], limit = s.st[ST_LIMIT];
   for (long long j = blk * BLOCK + threadIdx.x; j < k; j += stride) {
     const bool written = j < n_strict || (j < limit && j - n_strict < n_tie);
@@ -483,9 +507,91 @@ __device__ __forceinline__ void fill_slots(const Scratch& s, long long n_rows, l
   }
 }
 
-__global__ void __launch_bounds__(BLOCK) raw_fill(const __grid_constant__ RawArgs a, int mode) {
-  fill_slots(scratch_of(a), a.n_rows, a.k, a.out, mode, blockIdx.x, gridDim.x, a.keys,
-             a.key_out);
+__global__ void __launch_bounds__(BLOCK) raw_fill(const __grid_constant__ RawArgs a) {
+  fill_slots(scratch_of(a), a.n_rows, a.k, a.out, blockIdx.x, gridDim.x, a.keys, a.key_out);
+}
+
+// ---- the bounded selection (B4 select): one launch over the tile table -------
+
+// A tile's status word in the look-back: LB_NONE until the tile has its
+// count; then the count (the aggregate), or LB_INCL | the rows of every
+// tile up to and with it (the inclusive prefix). One 64-bit word, so the
+// flag and the value are read together.
+#define LB_NONE (-1LL)
+#define LB_INCL (1LL << 62)
+
+__device__ __forceinline__ long long lb_load(const long long* p) {
+  return *(const volatile long long*)p;
+}
+
+__device__ __forceinline__ void lb_store(long long* p, long long v) {
+  atomicExch((unsigned long long*)p, (unsigned long long)v);
+}
+
+// One block a tile of the table (at least one block: an empty table's
+// writes the count 0). a.scratch: the status words and the ticket, all -1
+// (LB_NONE) from the launcher's memset, which also left -1 in every slot.
+__global__ void __launch_bounds__(BLOCK) raw_select(const __grid_constant__ RawArgs a) {
+  __shared__ unsigned words[WORDS];
+  __shared__ int wsum[BLOCK / 32];
+  __shared__ long long tile_s, excl_s;
+  long long* status = (long long*)a.scratch;
+  int* ticket = a.scratch + 2 * a.n_tiles;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  if (threadIdx.x == 0) tile_s = (long long)atomicAdd(ticket, 1) + 1;  // -1 before the first
+  __syncthreads();
+  const long long tile = tile_s;
+  if (tile >= a.n_tiles) {
+    if (threadIdx.x == 0) a.out[0] = 0;
+    return;
+  }
+  const int nf = a.filt.n;
+  const int lo = a.dyn[nf], hi = a.dyn[nf + 1];
+  const long long r0 = a.tiles[2 * tile], r1 = a.tiles[2 * tile + 1];
+  // row r0 + j * BLOCK + t is bit t & 31 of word j * (BLOCK / 32) + t / 32;
+  // a row past r1 reads row r0 and is dropped
+  unsigned pass = 0;
+#pragma unroll
+  for (int j = 0; j < TILE / BLOCK; ++j) {
+    const long long i = r0 + j * BLOCK + threadIdx.x;
+    const bool in = i < r1;
+    if (row_mask_eager(a, in ? i : r0, lo, hi) && in) pass |= 1u << j;
+  }
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < TILE / BLOCK; ++j) {
+    const unsigned b = __ballot_sync(FULL_MASK, (pass >> j) & 1u);
+    if (lane == 0) words[j * (BLOCK / 32) + w] = b;
+    c += __popc(b);
+  }
+  if (lane == 0) wsum[w] = c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long count = 0;
+    for (int k = 0; k < BLOCK / 32; ++k) count += wsum[k];
+    long long excl = 0;
+    if (tile > 0) {
+      lb_store(&status[tile], count);
+      for (long long p = tile - 1;; --p) {
+        long long st;
+        do {
+          st = lb_load(&status[p]);
+        } while (st == LB_NONE);
+        excl += st & 0xffffffffLL;
+        if (st & LB_INCL) break;
+      }
+    }
+    lb_store(&status[tile], LB_INCL | (excl + count));
+    if (tile == a.n_tiles - 1) a.out[0] = (int)(excl + count);
+    excl_s = excl;
+  }
+  __syncthreads();
+  // thread t < WORDS writes word t's rows at its offset, below 1 + slots
+  const unsigned bits = threadIdx.x < WORDS ? words[threadIdx.x] : 0u;
+  int total;
+  long long pos = 1 + excl_s + block_scan<BLOCK>(__popc(bits), total);
+  const long long row0 = r0 + (long long)threadIdx.x * 32;
+  for (unsigned b = bits; b && pos < 1 + a.k; b &= b - 1) a.out[pos++] = (int)(row0 + __ffs(b) - 1);
 }
 
 // ---- cohort top-k (B4c) ---------------------------------------------------------
@@ -670,7 +776,7 @@ __global__ void __launch_bounds__(BLOCK) cohort_flags(const __grid_constant__ Co
 }
 
 __global__ void __launch_bounds__(SCAN_THREADS) cohort_scan(const __grid_constant__ CohortRawArgs a) {
-  scan_tiles(member_scratch(a, blockIdx.x), n_tiles_of(a.r.n_rows), 2, nullptr);
+  scan_tiles(member_scratch(a, blockIdx.x), n_tiles_of(a.r.n_rows));
 }
 
 __global__ void __launch_bounds__(WORDS) cohort_write(const __grid_constant__ CohortRawArgs a,
@@ -683,7 +789,7 @@ __global__ void __launch_bounds__(WORDS) cohort_write(const __grid_constant__ Co
 __global__ void __launch_bounds__(BLOCK) cohort_fill(const __grid_constant__ CohortRawArgs a) {
   const int m = (int)(blockIdx.x % (unsigned)a.members);
   fill_slots(member_scratch(a, m), a.r.n_rows, a.r.k, a.r.out + (long long)m * a.r.k,
-             MODE_STRICT, blockIdx.x / (unsigned)a.members, gridDim.x / (unsigned)a.members);
+             blockIdx.x / (unsigned)a.members, gridDim.x / (unsigned)a.members);
 }
 
 // ---- host launch (plain C interface, loaded with ctypes) --------------------
@@ -744,34 +850,67 @@ int raw_topk_launch(const RawArgs* a, void* stream) {
     topk_pick<<<1, 256, 0, s>>>(*a, shift);
     LAUNCHED();
   }
-  raw_flags<true><<<grid, BLOCK, 0, s>>>(*a);
+  raw_flags<<<grid, BLOCK, 0, s>>>(*a);
   LAUNCHED();
-  raw_scan<<<1, SCAN_THREADS, 0, s>>>(*a, 2);
+  raw_scan<<<1, SCAN_THREADS, 0, s>>>(*a);
   LAUNCHED();
   raw_write<<<wgrid, WORDS, 0, s>>>(*a, MODE_STRICT);
   LAUNCHED();
   raw_write<<<wgrid, WORDS, 0, s>>>(*a, MODE_TIE);
   LAUNCHED();
-  raw_fill<<<fgrid, BLOCK, 0, s>>>(*a, MODE_STRICT);
+  raw_fill<<<fgrid, BLOCK, 0, s>>>(*a);
   LAUNCHED();
   return 0;
 }
 
-int raw_select_launch(const RawArgs* a, void* stream) {
+// The selection's tile table of ``n_windows`` row windows (int64 [start,
+// end) pairs in host memory): checks that they are sorted, disjoint and
+// inside [0, n_rows), then writes each window's tiles of at most TILE rows,
+// in row order, to ``tiles`` (host, 2 ints a tile) unless it is null.
+// Returns the tile count, or -1 for windows it refuses. Its spec is
+// ops/scan_topk.py select_tiles.
+long long raw_select_tiles(const long long* windows, long long n_windows, long long n_rows,
+                           int* tiles) {
+  long long n = 0, prev = 0;
+  for (long long w = 0; w < n_windows; ++w) {
+    const long long start = windows[2 * w], end = windows[2 * w + 1];
+    if (start < prev || end < start || end > n_rows) return -1;
+    prev = end;
+    for (long long r = start; r < end; r += TILE, ++n) {
+      if (tiles) {
+        tiles[2 * n] = (int)r;
+        tiles[2 * n + 1] = (int)(r + TILE < end ? r + TILE : end);
+      }
+    }
+  }
+  return n;
+}
+
+// The selection over the tile table of ``windows``. The wrapper's buffer:
+// [status 2 x n_tiles | ticket | out[0] | slots k | table 2 x n_tiles]
+// (a->scratch, a->out, a->tiles). One memset puts -1 in the status words,
+// the ticket, the count and the slots; the table is built here and copied
+// to the card (from pageable memory: staged before the call returns); one
+// launch of raw_select.
+int raw_select_launch(const RawArgs* a, const long long* windows, long long n_windows,
+                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const long long nt = a->n_tiles;
+  if (nt < 0 || a->out != a->scratch + 2 * nt + 1 || a->tiles != a->out + 1 + a->k)
+    return (int)cudaErrorInvalidValue;
   TRY(cudaSetDevice(a->device));
-  const long long nt = host_tiles(a->n_rows);
-  int grid, wgrid, fgrid;
-  TRY(grid_for(a->device, nt, 8, &grid));
-  TRY(grid_for(a->device, nt, 16, &wgrid));
-  TRY(grid_for(a->device, (a->k + BLOCK - 1) / BLOCK, 8, &fgrid));
-  raw_flags<false><<<grid, BLOCK, 0, s>>>(*a);
-  LAUNCHED();
-  raw_scan<<<1, SCAN_THREADS, 0, s>>>(*a, 1);
-  LAUNCHED();
-  raw_write<<<wgrid, WORDS, 0, s>>>(*a, MODE_SELECT);
-  LAUNCHED();
-  raw_fill<<<fgrid, BLOCK, 0, s>>>(*a, MODE_SELECT);
+  TRY(cudaMemsetAsync(a->scratch, 0xff, sizeof(int) * (2 * nt + 2 + a->k), s));
+  if (nt > 0) {
+    int* host = (int*)malloc(sizeof(int) * 2 * nt);
+    if (host == nullptr) return (int)cudaErrorMemoryAllocation;
+    cudaError_t err = cudaErrorInvalidValue;
+    if (raw_select_tiles(windows, n_windows, a->n_rows, host) == nt)
+      err = cudaMemcpyAsync((void*)a->tiles, host, sizeof(int) * 2 * nt, cudaMemcpyHostToDevice,
+                            s);
+    free(host);
+    if (err != cudaSuccess) return (int)err;
+  }
+  raw_select<<<nt > 0 ? nt : 1, BLOCK, 0, s>>>(*a);
   LAUNCHED();
   return 0;
 }

@@ -68,15 +68,17 @@ _I32_MIN = -(2**31)
 
 # Kernel launches, counted where each wrapper launches its kernel (a
 # cohort counts one launch per launch sequence); PLAIN_CALLS counts the
-# plain versions the wrappers ran for CPU tensors. Counts move under
+# plain versions the wrappers ran for CPU tensors; TILES the tiles the
+# selection's launches walked (its launch geometry). Counts move under
 # scan_agg's lock (``_count``): wrappers run on several threads at once.
 LAUNCHES = {"raw_topk": 0, "raw_select": 0, "raw_topk_cohort": 0}
 PLAIN_CALLS = {"raw_topk": 0, "raw_select": 0, "raw_topk_cohort": 0}
+TILES = {"raw_select": 0}
 
 
 def reset_counts() -> None:
     with _COUNTS_LOCK:
-        for d in (LAUNCHES, PLAIN_CALLS):
+        for d in (LAUNCHES, PLAIN_CALLS, TILES):
             for k in d:
                 d[k] = 0
 
@@ -307,9 +309,12 @@ def raw_topk_plain(series_parts, ts_parts, values, session, dyn, *, k: int,
 
 def raw_select_plain(series_parts, ts_parts, values, session, dyn, *, select_slots: int,
                      numeric_filters, value_layouts: tuple = (), ts_layout: tuple = ("raw",),
-                     series_layout: tuple = ("raw",)):
+                     series_layout: tuple = ("raw",), windows=None):
     """Plain version of ``raw_select_packed``: int32[1 + slots], [passing
-    count | row indices]."""
+    count | row indices]. It takes ``windows`` and ignores them: the
+    reference's function over every row, so a kernel held to it is also
+    held to windows that cover every passing row."""
+    del windows
     literals, lo, hi, _, _ = _unpack_dyn(dyn, numeric_filters)
     sc, tr, vals = decode_layouts(series_parts, ts_parts, values, series_layout, ts_layout,
                                   value_layouts)
@@ -345,6 +350,8 @@ class _RawArgs(ctypes.Structure):
         ("scratch", ctypes.c_void_p),
         ("out", ctypes.c_void_p),
         ("key_out", ctypes.c_void_p),
+        ("tiles", ctypes.c_void_p),
+        ("n_tiles", ctypes.c_longlong),
         ("n_rows", ctypes.c_longlong),
         ("k", ctypes.c_longlong),
         ("descending", ctypes.c_int),
@@ -390,9 +397,14 @@ def _kernels():
         lib = load("scan_topk")
         lib.scan_topk_abi.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
         lib.scan_topk_abi.restype = ctypes.c_int
-        for fn in ("raw_topk_launch", "raw_select_launch"):
-            getattr(lib, fn).argtypes = [ctypes.POINTER(_RawArgs), ctypes.c_void_p]
-            getattr(lib, fn).restype = ctypes.c_int
+        lib.raw_topk_launch.argtypes = [ctypes.POINTER(_RawArgs), ctypes.c_void_p]
+        lib.raw_topk_launch.restype = ctypes.c_int
+        lib.raw_select_launch.argtypes = [ctypes.POINTER(_RawArgs), ctypes.c_void_p,
+                                          ctypes.c_longlong, ctypes.c_void_p]
+        lib.raw_select_launch.restype = ctypes.c_int
+        lib.raw_select_tiles.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                                         ctypes.c_void_p]
+        lib.raw_select_tiles.restype = ctypes.c_longlong
         lib.raw_topk_cohort_launch.argtypes = [ctypes.POINTER(_CohortRawArgs), ctypes.c_void_p]
         lib.raw_topk_cohort_launch.restype = ctypes.c_int
         lib.scan_topk_error_string.argtypes = [ctypes.c_int]
@@ -408,20 +420,45 @@ def _kernels():
 
 
 def _scratch_words(n_rows: int, cohort: bool = False) -> int:
-    """int32 words of the kernels' scratch for ``n_rows`` rows: state and
-    histogram, two streams of per-tile counts and of ballot bit words; a
-    cohort member's adds the bit words of the rows it passes."""
+    """int32 words of the top-k kernels' scratch for ``n_rows`` rows: state
+    and histogram, two streams of per-tile counts and of ballot bit words;
+    a cohort member's adds the bit words of the rows it passes."""
     tiles = -(-n_rows // TILE)
     return _HEAD_WORDS + 2 * tiles + (3 if cohort else 2) * tiles * (TILE // 32)
+
+
+def select_tiles(windows, n_rows: int) -> np.ndarray:
+    """The selection kernel's tile table: int32[n_tiles, 2], the rows
+    [row0, row1) of each tile, in row order, each tile at most TILE rows
+    inside one window; ``sum(ceil(len / TILE))`` tiles over the windows.
+
+    ``windows``: [start, end) row ranges, sorted, not overlapping, inside
+    [0, n_rows) (empty ones add no tile); None for one window over every
+    row."""
+    if windows is None:
+        windows = ((0, n_rows),)
+    w = np.asarray(windows, dtype=np.int64).reshape(-1, 2)
+    _check(bool((w[:, 0] >= 0).all() and (w[:, 1] <= n_rows).all()
+                and (w[:, 1] >= w[:, 0]).all() and (w[1:, 0] >= w[:-1, 1]).all()),
+           f"windows must be sorted, disjoint [start, end) ranges inside [0, {n_rows})")
+    w = w[w[:, 1] > w[:, 0]]
+    per = (w[:, 1] - w[:, 0] + TILE - 1) // TILE
+    first = np.repeat(np.cumsum(per) - per, per)
+    row0 = np.repeat(w[:, 0], per) + TILE * (np.arange(int(per.sum())) - first)
+    row1 = np.minimum(row0 + TILE, np.repeat(w[:, 1], per))
+    return np.stack([row0, row1], axis=1).astype(np.int32)
 
 
 def _args(series_parts, ts_parts, values, session, dyn, numeric_filters, value_layouts,
           ts_layout, series_layout, ndim: int = 1) -> tuple[_RawArgs, int]:
     """Check the inputs of a CUDA launch; returns the launch arguments
     (pointers of the columns, session and dyn) and the row count. A
-    cohort's ``session`` and ``dyn`` are its stacked rows (``ndim`` 2)."""
+    cohort's ``session`` and ``dyn`` are its stacked rows (``ndim`` 2). A
+    message is formatted only for a refused input: this runs on every
+    launch, and its host time is in the launch's latency."""
     dev = session.device
-    _check(dev.type == "cuda", f"unsupported device {dev}")
+    if dev.type != "cuda":
+        _check(False, f"unsupported device {dev}")
     _check_tensor(session, "session", torch.int32, dev, ndim)
     _check_tensor(dyn, "dyn", torch.int32, dev, ndim)
     _check(len(values) == len(value_layouts), "one layout per value field")
@@ -433,12 +470,12 @@ def _args(series_parts, ts_parts, values, session, dyn, numeric_filters, value_l
     a.series = _int_column(series_parts, series_layout, dev, "series")
     a.ts = _int_column(ts_parts, ts_layout, dev, "ts")
     _check(ts_layout[0] != "delta" or layout_rows(ts_parts, ts_layout) == n_rows, "ts rows")
-    if ts_layout[0] == "raw":
-        _check(ts_parts[0].shape[0] == n_rows, f"ts has {ts_parts[0].shape[0]} rows")
+    if ts_layout[0] == "raw" and ts_parts[0].shape[0] != n_rows:
+        _check(False, f"ts has {ts_parts[0].shape[0]} rows")
     for f, (parts, lay) in enumerate(zip(values, value_layouts)):
         a.fields[f] = _value_column(parts, lay, dev, f"value[{f}]")
-        if lay[0] in ("raw", "bf16"):
-            _check(parts[0].shape[0] == n_rows, f"value[{f}] has {parts[0].shape[0]} rows")
+        if lay[0] in ("raw", "bf16") and parts[0].shape[0] != n_rows:
+            _check(False, f"value[{f}] has {parts[0].shape[0]} rows")
     a.session = session.data_ptr()
     a.dyn = dyn.data_ptr()
     a.n_rows = n_rows
@@ -447,9 +484,9 @@ def _args(series_parts, ts_parts, values, session, dyn, numeric_filters, value_l
     return a, n_rows
 
 
-def _run(lib, fn: str, a: _RawArgs, dev) -> None:
+def _run(lib, fn: str, a: _RawArgs, dev, *extra) -> None:
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, fn)(ctypes.byref(a), stream)
+    err = getattr(lib, fn)(ctypes.byref(a), *extra, stream)
     if err != 0:
         raise RuntimeError(
             f"{fn} failed: {lib.scan_topk_error_string(err).decode()} ({err})"
@@ -552,27 +589,48 @@ def raw_topk_cohort(series_parts, ts_parts, values, sessions, dyns, *, k: int,
 
 def raw_select_packed(series_parts, ts_parts, values, session, dyn, *, select_slots: int,
                       numeric_filters, value_layouts: tuple = (), ts_layout: tuple = ("raw",),
-                      series_layout: tuple = ("raw",)):
+                      series_layout: tuple = ("raw",), windows=None):
     """-> int32[1 + slots]: [passing count | row indices in row order, -1
-    past the count]; never writes past ``select_slots``. A CUDA input
-    launches ``raw_select`` (csrc/scan_topk.cu); a CPU input runs
-    ``raw_select_plain``."""
+    past the count]; never writes past ``select_slots``.
+
+    ``windows``: sorted, disjoint [start, end) row ranges that hold every
+    row the mask can pass (the executor's allowed series inside the time
+    range); the kernel visits only their rows and still applies the whole
+    mask there. None: one window over every resident row. A CUDA input
+    launches ``raw_select`` (csrc/scan_topk.cu) over ``select_tiles`` of
+    the windows, one copy of the table to the card; an empty table still
+    launches and writes count 0. A CPU input runs ``raw_select_plain``."""
     values = tuple(values)
     layouts = value_layouts or tuple(_dense_layout(p) for p in values)
     _check(select_slots >= 0, f"select_slots {select_slots} is negative")
     dev = session.device
     if dev.type == "cpu":
+        # the windows are checked as for a launch, then ignored
+        select_tiles(windows, layout_rows(series_parts, series_layout))
         _count(PLAIN_CALLS, "raw_select")
         return raw_select_plain(series_parts, ts_parts, values, session, dyn,
                                 select_slots=select_slots, numeric_filters=numeric_filters,
                                 value_layouts=layouts, ts_layout=ts_layout,
-                                series_layout=series_layout)
+                                series_layout=series_layout, windows=windows)
     a, n_rows = _args(series_parts, ts_parts, values, session, dyn, numeric_filters, layouts,
                       ts_layout, series_layout)
+    w = np.ascontiguousarray(((0, n_rows),) if windows is None else windows,
+                             dtype=np.int64).reshape(-1, 2)
     lib = _kernels()
-    scratch = torch.empty(_scratch_words(n_rows), dtype=torch.int32, device=dev)
-    out = torch.empty(1 + select_slots, dtype=torch.int32, device=dev)
-    a.scratch, a.out, a.k = scratch.data_ptr(), out.data_ptr(), select_slots
-    _run(lib, "raw_select_launch", a, dev)
-    _count(LAUNCHES, "raw_select")
+    # the launcher builds the table (select_tiles, in C) and copies it to
+    # the card; here only its size, for the one buffer the launch uses:
+    # [look-back status 2 x tiles | ticket | count | slots | table 2 x tiles]
+    n_tiles = lib.raw_select_tiles(w.ctypes.data, len(w), n_rows, None)
+    _check(n_tiles >= 0, f"windows must be sorted, disjoint [start, end) ranges inside "
+                         f"[0, {n_rows})")
+    head = 2 * n_tiles + 1
+    buf = torch.empty(head + 1 + select_slots + 2 * n_tiles, dtype=torch.int32, device=dev)
+    a.scratch, a.k, a.n_tiles = buf.data_ptr(), select_slots, n_tiles
+    a.out = a.scratch + 4 * head
+    a.tiles = a.out + 4 * (1 + select_slots)
+    _run(lib, "raw_select_launch", a, dev, w.ctypes.data, len(w))
+    out = buf[head:head + 1 + select_slots]
+    with _COUNTS_LOCK:
+        LAUNCHES["raw_select"] += 1
+        TILES["raw_select"] += n_tiles
     return out

@@ -15,7 +15,11 @@ device:
   caller needs, never at the shard-clamped k.
 - **selection**: each shard compacts its passing rows into its own
   bounded buffer; the shards' valid prefixes stitch in shard order, which
-  is the global resident (series, ts) order.
+  is the global resident (series, ts) order. The executor's row windows
+  (global resident rows) are clipped to each shard's rows and shifted to
+  its local ids (``shard_windows``): a shard visits only its part of them,
+  and its buffer holds exactly as many slots as its part has rows. Every
+  shard's launch is issued before the first answer is fetched.
 """
 
 from __future__ import annotations
@@ -101,31 +105,54 @@ def dist_raw_topk(
     return merge_topk(np.concatenate(keys), ids, need, key_lo)
 
 
+def shard_windows(windows: np.ndarray, offset: int, rows: int) -> np.ndarray:
+    """The part of global row ``windows`` (int64[W, 2], sorted, disjoint
+    [start, end)) inside the shard of ``rows`` rows from ``offset``, in the
+    shard's local row ids."""
+    w = np.asarray(windows, dtype=np.int64).reshape(-1, 2)
+    w = w[(w[:, 1] > offset) & (w[:, 0] < offset + rows)]
+    return np.clip(w, offset, offset + rows) - offset
+
+
 def dist_raw_select(
     mesh: Mesh, spec: RawScanSpec, series_shards, ts_shards, value_shards, session, dyn,
+    *, windows=None,
 ) -> tuple[np.ndarray, int]:
     """Run the selection on every shard -> (global row ids in resident
-    order, total passing count). A total past ``len(ids)`` means a shard
-    overflowed its buffer: the caller's bound was wrong, and the caller
-    raises."""
+    order, total passing count). ``windows``: the executor's global row
+    windows (every passing row lies in one); each shard gets its clipped
+    part and a buffer of as many slots as that part has rows. Without
+    them every shard scans its rows into ``spec.select_slots`` slots. A
+    total past ``len(ids)`` means a shard overflowed its buffer: the
+    caller's bound was wrong, and the caller raises."""
     from ..ops import scan_topk
     from ..ops.encoding import layout_rows
     from ..ops.scan_agg import encode_filter_ops
 
     nfilters = encode_filter_ops(spec.numeric_filters)
     inputs = _per_device(mesh, (session, dyn))
-    parts, total = [], 0
+    outs, offsets = [], []
     offset = 0
     for d, dev in enumerate(mesh.devices):
         lay = _layouts(spec, len(value_shards[d]))
+        rows = layout_rows(series_shards[d], lay["series_layout"])
+        local = slots = None
+        if windows is not None:
+            local = shard_windows(windows, offset, rows)
+            slots = int((local[:, 1] - local[:, 0]).sum())
         with on_device(dev):
-            got = scan_topk.raw_select_packed(
+            outs.append(scan_topk.raw_select_packed(
                 series_shards[d], ts_shards[d], value_shards[d], *inputs[dev],
-                select_slots=spec.select_slots, numeric_filters=nfilters, **lay,
-            ).cpu().numpy()
+                select_slots=spec.select_slots if slots is None else slots,
+                numeric_filters=nfilters, windows=local, **lay,
+            ))
+        offsets.append(offset)
+        offset += rows
+    parts, total = [], 0
+    for out, off in zip(outs, offsets):
+        got = out.cpu().numpy()
         n = int(got[0])
         total += n
         # a shard past its buffer: its count is the truth, its slots are cut
-        parts.append(got[1:1 + min(n, spec.select_slots)].astype(np.int64) + offset)
-        offset += layout_rows(series_shards[d], lay["series_layout"])
+        parts.append(got[1:1 + n].astype(np.int64) + off)
     return np.concatenate(parts), total

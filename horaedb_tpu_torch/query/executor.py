@@ -1894,14 +1894,14 @@ class Executor:
         budget = raw_max_rows()
         limit = stmt.limit
         offset = stmt.offset or 0
-        estimate = None
+        estimate = windows = None
         if shape["topk_ok"] and limit + offset <= budget:
             kind = "topk"
         else:
-            estimate = (
+            estimate, windows = (
                 self._raw_candidate_estimate(entry, allowed, lo_rel, hi_rel)
                 if not empty_range
-                else 0
+                else (0, None)
             )
             if estimate > budget:
                 # deliberate selectivity-based route: the host serves
@@ -2004,7 +2004,9 @@ class Executor:
                     )
                 else:
                     idx, total = timed_dispatch(
-                        dkind, lambda: dist_raw_select(mesh, spec, *shards), entry.device
+                        dkind,
+                        lambda: dist_raw_select(mesh, spec, *shards, windows=windows),
+                        entry.device,
                     )
                     if total > len(idx):
                         # a fault, not a route (see the single-device arm)
@@ -2036,6 +2038,7 @@ class Executor:
                         values_dev, session_dev, dyn,
                         select_slots=spec.select_slots,
                         numeric_filters=encode_filter_ops(nfilters),
+                        windows=windows,
                         **layouts,
                     ),
                     self.device,
@@ -2078,14 +2081,19 @@ class Executor:
 
     def _raw_candidate_estimate(
         self, entry, allowed: np.ndarray, lo_rel: int, hi_rel: int
-    ) -> int:
+    ) -> tuple[int, np.ndarray]:
         """EXACT count of resident rows in allowed series within the
         relative time range, ignoring numeric filters (which only
         shrink it) — the bound that gates the selection buffer, so the
-        device compaction can never truncate. O(S log rows) host work
-        over the per-series sorted ranges."""
+        device compaction can never truncate — and those rows as row
+        windows: int64[W, 2] sorted, disjoint [start, end) ranges, windows
+        that touch merged (every series over the whole range: one window
+        [0, n_valid)). Every row the selection's mask can pass lies in a
+        window, and the selection kernel visits only them. O(S log rows)
+        host work over the per-series sorted ranges."""
+        none = np.empty((0, 2), dtype=np.int64)
         if not allowed.any():
-            return 0
+            return 0, none
         ts_rel = entry.ts_rel_host
         # the largest relative timestamp is max_ts - min_ts: no scan of
         # the column per query
@@ -2093,18 +2101,24 @@ class Executor:
             len(ts_rel) == 0 or hi_rel > entry.max_ts - entry.min_ts
         )
         if allowed.all() and full_range:
-            return entry.n_valid
-        offsets = entry.series_offsets
-        total = 0
-        for s in np.nonzero(allowed)[0]:
-            s0, s1 = int(offsets[s]), int(offsets[s + 1])
-            if full_range:
-                total += s1 - s0
-            else:
-                a = np.searchsorted(ts_rel[s0:s1], lo_rel, "left")
-                b = np.searchsorted(ts_rel[s0:s1], hi_rel, "left")
-                total += int(b - a)
-        return total
+            n = entry.n_valid
+            return n, np.array([[0, n]], dtype=np.int64) if n else none
+        offsets = np.asarray(entry.series_offsets, dtype=np.int64)
+        series = np.nonzero(allowed)[0]
+        starts, ends = offsets[series], offsets[series + 1]
+        if not full_range:
+            for j, s in enumerate(series):
+                s0, s1 = int(starts[j]), int(ends[j])
+                ends[j] = s0 + np.searchsorted(ts_rel[s0:s1], hi_rel, "left")
+                starts[j] = s0 + np.searchsorted(ts_rel[s0:s1], lo_rel, "left")
+        keep = ends > starts
+        starts, ends = starts[keep], ends[keep]
+        total = int((ends - starts).sum())
+        # merge the windows that touch (neighbouring series, whole ranges)
+        head = np.ones(len(starts), dtype=bool)
+        head[1:] = starts[1:] != ends[:-1]
+        last = np.append(np.nonzero(head)[0][1:] - 1, len(ends) - 1)
+        return total, np.stack([starts[head], ends[last]], axis=1) if total else none
 
     def _raw_delta_sound(self, table, entry, delta) -> bool:
         """May the unflushed delta be UNIONED with the cached base for a

@@ -203,6 +203,47 @@ def test_raw_kernels_match_plain(card, layout, n):
                                  n % 6) > 0
 
 
+@pytest.mark.parametrize("layout", chip_smoke.RAW_LAYOUTS,
+                         ids=lambda c: "-".join([c[0], c[1], *c[2]]))
+def test_raw_select_over_windows_matches_plain(card, layout):
+    """The selection over row windows (the series windows the executor
+    builds, every real row, runs of passing rows, windows of one row, many
+    short windows, the empty list where no row passes; windows that end
+    inside a tile and start inside a 128-row delta block) against its
+    plain version over every row: bit-equal, and each launch walks the
+    windows' tiles and no others."""
+    from horaedb_tpu_torch.ops import scan_agg as S
+
+    rng = np.random.default_rng(len(layout[2][0]) + 7)
+    n = (1 << 16) + 128
+    cols, lay, n_series, ts_max = chip_smoke._raw_columns(torch, rng, n, layout)
+    filters = ((1, S._FILTER_OPS[">"]),)
+    for frac, lo, hi in ((0.8, 0, ts_max + 1), (0.05, 15, ts_max - 25), (0.0, 0, ts_max + 1)):
+        session, dyn = chip_smoke._raw_inputs(torch, rng, n_series, frac, [5.0], lo, hi)
+        assert chip_smoke._raw_window_cases(torch, rng, cols, lay, session, dyn, filters,
+                                            f"{layout} allow {frac}") >= 2
+
+
+def test_launcher_tile_table_is_select_tiles(card):
+    """The tile table the selection's launcher builds (in C) is the spec's,
+    ``select_tiles``, and it refuses the windows the spec refuses."""
+    from horaedb_tpu_torch.ops import scan_topk as T
+
+    lib = T._kernels()
+    rng = np.random.default_rng(3)
+    n = 1 << 20
+    for _ in range(30):
+        edges = np.unique(rng.integers(0, n + 1, 2 * int(rng.integers(1, 60))))
+        w = np.ascontiguousarray(edges[: len(edges) // 2 * 2].reshape(-1, 2), dtype=np.int64)
+        want = T.select_tiles(w, n)
+        got = np.zeros(2 * len(want) + 2, np.int32)
+        assert lib.raw_select_tiles(w.ctypes.data, len(w), n, got.ctypes.data) == len(want)
+        assert np.array_equal(got[:2 * len(want)].reshape(-1, 2), want)
+    for bad in ([[5, 9], [8, 12]], [[9, 5]], [[0, 11]], [[-1, 3]], [[6, 8], [0, 2]]):
+        b = np.ascontiguousarray(bad, dtype=np.int64)
+        assert lib.raw_select_tiles(b.ctypes.data, len(b), 10, None) == -1
+
+
 def test_raw_kernel_traps(card):
     """+-0 at the threshold, NaN last, +-inf, ties past k, fewer passing
     rows than k, an empty allow list and an empty time range."""
@@ -244,6 +285,46 @@ def test_raw_reads_on_the_card_launch_the_kernels(card):
             db.close()
     for sql, (cpu, cuda) in answers.items():
         assert cpu == cuda, sql
+
+
+def test_raw_selection_walks_only_the_executor_windows(card, monkeypatch):
+    """A selection through ``Connection.execute`` on the card launches over
+    the executor's windows: inside the real rows, one tile a TILE rows of
+    each window, and the answer of a CPU connection."""
+    import horaedb_tpu_torch
+    from horaedb_tpu_torch.ops import scan_topk as T
+
+    rows = ", ".join(f"('h{i % 9}', {float((i * 37) % 101)}, {1_700_000_000_000 + i * 1000})"
+                     for i in range(20_000))
+    sql = "SELECT host, v FROM rd WHERE host IN ('h2', 'h7') AND v > 60"
+    answers, seen = [], []
+    real = T.raw_select_packed
+
+    def spy(*a, **k):
+        seen.append(k)
+        return real(*a, **k)
+
+    monkeypatch.setattr(T, "raw_select_packed", spy)
+    for device in ("cpu", "cuda"):
+        db = horaedb_tpu_torch.connect(None, device=device)
+        try:
+            db.execute("CREATE TABLE rd (host string TAG, v double, "
+                       "ts timestamp NOT NULL, TIMESTAMP KEY(ts))")
+            db.execute(f"INSERT INTO rd (host, v, ts) VALUES {rows}")
+            for _ in range(2):
+                db.execute(sql)
+            tiles = T.TILES["raw_select"]
+            out = db.execute(sql)
+            assert out.metrics.get("raw_kernel") == "select"
+            answers.append(out.to_pylist())
+            n_valid = db.interpreters.executor.scan_cache._entries["rd"].n_valid
+        finally:
+            db.close()
+    w = seen[-1]["windows"]
+    rows_w = w[:, 1] - w[:, 0]
+    assert 1 <= len(w) <= 2 and int(w[-1, 1]) <= n_valid
+    assert T.TILES["raw_select"] - tiles == int(((rows_w + T.TILE - 1) // T.TILE).sum())
+    assert answers[0] == answers[1]
 
 
 @pytest.mark.parametrize("label,domain,live", chip_smoke.GROUPBY_SHAPES)
@@ -365,6 +446,15 @@ def test_mesh_combine_matches_plain(card, shards, F, need_minmax):
         got = S.mesh_combine(src, **kw)
         chip_smoke._combine_compare(torch, S, got, parts, chip_smoke.MESH_SEGMENTS, F,
                                     need_minmax, f"S={shards} F={F}")
+
+
+@pytest.mark.parametrize("n_seg", chip_smoke.COMBINE_EDGE_SEGMENTS)
+def test_mesh_combine_edges_match_plain(card, n_seg):
+    """The combine where its vector body meets its edges: n_seg % 4 of 0-3
+    (packed planes and stacked rows off 16 bytes), planes shorter than a
+    float4, S of 1, 2, 3, 8 and 64, both forms, +-0 and NaN across shards."""
+    cases, _ = chip_smoke._combine_edges(torch, n_seg, n_seg)
+    assert cases == 9 * len(chip_smoke.COMBINE_EDGE_SHARDS)
 
 
 def test_sharded_sql_on_a_logical_mesh_launches_the_kernels(card, monkeypatch):

@@ -482,6 +482,54 @@ def test_sharded_selection_matches_reference(slots, mesh8):
         assert slots < 4096 and len(np.asarray(want_ids)) == 0  # the reference bails
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_sharded_selection_over_clipped_windows(seed, mesh8):
+    """The executor's global windows (the allowed series' rows inside the
+    time range), clipped to each of the 8 shards and shifted to its local
+    rows, cover every row that shard's mask passes and lie inside it; the
+    sharded selection over them gives the reference's ids and total, each
+    shard's buffer holding exactly its windows' rows."""
+    rng = np.random.default_rng(40 + seed)
+    codes, ts, v, S = _raw_table(rng)
+    allow = np.append(rng.random(S) < 0.5, False).astype(np.int32)
+    allow[seed % S] = 1
+    lo, hi = int(rng.integers(0, 300)), int(rng.integers(500, 1400))
+    keep = (allow[codes] != 0) & (ts >= lo) & (ts < hi)
+    f = np.concatenate([[False], keep, [False]])
+    windows = np.flatnonzero(f[1:] != f[:-1]).reshape(-1, 2).astype(np.int64)
+    lits, filters = [1.0], ((0, ">"),)
+    per = len(codes) // 8
+    passing = keep & (v[0] > 1.0)
+    for d in range(8):
+        local = dist_raw.shard_windows(windows, d * per, per)
+        assert ((local >= 0) & (local <= per)).all()
+        inside = np.zeros(per + 1, np.int64)
+        np.add.at(inside, local[:, 0], 1)
+        np.add.at(inside, local[:, 1], -1)
+        assert (np.cumsum(inside)[:per] > 0)[passing[d * per:(d + 1) * per]].all()
+    want_ids, want_total = r_raw.dist_raw_select(
+        _jmesh(8), rT.RawScanSpec(select_slots=int(keep.sum()), numeric_filters=filters),
+        jnp.asarray(codes), jnp.asarray(ts), jnp.asarray(v), jnp.asarray(allow), lits, lo, hi)
+    spec = pT.RawScanSpec(select_slots=int(keep.sum()), numeric_filters=filters)
+    dyn = torch.from_numpy(rT.pack_raw_dyn(lits, lo, hi))
+    seen = []
+    real = pT.raw_select_packed
+
+    def spy(*a, **k):
+        seen.append(k)
+        return real(*a, **k)
+
+    pT.raw_select_packed = spy
+    try:
+        ids, total = dist_raw.dist_raw_select(mesh8, spec, *_raw_args(codes, ts, v, 8),
+                                              torch.from_numpy(allow), dyn, windows=windows)
+    finally:
+        pT.raw_select_packed = real
+    assert total == want_total and np.array_equal(ids, np.asarray(want_ids))
+    assert [k["select_slots"] for k in seen] == [
+        int(keep[d * per:(d + 1) * per].sum()) for d in range(8)]
+
+
 def test_merge_topk_cuts_at_need_in_slot_order():
     keys = np.array([5, 9, 5, 7, 9, 1], np.int64)
     ids = np.array([40, 3, 2, 8, 30, 0], np.int64)

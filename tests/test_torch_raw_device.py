@@ -188,6 +188,86 @@ class TestRawEquivalence:
         assert [r["host"] for r in got.to_pylist()][:2] == ["h1", "brand_new"]
 
 
+def _entry_rows(entry):
+    """(series code, relative ts) of every resident real row of ``entry``."""
+    offsets = np.asarray(entry.series_offsets, np.int64)
+    codes = np.searchsorted(offsets, np.arange(entry.n_valid), "right") - 1
+    return codes, np.asarray(entry.ts_rel_host, np.int64)
+
+
+class TestCandidateWindows:
+    """The executor's row windows: sorted, disjoint, touching ones merged,
+    holding exactly the allowed series' rows inside the time range, their
+    rows the candidate estimate that sizes the selection's buffer."""
+
+    def _entry(self, seed, n, hosts, step):
+        port = horaedb_tpu_torch.connect(None, device="cpu")
+        rng = np.random.default_rng(seed)
+        ts = T0 + np.cumsum(rng.integers(0, 3, n)) * step  # ties and gaps
+        rows = ", ".join(f"('h{int(h)}', {float(i)}, 1.0, {int(t)})"
+                         for i, (h, t) in enumerate(zip(rng.integers(0, hosts, n), ts)))
+        port.execute(DDL)
+        port.execute(f"INSERT INTO rd (host, v, w, ts) VALUES {rows}")
+        _warm(port, "SELECT host, v FROM rd WHERE v < 10")
+        return port, port.interpreters.executor.scan_cache._entries["rd"]
+
+    @pytest.mark.parametrize("seed", range(6))
+    def test_windows_hold_exactly_the_allowed_rows_in_range(self, seed):
+        port, entry = self._entry(seed, n=int(300 + 97 * seed), hosts=3 + 2 * seed, step=1000)
+        try:
+            executor = port.interpreters.executor
+            codes, ts = _entry_rows(entry)
+            rng = np.random.default_rng(100 + seed)
+            span = int(ts.max()) + 1
+            one = int(ts[int(rng.integers(0, len(ts)))])
+            ranges = [(0, span + 5), (0, 0), (one, one + 1), (span // 3, span // 3),
+                      (int(rng.integers(0, span)), int(rng.integers(0, span)) + 1000),
+                      (-50, span // 2), (span // 2, 2 * span)]
+            S = entry.n_series
+            allows = [np.ones(S, bool), np.zeros(S, bool), np.arange(S) == S - 1,
+                      rng.random(S) < 0.5, np.arange(S) % 2 == 0]
+            for allowed in allows:
+                for lo, hi in ranges:
+                    count, windows = executor._raw_candidate_estimate(entry, allowed, lo, hi)
+                    keep = allowed[codes] & (ts >= lo) & (ts < hi)
+                    want = np.flatnonzero(np.diff(np.concatenate([[0], keep, [0]]))).reshape(-1, 2)
+                    assert windows.dtype == np.int64 and windows.shape[1:] == (2,)
+                    assert np.array_equal(windows, want), (allowed, lo, hi)
+                    assert count == int(keep.sum()) == int((windows[:, 1] - windows[:, 0]).sum())
+        finally:
+            port.close()
+
+    def test_every_series_over_the_whole_range_is_one_window(self):
+        port, entry = self._entry(9, n=500, hosts=7, step=1000)
+        try:
+            count, windows = port.interpreters.executor._raw_candidate_estimate(
+                entry, np.ones(entry.n_series, bool), 0, 10**12)
+            assert count == entry.n_valid and windows.tolist() == [[0, entry.n_valid]]
+        finally:
+            port.close()
+
+    def test_the_selection_gets_the_windows_and_answers_as_the_reference(
+            self, dbs, monkeypatch):
+        """A selection hands its wrapper the estimate's windows (their rows
+        are its slots); the answer is the reference's."""
+        _seed(dbs, n=600, hosts=9, seed=3)
+        seen = []
+        real = port_kernels.raw_select_packed
+
+        def spy(*a, **k):
+            seen.append(k)
+            return real(*a, **k)
+
+        monkeypatch.setattr(port_kernels, "raw_select_packed", spy)
+        sql = ("SELECT host, v FROM rd WHERE host IN ('h2', 'h5') AND v > 100 "
+               f"AND ts < {T0 + 400_000}")
+        _parity(dbs, sql, monkeypatch, "select")
+        w = seen[-1]["windows"]
+        assert len(w) >= 1 and int((w[:, 1] - w[:, 0]).sum()) == seen[-1]["select_slots"]
+        entry = dbs[1].interpreters.executor.scan_cache._entries["rd"]
+        assert int(w[-1, 1]) <= entry.n_valid
+
+
 class TestHostRoutes:
     """Each deterministic rule that keeps a raw read on the host."""
 
@@ -394,7 +474,11 @@ class TestSurfaces:
         assert _warm(port, sql).metrics.get("path") == "raw_device"
         executor = type(port.interpreters.executor)
         real = executor._raw_candidate_estimate
-        monkeypatch.setattr(executor, "_raw_candidate_estimate",
-                            lambda self, *a: real(self, *a) // 4)  # 25 of the 50 rows
+
+        def quarter(self, *a):  # 25 of the 50 rows, the windows left whole
+            count, windows = real(self, *a)
+            return count // 4, windows
+
+        monkeypatch.setattr(executor, "_raw_candidate_estimate", quarter)
         with pytest.raises(RuntimeError, match="exact bound"):
             port.execute(sql)

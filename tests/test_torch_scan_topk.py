@@ -228,6 +228,132 @@ def test_every_filter_op(op):
     _select(cols, allow, _count(cols, allow, filters, [0.0]), filters, [0.0])
 
 
+# ---- the selection over row windows ---------------------------------------------
+
+
+def _decoded(cols):
+    """(series codes, timestamps) of ``cols`` as numpy, decoded by the port."""
+    sp, tp = _port_parts(cols["series"]), _port_parts(cols["ts"])
+    n = E.layout_rows(sp, cols["series_layout"])
+    sc = E.decode_series(sp, cols["series_layout"], n)
+    return sc.numpy().astype(np.int64), E.decode_ts(tp, cols["ts_layout"], n).numpy()
+
+
+def _runs(flags):
+    f = np.concatenate([[False], flags, [False]])
+    return np.flatnonzero(f[1:] != f[:-1]).reshape(-1, 2).astype(np.int64)
+
+
+def _windows(rng, cols, allow, lo, hi, kind):
+    """Windows that hold every row of an allowed series inside [lo, hi):
+    ``series`` those rows' runs (the executor's windows); ``real`` every
+    real row; ``singles`` one row a window; ``short`` the series runs cut
+    into pieces of 1-40 rows; ``none`` no windows (the wrapper's default)."""
+    codes, ts = _decoded(cols)
+    keep = (allow[codes] != 0) & (ts >= lo) & (ts < hi)
+    if kind == "none":
+        return None
+    if kind == "real":
+        n_real = int((codes < cols["S"]).sum())
+        return np.array([[0, n_real]] if n_real else [], np.int64).reshape(-1, 2)
+    if kind == "singles":
+        hit = np.flatnonzero(keep)
+        return np.stack([hit, hit + 1], axis=1)
+    runs = _runs(keep)
+    if kind == "series":
+        return runs
+    pieces = [np.empty((0, 2), np.int64)]
+    for a, b in runs:
+        edges = np.unique(np.concatenate([[a, b], a + np.cumsum(rng.integers(1, 41, b - a))]))
+        edges = edges[edges <= b]
+        pieces.append(np.stack([edges[:-1], edges[1:]], axis=1))
+    return np.concatenate(pieces)
+
+
+@pytest.mark.parametrize("kind", ["none", "series", "real", "singles", "short"])
+@pytest.mark.parametrize("li", range(len(LAYOUTS)), ids=lambda i: "-".join(
+    [LAYOUTS[i][0], LAYOUTS[i][1], *LAYOUTS[i][2]]))
+def test_select_over_windows_bit_equal(li, kind):
+    """The selection with the executor's kinds of row windows (or none)
+    equals the reference's selection over every row: windows are a hint
+    the answer never depends on, in every layout, with an empty allow list
+    and an empty window list too."""
+    rng = np.random.default_rng(300 + li)
+    cols = _columns(rng, N, LAYOUTS[li])
+    filters, lits = ((1, OPS[list(OPS)[li % 6]]),), [cols["lits"][1]]
+    lo, hi = 15, cols["ts_max"] - 25
+    for allow in (_allow(rng, cols, 0.5), np.zeros(cols["S"] + 1, np.int32)):
+        count = _count(cols, allow, filters, lits, lo, hi)
+        windows = _windows(rng, cols, allow, lo, hi, kind)
+        dyn = ref.pack_raw_dyn(lits, lo, hi)
+        want, _ = _run(cols, "select", allow, dyn, select_slots=count,
+                       numeric_filters=filters)
+        got = port.raw_select_packed(
+            _port_parts(cols["series"]), _port_parts(cols["ts"]),
+            tuple(_port_parts(p, lay[0] == "bf16")
+                  for p, lay in zip(cols["values"], cols["value_layouts"])),
+            torch.from_numpy(allow), torch.from_numpy(dyn), select_slots=count,
+            numeric_filters=filters, windows=windows, value_layouts=cols["value_layouts"],
+            ts_layout=cols["ts_layout"], series_layout=cols["series_layout"])
+        assert np.array_equal(want, got.numpy()), (kind, want[:8], got[:8])
+
+
+def test_plain_select_with_and_without_windows_is_the_reference_body():
+    """``raw_select_plain`` takes the windows and ignores them: with them,
+    without them and with a window list that misses passing rows, it is
+    the reference's ``raw_select_body`` over every row."""
+    rng = np.random.default_rng(11)
+    cols = _columns(rng, N, LAYOUTS[0])
+    codes, ts = cols["series"][0], cols["ts"][0]
+    values = np.stack([p[0] for p in cols["values"]])
+    allow = _allow(rng, cols, 0.6)
+    filters, lits, lo, hi = ((0, OPS[">"]),), [0.0], 40, cols["ts_max"] - 60
+    count = _count(cols, allow, filters, lits, lo, hi)
+    idx, n = ref.raw_select_body(
+        jnp.asarray(codes), jnp.asarray(ts), jnp.asarray(values), jnp.asarray(allow != 0),
+        jnp.asarray(np.float32(lits)), np.int32(lo), np.int32(hi), select_slots=count + 3,
+        numeric_filters=filters)
+    want = np.concatenate([[int(n)], np.asarray(idx)])
+    args = ((torch.from_numpy(codes),), (torch.from_numpy(ts),),
+            tuple((torch.from_numpy(v),) for v in values), torch.from_numpy(allow),
+            torch.from_numpy(ref.pack_raw_dyn(lits, lo, hi)))
+    for windows in (None, _windows(rng, cols, allow, lo, hi, "series"),
+                    np.array([[0, 1]], np.int64)):
+        got = port.raw_select_plain(*args, select_slots=count + 3, numeric_filters=filters,
+                                    windows=windows)
+        assert np.array_equal(got.numpy(), want)
+
+
+def test_select_tiles_walk_the_windows_only():
+    """The launch geometry: ceil(rows / TILE) tiles a window, each at most
+    TILE rows inside its window, in row order, together exactly the
+    windows' rows; windows that overlap, run backwards or leave the rows
+    are refused."""
+    rng = np.random.default_rng(5)
+    n = 1 << 20
+    for _ in range(20):
+        edges = np.unique(rng.integers(0, n + 1, 2 * int(rng.integers(1, 40))))
+        windows = edges[: len(edges) // 2 * 2].reshape(-1, 2)
+        tiles = port.select_tiles(windows, n)
+        rows = windows[:, 1] - windows[:, 0]
+        assert len(tiles) == int(((rows + port.TILE - 1) // port.TILE).sum())
+        assert tiles.dtype == np.int32 and ((tiles[:, 1] - tiles[:, 0]) >= 1).all()
+        assert ((tiles[:, 1] - tiles[:, 0]) <= port.TILE).all()
+        assert (tiles[1:, 0] >= tiles[:-1, 1]).all()
+        covered = np.zeros(n + 1, np.int64)
+        np.add.at(covered, tiles[:, 0], 1)
+        np.add.at(covered, tiles[:, 1], -1)
+        want = np.zeros(n + 1, np.int64)
+        np.add.at(want, windows[:, 0], 1)
+        np.add.at(want, windows[:, 1], -1)
+        assert np.array_equal(np.cumsum(covered), np.cumsum(want))
+    assert port.select_tiles(None, 10_000).tolist() == [[0, 4096], [4096, 8192], [8192, 10_000]]
+    assert port.select_tiles(np.empty((0, 2), np.int64), 10).shape == (0, 2)
+    for bad in ([[5, 9], [8, 12]], [[9, 5]], [[0, 11]], [[-1, 3]], [[6, 8], [0, 2]]):
+        with pytest.raises(ValueError):
+            port.select_tiles(bad, 10)
+
+
 # ---- the traps ------------------------------------------------------------------
 
 _PM0 = [-0.0, -0.0, -0.0, -0.0, -5.0, 0.0, -1.0, -2.0, -3.0, -4.0, -6.0, -7.0]
