@@ -311,11 +311,12 @@ def _compare(kind, counts, sums, mins, maxs, want, abs_sums, need_minmax) -> flo
     g = sums.double().cpu().numpy()
     w = ws.double().cpu().numpy()
     a = abs_sums.double().cpu().numpy()
-    both_nan = np.isnan(g) & np.isnan(w)
+    # both NaN, or equal (an infinite sum equals only the same infinity)
+    same = (np.isnan(g) & np.isnan(w)) | (g == w)
     with np.errstate(invalid="ignore"):
-        diff = np.where(both_nan, 0.0, np.abs(g - w))
+        diff = np.where(same, 0.0, np.abs(g - w))
     with np.errstate(invalid="ignore"):
-        bad = ~(both_nan | (diff <= SUM_RTOL * a))
+        bad = ~(same | (diff <= SUM_RTOL * a))
     check(not bad.any(), f"{kind}: sums differ beyond {SUM_RTOL} of sum|x|: "
           f"{g[bad][:3]} vs {w[bad][:3]} (scale {a[bad][:3]})")
     return float(diff.max()) if diff.size else 0.0
@@ -1159,15 +1160,19 @@ def phase_timings(torch, main, errs, card) -> list:
             fn = (lambda a=args, k=kw: S.cached_scan_agg_packed(*a, **k)) if form != "direct" \
                 else (lambda a=args, k=kw: S.fused_scan_agg(*a, **k))
             kernel_ms[form] = _device_ms(torch, fn, KERNEL_NAMES[form].split("[")[0], flush=flush)
+        # the rows each full scan read (the entry's real rows)
+        visited = {form: kw.get("n_rows") for form, (_, kw) in res["calls"].items()
+                   if form == "cached"}
         per_query[name] = {
             "runs_ms": [x * 1e3 for x in secs],
             "to_pylist_ms": [r["to_pylist_seconds"] * 1e3 for r in runs],
             "cold_ms": secs[0] * 1e3, "warm_median_ms": warm * 1e3, "kernel_ms": kernel_ms,
+            "rows_visited": visited,
         }
         say(f"timing {name}: execute runs {[round(x * 1e3, 3) for x in secs]} ms; "
             f"cold {secs[0] * 1e3:.3f} ms, warm median {warm * 1e3:.3f} ms; "
             f"to_pylist median {statistics.median(per_query[name]['to_pylist_ms']):.3f} ms; "
-            f"kernel (device) {kernel_ms} ms [{card}]")
+            f"kernel (device) {kernel_ms} ms; rows visited {visited} [{card}]")
     say(f"peak device memory: {main['peak']} B (torch.cuda.max_memory_allocated) [{card}]")
 
     # the kernel table: each form at the main path's heaviest shape of it
@@ -1198,8 +1203,11 @@ def phase_timings(torch, main, errs, card) -> list:
             "max_abs_err": errs[form], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
+        visited = kw.get("n_rows") if form == "cached" else None
         say(f"kernel {KERNEL_NAMES[form]} at {qname} ({kw.get('segment_impl')}, "
-            f"{work['rows']} rows, {work['bytes']} B): {ms:.4f} ms on the device timeline "
+            f"{work['rows']} rows, {work['bytes']} B"
+            + (f", {visited} rows visited" if visited is not None else "")
+            + f"): {ms:.4f} ms on the device timeline "
             f"({'profiler' if device_ms is not None else 'events'}), {launch_ms:.4f} ms "
             f"launch incl. wrapper, plain {plain_ms:.4f} ms, "
             f"index_add_ {lib_ms:.4f} ms ({ms / lib_ms:.2f}x index_add_), bound "
@@ -1706,7 +1714,9 @@ def _family_device_ms(torch, fn, names, reps=5, label=None):
             return None
         split: dict = {}
         for e in prof.events():
-            base = e.name.split("(")[0].strip().split(" ")[-1].split("<")[0]
+            # "void name<args, ...>(params)": the name without its template
+            # arguments, whose ", " would split it
+            base = e.name.split("(")[0].split("<")[0].strip().split(" ")[-1]
             if base in names:
                 split[base] = split.get(base, 0.0) + e.time_range.elapsed_us() / reps / 1e3
         if split:
@@ -3469,6 +3479,126 @@ def _cohort_case(torch, rng, layout_case, arm, need_minmax, op, B, G, nb, specia
     return err
 
 
+# The real-row prefix (full scans and the cohort read the first n_rows
+# rows of the layout): an arm's (n_groups, n_buckets: one bucket takes
+# the cohort's one-series path in most chunks); the cohort sizes,
+# (agg fields, min/max) and prefixes the cases cycle through. "real" is the
+# table's real rows (ending inside a 32-row step and inside a chunk at per
+# = 5003; at a chunk's edge at per = 4096), "padded" the layout's rows,
+# "zero" no row (its members allow no series).
+PREFIX_ARMS = {"single": (1, 1), "shared": (16, 1), "scatter": (16, 64)}
+PREFIX_BS = (1, 2, 31, 32, 33)
+PREFIX_FIELDS = ((0, True), (1, True), (10, True), (1, False), (10, False))
+PREFIX_KINDS = ("real", "padded", "zero")
+PREFIX_SERIES = 11
+
+
+def _prefix_inputs(torch, rng, n_agg, need_minmax, arm, B, prefix, per=5003, special=False,
+                   op=">="):
+    """A resident table of PREFIX_SERIES series x ``per`` rows sorted by
+    (series, ts), 10 ms apart (delta series codes and timestamps, raw
+    values: ``n_agg`` agg fields and an integer filter field), padded to
+    its bucket as the scan cache pads; B members grouping by series x
+    bucket, their time ranges cycling through the whole range, one that
+    misses whole chunks, an empty one, a late one, one that allows no
+    series and one over half of them. ``special``: NaN, +-0 and +-inf in
+    the first field at series, bucket and chunk edges. Returns (args, kw)
+    of a cohort launch whose kw holds ``n_rows``."""
+    import numpy as np
+
+    from horaedb_tpu_torch.convert import entry_from_reference
+    from horaedb_tpu_torch.ops import encoding as E, scan_agg as S
+
+    dev = torch.device(DEV)
+    n_series = PREFIX_SERIES
+    n = n_series * per
+    arrays, layouts = _resident_case(rng, n_series, per, "delta", "delta",
+                                     ("raw",) * (n_agg + 1))
+    G, nb = PREFIX_ARMS[arm]
+    width = -(-per * 10 // nb)
+    if special and n_agg:
+        col = arrays["value/0/0"]
+        edges = [s * per for s in range(n_series)] + [c * 512 for c in range(1, n // 512)]
+        edges += [s * per + (k * width) // 10 for s in range(n_series) for k in range(1, nb)]
+        picks = (np.nan, -0.0, 0.0, np.inf, -np.inf)
+        for j, e in enumerate(sorted(set(edges))):
+            for d in (-1, 0):
+                if 0 <= e + d < n:
+                    col[e + d] = picks[(j + d) % len(picks)]
+    entry = entry_from_reference(arrays, layouts, dev)
+    held = arrays[f"value/{n_agg}/0"][:n]
+    sessions, dyns = [], []
+    for b in range(B):
+        gos = np.append(np.arange(n_series) % G, 0).astype(np.int32)
+        allow = np.append(rng.random(n_series) < 0.8, False)
+        allow[0] = True
+        lo, hi = 0, per * 10
+        kind = b % 6
+        if kind == 1:
+            lo, hi = 9_000, 29_000  # misses whole chunks
+        elif kind == 2:
+            lo = hi = 5_000  # no time
+        elif kind == 3:
+            lo = 31_000
+        elif kind == 4:
+            allow[:] = False
+        elif kind == 5:
+            allow[n_series // 2:n_series] = False
+            hi = 15_000
+        if prefix == "zero":
+            allow[:] = False
+        # a held value for = and !=; else a literal every row passes
+        lit = {"=": float(held[rng.integers(0, n)]), "!=": float(held[rng.integers(0, n)]),
+               "<": 1e30, "<=": 1e30}.get(op, -1e30)
+        sessions.append(S.pack_session(gos, allow))
+        dyns.append(S.pack_dyn([lit], lo, hi, -7 if b % 2 else 0, width))
+    rows = E.layout_rows(entry.series_parts, entry.series_layout)
+    n_rows = {"real": n, "padded": rows, "zero": 0}[prefix]
+    args = (*entry.kernel_args().values(), torch.from_numpy(np.stack(sessions)).to(dev),
+            torch.from_numpy(np.stack(dyns)).to(dev))
+    kw = dict(n_groups=G, n_buckets=nb, n_agg_fields=n_agg,
+              numeric_filters=((n_agg, S._FILTER_OPS[op]),), need_minmax=need_minmax,
+              segment_impl=arm, n_rows=n_rows, **entry.layout_kwargs())
+    return args, kw
+
+
+def _prefix_case(torch, rng, n_agg, need_minmax, arm, B, prefix, per=5003, special=False,
+                 op=">=") -> tuple[float, str, list]:
+    """The cohort over a real-row prefix against its plain version (which
+    reads every row), with its launch statistics, and members 0 and 1 as
+    solo full scans over the same prefix against theirs. Returns the
+    largest |sum difference|, the arm the cohort took and its statistics
+    (``scan_agg.COHORT_STATS``)."""
+    from horaedb_tpu_torch.ops import scan_agg as S
+
+    args, kw = _prefix_inputs(torch, rng, n_agg, need_minmax, arm, B, prefix, per, special, op)
+    what = f"prefix {prefix} per={per} {arm} B={B} F={n_agg} minmax={need_minmax}" + (
+        " specials" if special else "")
+    n_seg = kw["n_groups"] * kw["n_buckets"]
+    taken = S.cohort_arm(arm, B, len(args[2]), n_seg, n_agg, need_minmax)
+    stats = None
+    if DEV == "cuda":
+        stats = torch.zeros(len(S.COHORT_STATS), dtype=torch.int64, device=DEV)
+        S.cached_scan_agg_cohort(*args, **kw, stats=stats)
+    err, counted, _ = _cohort_check(torch, args, kw, f"cohort {what}")
+    check(prefix == "zero" or counted > 0, f"cohort {what}: no row passed")
+    check(prefix != "zero" or counted == 0, f"cohort {what}: a row passed")
+    sp, tp, vals, sessions, dyns = args
+    solo_kw = {**kw, "selective": False}
+    if arm == "shared" and not S.shared_fits(n_seg, n_agg, need_minmax):
+        solo_kw["segment_impl"] = "scatter"
+    for b in range(min(B, 2)):
+        err = max(err, _check_call(torch, "cached", (sp, tp, vals, sessions[b], dyns[b]),
+                                   solo_kw, f"full scan {what} member {b}")[0])
+    got = stats.tolist() if stats is not None else []
+    if got:
+        chunks = S.cohort_chunks(kw["n_rows"], len(vals))[1]
+        check(got[0] == chunks, f"cohort {what}: {got[0]} chunks decoded, {chunks} expected")
+        check(got[1] + got[2] == chunks * B, f"cohort {what}: member-chunks {got[1:3]}")
+        check(B < 2 or prefix == "zero" or got[2] > 0, f"cohort {what}: no chunk skipped")
+    return err, taken, got
+
+
 def _raw_cohort_case(torch, rng, cols, lay, n_series, ts_max, B, k, key_is_ts, desc, op,
                      what) -> int:
     """B4c against its plain version and against B solo top-k launches,
@@ -3523,6 +3653,20 @@ def phase_cohort_kernels(torch) -> None:
         err = max(err, _cohort_case(torch, rng, ("delta", "delta", ("raw",)), arm, True, "!=",
                                     32, G, nb, n_agg=0))
         n_b1e += 2
+    # the real-row prefix: each arm over the real rows, the layout's and
+    # none, (F, minmax) and B cycling; NaN, +-0 and +-inf at run and chunk
+    # edges; members that skip whole chunks (the launch statistics check it)
+    n_prefix = 0
+    for a, arm in enumerate(PREFIX_ARMS):
+        for p, prefix in enumerate(PREFIX_KINDS):
+            F, need_minmax = PREFIX_FIELDS[(a + p) % len(PREFIX_FIELDS)]
+            err = max(err, _prefix_case(torch, rng, F, need_minmax, arm,
+                                        PREFIX_BS[(a + p + 2) % len(PREFIX_BS)], prefix,
+                                        op=OPS[(a + p) % 6])[0])
+            n_prefix += 1
+        err = max(err, _prefix_case(torch, rng, 3, True, arm, 7, "real", per=4096,
+                                    special=True)[0])
+        n_prefix += 1
     n_b4c = 0
     for n in RAW_SIZES:
         for li, layout in enumerate(RAW_LAYOUTS):
@@ -3554,10 +3698,10 @@ def phase_cohort_kernels(torch) -> None:
             _b1d_case(torch, rng, arm, G, nb, need_minmax)
             n_b1d += 1
     _sync(torch)
-    say(f"cohort kernels vs plain: B1e {n_b1e} cases (max |sum diff| {err}), B4c {n_b4c} "
-        f"cases bit-equal, B1d {n_b1d} cases")
-    DETAIL["cohort_kernel_cases"] = {"b1e": n_b1e, "b4c": n_b4c, "b1d": n_b1d,
-                                     "b1e_max_abs_err": err}
+    say(f"cohort kernels vs plain: B1e {n_b1e} cases and {n_prefix} over a real-row prefix "
+        f"(max |sum diff| {err}), B4c {n_b4c} cases bit-equal, B1d {n_b1d} cases")
+    DETAIL["cohort_kernel_cases"] = {"b1e": n_b1e, "b1e_prefix": n_prefix, "b4c": n_b4c,
+                                     "b1d": n_b1d, "b1e_max_abs_err": err}
 
 
 def _b1d_inputs(torch, rng, n_series=40, per=3001):
@@ -3909,8 +4053,22 @@ def _time_cohort(torch, args, kw, what, flush, card) -> dict:
     launches of the same members, its bound and index_add_."""
     from horaedb_tpu_torch.ops import scan_agg as S
 
+    from horaedb_tpu_torch.ops import encoding as E
+
     B = args[3].shape[0]
     err, counted, plain_ms = _cohort_check(torch, args, kw, f"{what} (B={B})")
+    # the rows, chunks and commits the launch visits (a launch of its own)
+    rows = kw.get("n_rows")
+    rows = E.layout_rows(args[0], kw["series_layout"]) if rows is None else rows
+    stats = torch.zeros(len(S.COHORT_STATS), dtype=torch.int64, device=DEV)
+    S.cached_scan_agg_cohort(*args, **kw, stats=stats)
+    visits = dict(zip(S.COHORT_STATS, stats.tolist()), rows=rows,
+                  chunk_rows=S.cohort_chunks(rows, len(args[2]))[0],
+                  carry=S.cohort_carry(S.cohort_arm(kw["segment_impl"], B, len(args[2]),
+                                                    kw["n_groups"] * kw["n_buckets"],
+                                                    kw["n_agg_fields"], kw["need_minmax"]),
+                                       B, len(args[2]), kw["n_groups"] * kw["n_buckets"],
+                                       kw["n_agg_fields"], kw["need_minmax"]))
     launch = lambda: S.cached_scan_agg_cohort(*args, **kw)  # noqa: E731
     sp, tp, vals, sessions, dyns = args
     solo_kw = {**kw, "selective": False}
@@ -3935,10 +4093,14 @@ def _time_cohort(torch, args, kw, what, flush, card) -> dict:
         f"timeline; {B} solo launches {solo_ms:.4f} ms by events (one solo {solo_one} ms on "
         f"the device timeline, x{B} = {solo_b}); plain {plain_ms:.4f} ms (once); index_add_ "
         f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}, {work['bytes']} B, "
-        f"{work['ops']} ops); max |sum diff| {err} [{card}]")
+        f"{work['ops']} ops); max |sum diff| {err}; visited {visits['rows']} rows in "
+        f"{visits['chunks']} chunks of {visits['chunk_rows']}, {visits['member_chunks']} "
+        f"member-chunks run and {visits['member_chunks_skipped']} skipped, "
+        f"{visits['commits']} commits (carry {visits['carry']}) [{card}]")
     return {"B": B, "arm": arm, "ms": ms, "solo_events_ms": solo_ms, "solo_one_ms": solo_one,
             "solo_x_B_ms": solo_b, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, **work}
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, "visits": visits,
+            **work}
 
 
 def phase_flood_timings(torch, main, flood, raw, card) -> list:
@@ -4699,14 +4861,19 @@ def phase_mesh_kernels(torch) -> float:
 
 
 class MeshRecorder:
-    """Keeps the last mesh_combine call and, while ``keep_raw`` is set, the
-    per-shard top-k and selection calls, by wrapping the module functions
-    the sharded steps call; ``restore`` puts them back."""
+    """Keeps the last mesh_combine call, each sharded full scan's
+    ``dist_cached_step`` call and, while ``keep_raw`` is set, the per-shard
+    top-k and selection calls, by wrapping the module functions the
+    sharded steps call; ``restore`` puts them back."""
 
     def __init__(self, S, T):
-        self.S, self.T = S, T
+        from horaedb_tpu_torch.parallel import dist_agg
+
+        self.S, self.T, self.D = S, T, dist_agg
         self.orig = (S.mesh_combine, T.raw_topk_packed, T.raw_select_packed)
+        self.orig_step = dist_agg.dist_cached_step
         self.combine = None
+        self.steps: list = []
         self.raw: dict = {"raw_topk": [], "raw_select": []}
         self.keep_raw = False
         orig_combine, orig_topk, orig_select = self.orig
@@ -4714,6 +4881,12 @@ class MeshRecorder:
         def combine(parts, **kw):
             self.combine = (list(parts), kw)
             return orig_combine(parts, **kw)
+
+        def step(*a, **k):
+            self.steps.append((a, k))
+            return self.orig_step(*a, **k)
+
+        dist_agg.dist_cached_step = step
 
         def keep(kind, orig):
             def call(*a, **k):
@@ -4728,6 +4901,7 @@ class MeshRecorder:
 
     def restore(self) -> None:
         self.S.mesh_combine, self.T.raw_topk_packed, self.T.raw_select_packed = self.orig
+        self.D.dist_cached_step = self.orig_step
 
 
 def _bits_equal(a, b, what) -> None:
@@ -4989,6 +5163,18 @@ def phase_mesh_main(torch, main, card) -> list:
         f"torch.sum/amin/amax {lib_ms:.4f} ms ({nbytes / lib_ms / 1e6:.1f} GB/s), bound "
         f"{bound:.4f} ms (bytes), kernel = plain (max |sum diff| {err}) [{card}]")
     del parts, planes, split
+    # the shards' full scans at double-groupby-all (10 fields), each over
+    # its part of the real rows: their launches' device ms a query
+    step = next((c for c in reversed(rec.steps) if c[0][1].n_agg_fields == 10), None)
+    check(step is not None, "no sharded full scan of double-groupby-all was recorded")
+    a, k = step
+    check(k.get("n_valid") == entry.n_valid, f"dist_cached_step got n_valid {k.get('n_valid')}")
+    shard_ms = _family_device_ms(torch, lambda: rec.orig_step(*a, **k), ("scan_agg_cached",),
+                                 reps=5, label="the shards' full scans at double-groupby-all")
+    DETAIL["mesh_full_scans"] = {"ms_a_query": shard_ms, "real_rows": real}
+    say(f"kernel scan_agg_cached on {n_sh} shards at double-groupby-all (real rows a shard "
+        f"{real}, each launch over its own): {shard_ms} ms a query for the {n_sh} launches on "
+        f"the device timeline [{card}]")
     def every_card(fn):
         """``fn``, then on a mesh of several cards a wait for each, so that
         the first card's events time every shard's work."""

@@ -26,6 +26,10 @@ NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
+    # the optimizer's passes over a source's kernels run on every CPU
+    # (scan_agg.cu instantiates its core for each arm, form, min/max and
+    # field capacity)
+    "-split-compile=0",
     "-shared",
     "-Xcompiler",
     "-fPIC",

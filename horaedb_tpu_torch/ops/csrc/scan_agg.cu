@@ -12,71 +12,92 @@
 //                                decode_layouts                          (B3)
 //   horaedb_tpu/parallel/dist_agg.py  _combine (psum/pmin/pmax)          (B7a)
 //
-// Three entry points share the reduction cores below:
+// Three entry points share one reduction core (reduce_runs):
 //   scan_agg_direct  rows of a host-built padded batch (group code, bucket
 //                    id, mask, values[F, N]);
-//   scan_agg_cached  rows of the resident scan cache: the prologue decodes
-//                    each row's series code, timestamp and values from the
-//                    resident layout (raw, bf16, delta, dict, dict codes) in
-//                    registers, applies the session allow list, the time
-//                    range and the numeric filters, then buckets and groups.
-//                    SELECTIVE reads row i from the index tail of ``dyn``.
-//                    The column decoders live in layouts.cuh, shared with
-//                    the raw-read kernels (scan_topk.cu).
+//   scan_agg_cached  rows of the resident scan cache: each row's series
+//                    code, timestamp and values decode from the resident
+//                    layout (raw, bf16, delta, dict, dict codes) in
+//                    registers, then the session allow list, the time
+//                    range and the numeric filters, the bucket and the
+//                    group. A full scan reads the first ``n_rows`` rows
+//                    (the caller passes the entry's real rows, a prefix of
+//                    the padded layout); SELECTIVE reads row i from the
+//                    index tail of ``dyn``. The column decoders live in
+//                    layouts.cuh, shared with the raw-read kernels.
 //   scan_agg_cohort  B full-scan cached queries in one launch (B1e): member
 //                    b reads row b of the stacked sessions and dyns and
-//                    writes row b of the packed outputs. A block decodes a
-//                    tile of rows once into shared memory (series code,
-//                    timestamp, every value field), then runs each
-//                    member's allow list, time range, filters and
-//                    reduction over the tile: the columns are read and
-//                    decoded once for the cohort. Each warp walks its own
-//                    part of the tile for every member and commits the
-//                    run partial at its end. Arms: single and shared keep
-//                    every member's partials in shared memory beside the
-//                    tile when they fit there together, else the launch
-//                    takes scatter (the wrapper decides).
+//                    writes row b of the packed outputs (below).
 //
-// Two reduction cores, chosen at compile time (scan_agg<ARM, SEGMENTED>):
-//
-// The run-partial core serves the full scans of the single, shared and
-// scatter arms (scan_agg_direct, scan_agg_cached) and the cohort. Bound:
-// the bytes of the resident columns (one pass over codes, timestamps and
-// the touched value columns); for a cohort the same bytes once plus B
-// sessions, dyns and outputs, while its work grows with B. Each warp walks
-// a contiguous run of 8 steps of 32 rows (BLOCK * 8 rows a block; the
-// cache is sorted by series and time, so neighbouring rows mostly share a
-// segment), reduces a step whose valid rows share one segment with
-// shuffles into the carried run partial of its segment (lane f owns field
-// f), committed when the segment changes; any other step commits lane by
-// lane, each min and max a read then a CAS.
-//
-// The segmented core serves the SELECTIVE launches of every arm (B1b
-// selective, B1d) and the hash arm in every form (B2d). What bounds a
-// selective launch of a few thousand gathered rows is latency: each step
-// is a chain of dependent loads (the index, the series code, the allow
-// list, the timestamp, the group map). So:
-//   - the grid: the wrapper's ``block_rows`` (ops/scan_agg.py
-//     ``segmented_geometry``): the fewest 32-row steps a warp whose blocks
-//     the card holds at once (scan_agg_blocks_per_sm, the occupancy at the
-//     launch's shared memory), one step a warp for a few thousand rows;
-//     every step of the launch runs at once;
-//   - a step loads all of its rows' values into registers (FCAP fields a
-//     pass) before any shuffle; for a gather before its keep chain, whose
-//     allow list, group map and timestamp load together (keep_eager);
-//   - a segmented warp reduction: a valid lane heads a run when its
-//     segment differs from the previous valid lane's; a 5-round shuffle
-//     scan leaves each run's count, sums, mins and maxs in its last lane;
-//     a step of more than 16 runs (unsorted rows) skips it and commits
-//     lane by lane, as the run-partial core does; the first
-//     run merges into the carried partial, the middle runs commit from
-//     their last lanes at once, the last becomes the carried partial. On
-//     TSBS rows (runs of 6) a step commits about 6 partials, not 32 rows;
+// The core (every launch; one warp, one contiguous range of rows, 32 rows
+// a step). What bounds a full scan is the bytes of the resident columns
+// (one pass over codes, timestamps and the touched value columns over the
+// real rows). Walking the padded rows and reducing every step with 5-round
+// shuffles per field (15 with min/max) were most of the time of the core
+// this one replaced, its read-then-CAS commits little (PERF.md, the step
+// 0 of the run-partial core's redesign). So:
+//   - a step loads every value of its rows, FCAP fields together, before
+//     anything waits on them (a full scan: after the allow list, group map
+//     and timestamp, which load together once the code is known, and
+//     beside the filter fields);
+//   - a step whose valid rows all fall in one segment (the common step:
+//     the cache is sorted by series and time, and a TSBS segment is 360 or
+//     8,640 rows) folds each lane's row into that lane's own registers, no
+//     shuffle; the lanes' partials reduce over the warp only when the
+//     segment changes, a step mixes segments or the range ends;
+//   - a step that mixes segments runs a segmented warp scan: a valid lane
+//     heads a run when its segment differs from the previous valid lane's;
+//     a 5-round shuffle scan leaves each run's count, sums, mins and maxs
+//     in its last lane; the first run merges into the carried partial, the
+//     middle runs commit from their last lanes at once, the last becomes
+//     the carried partial; a step of more than 16 runs (unsorted rows)
+//     commits lane by lane, a min or max only where it changes the value
+//     read first (few segments' rows would queue on the same words). On
+//     selective TSBS rows (runs of 6) a step commits about 6 partials, not
+//     32 rows;
 //   - commits and flushes take one atomic each for min and max, with no
 //     read back (red_min / red_max), and a block flushes one (slot, field)
 //     a thread.
-// Its bound is the gathered rows' bytes, which a launch of this size never
-// nears: what is left is one step's load chain and the launch.
+// Kernels are compiled with and without min/max (MINMAX), so a launch
+// without them holds no min/max registers; registers decide these
+// kernels' speed (a full scan is resident at 4-8 blocks a SM), so a launch
+// of at most one field takes kernels with a field capacity FC of 1. The
+// lane-private path is compiled only into full scans and the cohort
+// (LANES): in a SELECTIVE or hash launch its registers (116-126 against
+// 80) cut the blocks resident and slowed each launch by 40-80% on the
+// card, while its steps rarely hold one segment. Full scans take BLOCK * 8
+// rows a block at least (a contiguous range a warp, long enough that the
+// lane-private partials pay off); a SELECTIVE launch of a few thousand
+// gathered rows is bound by latency instead (each step a chain of
+// dependent loads: index, code, allow list, timestamp, group map), so its
+// grid is the wrapper's ``block_rows`` (ops/scan_agg.py
+// ``segmented_geometry``): the fewest 32-row steps a warp whose blocks the
+// card holds at once (scan_agg_blocks_per_sm), and a gather's values load
+// before its keep chain.
+//
+// The cohort (B1e). Bound: the real rows' resident columns read once, plus
+// B sessions, dyns and outputs, while its work grows with B (at the
+// flood's B = 32 the operations bound it). The real rows cut into chunks
+// of tile / 8 rows; each warp walks a contiguous run of chunks, so a
+// block walks a contiguous run of tiles. A warp decodes its chunk once
+// into its part of the tile in shared memory (series code, timestamp,
+// every value field), taking the chunk's least and greatest timestamp and
+// series code; a member whose [lo, hi) misses that range skips the chunk
+// without touching a row, as does one whose allow list excludes the
+// chunk's one series. Where the chunk holds one series and the query one
+// bucket (the flood's shape: a series is 8,640 rows, a chunk 512), every
+// row a member keeps falls in one segment, so ``reduce_segment`` folds the
+// lanes' rows, count included, with no per-step ballot or segment test;
+// other chunks run the core. Each member's carried run partial waits in
+// the warp's records in shared memory (``carry``:
+// a segment and count a pass, the sums, mins and maxs of every field;
+// 5 words a member at one field with min/max), so a member commits when
+// its segment changes and at the warp's end, not at every chunk: commits
+// fall from B x tiles x warps to about B x the segments a warp's rows
+// touch. Arms: single and shared keep every member's partials in shared
+// memory beside the tile when they fit there together, else the launch
+// takes scatter; the records take room only where it is left (the
+// wrapper decides both; without room a member commits at each chunk end).
 //
 // Reduction arms (template ARM):
 //   single   n_seg == 1: partials meet in shared memory, one global atomic
@@ -103,7 +124,7 @@
 //            an SM; it is not one global table as in the reference: which
 //            rows overflow differs, the outputs do not. Bound: the same
 //            bytes as scatter; what it saves is global atomics on a wide
-//            output.
+//            output. A hash launch takes the segmented geometry too.
 // Counts are int32 atomicAdd, sums f32 atomicAdd. Min and max are exact
 // and follow the reference's scatter arm: NaN propagates, and -0.0 < +0.0.
 //
@@ -215,22 +236,8 @@ __device__ __forceinline__ float fmax_t(float a, float b) {
   return signbit(a) ? b : a;  // equal: +0.0 wins
 }
 
-template <bool MIN>
-__device__ __forceinline__ void atomic_extreme(float* addr, float v) {
-  int* ia = (int*)addr;
-  int old = *((volatile int*)ia);
-  while (true) {
-    float cur = __int_as_float(old);
-    float nv = MIN ? fmin_t(cur, v) : fmax_t(cur, v);
-    if (__float_as_int(nv) == old) return;
-    int prev = atomicCAS(ia, old, __float_as_int(nv));
-    if (prev == old) return;
-    old = prev;
-  }
-}
-
 // min / max of a float in memory with one atomic on its bits and no read
-// back (the segmented core): fmin_t's / fmax_t's order, -0.0 < +0.0, where
+// back: fmin_t's / fmax_t's order, -0.0 < +0.0, where
 // a non-negative value's bits order as signed ints and a negative one's
 // reversed as unsigned ints. A NaN goes in as the bits every later value
 // loses to (0xffffffff for min, 0x7fffffff for max), so NaN propagates;
@@ -255,7 +262,19 @@ __device__ __forceinline__ void red_max(float* addr, float v) {
   }
 }
 
+// whether ``now`` (a min or max taken with what was read) differs from
+// ``was``, the value read: by bits, so a NaN that is there stays unchanged
+__device__ __forceinline__ bool changes(float now, float was) {
+  return __float_as_int(now) != __float_as_int(was);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum_int(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
   return v;
@@ -276,28 +295,28 @@ __device__ __forceinline__ float warp_max(float v) {
 // ---- row sources -----------------------------------------------------------
 
 // A row source gives, for launch row r, the row i to read (``index``),
-// whether i passes and its segment (``keep``), and its values; ``row`` is
-// the two together. ``kGathered``: the rows are a selective gather, whose
-// rows mostly pass, so the segmented core loads their values before it
-// knows.
+// whether i passes, in two parts: ``pre`` (the row's mask or allow list,
+// its time range and its segment) and ``filters`` (the numeric filters),
+// so a full scan issues a row's value loads between them, beside the
+// filter fields' loads; and the row's values. ``kGathered``: the rows are
+// a selective gather, whose rows mostly pass, so the core loads their
+// values before it knows.
 struct DirectSource {
   static constexpr bool kGathered = false;
   const DirectArgs& a;
   __device__ DirectSource(const DirectArgs& args) : a(args) {}
   __device__ __forceinline__ long long index(long long r) const { return r; }
-  __device__ __forceinline__ bool keep(long long r, int& seg) const {
+  __device__ __forceinline__ bool pre(long long r, int& seg) const {
     if (!a.mask[r]) return false;
+    seg = a.group_codes[r] * a.n_buckets + a.bucket_ids[r];
+    return seg >= 0 && seg < a.out.n_seg;  // out-of-range ids drop, as in a scatter
+  }
+  __device__ __forceinline__ bool filters(long long r) const {
     for (int k = 0; k < a.filt.n; ++k) {
       float v = a.values[(long long)a.filt.field[k] * a.n_rows + r];
       if (!compare(v, a.filt.op[k], a.literals[k])) return false;
     }
-    seg = a.group_codes[r] * a.n_buckets + a.bucket_ids[r];
-    return seg >= 0 && seg < a.out.n_seg;  // out-of-range ids drop, as in a scatter
-  }
-  // true when row r passes; sets its segment and the row to read values at
-  __device__ __forceinline__ bool row(long long r, int& seg, long long& i) const {
-    i = r;
-    return keep(r, seg);
+    return true;
   }
   __device__ __forceinline__ float value(int f, long long i) const {
     return a.values[(long long)f * a.n_rows + i];
@@ -334,34 +353,25 @@ struct QueryRows {
     t0 = dyn[nf + 2];
     width = dyn[nf + 3];
   }
-  __device__ __forceinline__ bool keep(long long i, int& seg) const {
-    const int code = cols.code(i);
-    if (code < 0 || session[a.s1 + code] == 0) return false;
-    const int ts = cols.ts(i);
-    if (!(ts >= lo && ts < hi)) return false;
-    for (int k = 0; k < a.filt.n; ++k) {
-      if (!compare(cols.value(a.filt.field[k], i), a.filt.op[k], __int_as_float(dyn[k])))
-        return false;
-    }
-    seg = session[code] * a.n_buckets + bucket_of(ts, t0, width, a.n_buckets);
-    return seg >= 0 && seg < a.out.n_seg;
-  }
-  // keep() for rows that mostly pass (a gather): the allow list, the group
-  // map and the timestamp load together once the code is known, one
-  // dependent load where keep() takes three
-  __device__ __forceinline__ bool keep_eager(long long i, int& seg) const {
+  // once the code is known, the allow list, the group map and the
+  // timestamp load together: one dependent load after the code
+  __device__ __forceinline__ bool pre(long long i, int& seg) const {
     const int code = cols.code(i);
     if (code < 0) return false;
     const int allowed = session[a.s1 + code];
     const int group = session[code];
     const int ts = cols.ts(i);
     if (allowed == 0 || !(ts >= lo && ts < hi)) return false;
+    // one bucket: every row's bucket is 0, with no division
+    seg = group * a.n_buckets + (a.n_buckets == 1 ? 0 : bucket_of(ts, t0, width, a.n_buckets));
+    return seg >= 0 && seg < a.out.n_seg;
+  }
+  __device__ __forceinline__ bool filters(long long i) const {
     for (int k = 0; k < a.filt.n; ++k) {
       if (!compare(cols.value(a.filt.field[k], i), a.filt.op[k], __int_as_float(dyn[k])))
         return false;
     }
-    seg = group * a.n_buckets + bucket_of(ts, t0, width, a.n_buckets);
-    return seg >= 0 && seg < a.out.n_seg;
+    return true;
   }
   __device__ __forceinline__ float value(int f, long long i) const { return cols.value(f, i); }
 };
@@ -376,20 +386,16 @@ struct CachedSource : QueryRows<ResidentCols> {
   __device__ __forceinline__ long long index(long long r) const {
     return SELECTIVE ? (long long)dyn[a.filt.n + 4 + r] : r;
   }
-  __device__ __forceinline__ bool row(long long r, int& seg, long long& i) const {
-    i = index(r);
-    return keep(i, seg);
-  }
 };
 
-// ---- reduction cores -------------------------------------------------------
+// ---- the reduction core ----------------------------------------------------
 
-// fields a lane of the segmented core holds in registers at once; wider
-// rows take their fields FCAP at a time, one pass over the rows each
+// fields a lane holds in registers at once; wider rows take their fields
+// FCAP at a time, one pass over the rows each
 #define FCAP 10
 
 // count/sum/min/max partials of n_seg segments (in global or shared
-// memory), accumulated with atomics
+// memory), accumulated with atomics that read nothing back
 struct Target {
   int* counts;
   float* sums;
@@ -397,40 +403,8 @@ struct Target {
   float* maxs;
   int n_seg;
 
-  // run-partial core: one run partial, from the whole warp: lane 0 the
-  // count, lane f field f
-  __device__ __forceinline__ void commit(int seg, int cnt, float s, float mn, float mx,
-                                         int lane, int n_agg, bool minmax) const {
-    if (seg < 0 || cnt == 0) return;
-    if (lane == 0) atomicAdd(&counts[seg], cnt);
-    if (lane < n_agg) {
-      long long o = (long long)lane * n_seg + seg;
-      atomicAdd(&sums[o], s);
-      if (minmax) {
-        atomic_extreme<true>(&mins[o], mn);
-        atomic_extreme<false>(&maxs[o], mx);
-      }
-    }
-  }
-
-  // run-partial core: one row, from one lane
-  template <class Src>
-  __device__ __forceinline__ void add_row(const Src& src, int seg, long long i, int n_agg,
-                                          bool minmax) const {
-    atomicAdd(&counts[seg], 1);
-    for (int f = 0; f < n_agg; ++f) {
-      const float v = src.value(f, i);
-      const long long o = (long long)f * n_seg + seg;
-      atomicAdd(&sums[o], v);
-      if (minmax) {
-        atomic_extreme<true>(&mins[o], v);
-        atomic_extreme<false>(&maxs[o], v);
-      }
-    }
-  }
-
-  // segmented core: the carried run partial, from the whole warp: lane 0
-  // the count (when ``with_count``), lane f field f0 + f of nf
+  // the carried run partial, from the whole warp: lane 0 the count (when
+  // ``with_count``), lane f field f0 + f of nf
   __device__ __forceinline__ void commit_fields(int seg, int cnt, float s, float mn, float mx,
                                                 int lane, int f0, int nf, bool with_count,
                                                 bool minmax) const {
@@ -446,22 +420,47 @@ struct Target {
     }
   }
 
-  // segmented core: one run's partial, from the lane that holds it
+  // one run's partial, from the lane that holds it (its FC fields' arrays);
+  // ``changed``: a min or max goes in only where it changes the value read
+  // there first (any value read is safe: a min only falls, a max only rises)
+  template <int FC>
   __device__ __forceinline__ void add_run(int seg, int cnt, const float* s, const float* mn,
                                           const float* mx, int f0, int nf, bool with_count,
-                                          bool minmax) const {
+                                          bool minmax, bool changed = false) const {
     if (with_count) atomicAdd(&counts[seg], cnt);
 #pragma unroll
-    for (int f = 0; f < FCAP; ++f) {
+    for (int f = 0; f < FC; ++f) {
       if (f < nf) {
         const long long o = (long long)(f0 + f) * n_seg + seg;
         atomicAdd(&sums[o], s[f]);
         if (minmax) {
-          red_min(&mins[o], mn[f]);
-          red_max(&maxs[o], mx[f]);
+          if (!changed || changes(fmin_t(mins[o], mn[f]), mins[o])) red_min(&mins[o], mn[f]);
+          if (!changed || changes(fmax_t(maxs[o], mx[f]), maxs[o])) red_max(&maxs[o], mx[f]);
         }
       }
     }
+  }
+};
+
+// A Target that also counts its commits into ``*n`` (when not NULL): the
+// cohort's launch statistics.
+struct CountedTarget {
+  Target t;
+  unsigned long long* n;
+
+  __device__ __forceinline__ void commit_fields(int seg, int cnt, float s, float mn, float mx,
+                                                int lane, int f0, int nf, bool with_count,
+                                                bool minmax) const {
+    if (n && lane == 0 && seg >= 0 && cnt != 0) atomicAdd(n, 1ull);
+    t.commit_fields(seg, cnt, s, mn, mx, lane, f0, nf, with_count, minmax);
+  }
+
+  template <int FC>
+  __device__ __forceinline__ void add_run(int seg, int cnt, const float* s, const float* mn,
+                                          const float* mx, int f0, int nf, bool with_count,
+                                          bool minmax, bool changed = false) const {
+    if (n) atomicAdd(n, 1ull);
+    t.add_run<FC>(seg, cnt, s, mn, mx, f0, nf, with_count, minmax, changed);
   }
 };
 
@@ -512,94 +511,34 @@ struct HashTarget {
     }
   }
 
+  template <int FC>
   __device__ __forceinline__ void add_run(int seg, int cnt, const float* s, const float* mn,
                                           const float* mx, int f0, int nf, bool with_count,
-                                          bool minmax) const {
+                                          bool minmax, bool changed = false) const {
     const int slot = find(seg);
     if (slot >= 0) {
-      slots.add_run(slot, cnt, s, mn, mx, f0, nf, with_count, minmax);
+      // shared-memory atomics: the read first costs more than it saves
+      slots.add_run<FC>(slot, cnt, s, mn, mx, f0, nf, with_count, minmax);
     } else {
-      out.add_run(seg, cnt, s, mn, mx, f0, nf, with_count, minmax);
+      out.add_run<FC>(seg, cnt, s, mn, mx, f0, nf, with_count, minmax, changed);
       if (with_count && overflow) atomicAdd(overflow, (unsigned long long)cnt);
     }
   }
 };
 
-// The run-partial core (full scans of the single, shared and scatter
-// arms; the cohort): one warp reduces rows [begin, end) into ``t`` and
-// commits its last run. A step whose valid rows share one segment reduces
-// with shuffles into the carried run partial; any other step commits its
-// rows lane by lane.
-template <int ARM, class Src, class Sink>
-__device__ void reduce_range(const Src& src, long long begin, long long end, const Out& out,
-                             const Sink& t) {
-  const int lane = threadIdx.x & 31;
-  const int n_agg = out.n_agg;
-  const bool minmax = out.minmax != 0;
-
-  int run_seg = -1, run_cnt = 0;
-  float run_sum = 0.f, run_min = INFINITY, run_max = -INFINITY;
-
-  for (long long base = begin; base < end; base += 32) {
-    const long long r = base + lane;
-    int seg = 0;
-    long long i = 0;
-    const bool valid = r < end && src.row(r, seg, i);
-    const unsigned vmask = __ballot_sync(FULL_MASK, valid);
-    if (vmask == 0) continue;
-    const int lead = __ffs(vmask) - 1;
-    const int seg0 = __shfl_sync(FULL_MASK, seg, lead);
-    const bool uniform = (ARM == ARM_SINGLE) || __all_sync(FULL_MASK, !valid || seg == seg0);
-    if (uniform) {
-      if (seg0 != run_seg) {
-        t.commit(run_seg, run_cnt, run_sum, run_min, run_max, lane, n_agg, minmax);
-        run_seg = seg0;
-        run_cnt = 0;
-        run_sum = 0.f;
-        run_min = INFINITY;
-        run_max = -INFINITY;
-      }
-      run_cnt += __popc(vmask);
-      for (int f = 0; f < n_agg; ++f) {
-        const float v = valid ? src.value(f, i) : 0.f;
-        const float s = warp_sum(v);
-        float mn = 0.f, mx = 0.f;
-        if (minmax) {
-          mn = warp_min(valid ? v : INFINITY);
-          mx = warp_max(valid ? v : -INFINITY);
-        }
-        if (lane == f) {
-          run_sum += s;
-          if (minmax) {
-            run_min = fmin_t(run_min, mn);
-            run_max = fmax_t(run_max, mx);
-          }
-        }
-      }
-    } else if (valid) {
-      t.add_row(src, seg, i, n_agg, minmax);
-    }
-  }
-  t.commit(run_seg, run_cnt, run_sum, run_min, run_max, lane, n_agg, minmax);
+// words of one cohort member's carried run partials in shared memory: a
+// segment and a count a pass of FCAP fields, then the sums, mins and maxs
+// of every field (mins and maxs with minmax)
+__host__ __device__ __forceinline__ int cohort_passes(int n_agg) {
+  return n_agg > FCAP ? (n_agg + FCAP - 1) / FCAP : 1;
 }
 
-// The segmented core (SELECTIVE launches, and the hash arm in every form):
-// one warp reduces fields [f0, f0 + nf) of rows [begin, end) into ``t``
-// (a Target or a HashTarget), and their counts when ``with_count``.
-//
-// A step loads every value of its 32 rows into registers first (before
-// the keep chain for a gather, whose rows mostly pass; after it
-// otherwise). A valid lane heads a run when its segment differs from the
-// previous valid lane's; invalid lanes hold the identity (0, +inf, -inf)
-// and head nothing. A step of more than 16 runs commits each valid row
-// from its lane. Otherwise a segmented inclusive scan (5 shuffle rounds)
-// leaves each run's count, sums, mins and maxs in its last valid lane (a
-// step of one-row runs skips it). The first run merges into the carried run
-// partial (lane f holds field f0 + f) when it continues its segment; the
-// middle runs commit from their last lanes, all at once; the last run
-// becomes the carried partial, committed when its segment ends.
-// the segmented core's carried run partial: its segment (-1: none) and
-// count, and in lane f the sum, min and max of field f0 + f
+__host__ __device__ __forceinline__ int cohort_record_words(int n_agg, bool minmax) {
+  return 2 * cohort_passes(n_agg) + (minmax ? 3 : 1) * n_agg;
+}
+
+// the carried run partial: its segment (-1: none) and count (the same in
+// every lane), and in lane f the sum, min and max of field f0 + f
 struct Carried {
   int seg = -1, cnt = 0;
   float sum = 0.f, mn = INFINITY, mx = -INFINITY;
@@ -613,20 +552,23 @@ struct Carried {
   }
 
   // fold in the run partial that lane ``e`` holds (count ``c`` there)
-  __device__ __forceinline__ void absorb(const float (&s)[FCAP], const float (&smin)[FCAP],
-                                         const float (&smax)[FCAP], int c, int e, int lane,
+  template <bool MINMAX, int FC>
+  __device__ __forceinline__ void absorb(const float (&s)[FC], const float (&smin)[FC],
+                                         const float (&smax)[FC], int c, int e, int lane,
                                          int nf) {
     cnt += __shfl_sync(FULL_MASK, c, e);
 #pragma unroll
-    for (int f = 0; f < FCAP; ++f) {
+    for (int f = 0; f < FC; ++f) {
       if (f < nf) {
         const float x = __shfl_sync(FULL_MASK, s[f], e);
-        const float xn = __shfl_sync(FULL_MASK, smin[f], e);
-        const float xx = __shfl_sync(FULL_MASK, smax[f], e);
-        if (lane == f) {
-          sum += x;
-          mn = fmin_t(mn, xn);
-          mx = fmax_t(mx, xx);
+        if (lane == f) sum += x;
+        if (MINMAX) {
+          const float xn = __shfl_sync(FULL_MASK, smin[f], e);
+          const float xx = __shfl_sync(FULL_MASK, smax[f], e);
+          if (lane == f) {
+            mn = fmin_t(mn, xn);
+            mx = fmax_t(mx, xx);
+          }
         }
       }
     }
@@ -637,51 +579,184 @@ struct Carried {
                                          bool with_count, bool minmax) const {
     t.commit_fields(seg, cnt, sum, mn, mx, lane, f0, nf, with_count, minmax);
   }
+
+  // the cohort's record of pass p (``cohort_record_words``; passes of FCAP
+  // fields): lane 0 keeps the segment and count, lane f the partials of
+  // field p * FCAP + f
+  __device__ __forceinline__ void load(const int* rec, int p, int n_agg, int lane, int nf,
+                                       bool minmax) {
+    seg = rec[2 * p];
+    cnt = rec[2 * p + 1];
+    sum = 0.f;
+    mn = INFINITY;
+    mx = -INFINITY;
+    if (seg >= 0 && lane < nf) {
+      const int* fields = rec + 2 * cohort_passes(n_agg) + p * FCAP + lane;
+      sum = __int_as_float(fields[0]);
+      if (minmax) {
+        mn = __int_as_float(fields[n_agg]);
+        mx = __int_as_float(fields[2 * n_agg]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void save(int* rec, int p, int n_agg, int lane, int nf,
+                                       bool minmax) const {
+    if (lane == 0) {
+      rec[2 * p] = seg;
+      rec[2 * p + 1] = cnt;
+    }
+    if (lane < nf) {
+      int* fields = rec + 2 * cohort_passes(n_agg) + p * FCAP + lane;
+      fields[0] = __float_as_int(sum);
+      if (minmax) {
+        fields[n_agg] = __float_as_int(mn);
+        fields[2 * n_agg] = __float_as_int(mx);
+      }
+    }
+  }
 };
 
-template <class Src, class Sink>
+// Lane-private partials of the carried segment: in a step whose valid rows
+// all fall in it, each lane folds its own row into its own registers, with
+// no shuffle; ``flush`` reduces them over the warp into the carried run
+// partial (lane f takes field f) only when the segment changes, a step
+// mixes segments, or the range ends.
+template <bool MINMAX, int FC>
+struct LaneAcc {
+  float s[FC], mn[FC], mx[FC];
+  bool any;  // the same in every lane
+
+  __device__ __forceinline__ void clear() {
+    any = false;
+#pragma unroll
+    for (int f = 0; f < FC; ++f) {
+      s[f] = 0.f;
+      mn[f] = INFINITY;
+      mx[f] = -INFINITY;
+    }
+  }
+
+  // this lane's row (the identity where it is not valid)
+  __device__ __forceinline__ void fold(const float (&v)[FC], const float (&vmn)[FC],
+                                       const float (&vmx)[FC]) {
+    any = true;
+#pragma unroll
+    for (int f = 0; f < FC; ++f) {
+      s[f] += v[f];
+      if (MINMAX) {
+        mn[f] = fmin_t(mn[f], vmn[f]);
+        mx[f] = fmax_t(mx[f], vmx[f]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void flush(Carried& run, int lane, int nf) {
+    if (!any) return;
+#pragma unroll
+    for (int f = 0; f < FC; ++f) {
+      if (f < nf) {
+        const float x = warp_sum(s[f]);
+        if (lane == f) run.sum += x;
+        if (MINMAX) {
+          const float xn = warp_min(mn[f]);
+          const float xx = warp_max(mx[f]);
+          if (lane == f) {
+            run.mn = fmin_t(run.mn, xn);
+            run.mx = fmax_t(run.mx, xx);
+          }
+        }
+      }
+    }
+    clear();
+  }
+};
+
+// The reduction core (every launch): one warp reduces fields [f0, f0 + nf)
+// of rows [begin, end) into ``t`` (a Target, CountedTarget or HashTarget),
+// and their counts when f0 == 0, continuing the carried run partial ``run``
+// (the caller commits it, or keeps it for its next range).
+//
+// A step loads every value of its 32 rows into registers first, FCAP
+// fields together: for a gather before its keep chain (whose rows mostly
+// pass); otherwise between ``pre`` and ``filters``, beside the filter
+// fields' loads. Then, by the step's valid rows:
+//   - all in one segment (the common step of sorted rows): each lane folds
+//     its row into its lane-private partials (LaneAcc), no shuffle; a
+//     segment other than the carried one first commits the carried
+//     partial and restarts it;
+//   - in several: the lane-private partials reduce into the carried
+//     partial, then a valid lane heads a run when its segment differs from
+//     the previous valid lane's; invalid lanes hold the identity (0, +inf,
+//     -inf) and head nothing. A step of more than 16 runs commits each
+//     valid row from its lane. Otherwise a segmented inclusive scan (5
+//     shuffle rounds) leaves each run's count, sums, mins and maxs in its
+//     last valid lane (a step of one-row runs skips it). The first run
+//     merges into the carried partial when it continues its segment; the
+//     middle runs commit from their last lanes, all at once; the last run
+//     becomes the carried partial.
+template <bool MINMAX, int FC, bool LANES, class Src, class Sink>
 __device__ void reduce_runs(const Src& src, long long begin, long long end, const Out& out,
-                            const Sink& t, int f0) {
+                            const Sink& t, int f0, Carried& run) {
   const int lane = threadIdx.x & 31;
   const unsigned upto = FULL_MASK >> (31 - lane);  // lanes 0..lane
-  const int nf = min(out.n_agg - f0, FCAP);
+  const int nf = min(out.n_agg - f0, FC);
   const bool with_count = f0 == 0;
-  const bool minmax = out.minmax != 0;
-  Carried run;
+  LaneAcc<MINMAX, FC> acc;
+  acc.clear();
 
   for (long long base = begin; base < end; base += 32) {
     const long long r = base + lane;
-    float s[FCAP], mn[FCAP], mx[FCAP];
+    float s[FC], mn[FC], mx[FC];
     int seg = 0;
     bool valid = false;
     if (r < end) {
       const long long i = src.index(r);
       if constexpr (Src::kGathered) {
 #pragma unroll
-        for (int f = 0; f < FCAP; ++f) s[f] = f < nf ? src.value(f0 + f, i) : 0.f;
-        valid = src.keep_eager(i, seg);
+        for (int f = 0; f < FC; ++f) s[f] = f < nf ? src.value(f0 + f, i) : 0.f;
+        valid = src.pre(i, seg) && src.filters(i);
       } else {
-        valid = src.keep(i, seg);
+        const bool cand = src.pre(i, seg);
 #pragma unroll
-        for (int f = 0; f < FCAP; ++f) s[f] = (valid && f < nf) ? src.value(f0 + f, i) : 0.f;
+        for (int f = 0; f < FC; ++f) s[f] = (cand && f < nf) ? src.value(f0 + f, i) : 0.f;
+        valid = cand && src.filters(i);
       }
     }
 #pragma unroll
-    for (int f = 0; f < FCAP; ++f) {
+    for (int f = 0; f < FC; ++f) {
       if (!valid) s[f] = 0.f;
       mn[f] = valid ? s[f] : INFINITY;
       mx[f] = valid ? s[f] : -INFINITY;
     }
     const unsigned vmask = __ballot_sync(FULL_MASK, valid);
     if (vmask == 0) continue;
+    const int first = __ffs(vmask) - 1;
+    const int seg_first = __shfl_sync(FULL_MASK, seg, first);
+    if constexpr (LANES) {
+      if (__all_sync(FULL_MASK, !valid || seg == seg_first)) {
+        // one segment: lane-private partials
+        if (seg_first != run.seg) {
+          acc.flush(run, lane, nf);
+          run.commit(t, lane, f0, nf, with_count, MINMAX);
+          run.restart(seg_first);
+        }
+        run.cnt += __popc(vmask);
+        acc.fold(s, mn, mx);
+        continue;
+      }
+      acc.flush(run, lane, nf);
+    }
     // heads: valid lanes whose segment differs from the previous valid lane's
     const unsigned before = vmask & (upto >> 1);
     const int prev_seg = __shfl_sync(FULL_MASK, seg, before ? 31 - __clz(before) : lane);
     const unsigned heads = __ballot_sync(FULL_MASK, valid && (before == 0 || prev_seg != seg));
     if (__popc(heads) > 16) {
       // most runs are one row (unsorted segments): each valid lane commits
-      // its row; the carried run partial waits for its segment's end
-      if (valid) t.add_run(seg, 1, s, mn, mx, f0, nf, with_count, minmax);
+      // its row, its min and max only where they change what is there (few
+      // segments' rows otherwise queue on the same words); the carried run
+      // partial waits for its segment's end
+      if (valid) t.template add_run<FC>(seg, 1, s, mn, mx, f0, nf, with_count, MINMAX, true);
       continue;
     }
     // this lane's run starts at the highest head at or below it
@@ -697,11 +772,11 @@ __device__ void reduce_runs(const Src& src, long long begin, long long end, cons
       for (int d = 1; d < 32; d <<= 1) {
         const bool take = lane - d >= start;
 #pragma unroll
-        for (int f = 0; f < FCAP; ++f) {
+        for (int f = 0; f < FC; ++f) {
           if (f < nf) {
             const float os = __shfl_up_sync(FULL_MASK, s[f], d);
             if (take) s[f] = os + s[f];
-            if (minmax) {
+            if (MINMAX) {
               const float omn = __shfl_up_sync(FULL_MASK, mn[f], d);
               const float omx = __shfl_up_sync(FULL_MASK, mx[f], d);
               if (take) {
@@ -713,40 +788,40 @@ __device__ void reduce_runs(const Src& src, long long begin, long long end, cons
         }
       }
     }
-    const int first = __ffs(vmask) - 1, last = 31 - __clz(vmask);
+    const int last = 31 - __clz(vmask);
     const int first_end = __ffs(ends) - 1;
-    const int seg_first = __shfl_sync(FULL_MASK, seg, first);
     if (seg_first != run.seg) {
-      run.commit(t, lane, f0, nf, with_count, minmax);
+      run.commit(t, lane, f0, nf, with_count, MINMAX);
       run.restart(seg_first);
     }
-    run.absorb(s, mn, mx, cnt, first_end, lane, nf);
+    run.absorb<MINMAX, FC>(s, mn, mx, cnt, first_end, lane, nf);
     if (first_end != last) {
-      run.commit(t, lane, f0, nf, with_count, minmax);
+      run.commit(t, lane, f0, nf, with_count, MINMAX);
       if (is_end && lane != first_end && lane != last)
-        t.add_run(seg, cnt, s, mn, mx, f0, nf, with_count, minmax);
+        t.template add_run<FC>(seg, cnt, s, mn, mx, f0, nf, with_count, MINMAX);
       run.restart(__shfl_sync(FULL_MASK, seg, last));
-      run.absorb(s, mn, mx, cnt, last, lane, nf);
+      run.absorb<MINMAX, FC>(s, mn, mx, cnt, last, lane, nf);
     }
   }
-  run.commit(t, lane, f0, nf, with_count, minmax);
+  if constexpr (LANES) acc.flush(run, lane, nf);
 }
 
-// each warp of the grid takes a contiguous run of rows, a multiple of 32;
-// the segmented core passes over them once per FCAP fields (once when the
-// launch aggregates none)
-template <int ARM, bool SEGMENTED, class Src, class Sink>
+// each warp of the grid takes a contiguous run of rows, a multiple of 32,
+// and passes over them once per FC fields (once when the launch
+// aggregates none), committing its carried run partial at the end
+template <bool MINMAX, int FC, bool LANES, class Src, class Sink>
 __device__ void reduce_rows(const Src& src, long long n_rows, const Out& out, const Sink& t) {
+  const int lane = threadIdx.x & 31;
   const long long warp = ((long long)blockIdx.x * BLOCK + threadIdx.x) >> 5;
   const long long n_warps = ((long long)gridDim.x * BLOCK) >> 5;
   long long chunk = (n_rows + n_warps - 1) / n_warps;
   chunk = (chunk + 31) & ~31LL;
   const long long begin = warp * chunk;
   const long long end = min(begin + chunk, n_rows);
-  if constexpr (SEGMENTED) {
-    for (int f0 = 0; f0 == 0 || f0 < out.n_agg; f0 += FCAP) reduce_runs(src, begin, end, out, t, f0);
-  } else {
-    reduce_range<ARM>(src, begin, end, out, t);
+  for (int f0 = 0; f0 == 0 || f0 < out.n_agg; f0 += FC) {
+    Carried run;
+    reduce_runs<MINMAX, FC, LANES>(src, begin, end, out, t, f0, run);
+    run.commit(t, lane, f0, min(out.n_agg - f0, FC), f0 == 0, MINMAX);
   }
 }
 
@@ -774,29 +849,10 @@ __device__ __forceinline__ void init_partials(const Target& t, const Out& out) {
   }
 }
 
-// run-partial core: merge a block's partials of every segment into the
-// output with global atomics, one segment a thread
-__device__ __forceinline__ void flush_partials(const Target& t, const Out& out) {
-  for (int s = threadIdx.x; s < t.n_seg; s += BLOCK) {
-    const int c = t.counts[s];
-    if (c == 0) continue;
-    atomicAdd(&out.counts[s], c);
-    for (int f = 0; f < out.n_agg; ++f) {
-      const long long p = (long long)f * t.n_seg + s;
-      const long long o = (long long)f * out.n_seg + s;
-      atomicAdd(&out.sums[o], t.sums[p]);
-      if (out.minmax) {
-        atomic_extreme<true>(&out.mins[o], t.mins[p]);
-        atomic_extreme<false>(&out.maxs[o], t.maxs[p]);
-      }
-    }
-  }
-}
-
-// segmented core: merge ``n`` of a block's partials into the output, one
-// (slot, plane) a thread (the count, or one field's sum, min and max), with
-// atomics that read nothing back; slot j is list[j] (j without a list),
-// its segment keys[slot] (the slot without keys)
+// merge ``n`` of a block's partials into the output, one (slot, plane) a
+// thread (the count, or one field's sum, min and max), with atomics that
+// read nothing back; slot j is list[j] (j without a list), its segment
+// keys[slot] (the slot without keys)
 __device__ __forceinline__ void flush_runs(const Target& t, const Out& out, int n,
                                            const int* list, const int* keys) {
   const long long items = (long long)n * (1 + out.n_agg);
@@ -821,15 +877,15 @@ __device__ __forceinline__ void flush_runs(const Target& t, const Out& out, int 
   }
 }
 
-// SEGMENTED: the segmented core (and its flush), else the run-partial core
-template <int ARM, bool SEGMENTED, class Src>
+// LANES: the core's lane-private path (full scans of the single, shared
+// and scatter arms); SELECTIVE and hash launches compile it out
+template <int ARM, bool MINMAX, int FC, bool LANES, class Src>
 __device__ void scan_agg(const Src& src, long long n_rows, const Out& out) {
   extern __shared__ float smem[];
   const Target global{out.counts, out.sums, out.mins, out.maxs, out.n_seg};
   if constexpr (ARM == ARM_SCATTER) {
-    reduce_rows<ARM, SEGMENTED>(src, n_rows, out, global);
+    reduce_rows<MINMAX, FC, LANES>(src, n_rows, out, global);
   } else if constexpr (ARM == ARM_HASH) {
-    static_assert(SEGMENTED, "the hash arm runs the segmented core");
     // the block's table: the claim count (4 words), hash_slots keys, the
     // claim list, then the slots' partials
     const int H = out.hash_slots;
@@ -845,7 +901,7 @@ __device__ void scan_agg(const Src& src, long long n_rows, const Out& out) {
     __syncthreads();
     const HashTarget t{keys, claimed, n_claimed, slots, global, H, out.hash_rounds,
                        (unsigned)__clz(H) + 1u, out.overflow};
-    reduce_rows<ARM, true>(src, n_rows, out, t);
+    reduce_rows<MINMAX, FC, LANES>(src, n_rows, out, t);
     __syncthreads();
     flush_runs(slots, out, *n_claimed, claimed, keys);
   } else {
@@ -853,33 +909,33 @@ __device__ void scan_agg(const Src& src, long long n_rows, const Out& out) {
     const Target t = smem_target(smem, out);
     init_partials(t, out);
     __syncthreads();
-    reduce_rows<ARM, SEGMENTED>(src, n_rows, out, t);
+    reduce_rows<MINMAX, FC, LANES>(src, n_rows, out, t);
     __syncthreads();
-    if constexpr (SEGMENTED) {
-      flush_runs(t, out, out.n_seg, nullptr, nullptr);
-    } else {
-      flush_partials(t, out);
-    }
+    flush_runs(t, out, out.n_seg, nullptr, nullptr);
   }
 }
 
-template <int ARM>
+// FC: the fields a lane holds at once, FCAP, or 1 for a launch of at most
+// one field (fewer registers, more warps resident)
+template <int ARM, bool MINMAX, int FC>
 __global__ void __launch_bounds__(BLOCK) scan_agg_direct(const __grid_constant__ DirectArgs a) {
   DirectSource src(a);
-  scan_agg<ARM, ARM == ARM_HASH>(src, a.n_rows, a.out);
+  scan_agg<ARM, MINMAX, FC, ARM != ARM_HASH>(src, a.n_rows, a.out);
 }
 
-template <int ARM, bool SELECTIVE>
+template <int ARM, bool SELECTIVE, bool MINMAX, int FC>
 __global__ void __launch_bounds__(BLOCK) scan_agg_cached(const __grid_constant__ CachedArgs a) {
   CachedSource<SELECTIVE> src(a, a.session, a.dyn);
-  scan_agg<ARM, SELECTIVE || ARM == ARM_HASH>(src, a.n_rows, a.out);
+  scan_agg<ARM, MINMAX, FC, !SELECTIVE && ARM != ARM_HASH>(src, a.n_rows, a.out);
 }
 
 // B full-scan cached queries: c holds the columns and statics (its
-// session, dyn and out are unused); member b reads sessions + b * sess_w
-// and dyns + b * dyn_w, and writes the packed row at c.out + b * out_w
-// floats. ``tile`` rows a tile (a multiple of BLOCK), ``n_fields`` value
-// fields decoded per row.
+// session, dyn and out are unused; c.n_rows the rows to scan); member b
+// reads sessions + b * sess_w and dyns + b * dyn_w, and writes the packed
+// row at c.out + b * out_w floats. ``tile`` rows a block's tile (a
+// multiple of BLOCK), ``n_fields`` value fields decoded per row. The
+// fields after ``pad_`` are this kernel's own: a launcher that stops at
+// ``pad_`` (an older one) still launches it.
 struct CohortArgs {
   CachedArgs c;
   const int* sessions;
@@ -891,28 +947,31 @@ struct CohortArgs {
   int n_fields;
   int tile;
   int pad_;
+  // [chunks decoded, member-chunks run, member-chunks skipped, commits]
+  // added to, or NULL
+  unsigned long long* stats;
+  int carry;  // 1: each warp keeps every member's carried run partials in shared memory
+  int pad2_;
 };
 
-// a tile decoded into shared memory, read at tile row r
+// a warp's chunk decoded into shared memory, read at chunk row r
 struct TileCols {
   const int* codes;  // -1: past the last row
   const int* tss;
-  const float* vals;  // [n_fields][tile]
+  const float* vals;  // field f at vals[f * tile + r]
   int tile;
   __device__ __forceinline__ int code(long long r) const { return codes[r]; }
   __device__ __forceinline__ int ts(long long r) const { return tss[r]; }
   __device__ __forceinline__ float value(int f, long long r) const { return vals[f * tile + r]; }
 };
 
-// one member's query over the decoded tile
+// one member's query over the decoded chunk
 struct TileSource : QueryRows<TileCols> {
+  static constexpr bool kGathered = false;
   __device__ TileSource(const CachedArgs& args, const int* session_, const int* dyn_,
                         const TileCols& cols_)
       : QueryRows<TileCols>(args, session_, dyn_, cols_) {}
-  __device__ __forceinline__ bool row(long long r, int& seg, long long& i) const {
-    i = r;
-    return keep(r, seg);
-  }
+  __device__ __forceinline__ long long index(long long r) const { return r; }
 };
 
 __device__ __forceinline__ Out member_out(const CohortArgs& a, int m) {
@@ -925,52 +984,189 @@ __device__ __forceinline__ Out member_out(const CohortArgs& a, int m) {
   return out;
 }
 
-template <int ARM>
+// A member's pass over a chunk whose rows all belong to one allowed series
+// ``seg`` names (one bucket): only the time range and the filters decide
+// a row, so each lane folds its rows, count included, into its own
+// registers with no per-step ballot, and the warp reduces them once.
+template <bool MINMAX, int FC>
+__device__ void reduce_segment(const TileSource& src, int rows, int seg, const Out& out,
+                               const CountedTarget& t, int f0, Carried& run) {
+  const int lane = threadIdx.x & 31;
+  const int nf = min(out.n_agg - f0, FC);
+  if (seg != run.seg) {
+    run.commit(t, lane, f0, nf, f0 == 0, MINMAX);
+    run.restart(seg);
+  }
+  LaneAcc<MINMAX, FC> acc;
+  acc.clear();
+  int cnt = 0;
+  for (int r = lane; r < rows; r += 32) {
+    const int ts = src.cols.ts(r);
+    const bool in_range = ts >= src.lo && ts < src.hi;
+    float v[FC], vmn[FC], vmx[FC];
+#pragma unroll
+    for (int f = 0; f < FC; ++f) v[f] = (in_range && f < nf) ? src.value(f0 + f, r) : 0.f;
+    const bool valid = in_range && src.filters(r);
+#pragma unroll
+    for (int f = 0; f < FC; ++f) {
+      if (!valid) v[f] = 0.f;
+      vmn[f] = valid ? v[f] : INFINITY;
+      vmx[f] = valid ? v[f] : -INFINITY;
+    }
+    cnt += valid;
+    acc.fold(v, vmn, vmx);
+  }
+  acc.any = true;  // in every lane, whatever rows it took
+  run.cnt += warp_sum_int(cnt);
+  acc.flush(run, lane, nf);
+}
+
+// The cohort: the real rows cut into chunks of tile / 8 rows; each warp
+// of the grid walks a contiguous run of them (so a block walks a
+// contiguous run of tiles). A warp decodes its chunk into its own part of
+// the tile and takes the chunk's least and greatest timestamp; each member
+// whose [lo, hi) misses that range skips the chunk, the others run the
+// reduction core over it. With ``carry`` a member's carried run partial
+// (per pass of FCAP fields) waits in the warp's records in shared memory
+// from chunk to chunk, and commits when its segment changes and once at
+// the warp's end; without, at the end of each chunk.
+template <int ARM, bool MINMAX, int FC>
 __global__ void __launch_bounds__(BLOCK) scan_agg_cohort(const __grid_constant__ CohortArgs a) {
   extern __shared__ float smem[];
+  constexpr int W = BLOCK / 32;
   const CachedArgs& c = a.c;
   const int T = a.tile, M = a.members;
-  int* codes = (int*)smem;
-  int* tss = codes + T;
-  float* vals = (float*)(tss + T);
-  // single / shared: every member's partials after the tile, out_w floats each
-  float* parts = vals + (long long)a.n_fields * T;
+  const int per_warp = T / W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_agg = c.out.n_agg;
+  const int passes = cohort_passes(n_agg);
+  const int rec_w = cohort_record_words(n_agg, MINMAX);
+  int* codes = (int*)smem + warp * per_warp;
+  int* tss = (int*)smem + T + warp * per_warp;
+  float* vals = smem + 2 * T + warp * per_warp;
+  // single / shared: every member's partials after the tile, out_w floats
+  // each; then (carry) each warp's records, rec_w words a member
+  float* parts = smem + (long long)(2 + a.n_fields) * T;
+  int* recs = (int*)(parts + (ARM != ARM_SCATTER ? (long long)M * a.out_w : 0)) +
+              (long long)warp * M * rec_w;
   if (ARM != ARM_SCATTER) {
     for (int m = 0; m < M; ++m) init_partials(smem_target(parts + m * a.out_w, c.out), c.out);
   }
-  const int per_warp = T / (BLOCK / 32);
-  const long long begin = (long long)(threadIdx.x >> 5) * per_warp;
-  const long long n_tiles = (c.n_rows + T - 1) / T;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    __syncthreads();  // every member is done with the last tile (and the init)
-    const long long base = tile * T;
+  if (a.carry) {
+    for (int k = lane; k < M * passes; k += 32) {
+      int* rec = recs + (k / passes) * rec_w + 2 * (k % passes);
+      rec[0] = -1;
+      rec[1] = 0;
+    }
+  }
+  __syncthreads();
+  unsigned long long* commits = a.stats ? a.stats + 3 : nullptr;
+  const TileCols cols{codes, tss, vals, T};
+  const long long n_chunks = (c.n_rows + per_warp - 1) / per_warp;
+  const long long n_warps = (long long)gridDim.x * W;
+  const long long per = (n_chunks + n_warps - 1) / n_warps;
+  const long long k0 = ((long long)blockIdx.x * W + warp) * per;
+  const long long k1 = min(k0 + per, n_chunks);
+  unsigned long long run_chunks = 0, skipped = 0;
+  for (long long k = k0; k < k1; ++k) {
+    const long long base = k * per_warp;
+    const int rows = (int)min((long long)per_warp, c.n_rows - base);
+    int tmin = 0x7fffffff, tmax = (int)0x80000000;
+    int cmin = 0x7fffffff, cmax = (int)0x80000000;
+    __syncwarp();  // every lane is done with the last chunk
 #pragma unroll 4
-    for (int r = threadIdx.x; r < T; r += BLOCK) {
-      const long long i = base + r;
-      if (i < c.n_rows) {
-        codes[r] = load_int(c.series, i);
-        tss[r] = load_int(c.ts, i);
+    for (int r = lane; r < per_warp; r += 32) {
+      if (r < rows) {
+        const long long i = base + r;
+        const int ts = load_int(c.ts, i);
+        const int code = load_int(c.series, i);
+        codes[r] = code;
+        tss[r] = ts;
+        tmin = min(tmin, ts);
+        tmax = max(tmax, ts);
+        cmin = min(cmin, code);
+        cmax = max(cmax, code);
         for (int f = 0; f < a.n_fields; ++f) vals[f * T + r] = load_value(c.fields[f], i);
       } else {
         codes[r] = -1;
       }
     }
-    __syncthreads();
-    for (int m = 0; m < M; ++m) {
-      const TileSource src(c, a.sessions + (long long)m * a.sess_w,
-                           a.dyns + (long long)m * a.dyn_w, TileCols{codes, tss, vals, T});
-      const Out out = member_out(a, m);
-      const Target t = ARM == ARM_SCATTER
-                           ? Target{out.counts, out.sums, out.mins, out.maxs, out.n_seg}
-                           : smem_target(parts + m * a.out_w, out);
-      reduce_range<ARM>(src, begin, begin + per_warp, out, t);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      tmin = min(tmin, __shfl_xor_sync(FULL_MASK, tmin, o));
+      tmax = max(tmax, __shfl_xor_sync(FULL_MASK, tmax, o));
+      cmin = min(cmin, __shfl_xor_sync(FULL_MASK, cmin, o));
+      cmax = max(cmax, __shfl_xor_sync(FULL_MASK, cmax, o));
     }
+    // one series in the chunk, and one bucket: a member's rows there share
+    // one segment, or are not allowed at all
+    const bool one_series = cmin == cmax && cmin >= 0 && c.n_buckets == 1;
+    __syncwarp();
+    for (int m = 0; m < M; ++m) {
+      const int* dyn = a.dyns + (long long)m * a.dyn_w;
+      if (tmax < dyn[c.filt.n] || tmin >= dyn[c.filt.n + 1]) {  // no row in [lo, hi)
+        ++skipped;
+        continue;
+      }
+      const int* session = a.sessions + (long long)m * a.sess_w;
+      int seg = -1;
+      if (one_series) {
+        seg = session[c.s1 + cmin] ? session[cmin] : -1;
+        if (seg < 0 || seg >= c.out.n_seg) {  // not allowed, or its segment drops
+          ++skipped;
+          continue;
+        }
+      }
+      ++run_chunks;
+      const TileSource src(c, session, dyn, cols);
+      const Out out = member_out(a, m);
+      const CountedTarget t{ARM == ARM_SCATTER
+                                ? Target{out.counts, out.sums, out.mins, out.maxs, out.n_seg}
+                                : smem_target(parts + m * a.out_w, out),
+                            commits};
+      for (int p = 0; p < passes; ++p) {
+        const int nf = min(n_agg - p * FCAP, FCAP);
+        Carried run;
+        if (a.carry) run.load(recs + m * rec_w, p, n_agg, lane, nf, MINMAX);
+        if (one_series) {
+          reduce_segment<MINMAX, FC>(src, rows, seg, out, t, p * FCAP, run);
+        } else {
+          reduce_runs<MINMAX, FC, true>(src, 0, rows, out, t, p * FCAP, run);
+        }
+        if (a.carry) {
+          run.save(recs + m * rec_w, p, n_agg, lane, nf, MINMAX);
+        } else {
+          run.commit(t, lane, p * FCAP, nf, p == 0, MINMAX);
+        }
+      }
+    }
+  }
+  if (a.carry) {
+    __syncwarp();
+    for (int m = 0; m < M; ++m) {
+      const Out out = member_out(a, m);
+      const CountedTarget t{ARM == ARM_SCATTER
+                                ? Target{out.counts, out.sums, out.mins, out.maxs, out.n_seg}
+                                : smem_target(parts + m * a.out_w, out),
+                            commits};
+      for (int p = 0; p < passes; ++p) {
+        const int nf = min(n_agg - p * FCAP, FCAP);
+        Carried run;
+        run.load(recs + m * rec_w, p, n_agg, lane, nf, MINMAX);
+        run.commit(t, lane, p * FCAP, nf, p == 0, MINMAX);
+      }
+    }
+  }
+  if (a.stats && lane == 0) {
+    if (k1 > k0) atomicAdd(&a.stats[0], (unsigned long long)(k1 - k0));
+    atomicAdd(&a.stats[1], run_chunks);
+    atomicAdd(&a.stats[2], skipped);
   }
   if (ARM != ARM_SCATTER) {
     __syncthreads();
     for (int m = 0; m < M; ++m) {
       const Out out = member_out(a, m);
-      flush_partials(smem_target(parts + m * a.out_w, out), out);
+      flush_runs(smem_target(parts + m * a.out_w, out), out, out.n_seg, nullptr, nullptr);
     }
   }
 }
@@ -1106,11 +1302,76 @@ static bool rows_ok(const Out& out) {
   return out.block_rows >= BLOCK && out.block_rows % BLOCK == 0;
 }
 
+// ---- kernels by arm, form, minmax and field capacity ------------------------
+//
+// A full scan, direct launch or cohort of at most one field takes the
+// kernels with FC = 1; SELECTIVE and hash launches always FCAP (their
+// launches are small, their builds many).
+
+template <bool SELECTIVE, bool MINMAX, int FC>
+static const void* cached_kernel_of(int arm) {
+  switch (arm) {
+    case ARM_SINGLE: return (const void*)scan_agg_cached<ARM_SINGLE, SELECTIVE, MINMAX, FC>;
+    case ARM_SHARED: return (const void*)scan_agg_cached<ARM_SHARED, SELECTIVE, MINMAX, FC>;
+    case ARM_SCATTER: return (const void*)scan_agg_cached<ARM_SCATTER, SELECTIVE, MINMAX, FC>;
+  }
+  return nullptr;
+}
+
+static const void* cached_kernel(int arm, bool selective, const Out& out) {
+  const bool mm = out.minmax != 0;
+  if (arm == ARM_HASH) {
+    if (selective) return mm ? (const void*)scan_agg_cached<ARM_HASH, true, true, FCAP>
+                             : (const void*)scan_agg_cached<ARM_HASH, true, false, FCAP>;
+    return mm ? (const void*)scan_agg_cached<ARM_HASH, false, true, FCAP>
+              : (const void*)scan_agg_cached<ARM_HASH, false, false, FCAP>;
+  }
+  if (selective)
+    return mm ? cached_kernel_of<true, true, FCAP>(arm) : cached_kernel_of<true, false, FCAP>(arm);
+  if (out.n_agg <= 1)
+    return mm ? cached_kernel_of<false, true, 1>(arm) : cached_kernel_of<false, false, 1>(arm);
+  return mm ? cached_kernel_of<false, true, FCAP>(arm) : cached_kernel_of<false, false, FCAP>(arm);
+}
+
+template <bool MINMAX, int FC>
+static const void* direct_kernel_of(int arm) {
+  switch (arm) {
+    case ARM_SINGLE: return (const void*)scan_agg_direct<ARM_SINGLE, MINMAX, FC>;
+    case ARM_SHARED: return (const void*)scan_agg_direct<ARM_SHARED, MINMAX, FC>;
+    case ARM_SCATTER: return (const void*)scan_agg_direct<ARM_SCATTER, MINMAX, FC>;
+  }
+  return nullptr;
+}
+
+static const void* direct_kernel(int arm, const Out& out) {
+  const bool mm = out.minmax != 0;
+  if (arm == ARM_HASH) return mm ? (const void*)scan_agg_direct<ARM_HASH, true, FCAP>
+                                 : (const void*)scan_agg_direct<ARM_HASH, false, FCAP>;
+  if (out.n_agg <= 1) return mm ? direct_kernel_of<true, 1>(arm) : direct_kernel_of<false, 1>(arm);
+  return mm ? direct_kernel_of<true, FCAP>(arm) : direct_kernel_of<false, FCAP>(arm);
+}
+
+template <bool MINMAX, int FC>
+static const void* cohort_kernel_of(int arm) {
+  switch (arm) {
+    case ARM_SINGLE: return (const void*)scan_agg_cohort<ARM_SINGLE, MINMAX, FC>;
+    case ARM_SHARED: return (const void*)scan_agg_cohort<ARM_SHARED, MINMAX, FC>;
+    case ARM_SCATTER: return (const void*)scan_agg_cohort<ARM_SCATTER, MINMAX, FC>;
+  }
+  return nullptr;
+}
+
+static const void* cohort_kernel(int arm, const Out& out) {
+  const bool mm = out.minmax != 0;
+  if (out.n_agg <= 1) return mm ? cohort_kernel_of<true, 1>(arm) : cohort_kernel_of<false, 1>(arm);
+  return mm ? cohort_kernel_of<true, FCAP>(arm) : cohort_kernel_of<false, FCAP>(arm);
+}
+
 // ``smem`` < 0: the arm's partials (smem_bytes); a cohort passes its own
-template <class K>
-static cudaError_t launch(K kernel, int arm, int device, long long n_rows, const Out& out,
-                          cudaStream_t stream, const void* args, long long smem_ = -1,
-                          long long rows_per_block = BLOCK * 8) {
+static cudaError_t launch(const void* kernel, int arm, int device, long long n_rows,
+                          const Out& out, cudaStream_t stream, const void* args,
+                          long long smem_ = -1, long long rows_per_block = BLOCK * 8) {
+  if (kernel == nullptr || n_rows < 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const size_t smem = smem_ < 0 ? smem_bytes(arm, out) : (size_t)smem_;
@@ -1124,14 +1385,14 @@ static cudaError_t launch(K kernel, int arm, int device, long long n_rows, const
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  // the run-partial core: enough rows per warp that the carried run
-  // partial pays off; the segmented core: the wrapper's block_rows; the
-  // cohort: one tile a block at least
+  // a full scan: enough rows per warp that the carried run partial pays
+  // off; a segmented launch: the wrapper's block_rows; the cohort: one
+  // tile a block at least
   long long want = (n_rows + rows_per_block - 1) / rows_per_block;
   long long cap = (long long)sms * per_sm;
   int grid = (int)(want < 1 ? 1 : (want < cap ? want : cap));
   void* params[] = {(void*)args};
-  err = cudaLaunchKernel((const void*)kernel, dim3(grid), dim3(BLOCK), params, smem, stream);
+  err = cudaLaunchKernel(kernel, dim3(grid), dim3(BLOCK), params, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -1139,8 +1400,9 @@ static cudaError_t launch(K kernel, int arm, int device, long long n_rows, const
 // blocks of a segmented launch's kernel one SM holds at the shared memory
 // ``out`` asks for (``form``: 0 direct, 1 cached, 2 cached SELECTIVE), into
 // ``per_sm``: the wrapper sizes ``block_rows`` and the hash table by it
-template <class K>
-static cudaError_t resident(K kernel, int arm, int device, const Out& out, int* per_sm) {
+static cudaError_t resident(const void* kernel, int arm, int device, const Out& out,
+                            int* per_sm) {
+  if (kernel == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const size_t smem = smem_bytes(arm, out);
@@ -1149,6 +1411,18 @@ static cudaError_t resident(K kernel, int arm, int device, const Out& out, int* 
     if (err != cudaSuccess) return err;
   }
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, BLOCK, smem);
+}
+
+// a cohort launch's shared memory: the tile, then (single / shared) every
+// member's partials, then (carry) each warp's records (``cohort_smem`` in
+// ops/scan_agg.py, whose rule decides ``carry``)
+static long long cohort_smem(const CohortArgs& a, int arm) {
+  long long smem = (long long)a.tile * (2 + a.n_fields) * 4;
+  if (arm != ARM_SCATTER) smem += (long long)a.members * a.out_w * 4;
+  if (a.carry)
+    smem += (long long)(BLOCK / 32) * a.members *
+            cohort_record_words(a.c.out.n_agg, a.c.out.minmax != 0) * 4;
+  return smem;
 }
 
 extern "C" {
@@ -1193,96 +1467,34 @@ int scan_agg_combine_launch(const CombineArgs* in, void* stream) {
 
 int scan_agg_blocks_per_sm(const Out* out, int arm, int form, int device, int* per_sm) {
   if (form == 0 && arm == ARM_HASH)
-    return resident(scan_agg_direct<ARM_HASH>, arm, device, *out, per_sm);
+    return resident(direct_kernel(arm, *out), arm, device, *out, per_sm);
   if (form == 1 && arm == ARM_HASH)
-    return resident(scan_agg_cached<ARM_HASH, false>, arm, device, *out, per_sm);
-  if (form == 2) {
-    switch (arm) {
-      case ARM_SINGLE:
-        return resident(scan_agg_cached<ARM_SINGLE, true>, arm, device, *out, per_sm);
-      case ARM_SHARED:
-        return resident(scan_agg_cached<ARM_SHARED, true>, arm, device, *out, per_sm);
-      case ARM_SCATTER:
-        return resident(scan_agg_cached<ARM_SCATTER, true>, arm, device, *out, per_sm);
-      case ARM_HASH:
-        return resident(scan_agg_cached<ARM_HASH, true>, arm, device, *out, per_sm);
-    }
-  }
+    return resident(cached_kernel(arm, false, *out), arm, device, *out, per_sm);
+  if (form == 2) return resident(cached_kernel(arm, true, *out), arm, device, *out, per_sm);
   return cudaErrorInvalidValue;
 }
 
 int scan_agg_direct_launch(const DirectArgs* a, int arm, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (arm) {
-    case ARM_SINGLE:
-      return launch(scan_agg_direct<ARM_SINGLE>, arm, a->device, a->n_rows, a->out, s, a);
-    case ARM_SHARED:
-      return launch(scan_agg_direct<ARM_SHARED>, arm, a->device, a->n_rows, a->out, s, a);
-    case ARM_SCATTER:
-      return launch(scan_agg_direct<ARM_SCATTER>, arm, a->device, a->n_rows, a->out, s, a);
-    case ARM_HASH:
-      if (!hash_ok(a->out) || !rows_ok(a->out)) return cudaErrorInvalidValue;
-      return launch(scan_agg_direct<ARM_HASH>, arm, a->device, a->n_rows, a->out, s, a, -1,
-                    a->out.block_rows);
-  }
-  return cudaErrorInvalidValue;
+  if (arm == ARM_HASH && (!hash_ok(a->out) || !rows_ok(a->out))) return cudaErrorInvalidValue;
+  const long long rows = arm == ARM_HASH ? a->out.block_rows : BLOCK * 8;
+  return launch(direct_kernel(arm, a->out), arm, a->device, a->n_rows, a->out,
+                (cudaStream_t)stream, a, -1, rows);
 }
 
 int scan_agg_cached_launch(const CachedArgs* a, int arm, int selective, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   if (arm == ARM_HASH && !hash_ok(a->out)) return cudaErrorInvalidValue;
-  if ((selective || arm == ARM_HASH) && !rows_ok(a->out)) return cudaErrorInvalidValue;
-  const long long rows = a->out.block_rows;
-  if (selective) {
-    switch (arm) {
-      case ARM_SINGLE:
-        return launch(scan_agg_cached<ARM_SINGLE, true>, arm, a->device, a->n_rows, a->out, s,
-                      a, -1, rows);
-      case ARM_SHARED:
-        return launch(scan_agg_cached<ARM_SHARED, true>, arm, a->device, a->n_rows, a->out, s,
-                      a, -1, rows);
-      case ARM_SCATTER:
-        return launch(scan_agg_cached<ARM_SCATTER, true>, arm, a->device, a->n_rows, a->out, s,
-                      a, -1, rows);
-      case ARM_HASH:
-        return launch(scan_agg_cached<ARM_HASH, true>, arm, a->device, a->n_rows, a->out, s, a,
-                      -1, rows);
-    }
-  } else {
-    switch (arm) {
-      case ARM_SINGLE:
-        return launch(scan_agg_cached<ARM_SINGLE, false>, arm, a->device, a->n_rows, a->out, s, a);
-      case ARM_SHARED:
-        return launch(scan_agg_cached<ARM_SHARED, false>, arm, a->device, a->n_rows, a->out, s, a);
-      case ARM_SCATTER:
-        return launch(scan_agg_cached<ARM_SCATTER, false>, arm, a->device, a->n_rows, a->out, s, a);
-      case ARM_HASH:
-        return launch(scan_agg_cached<ARM_HASH, false>, arm, a->device, a->n_rows, a->out, s, a,
-                      -1, rows);
-    }
-  }
-  return cudaErrorInvalidValue;
+  const bool segmented = selective || arm == ARM_HASH;
+  if (segmented && !rows_ok(a->out)) return cudaErrorInvalidValue;
+  const long long rows = segmented ? a->out.block_rows : BLOCK * 8;
+  return launch(cached_kernel(arm, selective != 0, a->out), arm, a->device,
+                a->n_rows, a->out, (cudaStream_t)stream, a, -1, rows);
 }
 
 int scan_agg_cohort_launch(const CohortArgs* a, int arm, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   if (a->members < 1 || a->tile < BLOCK || a->tile % BLOCK) return cudaErrorInvalidValue;
   const CachedArgs& c = a->c;
-  // the tile, then (single / shared) every member's partials
-  long long smem = (long long)a->tile * (2 + a->n_fields) * 4;
-  if (arm != ARM_SCATTER) smem += (long long)a->members * a->out_w * 4;
-  switch (arm) {
-    case ARM_SINGLE:
-      return launch(scan_agg_cohort<ARM_SINGLE>, arm, c.device, c.n_rows, c.out, s, a, smem,
-                    a->tile);
-    case ARM_SHARED:
-      return launch(scan_agg_cohort<ARM_SHARED>, arm, c.device, c.n_rows, c.out, s, a, smem,
-                    a->tile);
-    case ARM_SCATTER:
-      return launch(scan_agg_cohort<ARM_SCATTER>, arm, c.device, c.n_rows, c.out, s, a, smem,
-                    a->tile);
-  }
-  return cudaErrorInvalidValue;
+  return launch(cohort_kernel(arm, c.out), arm, c.device, c.n_rows, c.out,
+                (cudaStream_t)stream, a, cohort_smem(*a, arm), a->tile);
 }
 
 const char* scan_agg_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

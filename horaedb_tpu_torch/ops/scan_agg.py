@@ -404,9 +404,13 @@ def _packed_body(
     value_layouts: tuple = (),
     ts_layout: tuple = ("raw",),
     series_layout: tuple = ("raw",),
+    n_rows=None,
 ):
     """Plain version of the packed cached kernel: the same inputs and the
-    same one-buffer output [counts bitcast | sums | mins | maxs]."""
+    same one-buffer output [counts bitcast | sums | mins | maxs]. It takes
+    ``n_rows`` (the kernel's prefix of rows to scan) and ignores it: it
+    stays the reference's function over every row, so a kernel that agrees
+    with it over a prefix shows the prefix held every passing row."""
     s1 = session.shape[0] // 2
     gos = session[:s1].long()
     allow = session[s1:] != 0
@@ -468,7 +472,8 @@ def combine_planes_plain(planes) -> list:
 def _cohort_body(series_codes, ts_rel, values, sessions, dyns, **kw):
     """Plain version of the cohort kernel: ``_packed_body`` once per
     member (row b of ``sessions`` int32[B, 2(S+1)] and ``dyns`` int32[B,
-    n_f + 4]) over the same resident columns; f32[B, packed_len]."""
+    n_f + 4]) over the same resident columns, every row (``n_rows`` is
+    ignored, as there); f32[B, packed_len]."""
     rows = [
         _packed_body(series_codes, ts_rel, values, sessions[b], dyns[b], selective=False, **kw)
         for b in range(sessions.shape[0])
@@ -550,7 +555,9 @@ class _CachedArgs(ctypes.Structure):
 class _CohortArgs(ctypes.Structure):
     """Mirror of ``CohortArgs`` in ops/csrc/scan_agg.cu: the columns and
     statics of one cached launch, and where member b's session, dyn and
-    packed output rows start."""
+    packed output rows start; then the launch statistics' counters (or
+    NULL) and whether each warp carries the members' run partials in
+    shared memory."""
 
     _fields_ = [
         ("c", _CachedArgs),
@@ -563,7 +570,16 @@ class _CohortArgs(ctypes.Structure):
         ("n_fields", ctypes.c_int),
         ("tile", ctypes.c_int),
         ("pad_", ctypes.c_int),
+        ("stats", ctypes.c_void_p),
+        ("carry", ctypes.c_int),
+        ("pad2_", ctypes.c_int),
     ]
+
+# the cohort's launch statistics, in the order the kernel adds to them
+COHORT_STATS = ("chunks", "member_chunks", "member_chunks_skipped", "commits")
+# fields the reduction core holds in registers at once (FCAP in
+# ops/csrc/scan_agg.cu)
+FCAP = 10
 
 
 def cohort_tile(n_fields: int) -> int:
@@ -592,6 +608,45 @@ def cohort_arm(segment_impl: str, members: int, n_fields: int, n_seg: int,
     if segment_impl != "scatter" and tile_bytes + parts > SHARED_MEM_BYTES:
         return "scatter"
     return segment_impl
+
+
+def cohort_record_words(n_agg_fields: int, need_minmax: bool) -> int:
+    """int32 words of one member's carried run partials in a warp's
+    records: a segment and a count for each pass of FCAP fields, then the
+    sum (and min and max) of every field."""
+    passes = -(-n_agg_fields // FCAP) if n_agg_fields > FCAP else 1
+    return 2 * passes + (3 if need_minmax else 1) * n_agg_fields
+
+
+def cohort_smem(arm: str, members: int, n_fields: int, n_seg: int, n_agg_fields: int,
+                need_minmax: bool, carry: bool) -> int:
+    """Bytes of shared memory one cohort block asks for: the tile, then
+    (single / shared) every member's partials, then (``carry``) the
+    records of its 8 warps."""
+    smem = cohort_tile(n_fields) * (2 + n_fields) * 4
+    if arm != "scatter":
+        smem += members * packed_len(1, n_seg, n_agg_fields, need_minmax) * 4
+    if carry:
+        smem += (BLOCK // 32) * members * cohort_record_words(n_agg_fields, need_minmax) * 4
+    return smem
+
+
+def cohort_carry(arm: str, members: int, n_fields: int, n_seg: int, n_agg_fields: int,
+                 need_minmax: bool) -> bool:
+    """Whether a cohort launch carries each member's run partial from chunk
+    to chunk in shared memory: where its records fit beside the tile and
+    the arm's partials (``cohort_arm`` chose the arm without them);
+    otherwise each member commits at each chunk's end."""
+    return cohort_smem(arm, members, n_fields, n_seg, n_agg_fields, need_minmax,
+                       True) <= SHARED_MEM_BYTES
+
+
+def cohort_chunks(n_rows: int, n_fields: int) -> tuple[int, int]:
+    """(rows of a chunk, chunks) of a cohort launch over ``n_rows`` rows:
+    a warp's part of the tile, tile / 8 rows, and the chunks that cover
+    the rows (each decoded once for the cohort)."""
+    rows = cohort_tile(n_fields) // (BLOCK // 32)
+    return rows, -(-int(n_rows) // rows)
 
 
 MAX_SHARDS = 64
@@ -729,14 +784,15 @@ def _device_index(dev) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def _blocks_per_sm(out: _Out, arm: str, form: str, dev) -> int:
+def _blocks_per_sm(out: _Out, arm: str, form: str, dev, lib=None) -> int:
     """Blocks of the launch's kernel one SM holds at the shared memory
-    ``out`` asks for (the library's occupancy query, kept per shape)."""
+    ``out`` asks for (the occupancy query of ``lib``, the built library by
+    default, kept per shape)."""
     index = _device_index(dev)
     n_seg = out.n_seg if arm == "shared" else 0
-    key = (index, form, arm, n_seg, out.n_agg, out.minmax, out.hash_slots)
+    key = (index, form, arm, n_seg, out.n_agg, out.minmax, out.hash_slots, id(lib))
     if key not in _RESIDENT:
-        lib = _kernels()
+        lib = lib or _kernels()
         per_sm = ctypes.c_int(0)
         _launch_error(lib, lib.scan_agg_blocks_per_sm(ctypes.byref(out), _ARM_CODE[arm],
                                                       _FORM_CODE[form], index,
@@ -747,13 +803,14 @@ def _blocks_per_sm(out: _Out, arm: str, form: str, dev) -> int:
 
 
 def _set_launch(out: _Out, arm: str, hash_slots: int, overflow, dev, n_rows: int,
-                form: str) -> None:
+                form: str, lib=None) -> None:
     """The launch fields of ``out`` besides its planes: the overflow
     counter; for a segmented launch (``form`` cached_selective, or the
     hash arm) the rows a block takes and, for the hash arm, a block's table
     (``segmented_geometry``, at most ``block_hash_slots`` of ``hash_slots``,
     0 meaning ``default_hash_slots``) and its probe rounds
-    (HORAEDB_HASH_PROBE_ROUNDS)."""
+    (HORAEDB_HASH_PROBE_ROUNDS). ``lib``: the library whose occupancy
+    query sizes it (the built one by default)."""
     if overflow is not None:
         _check_tensor(overflow, "overflow", torch.int64, dev, 1)
         _check(overflow.shape[0] == 1, "overflow is one int64")
@@ -768,7 +825,7 @@ def _set_launch(out: _Out, arm: str, hash_slots: int, overflow, dev, n_rows: int
 
     def resident(h: int) -> int:
         out.hash_slots = h
-        return _blocks_per_sm(out, arm, form, dev)
+        return _blocks_per_sm(out, arm, form, dev, lib)
 
     out.block_rows, out.hash_slots = segmented_geometry(n_rows, _sm_count(dev), max_slots,
                                                         resident)
@@ -920,13 +977,17 @@ def cached_scan_agg_packed(
     value_layouts: tuple = (),
     ts_layout: tuple = ("raw",),
     series_layout: tuple = ("raw",),
+    n_rows=None,
 ):
     """The packed cached serving kernel: resident series/ts/value part
     tuples, one session buffer [group map | allow list], one dyn buffer
     [literals bitcast | lo, hi, t0, width | row idx], one packed f32 out
     [counts bitcast | sums | mins | maxs] (mins/maxs only with
     ``need_minmax``). ``segment_impl``, ``hash_slots`` and ``overflow`` as
-    for ``fused_scan_agg``.
+    for ``fused_scan_agg``. ``n_rows``: the rows a full scan reads, a
+    prefix of the layout's rows that holds every row that can pass (the
+    cache entry's real rows); the layout's rows by default. A SELECTIVE
+    launch reads its index and ignores it.
 
     A CUDA input launches ``scan_agg_cached``; a CPU input runs
     ``_packed_body``."""
@@ -942,6 +1003,8 @@ def cached_scan_agg_packed(
     )
     form = "cached_selective" if selective else "cached"
     if dev.type == "cpu":
+        if not selective:
+            _prefix(n_rows, layout_rows(series_parts, series_layout))
         _count(PLAIN_CALLS, form)
         return _packed_body(series_parts, ts_parts, values, session, dyn, overflow=overflow,
                             **kw)
@@ -952,11 +1015,11 @@ def cached_scan_agg_packed(
     n_f = len(numeric_filters)
     _check(dyn.shape[0] >= n_f + 4, "dyn holds literals and four scalars")
     lib = _kernels()
-    a, n_rows = _cached_args(series_parts, ts_parts, values, layouts, ts_layout, series_layout,
-                             numeric_filters, n_agg_fields, n_buckets, dev)
+    a, rows = _cached_args(series_parts, ts_parts, values, layouts, ts_layout, series_layout,
+                           numeric_filters, n_agg_fields, n_buckets, dev)
     a.session = session.data_ptr()
     a.dyn = dyn.data_ptr()
-    a.n_rows = dyn.shape[0] - n_f - 4 if selective else n_rows
+    a.n_rows = dyn.shape[0] - n_f - 4 if selective else _prefix(n_rows, rows)
     a.s1 = session.shape[0] // 2
     packed = _packed_out(1, n_groups * n_buckets, n_agg_fields, need_minmax, dev)[0]
     a.out = _out_of(packed.data_ptr(), n_groups * n_buckets, n_agg_fields, need_minmax)
@@ -993,6 +1056,15 @@ def _cached_args(series_parts, ts_parts, values, layouts, ts_layout, series_layo
     a.device = dev.index if dev.index is not None else torch.cuda.current_device()
     a.filt = _filters(numeric_filters, len(values))
     return a, n_rows
+
+
+def _prefix(n_rows, rows: int) -> int:
+    """The rows a full scan reads: ``n_rows`` (checked to be a prefix of
+    the layout's ``rows``), or all of them."""
+    if n_rows is None:
+        return rows
+    _check(0 <= int(n_rows) <= rows, f"n_rows {n_rows} not in [0, {rows}]")
+    return int(n_rows)
 
 
 def _packed_out(rows: int, n_seg: int, n_agg_fields: int, need_minmax: bool, dev):
@@ -1034,17 +1106,23 @@ def cached_scan_agg_cohort(
     value_layouts: tuple = (),
     ts_layout: tuple = ("raw",),
     series_layout: tuple = ("raw",),
+    n_rows=None,
+    stats=None,
 ):
     """The cohort serving kernel: B shape-identical full-scan queries over
     the same resident columns, one session row (int32[B, 2(S+1)]) and one
     dyn row (int32[B, n_f + 4]) each; f32[B, packed_len], row b the packed
     output ``cached_scan_agg_packed`` gives for member b (each row unpacks
     with ``unpack_packed_state``). Selective gathers are per-member and
-    variable-length: cohort members always scan every row.
+    variable-length: cohort members always scan every row of the first
+    ``n_rows`` (as for ``cached_scan_agg_packed``).
 
-    A CUDA input launches ``scan_agg_cohort``, which decodes each tile of
+    A CUDA input launches ``scan_agg_cohort``, which decodes each chunk of
     rows once and runs every member over it, with the arm ``cohort_arm``
-    gives; a CPU input runs ``_cohort_body``."""
+    gives and, where ``cohort_carry`` finds room, each member's run
+    partial carried from chunk to chunk; a CPU input runs
+    ``_cohort_body``. ``stats`` (int64[4], CUDA): the kernel adds its
+    ``COHORT_STATS`` to it."""
     dev = sessions.device
     values = tuple(values)
     layouts = value_layouts or tuple(_dense_layout(p) for p in values)
@@ -1058,6 +1136,7 @@ def cached_scan_agg_cohort(
         ts_layout=ts_layout, series_layout=series_layout,
     )
     if dev.type == "cpu":
+        _prefix(n_rows, layout_rows(series_parts, series_layout))
         _count(PLAIN_CALLS, "cached_cohort")
         return _cohort_body(series_parts, ts_parts, values, sessions, dyns, **kw)
     _check(dev.type == "cuda", f"unsupported device {dev}")
@@ -1072,8 +1151,9 @@ def cached_scan_agg_cohort(
     if B == 0:
         return packed
     lib = _kernels()
-    c, _ = _cached_args(series_parts, ts_parts, values, layouts, ts_layout, series_layout,
-                        numeric_filters, n_agg_fields, n_buckets, dev)
+    c, rows = _cached_args(series_parts, ts_parts, values, layouts, ts_layout, series_layout,
+                           numeric_filters, n_agg_fields, n_buckets, dev)
+    c.n_rows = _prefix(n_rows, rows)
     c.s1 = sessions.shape[1] // 2
     c.out = _out_of(packed.data_ptr(), n_seg, n_agg_fields, need_minmax)
     a = _CohortArgs()
@@ -1082,6 +1162,11 @@ def cached_scan_agg_cohort(
     a.out_w, a.members = packed.shape[1], B
     a.sess_w, a.dyn_w = sessions.shape[1], dyns.shape[1]
     a.n_fields, a.tile = len(values), cohort_tile(len(values))
+    a.carry = int(cohort_carry(arm, B, len(values), n_seg, n_agg_fields, need_minmax))
+    if stats is not None:
+        _check_tensor(stats, "stats", torch.int64, dev, 1)
+        _check(stats.shape[0] == len(COHORT_STATS), f"stats is int64[{len(COHORT_STATS)}]")
+        a.stats = stats.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     _launch_error(
         lib, lib.scan_agg_cohort_launch(ctypes.byref(a), _ARM_CODE[arm], stream),

@@ -85,16 +85,25 @@ def dist_direct_step(mesh: Mesh, spec: ScanAggSpec, group_codes, bucket_ids, mas
     return scan_agg.mesh_combine_state(parts, need_minmax=spec.need_minmax)
 
 
+def shard_real_rows(n_valid: int, rows: int, shard: int) -> int:
+    """Real rows of shard ``shard`` of ``rows`` rows each, when the first
+    ``n_valid`` rows of the table are real: its prefix that holds them."""
+    return min(max(int(n_valid) - shard * int(rows), 0), int(rows))
+
+
 def dist_cached_step(mesh: Mesh, spec: ScanAggSpec, series_shards, ts_shards, value_shards,
-                     session, dyn, *, value_layouts=()):
+                     session, dyn, *, value_layouts=(), n_valid=None):
     """The sharded version of the resident cached kernel (full scans):
     shard d's series and ts part tuples and per-field value part tuples (a
     sharded cache entry's, raw layouts, on ``mesh.devices[d]``), the
     packed session [group map | allow list] and dyn [literals | lo, hi, t0,
-    width] on ``mesh.first`` (copied to each other device). Returns the
-    combined packed buffer [counts | sums | mins | maxs] on ``mesh.first``:
-    one fetch for the host, as single-device."""
+    width] on ``mesh.first`` (copied to each other device). ``n_valid``:
+    the entry's real rows, the first of the table; each shard then scans
+    only its part of them (``shard_real_rows``), every row by default.
+    Returns the combined packed buffer [counts | sums | mins | maxs] on
+    ``mesh.first``: one fetch for the host, as single-device."""
     from ..ops import scan_agg
+    from ..ops.encoding import layout_rows
 
     spec = _resolved(spec)
     kw = _kernel_kw(spec)
@@ -103,10 +112,13 @@ def dist_cached_step(mesh: Mesh, spec: ScanAggSpec, series_shards, ts_shards, va
     for d, dev in enumerate(mesh.devices):
         if dev not in inputs:
             inputs[dev] = (_on(session, dev), _on(dyn, dev))
+        rows = None
+        if n_valid is not None:
+            rows = shard_real_rows(n_valid, layout_rows(series_shards[0], ("raw",)), d)
         with on_device(dev):
             parts.append(scan_agg.cached_scan_agg_packed(
                 series_shards[d], ts_shards[d], value_shards[d], *inputs[dev],
-                value_layouts=value_layouts, **kw,
+                value_layouts=value_layouts, n_rows=rows, **kw,
             ))
     parts = [_on(p, mesh.first) for p in parts]
     return scan_agg.mesh_combine(

@@ -1343,7 +1343,8 @@ class Executor:
                 "cached_dist",
                 lambda: dist_cached_step(entry.mesh, spec, series_shards, ts_shards,
                                          values_dev, session_dev, dyn_dev,
-                                         value_layouts=prep.value_layouts),
+                                         value_layouts=prep.value_layouts,
+                                         n_valid=entry.n_valid),
                 entry.device,
             )
             m["mesh_devices"] = entry.mesh.size
@@ -1368,6 +1369,8 @@ class Executor:
                     value_layouts=prep.value_layouts,
                     ts_layout=entry.ts_layout,
                     series_layout=entry.series_layout,
+                    # a full scan reads the real rows, a prefix of the layout
+                    n_rows=entry.n_valid,
                 ),
                 self.device,
             )
@@ -1452,6 +1455,7 @@ class Executor:
                 value_layouts=p0.value_layouts,
                 ts_layout=entry.ts_layout,
                 series_layout=entry.series_layout,
+                n_rows=entry.n_valid,
             ),
             self.device,
         )

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time two builds of the scan_agg kernel library in turns on one NVIDIA
 card: this checkout's and another checkout's (its parent commit, unpacked
-with ``git archive``), at the main path's selective and hash shapes and
-at bench.py's groupby shapes.
+with ``git archive``), at the main path's selective, hash, full-scan and
+cohort shapes and at bench.py's groupby shapes.
 
     git archive --prefix=chip_proof/parent/ HEAD~1 | tar -x
-    python3 scan_agg_ab.py --other chip_proof/parent [--probe] [--hours 12]
+    python3 scan_agg_ab.py --other chip_proof/parent [--probe] [--hours 24]
 
 The TSBS cpu table (4000 hosts x ``--hours`` at 10 s, seed 123) is
 written through the port's engine; single-groupby-5-8-1, sparse-8x1h and
@@ -18,12 +18,18 @@ within chip_smoke.SUM_RTOL of sum |x|), then timed on the device timeline
 with L2 flushed before each launch, beside index_add_ on the same inputs.
 Then bench.py's groupby shapes (the direct form, 2**18 rows, unsorted):
 the hash arm of both libraries in turns with the scatter arm beside each.
+Then the full scans and the cohort: double-groupby-all's and high-cpu-all's
+full-scan launches and the flood's 32 texts as one cohort, the same way
+(this checkout's wrappers over the entry's real rows where they take
+them, the other library over the padded rows).
 
-``--probe`` also builds the other checkout's run-partial core (the kernel
-before the segmented core) with one suspected cost removed at a time, by
-edits made to a copy of its source at build time: the per-row path off
-(wrong answers; a probe of its cost), one warp per 32 rows, a row's field
-loads hoisted before the shuffles, a 256-slot hash table, and all four.
+``--probe`` also builds the other checkout's run-partial core with one
+suspected cost taken away at a time, by edits made to a copy of its
+source at build time (``PROBE_EDITS``), and times each at the full-scan
+and cohort shapes: the per-step shuffles off (wrong answers), a step's
+field loads hoisted, min and max commits without read back, the cohort's
+per-tile commits off but for a block's last tile (wrong answers); and the
+other library over the real rows only (``other+prefix``).
 
 Prints each time with the card's name and power limit, and writes
 chiprun_out/scan_agg_ab.json. Needs one card and nvcc.
@@ -42,14 +48,16 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, "chiprun_out")
 
-# the run-partial core's text and each probe's edit of it
+# the parent's run-partial core (``reduce_range``, the cohort's tile loop)
+# and each probe's edit of it: one suspected cost taken away at a time
 PROBE_EDITS = {
-    "norow": [(
-        "const bool uniform = (ARM == ARM_SINGLE) || __all_sync(FULL_MASK, !valid || seg == seg0);",
-        "const bool uniform = true;")],
-    "grid": [(
-        "long long rows_per_block = BLOCK * 8) {",
-        "long long rows_per_block = BLOCK * 8) {\n  if (smem_ < 0) rows_per_block = BLOCK;")],
+    # each step's warp reductions skipped: lane f keeps its own row's
+    # value of field f (wrong answers; a probe of the shuffles' cost)
+    "noshfl": [
+        ("const float s = warp_sum(v);", "const float s = v;"),
+        ("mn = warp_min(valid ? v : INFINITY);", "mn = valid ? v : INFINITY;"),
+        ("mx = warp_max(valid ? v : -INFINITY);", "mx = valid ? v : -INFINITY;")],
+    # a step's field loads issued together before the first reduction
     "hoist": [(
         """      run_cnt += __popc(vmask);
       for (int f = 0; f < n_agg; ++f) {
@@ -60,17 +68,23 @@ PROBE_EDITS = {
       for (int f = 0; f < 10; ++f) hv[f] = (valid && f < n_agg) ? src.value(f, i) : 0.f;
       for (int f = 0; f < n_agg; ++f) {
         const float v = f < 10 ? hv[f] : (valid ? src.value(f, i) : 0.f);""")],
-    "h256": [(
-        """int scan_agg_cached_launch(const CachedArgs* a, int arm, int selective, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;""",
-        """int scan_agg_cached_launch(const CachedArgs* a0, int arm, int selective, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  CachedArgs b = *a0;
-  if (b.out.hash_slots > 256) b.out.hash_slots = 256;
-  if (b.out.hash_rounds > b.out.hash_slots) b.out.hash_rounds = b.out.hash_slots;
-  const CachedArgs* a = &b;""")],
+    # every min and max commit one atomic with no read back
+    "red": [("atomic_extreme<true>(", "red_min("), ("atomic_extreme<false>(", "red_max(")],
+    # the cohort commits a member's last run partial of a tile only in the
+    # block's last tile (wrong answers; a probe of the per-tile commits)
+    "commit1": [
+        ("""                             const Sink& t) {""",
+         """                             const Sink& t, bool last = true) {"""),
+        ("""  t.commit(run_seg, run_cnt, run_sum, run_min, run_max, lane, n_agg, minmax);
 }
-PROBE_EDITS["all"] = [e for k in ("norow", "grid", "hoist", "h256") for e in PROBE_EDITS[k]]
+""", """  if (last) t.commit(run_seg, run_cnt, run_sum, run_min, run_max, lane, n_agg, minmax);
+}
+"""),
+        ("reduce_range<ARM>(src, begin, begin + per_warp, out, t);",
+         "reduce_range<ARM>(src, begin, begin + per_warp, out, t, tile + gridDim.x >= n_tiles);")],
+}
+# probes whose answers differ from the plain version by design
+WRONG_PROBES = ("noshfl", "commit1")
 
 
 def say(*parts) -> None:
@@ -86,6 +100,12 @@ def _declare(lib):
     lib.scan_agg_direct_launch.argtypes = [ctypes.POINTER(S._DirectArgs), ctypes.c_int,
                                            ctypes.c_void_p]
     lib.scan_agg_direct_launch.restype = ctypes.c_int
+    lib.scan_agg_cohort_launch.argtypes = [ctypes.POINTER(S._CohortArgs), ctypes.c_int,
+                                           ctypes.c_void_p]
+    lib.scan_agg_cohort_launch.restype = ctypes.c_int
+    lib.scan_agg_blocks_per_sm.argtypes = [ctypes.POINTER(S._Out), ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.scan_agg_blocks_per_sm.restype = ctypes.c_int
     lib.scan_agg_error_string.argtypes = [ctypes.c_int]
     lib.scan_agg_error_string.restype = ctypes.c_char_p
     return lib
@@ -126,8 +146,8 @@ def _ptxas(log: str) -> list:
     lines = log.splitlines()
     out = []
     for j, line in enumerate(lines):
-        if "Compiling entry function" in line and ("scan_agg_cached" in line
-                                                   or "scan_agg_direct" in line):
+        if "Compiling entry function" in line and any(
+                k in line for k in ("scan_agg_cached", "scan_agg_direct", "scan_agg_cohort")):
             name = line.split("'")[1]
             info = [x.split("ptxas info    :")[-1].strip() for x in lines[j + 1:j + 4]
                     if "registers" in x or "spill" in x]
@@ -135,14 +155,10 @@ def _ptxas(log: str) -> list:
     return out
 
 
-def _launch(S, lib, segmented: bool, args, kw):
-    """One SELECTIVE launch of ``lib`` on a cached call's inputs: the
-    segmented core's geometry (``S._set_launch``) for this checkout's
-    library, the full-size table of ``block_hash_slots`` (16 B less a
-    slot: no claim list) and the kernel's own grid for the other's."""
+def _launch(S, lib, args, kw):
+    """One SELECTIVE launch of ``lib`` on a cached call's inputs, with the
+    segmented core's geometry from ``lib``'s own occupancy query."""
     import torch
-
-    from horaedb_tpu_torch.ops.hash_agg import default_hash_slots, probe_rounds
 
     sp, tp, values, session, dyn = args
     dev = session.device
@@ -156,15 +172,8 @@ def _launch(S, lib, segmented: bool, args, kw):
     a.s1 = session.shape[0] // 2
     packed = S._packed_out(1, n_seg, kw["n_agg_fields"], kw["need_minmax"], dev)[0]
     a.out = S._out_of(packed.data_ptr(), n_seg, kw["n_agg_fields"], kw["need_minmax"])
-    if segmented:
-        S._set_launch(a.out, arm, kw.get("hash_slots", 0), None, dev, a.n_rows,
-                      "cached_selective")
-    elif arm == "hash":
-        planes = 3 if kw["need_minmax"] else 1
-        h = kw.get("hash_slots") or default_hash_slots(n_seg)
-        while h > 2 and h * (4 + (1 + planes * kw["n_agg_fields"]) * 4) > S.SHARED_MEM_BYTES:
-            h //= 2
-        a.out.hash_slots, a.out.hash_rounds = h, probe_rounds(h)
+    S._set_launch(a.out, arm, kw.get("hash_slots", 0), None, dev, a.n_rows, "cached_selective",
+                  lib=lib)
     err = lib.scan_agg_cached_launch(ctypes.byref(a), S._ARM_CODE[arm], 1,
                                      torch.cuda.current_stream(dev).cuda_stream)
     if err:
@@ -172,12 +181,10 @@ def _launch(S, lib, segmented: bool, args, kw):
     return packed
 
 
-def _launch_direct(S, lib, segmented: bool, args, kw, arm: str):
+def _launch_direct(S, lib, args, kw, arm: str):
     """One ``scan_agg_direct`` launch of ``lib`` with ``arm`` on a direct
     call's inputs, its geometry as in ``_launch``."""
     import torch
-
-    from horaedb_tpu_torch.ops.hash_agg import default_hash_slots, probe_rounds
 
     g, b, m, v, lits = args
     dev = g.device
@@ -194,20 +201,174 @@ def _launch_direct(S, lib, segmented: bool, args, kw, arm: str):
     a.filt = S._filters(kw["numeric_filters"], v.shape[0])
     a.out = S._Out(counts.data_ptr(), sums.data_ptr(), mins.data_ptr(), maxs.data_ptr(),
                    n_seg, F, int(kw["need_minmax"]))
-    if segmented:
-        S._set_launch(a.out, arm, kw.get("hash_slots", 0), None, dev, g.shape[0], "direct")
-    elif arm == "hash":
-        planes = 3 if kw["need_minmax"] else 1
-        h = kw.get("hash_slots") or default_hash_slots(n_seg)
-        while h > 2 and h * (4 + (1 + planes * F) * 4) > S.SHARED_MEM_BYTES:
-            h //= 2
-        a.out.hash_slots, a.out.hash_rounds = h, probe_rounds(h)
+    S._set_launch(a.out, arm, kw.get("hash_slots", 0), None, dev, g.shape[0], "direct", lib=lib)
     err = lib.scan_agg_direct_launch(ctypes.byref(a), S._ARM_CODE[arm],
                                      torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(lib.scan_agg_error_string(err).decode())
     G, B = kw["n_groups"], kw["n_buckets"]
     return counts.view(G, B), sums.view(F, G, B), mins.view(F, G, B), maxs.view(F, G, B)
+
+
+def _launch_full(S, lib, args, kw, n_rows: int):
+    """One full-scan ``scan_agg_cached`` launch of ``lib`` over the first
+    ``n_rows`` resident rows (the other checkout's launcher sizes its own
+    grid)."""
+    import torch
+
+    sp, tp, values, session, dyn = args
+    dev = session.device
+    n_seg = kw["n_groups"] * kw["n_buckets"]
+    a, _ = S._cached_args(sp, tp, tuple(values), kw["value_layouts"], kw["ts_layout"],
+                          kw["series_layout"], kw["numeric_filters"], kw["n_agg_fields"],
+                          kw["n_buckets"], dev)
+    a.session, a.dyn = session.data_ptr(), dyn.data_ptr()
+    a.n_rows, a.s1 = n_rows, session.shape[0] // 2
+    packed = S._packed_out(1, n_seg, kw["n_agg_fields"], kw["need_minmax"], dev)[0]
+    a.out = S._out_of(packed.data_ptr(), n_seg, kw["n_agg_fields"], kw["need_minmax"])
+    err = lib.scan_agg_cached_launch(ctypes.byref(a), S._ARM_CODE[kw["segment_impl"]], 0,
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(lib.scan_agg_error_string(err).decode())
+    return packed
+
+
+def _launch_cohort(S, lib, args, kw, n_rows: int):
+    """One ``scan_agg_cohort`` launch of ``lib`` (the other checkout's,
+    whose ``CohortArgs`` is a prefix of this checkout's) over the first
+    ``n_rows`` resident rows, with the parent's tile and arm rules."""
+    import torch
+
+    sp, tp, values, sessions, dyns = args
+    dev = sessions.device
+    values = tuple(values)
+    n_seg = kw["n_groups"] * kw["n_buckets"]
+    B = sessions.shape[0]
+    arm = S.cohort_arm(kw["segment_impl"], B, len(values), n_seg, kw["n_agg_fields"],
+                       kw["need_minmax"])
+    c, _ = S._cached_args(sp, tp, values, kw["value_layouts"], kw["ts_layout"],
+                          kw["series_layout"], kw["numeric_filters"], kw["n_agg_fields"],
+                          kw["n_buckets"], dev)
+    c.s1, c.n_rows = sessions.shape[1] // 2, n_rows
+    packed = S._packed_out(B, n_seg, kw["n_agg_fields"], kw["need_minmax"], dev)
+    c.out = S._out_of(packed.data_ptr(), n_seg, kw["n_agg_fields"], kw["need_minmax"])
+    a = S._CohortArgs()
+    a.c = c
+    a.sessions, a.dyns = sessions.data_ptr(), dyns.data_ptr()
+    a.out_w, a.members = packed.shape[1], B
+    a.sess_w, a.dyn_w = sessions.shape[1], dyns.shape[1]
+    a.n_fields, a.tile = len(values), S.cohort_tile(len(values))
+    # an older library reads only the fields before ``stats``
+    a.carry = int(S.cohort_carry(arm, B, len(values), n_seg, kw["n_agg_fields"],
+                                 kw["need_minmax"]))
+    err = lib.scan_agg_cohort_launch(ctypes.byref(a), S._ARM_CODE[arm],
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(lib.scan_agg_error_string(err).decode())
+    return packed
+
+
+def _full_calls(C, S, torch, db, tsbs, hours: int) -> dict:
+    """The run-partial core's shapes: double-groupby-all's and
+    high-cpu-all's full-scan launches as ``Connection.execute`` made them,
+    and the flood's 32 texts as one cohort (their preps' sessions and dyn
+    rows stacked, as ``Executor.dispatch_cached_agg_cohort`` stacks them).
+    Returns name -> (form, args, kw)."""
+    import numpy as np
+
+    rec = C.Recorder(S)
+    calls = {}
+    try:
+        for name, sql in (("double-groupby-all", tsbs.double_groupby_all(hours).sql),
+                          ("high-cpu-all", tsbs.high_cpu_all(min(C.HC_HOURS, hours)).sql)):
+            for _ in range(3):
+                db.execute(sql)
+                c = rec.take().get("cached")
+                if c is not None:
+                    calls[name] = ("cached", *c)
+        texts = C.flood_queries()
+        for _ in range(2):
+            db.execute(texts[0])
+    finally:
+        S.fused_scan_agg, S.cached_scan_agg_packed = rec.orig_fused, rec.orig_cached
+    ex, table = db.interpreters.executor, db.catalog.open("cpu")
+    preps = [ex.prepare_cached_agg(db._cached_plan(t), table, {"table": "cpu"},
+                                   allow_selective=False) for t in texts]
+    p0 = preps[0]
+    entry, spec = p0.entry, p0.spec
+    dev = db.device
+    sessions = torch.from_numpy(np.stack([S.pack_session(p.gos, p.allow_scan)
+                                          for p in preps])).to(dev)
+    dyns = torch.from_numpy(np.stack([S.pack_dyn(p.literals, p.lo_rel, p.hi_rel, p.t0_rel,
+                                                 p.width_i) for p in preps])).to(dev)
+    n_seg = spec.n_groups * spec.n_buckets
+    impl = S.resolve_segment_impl(n_seg, spec.segment_impl, spec.n_agg_fields, spec.need_minmax)
+    kw = dict(n_groups=spec.n_groups, n_buckets=spec.n_buckets, n_agg_fields=spec.n_agg_fields,
+              numeric_filters=S.encode_filter_ops(spec.numeric_filters),
+              need_minmax=spec.need_minmax, segment_impl=impl, value_layouts=p0.value_layouts,
+              ts_layout=entry.ts_layout, series_layout=entry.series_layout)
+    calls["flood-32"] = ("cohort", (entry.series_parts, entry.ts_parts,
+                                    entry.values_for(p0.value_names), sessions, dyns), kw)
+    return calls
+
+
+def _full_shapes(C, S, torch, db, tsbs, libs, probes, flush, card, hours: int) -> dict:
+    """Step 0 and the A/B of the full scan and the cohort: each shape's
+    kernel against its plain version, then timed on the device timeline
+    with L2 flushed, in the order other, this, this, other; then each
+    probe of the other checkout (``other+prefix`` is the other library
+    over the real rows only, a launch argument)."""
+    import inspect
+
+    entry = db.interpreters.executor.scan_cache._entries["cpu"]
+    n_valid, padded = int(entry.n_valid), int(entry.padded_rows)
+    calls = _full_calls(C, S, torch, db, tsbs, hours)
+    out = {}
+    for name, (form, args, kw) in calls.items():
+        cohort = form == "cohort"
+        kernel = "scan_agg_cohort" if cohort else "scan_agg_cached"
+        wrapper = S.cached_scan_agg_cohort if cohort else S.cached_scan_agg_packed
+        # this checkout's wrapper over the real rows where it takes them
+        this_kw = ({"n_rows": n_valid} if "n_rows" in inspect.signature(wrapper).parameters
+                   else {})
+        raw = _launch_cohort if cohort else _launch_full
+        B = args[3].shape[0] if cohort else 1
+        if cohort:
+            want = S._cohort_body(*args, **kw)
+            abs_sums = C._cohort_abs_sums(torch, args, kw)
+        else:
+            want = S._packed_body(*args, **kw)[None]
+            abs_sums = [C._abs_sums(torch, "cached", args, kw)]
+        turns = ["other", "this", "this", "other"]
+        turns += [p for p in probes if not (p == "other+commit1" and not cohort)]
+        shape = {"form": form, "members": B, "arm": kw["segment_impl"], "padded_rows": padded,
+                 "real_rows": n_valid, "n_seg": kw["n_groups"] * kw["n_buckets"],
+                 "F": kw["n_agg_fields"], "minmax": kw["need_minmax"], "runs": []}
+        for which in turns:
+            rows = n_valid if which in ("this", "other+prefix") else padded
+            if which == "this":
+                fn = lambda: wrapper(*args, **{**kw, **this_kw})  # noqa: E731
+            else:
+                lib = libs["other" if which == "other+prefix" else which][0]
+                fn = lambda lib=lib, rows=rows: raw(S, lib, args, kw, rows)  # noqa: E731
+            got = fn().reshape(B, -1)
+            torch.cuda.synchronize()
+            try:
+                for b in range(B):
+                    C._compare(f"{name} {which} member {b}", *C._split(torch, got[b], kw),
+                               C._split(torch, want[b], kw), abs_sums[b], kw["need_minmax"])
+                equal = True
+            except AssertionError:
+                equal = False
+            if not equal and which.split("+")[-1] not in WRONG_PROBES:
+                raise AssertionError(f"{name}: {which} differs from the plain version")
+            ms = C._device_ms(torch, fn, kernel, reps=5 if cohort else 20, flush=flush)
+            shape["runs"].append({"lib": which, "ms": ms, "rows": rows, "equal_plain": equal})
+            say(f"{name} ({form}, B {B}, {shape['arm']}, n_seg {shape['n_seg']}, F "
+                f"{shape['F']}, minmax {shape['minmax']}) {which} over {rows} rows: {ms} ms "
+                f"on the device timeline, equal to plain {equal} [{card}]")
+        out[name] = shape
+    return out
 
 
 def main(argv) -> int:
@@ -274,7 +435,7 @@ def main(argv) -> int:
     finally:
         S.fused_scan_agg, S.cached_scan_agg_packed = rec.orig_fused, rec.orig_cached
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    order = ["other", "this", "this", "other"] + [k for k in builds if k != "other"]
+    order = ["other", "this", "this", "other"]
     for name, (args, kw) in calls.items():
         n_f = len(kw["numeric_filters"])
         shape = {"arm": kw["segment_impl"], "rows": int(args[4].shape[0] - n_f - 4),
@@ -286,7 +447,7 @@ def main(argv) -> int:
         lib_call = C._library_call(torch, S, "cached_selective", args, kw)
         for which in order:
             lib = libs[which][0]
-            fn = lambda lib=lib, w=which: _launch(S, lib, w == "this", args, kw)  # noqa: E731
+            fn = lambda lib=lib: _launch(S, lib, args, kw)  # noqa: E731
             got = C._split(torch, fn(), kw)
             torch.cuda.synchronize()
             try:
@@ -294,7 +455,7 @@ def main(argv) -> int:
                 equal = True
             except AssertionError:
                 equal = False
-            if not equal and "+norow" not in which and "+all" not in which:
+            if not equal:
                 raise AssertionError(f"{name}: {which} differs from the plain version")
             ms = C._device_ms(torch, fn, "scan_agg_cached", reps=30, flush=flush)
             lib_ms = C._time_launch(torch, lib_call, reps=30, flush=flush)
@@ -322,8 +483,7 @@ def main(argv) -> int:
         runs = []
         for which, arm in turns:
             lib = libs[which][0]
-            fn = lambda lib=lib, w=which, arm=arm: _launch_direct(  # noqa: E731
-                S, lib, w == "this" and arm == "hash", args, kw, arm)
+            fn = lambda lib=lib, arm=arm: _launch_direct(S, lib, args, kw, arm)  # noqa: E731
             got = fn()
             torch.cuda.synchronize()
             C._compare(f"{label} {which} {arm}", *got, want, abs_sums, kw["need_minmax"])
@@ -333,11 +493,13 @@ def main(argv) -> int:
         say(f"{label} (direct, {C.HASH_ROWS} rows, domain {domain}, {live} live, hash_slots "
             f"{kw['hash_slots']}): " + ", ".join(f"{r['lib']} {r['arm']} {r['ms']:.4f}"
                                                   for r in runs) + f" ms [{card}]")
+    probes = [f"other+{k}" for k in PROBE_EDITS] + ["other+prefix"] if opt.probe else []
+    report["full"] = _full_shapes(C, S, torch, db, tsbs, libs, probes, flush, card, opt.hours)
     os.makedirs(OUT, exist_ok=True)
     with open(os.path.join(OUT, "scan_agg_ab.json"), "w") as f:
         json.dump(report, f, indent=1)
     say(json.dumps({n: [(r["lib"], r["ms"]) for r in s["runs"]] for n, s in
-                    report["shapes"].items()}))
+                    {**report["shapes"], **report["full"]}.items()}))
     return 0
 
 

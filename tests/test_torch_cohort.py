@@ -601,3 +601,67 @@ def test_cohort_tile_and_arm():
     assert port.cohort_arm("scatter", 2, 2, 8, 1, False) == "scatter"
     with pytest.raises(ValueError, match="single arm"):
         port.cohort_arm("single", 2, 2, 8, 1, False)
+
+
+def test_cohort_dispatch_hands_the_real_rows_to_the_kernel(dbs, monkeypatch):
+    """``Executor.dispatch_cached_agg_cohort`` passes the entry's real
+    rows; the answers stay the reference's."""
+    ref_db, port_db = dbs
+    for db in dbs:
+        for s in FLOOD[:2]:
+            db.execute(s)
+    seen = []
+    orig = port.cached_scan_agg_cohort
+
+    def spy(*a, **k):
+        seen.append(k.get("n_rows"))
+        return orig(*a, **k)
+
+    monkeypatch.setattr(port, "cached_scan_agg_cohort", spy)
+    got = _cohort(port_db, FLOOD)
+    entry = port_db.interpreters.executor.scan_cache._entries["dash"]
+    assert seen == [entry.n_valid] and entry.n_valid == 40 * 60 < entry.padded_rows
+    for s, w, g in zip(FLOOD, _cohort(ref_db, FLOOD), got):
+        _same_rows(w, g, s)
+
+
+def test_cohort_records_and_their_room():
+    """A member's record: a segment and a count a pass of FCAP fields, then
+    every field's sum (and min and max); the records of the 8 warps take
+    room after the tile and the arm's partials, and carry holds only where
+    they fit."""
+    assert port.cohort_record_words(0, False) == 2
+    assert port.cohort_record_words(1, True) == 5
+    assert port.cohort_record_words(10, False) == 12
+    assert port.cohort_record_words(11, True) == 4 + 33
+    assert port.cohort_record_words(31, True) == 8 + 93
+    # the flood's launch: a 4096-row tile of 3 words and 8 x 32 records of 5
+    assert port.cohort_smem("scatter", 32, 1, 4096, 1, True, True) == 4096 * 12 + 8 * 32 * 20
+    assert port.cohort_smem("scatter", 32, 1, 4096, 1, True, False) == 4096 * 12
+    assert port.cohort_smem("shared", 2, 3, 8, 2, True, True) == (
+        2048 * 20 + 2 * 8 * 7 * 4 + 8 * 2 * 8 * 4)
+    assert port.cohort_carry("scatter", 32, 1, 4096, 1, True)
+    assert port.cohort_carry("shared", 33, 11, 64, 10, False)
+    assert not port.cohort_carry("scatter", 64, 32, 1024, 31, True)
+
+
+def test_cohort_chunks():
+    """A chunk is a warp's part of the tile; the chunks cover the rows."""
+    assert port.cohort_chunks(34_560_000, 1) == (512, 67_500)
+    assert port.cohort_chunks(0, 1) == (512, 0)
+    assert port.cohort_chunks(513, 10) == (128, 5)
+    assert port.cohort_chunks(4096, 32) == (32, 128)
+
+
+def test_cohort_args_mirror_the_kernel_layout():
+    """``CohortArgs`` keeps its older fields first (an older launcher reads
+    only those), then the statistics pointer and the carry flag;
+    ``scan_agg_abi`` checks the whole size against the kernel's at load."""
+    import ctypes
+
+    A = port._CohortArgs
+    assert A.sessions.offset == ctypes.sizeof(port._CachedArgs)
+    assert A.stats.offset == A.pad_.offset + 4 == A.out_w.offset + 8 + 6 * 4
+    assert A.carry.offset == A.stats.offset + 8
+    assert ctypes.sizeof(A) == A.carry.offset + 8
+    assert port.COHORT_STATS == ("chunks", "member_chunks", "member_chunks_skipped", "commits")

@@ -366,6 +366,59 @@ def test_hash_tables_fill_and_overflow(card):
     assert ov > 0
 
 
+@pytest.mark.parametrize("prefix", chip_smoke.PREFIX_KINDS)
+@pytest.mark.parametrize("B", chip_smoke.PREFIX_BS)
+@pytest.mark.parametrize("arm", list(chip_smoke.PREFIX_ARMS))
+def test_cohort_and_full_scan_over_a_prefix_match_plain(card, arm, B, prefix):
+    """The cohort, and members 0 and 1 as solo full scans, over the table's
+    real rows (ending inside a step and a chunk), over the layout's rows
+    and over none, against the plain versions, which read every row:
+    counts, mins and maxs bit-equal, sums within SUM_RTOL of sum |x|.
+    Segments of 1,250 or 80 rows cross steps, chunks, tiles and blocks;
+    members miss whole chunks, have no time or no series. (F, minmax)
+    cycles through PREFIX_FIELDS and the filter op through OPS. The
+    launch statistics count every chunk once and every member-chunk as
+    run or skipped."""
+    j = (chip_smoke.PREFIX_BS.index(B) + chip_smoke.PREFIX_KINDS.index(prefix)
+         + list(chip_smoke.PREFIX_ARMS).index(arm))
+    F, need_minmax = chip_smoke.PREFIX_FIELDS[j % len(chip_smoke.PREFIX_FIELDS)]
+    rng = np.random.default_rng(100 * B + j)
+    chip_smoke._prefix_case(torch, rng, F, need_minmax, arm, B, prefix, op=chip_smoke.OPS[j % 6])
+
+
+@pytest.mark.parametrize("arm", list(chip_smoke.PREFIX_ARMS))
+@pytest.mark.parametrize("per", [5003, 4096])
+def test_cohort_specials_at_run_and_chunk_edges_match_plain(card, arm, per):
+    """NaN, -0.0, +0.0, +inf and -inf at series, bucket and chunk edges
+    (per = 4096: the real rows end at a chunk's edge), seven members."""
+    rng = np.random.default_rng(per + len(arm))
+    chip_smoke._prefix_case(torch, rng, 3, True, arm, 7, "real", per=per, special=True)
+
+
+@pytest.mark.parametrize("arm", ["shared", "scatter"])
+def test_cohort_carries_two_passes_of_fields_matches_plain(card, arm):
+    """12 fields with min/max: each member's records hold two passes of
+    FCAP fields, carried from chunk to chunk."""
+    from horaedb_tpu_torch.ops import scan_agg as S
+
+    G, nb = chip_smoke.PREFIX_ARMS[arm]
+    taken = S.cohort_arm(arm, 5, 13, G * nb, 12, True)
+    assert S.cohort_carry(taken, 5, 13, G * nb, 12, True)
+    chip_smoke._prefix_case(torch, np.random.default_rng(12), 12, True, arm, 5, "real",
+                            per=2003, special=True)
+
+
+def test_cohort_without_room_to_carry_matches_plain(card):
+    """64 members of 31 fields with min/max: the records do not fit beside
+    the tile, so each member commits at each chunk's end; four passes of
+    FCAP fields."""
+    from horaedb_tpu_torch.ops import scan_agg as S
+
+    assert not S.cohort_carry("scatter", 64, 32, 16 * 64, 31, True)
+    chip_smoke._prefix_case(torch, np.random.default_rng(64), 31, True, "scatter", 64, "real",
+                            per=1201)
+
+
 _RUN_FORMS = ("direct", "cached", "cached_selective")
 
 

@@ -814,3 +814,38 @@ def test_partial_pushdown_shards(monkeypatch, mesh8):
     rows_match(want, got, _scale(want))
     port.close()
 
+
+
+def test_shard_real_rows():
+    """Each shard's prefix of the table's first n_valid real rows."""
+    from horaedb_tpu_torch.parallel.dist_agg import shard_real_rows
+
+    assert [shard_real_rows(10, 4, d) for d in range(4)] == [4, 4, 2, 0]
+    assert [shard_real_rows(8, 4, d) for d in range(3)] == [4, 4, 0]
+    assert [shard_real_rows(0, 4, d) for d in range(2)] == [0, 0]
+
+
+def test_sharded_full_scan_reads_each_shard_real_rows(sql_dbs, sharded, monkeypatch):
+    """``dist_cached_step`` gives each shard's launch its part of the
+    entry's real rows, and the answer stays the reference's."""
+    from horaedb_tpu_torch.ops import scan_agg
+    from horaedb_tpu_torch.parallel.dist_agg import shard_real_rows
+
+    ref, _, port = sql_dbs
+    sql = AGG_QUERIES["double-groupby-all"]
+    for _ in range(2):
+        port.execute(sql)
+    seen = []
+    orig = scan_agg.cached_scan_agg_packed
+
+    def spy(*a, **k):
+        seen.append(k.get("n_rows"))
+        return orig(*a, **k)
+
+    monkeypatch.setattr(scan_agg, "cached_scan_agg_packed", spy)
+    got = port.execute(sql)
+    entry = port.interpreters.executor.scan_cache._entries["cpu"]
+    per = entry.series_parts[0].shape[0]
+    assert seen == [shard_real_rows(entry.n_valid, per, d) for d in range(8)]
+    assert sum(seen) == entry.n_valid < 8 * per
+    rows_match(ref.execute(sql).to_pylist(), got.to_pylist(), _scale(got.to_pylist()))

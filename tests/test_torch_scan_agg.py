@@ -244,8 +244,11 @@ LAYOUT_TUPLES = [
 ]
 
 
-def _run_cached(rng, layouts_case, need_minmax, selective, filters, n_agg, t0, width, lo, hi):
-    """``filters``: ((value field, op), ...)."""
+def _run_cached(rng, layouts_case, need_minmax, selective, filters, n_agg, t0, width, lo, hi,
+                prefix=None):
+    """``filters``: ((value field, op), ...); ``prefix``: the port's full
+    scan reads the "real" rows or the "padded" layout's (the reference
+    reads every row)."""
     series_layout, ts_layout, kinds = layouts_case
     arrays, layouts, host = _resident(rng, series_layout, ts_layout, kinds)
     gos, allow = _session(rng)
@@ -284,9 +287,10 @@ def _run_cached(rng, layouts_case, need_minmax, selective, filters, n_agg, t0, w
     )
     entry = entry_from_reference(arrays, layouts, "cpu")
     before = dict(port.PLAIN_CALLS)
+    rows = {None: None, "real": n, "padded": len(host["codes"])}[prefix]
     got = port.cached_scan_agg_packed(
         *entry.kernel_args().values(), torch.from_numpy(session), torch.from_numpy(dyn),
-        segment_impl="scatter", selective=selective, **entry.layout_kwargs(), **kw,
+        segment_impl="scatter", selective=selective, n_rows=rows, **entry.layout_kwargs(), **kw,
     )
     form = "cached_selective" if selective else "cached"
     assert port.PLAIN_CALLS[form] == before[form] + 1
@@ -462,3 +466,88 @@ def test_block_hash_slots_leave_room_for_the_claim_list():
                 per = 8 + (1 + (3 if minmax else 1) * F) * 4
                 assert 16 + h * per <= port.SHARED_MEM_BYTES or h == 2
                 assert h == slots or 16 + 2 * h * per > port.SHARED_MEM_BYTES
+
+
+# ---- the full scan's real-row prefix -----------------------------------------
+
+
+@pytest.mark.parametrize("layouts_case", LAYOUT_TUPLES, ids=lambda c: "-".join([c[0], c[1], *c[2]]))
+@pytest.mark.parametrize("prefix", ["real", "padded"])
+def test_cached_full_scan_over_a_prefix_matches_reference(layouts_case, prefix):
+    """``n_rows`` (the rows a full scan reads: the real rows or all of
+    the layout's) against the reference's program over every row."""
+    rng = np.random.default_rng(_seed(layouts_case, prefix))
+    nf = len(layouts_case[2])
+    gs = _run_cached(rng, layouts_case, True, False, ((nf - 1, ">="),), nf - 1,
+                     t0=-500, width=4_000, lo=0, hi=10**9, prefix=prefix)
+    assert gs.counts.sum() > 0
+
+
+def _prefix_table(rng):
+    arrays, layouts, host = _resident(rng, "delta", "delta", ("raw", "raw"))
+    entry = entry_from_reference(arrays, layouts, "cpu")
+    sessions = np.stack([ref.pack_session(*_session(rng)) for _ in range(3)])
+    dyns = np.stack([ref.pack_dyn([-5.0], lo, 10**9, 0, 3_000) for lo in (0, 700, 40_000)])
+    kw = dict(n_groups=8, n_buckets=8, n_agg_fields=1, numeric_filters=((1, 5),),
+              need_minmax=True, **entry.layout_kwargs())
+    return entry, torch.from_numpy(sessions), torch.from_numpy(dyns), kw, len(host["codes"])
+
+
+def test_plain_versions_give_one_answer_with_the_prefix_given_or_omitted():
+    """The plain versions take ``n_rows`` and ignore it: the reference's
+    function over every row, whatever the kernel's prefix."""
+    entry, sessions, dyns, kw, padded = _prefix_table(np.random.default_rng(5))
+    args = tuple(entry.kernel_args().values())
+    for b in range(sessions.shape[0]):
+        want = port.cached_scan_agg_packed(*args, sessions[b], dyns[b], **kw)
+        for rows in (S * PER, padded):
+            got = port.cached_scan_agg_packed(*args, sessions[b], dyns[b], n_rows=rows, **kw)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    want = port.cached_scan_agg_cohort(*args, sessions, dyns, **kw)
+    assert want.view(torch.int32).any()
+    for rows in (S * PER, padded):
+        got = port.cached_scan_agg_cohort(*args, sessions, dyns, n_rows=rows, **kw)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows", [-1, "past"])
+def test_a_prefix_outside_the_layout_raises(rows):
+    entry, sessions, dyns, kw, padded = _prefix_table(np.random.default_rng(6))
+    args = tuple(entry.kernel_args().values())
+    rows = padded + 1 if rows == "past" else rows
+    with pytest.raises(ValueError, match="n_rows"):
+        port.cached_scan_agg_packed(*args, sessions[0], dyns[0], n_rows=rows, **kw)
+    with pytest.raises(ValueError, match="n_rows"):
+        port.cached_scan_agg_cohort(*args, sessions, dyns, n_rows=rows, **kw)
+
+
+def test_executor_hands_the_real_rows_to_the_full_scan(monkeypatch):
+    """``Executor.dispatch_cached_agg`` passes the entry's real rows: a
+    prefix of the padded layout that holds every row."""
+    import horaedb_tpu_torch
+
+    monkeypatch.setenv("HORAEDB_ADAPTIVE_PATH", "0")
+    db = horaedb_tpu_torch.connect(None, device="cpu")
+    db.execute("CREATE TABLE t (host string TAG, v double, ts timestamp KEY) "
+               "ENGINE=Analytic WITH (segment_duration='2h')")
+    rng = np.random.default_rng(7)
+    db.execute("INSERT INTO t (host, v, ts) VALUES " + ",".join(
+        f"('h{h}', {float(rng.integers(-9, 10))}, {1000 + i * 10})"
+        for h in range(7) for i in range(150)))
+    db.flush_all()
+    sql = "SELECT host, sum(v) AS s, count(v) AS c FROM t WHERE ts >= 0 GROUP BY host"
+    seen = []
+    orig = port.cached_scan_agg_packed
+
+    def spy(*a, **k):
+        seen.append((k.get("selective"), k.get("n_rows")))
+        return orig(*a, **k)
+
+    monkeypatch.setattr(port, "cached_scan_agg_packed", spy)
+    for _ in range(3):
+        out = db.execute(sql)
+    entry = db.interpreters.executor.scan_cache._entries["t"]
+    assert entry.n_valid == 1050 < entry.padded_rows
+    assert seen and seen[-1] == (False, 1050)
+    assert sum(r["c"] for r in out.to_pylist()) == 1050
+    db.close()
