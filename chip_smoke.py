@@ -64,14 +64,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    128-bucket ring rolls over), one late batch inside the ring and one
    below its tail, every panel refreshed each simulated minute. Every
    answer equals an independent numpy group-by; at six checkpoints the
-   kill-switch rescan too; >= 90% of refreshes served from state; scatter
-   launches = commits x states, reset launches = head advances x states,
-   no fold error. A profiler trace over two steady minutes gives the
-   device's idle share of their commits' and refreshes' wall time.
-12. Live-window replay and timings: the last folds and gather of the main
-   path, kernel against plain; fold (reset and scatter) and gather device
-   times, bounds, plain and library times, the gather's copy back, the
-   fold's host time per commit, refresh latency from state and rescan.
+   kill-switch rescan too; >= 90% of refreshes served from state; one
+   fold launch a commit, which folds every state of the table (states
+   folded = commits x states), no fold error. A profiler trace over two
+   steady minutes gives the device's idle share of their commits' and
+   refreshes' wall time.
+12. Live-window replay and timings: the last grouped folds (with a reset
+   and without) and gather of the main path, kernel against plain state by
+   state; fold and gather device times, bounds, plain and library times,
+   the gather's copy back, the write hook's host time per commit (the
+   states' preparation, the launch path), refresh latency from state and
+   rescan.
 13. PromQL and alerts: a counter table at 4000 hosts, 10 s scrapes, a
    counter reset on every host; its all-tags state promoted, 30 min of live
    commits; increase/rate over the last 30 min at step 5 m served from
@@ -83,9 +86,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    dictionary-coded key, delta and dictionary timestamps, delta series
    codes, bf16), ts and f32 keys both ways, k in {1, 16, 128, 4096, n},
    n in {0, 1, 1000, 2**20, 2**25 + 4096}, every filter op, selections at
-   the exact count and around it, and the traps (+-0 at the threshold, NaN
-   last, +-inf, ties past k, fewer passing rows than k, an empty allow
-   list or time range). Indices and counts bit-equal.
+   the exact count and around it, both kernels over row windows (the
+   executor's, every real row, runs of passing rows and windows of one row
+   or a few, ones that start inside a delta block and end inside a tile),
+   and the traps (+-0 at the threshold, NaN last, +-inf, ties past k, fewer
+   passing rows than k, an empty allow list or time range). Indices, keys
+   and counts bit-equal; a windowed launch visits the windows' rows only.
 15. Raw main path: phases 4-6 ran at the default host-copy budget, which
    drops the copy that raw reads gather from, so lastpoint-host first
    takes the host route (no_host_rows); then the connection's budget is
@@ -93,13 +99,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (34,560,000 rows, rebuilt resident by the first) through
    ``Connection.execute``, REPEATS times each, every run on
    the device raw route with its kernel and equal to an independent numpy
-   answer; once each the kill-switch host route; one unflushed tick then
-   lastpoint-host again (hit+delta, the new row first); EXPLAIN; the
-   launch counters.
-16. Raw replay and timings: each query's last kernel call against its
-   plain version (bit-equal); device time, bound, plain and library
-   (torch.topk / torch.nonzero) times, the copy back; warm execute
-   latency against the kill-switch route.
+   answer, each launch over the executor's windows (a top-k's rows and
+   tiles counted by its keys kernel on the card, its kernels launched
+   counted); once each the kill-switch
+   host route; one unflushed tick then lastpoint-host again (hit+delta,
+   the new row first); EXPLAIN; the launch counters.
+16. Raw replay and timings: each query's last kernel call, with its
+   windows, against its plain version (bit-equal); device time, the rows
+   it visited and kernels it ran, the bound over the window rows and over
+   every real row, plain and library (torch.topk / torch.nonzero) times,
+   the copy back; warm execute latency against the kill-switch route.
 17. Cohort kernels vs plain (after phase 16, beside the resident cpu
    table): the cohort scan-aggregate (B1e) against its plain version over
    every resident layout, each arm, need_minmax both ways, all six filter
@@ -1691,14 +1700,15 @@ MERGE_KERNELS = ("init_hist", "plan_passes", "tile_hist", "digit_scan", "tile_sc
                  "epilogue")
 
 
-def _family_device_ms(torch, fn, names, reps=5, label=None):
+def _family_device_ms(torch, fn, names, reps=5, label=None, flush=None):
     """Mean device ms of one call of ``fn``: the sum of its kernels (every
     event whose kernel name, without its signature and template arguments,
     is one of ``names``; a memset is "Memset", a copy from the host "HtoD")
     on the profiler's device timeline; None without
     CUPTI tracing or when two traces record none of them. With ``label``,
     the window's mean ms a call of each kernel goes to
-    DETAIL["device_ms_windows"] and to the phase's output."""
+    DETAIL["device_ms_windows"] and to the phase's output; ``flush``
+    evicts L2 before each call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1707,6 +1717,8 @@ def _family_device_ms(torch, fn, names, reps=5, label=None):
         try:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
+                    if flush is not None:
+                        flush.zero_()
                     fn()
                 torch.cuda.synchronize()
         except RuntimeError as e:
@@ -1819,6 +1831,16 @@ LW_DEPTHS = (8, 128)
 LW_CAPS = (64, 4096)
 LW_ROWS = (0, 1, 4000, 24_000, 1 << 20)
 LW_GATHER_N = (1, 60, 128)
+# groups of states folded in one launch: (depth, cap, rows, one cell, reset,
+# pairs) a state; cpu-live's five states at a head advance, mixed shapes
+# with a state of no rows, and more states than one launch carries
+LW_GROUPS = (
+    [(128, 4096, 4000, False, "one", False)] * 5,
+    [(8, 64, 4000, False, "one", True), (128, 4096, 24_000, True, "all", False),
+     (16, 64, 0, False, "one", False), (128, 64, 1 << 20, True, "none", True),
+     (8, 4096, 1, False, "all", True)],
+    [(8, 64, 300, False, ("none", "one", "all")[i % 3], i % 2 == 0) for i in range(33)],
+)
 
 
 def _lw_batch(rng, depth, cap, n, one_cell, reset, pairs):
@@ -1877,21 +1899,12 @@ def _bits(torch, t):
     return t.view(torch.int32)
 
 
-def _lw_fold_check(torch, base, words, r, n, m, what) -> float:
-    """The fold kernel against its plain version on clones of one ring:
-    counts, mins and maxs bit-equal, sums and counter increments within
-    SUM_RTOL of |the cell before| + the sum of |x| folded into it. Returns
-    the largest |sum or increment difference|."""
+def _lw_compare(torch, got, want, scale, what) -> float:
+    """A folded ring against the plain version's: counts, mins and maxs
+    bit-equal, sums and counter increments within SUM_RTOL of the |x|
+    ring ``scale``. Returns the largest |sum or increment difference|."""
     from horaedb_tpu_torch.ops import livewindow as L
 
-    got, want = base.clone(), base.clone()
-    scale = base.clone()
-    for k in (1, 4):
-        scale[k] &= 0x7FFFFFFF
-    L.fold(got, words, r, n, m)
-    L.fold_plain(want, words, r, n, m)
-    L.fold_plain(scale, _lw_abs_words(torch, words, r, n, m), r, n, m)
-    _sync(torch)
     gp, wp, sp = L.planes(got), L.planes(want), L.planes(scale)
     check(torch.equal(gp[0], wp[0]), f"{what}: counts differ")
     check(torch.equal(_bits(torch, gp[2]), _bits(torch, wp[2])), f"{what}: mins differ")
@@ -1903,6 +1916,35 @@ def _lw_fold_check(torch, base, words, r, n, m, what) -> float:
               f"{what}: {name} differ beyond {SUM_RTOL} of sum|x|")
         err = max(err, float(d.max()))
     return err
+
+
+def _lw_group_check(torch, bases, words, spans, what) -> float:
+    """One fold of a group (``pack_group``'s words on the card, its spans)
+    against the plain version state by state, on clones of the rings: as
+    ``_lw_compare``, each state's scale |the cell before| + the sum of |x|
+    folded into it. Returns the largest |sum or increment difference|."""
+    from horaedb_tpu_torch.ops import livewindow as L
+
+    got = [b.clone() for b in bases]
+    L.fold_group(got, words, spans)
+    err = 0.0
+    for i, (base, (at, r, n, m)) in enumerate(zip(bases, spans)):
+        want, scale = base.clone(), base.clone()
+        for k in (1, 4):
+            scale[k] &= 0x7FFFFFFF
+        w = words[at:at + r + 3 * n + 3 * m]
+        L.fold_plain(want, w, r, n, m)
+        L.fold_plain(scale, _lw_abs_words(torch, w, r, n, m), r, n, m)
+        _sync(torch)
+        err = max(err, _lw_compare(torch, got[i], want, scale, f"{what} state {i}"))
+    return err
+
+
+def _lw_fold_check(torch, base, words, r, n, m, what) -> float:
+    """The fold kernel against its plain version on one state (a group of
+    one: its two barrier words, then ``pack_fold``'s words)."""
+    group = torch.cat([torch.zeros(2, dtype=torch.int32, device=words.device), words])
+    return _lw_group_check(torch, [base], group, [(2, r, n, m)], what)
 
 
 def _lw_gather_check(torch, rings, idx, g, what) -> float:
@@ -1961,6 +2003,18 @@ def phase_lw_kernels(torch) -> float:
                         torch, base, torch.from_numpy(idx).to(DEV), g,
                         f"gather depth {depth} cap {cap} n {nq} g {g}"))
                     n_cases += 1
+    for g, states in enumerate(LW_GROUPS):
+        bases, batches = [], []
+        for depth, cap, n, one_cell, reset, pairs in states:
+            base = L.alloc_rings(depth, cap, DEV)
+            L.fold_plain(base, *_lw_words(torch, _lw_batch(rng, depth, cap, 2 * cap, False,
+                                                           "none", True)))
+            bases.append(base)
+            batches.append(_lw_batch(rng, depth, cap, n, one_cell, reset, pairs))
+        words, spans = L.pack_group(batches)
+        err = max(err, _lw_group_check(torch, bases, torch.from_numpy(words).to(DEV), spans,
+                                       f"group {g} of {len(states)} states"))
+        n_cases += 1
     say(f"live-window kernels vs plain: {n_cases} cases passed in "
         f"{time.perf_counter() - t0:.1f} s; max |sum diff| {err}; gather max |diff| "
         f"{gather_err}")
@@ -2061,41 +2115,47 @@ def _device_busy_ms(prof) -> tuple[float, int]:
 
 
 class LwRecorder:
-    """Wraps the live-window wrappers and ``LiveState.fold`` during the main
-    path: keeps the last fold with a reset and without one, the last gather
-    (for the replay and the timings), and the host seconds of every state
-    fold and of the kernel wrapper inside it."""
+    """Wraps the live-window wrappers and the store's write hook during the
+    main path: keeps the last grouped fold with a reset and without one,
+    the last gather (for the replay and the timings), and the host seconds
+    of every write hook and of the launch path inside it."""
 
     def __init__(self):
         from horaedb_tpu_torch.ops import livewindow as L
         from horaedb_tpu_torch.state import livewindow as S
 
         self.L, self.S = L, S
-        self.orig = (L.fold, L.gather, S.LiveState.fold)
+        self.orig = (L.fold_group, L.gather, L.fold_batches)
         self.calls: dict = {}
         self.fold_s = self.launch_s = 0.0
-        orig_fold, orig_gather, orig_state_fold = self.orig
+        orig_group, orig_gather, orig_batches = self.orig
+        orig_hook = S.STORE._fold_committed
 
-        def fold(rings, words, r, n, m):
+        def fold_group(rings_list, words, spans):
+            orig_group(rings_list, words, spans)
+            reset = any(r for _, r, _, _ in spans)
+            self.calls["fold_reset" if reset else "fold"] = (list(rings_list), words, spans)
+
+        def fold_batches(rings_list, batches):
             t = time.perf_counter()
-            orig_fold(rings, words, r, n, m)
+            orig_batches(rings_list, batches)
             self.launch_s += time.perf_counter() - t
-            self.calls["fold_reset" if r else "fold"] = (rings, words, r, n, m)
 
         def gather(rings, idx, g):
             self.calls["gather"] = (rings, idx, g)
             return orig_gather(rings, idx, g)
 
-        def state_fold(state, rows):
+        def hook(table_data, rows):
             t = time.perf_counter()
-            ok = orig_state_fold(state, rows)
+            orig_hook(table_data, rows)
             self.fold_s += time.perf_counter() - t
-            return ok
 
-        L.fold, L.gather, S.LiveState.fold = fold, gather, state_fold
+        L.fold_group, L.gather, L.fold_batches = fold_group, gather, fold_batches
+        S.STORE._fold_committed = hook
 
     def restore(self):
-        self.L.fold, self.L.gather, self.S.LiveState.fold = self.orig
+        self.L.fold_group, self.L.gather, self.L.fold_batches = self.orig
+        del self.S.STORE._fold_committed
 
 
 def phase_lw_main(torch) -> dict:
@@ -2228,6 +2288,7 @@ def phase_lw_main(torch) -> dict:
         launches = dict(L.LAUNCHES)
         plain_calls = dict(L.PLAIN_CALLS)
         fold_errors = L.FOLD_ERRORS
+        folded = L.STATES_FOLDED
     finally:
         rec.restore()
         if prof is not None:
@@ -2236,13 +2297,12 @@ def phase_lw_main(torch) -> dict:
     n_states = len(S.STORE.stats()["states"])
     check(n_states == LW_FIELDS, f"{n_states} states resident at the end")
     check(fold_errors == 0, f"{fold_errors} folds failed")
-    counted = launches if DEV == "cuda" else {"fold_scatter": plain_calls["fold"],
-                                              "gather": plain_calls["gather"]}
-    check(counted["fold_scatter"] == commits * LW_FIELDS,
-          f"scatter launches {counted['fold_scatter']} != {commits} commits x {LW_FIELDS} states")
+    counted = launches if DEV == "cuda" else plain_calls
+    # one fold launch a commit carries every state of the table
+    check(counted["fold"] == commits, f"fold launches {counted['fold']} != {commits} commits")
+    check(folded == commits * LW_FIELDS,
+          f"states folded {folded} != {commits} commits x {LW_FIELDS} states")
     if DEV == "cuda":
-        check(launches["fold_reset"] == advances * LW_FIELDS,
-              f"reset launches {launches['fold_reset']} != {advances} advances x {LW_FIELDS}")
         check(not any(plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
     check(counted["gather"] == served > 0, f"gathers {counted['gather']} for {served} serves")
     check(served >= 0.9 * refreshes, f"only {served} of {refreshes} refreshes served from state")
@@ -2250,10 +2310,11 @@ def phase_lw_main(torch) -> dict:
     host_fold_ms = (rec.fold_s - rec.launch_s) / commits * 1e3
     say(f"live window: {commits} commits x {HOSTS} rows, {advances} head advances, "
         f"{refreshes} refreshes ({served} served from state) checked against the cells; "
-        f"launches {launches}; fold errors {fold_errors}")
+        f"launches {launches} ({counted['fold'] / commits:.2f} fold launches a commit), "
+        f"{folded} states folded; fold errors {fold_errors}")
     say(f"  commit (write + {LW_FIELDS} folds) median {statistics.median(commit_s) * 1e3:.3f} ms; "
-        f"state folds on the host {host_fold_ms:.3f} ms per commit beyond the launches "
-        f"({rec.launch_s / commits * 1e3:.3f} ms in the kernel wrapper); refresh median "
+        f"write hook on the host {host_fold_ms:.3f} ms per commit in the states' preparation "
+        f"({rec.launch_s / commits * 1e3:.3f} ms in the launch path); refresh median "
         f"{statistics.median(refresh_s) * 1e3:.3f} ms; answer check median "
         f"{statistics.median(check_s) * 1e3:.3f} ms; peak device memory {peak} B")
     if trace is not None:
@@ -2263,7 +2324,8 @@ def phase_lw_main(torch) -> dict:
             f"({trace['device_events']} kernels and copies) of {trace['wall_ms']:.3f} ms of "
             f"their wall time, idle share {trace['idle_share']:.6f}")
     out = {
-        "db": db, "rec": rec, "launches": launches, "commits": commits, "advances": advances,
+        "db": db, "rec": rec, "launches": launches, "states_folded": folded,
+        "commits": commits, "advances": advances,
         "refreshes": refreshes, "served": served, "checkpoints": checkpoints, "peak": peak,
         "commit_ms_median": statistics.median(commit_s) * 1e3,
         "refresh_ms_median": statistics.median(refresh_s) * 1e3,
@@ -2325,37 +2387,51 @@ def _lw_fold_bound(rings, words, r, n, m) -> tuple[float, int]:
     return nbytes / PEAK_BYTES_S * 1e3, int(nbytes)
 
 
+def _lw_group_bound(rings_list, words, spans) -> tuple[float, int]:
+    """``_lw_fold_bound`` summed over the states of one grouped fold."""
+    total = 0
+    for rings, (at, r, n, m) in zip(rings_list, spans):
+        total += _lw_fold_bound(rings, words[at:at + r + 3 * n + 3 * m], r, n, m)[1]
+    return total / PEAK_BYTES_S * 1e3, total
+
+
 def phase_lw_timings(torch, main, card) -> list:
-    """The main path's last folds (with and without a reset) and its last
-    gather, replayed kernel against plain; then each kernel's device time,
-    bound, plain and library times, the gather's copy back, and the
-    refresh latency from state against the rescan in this call."""
+    """The main path's last grouped folds (with a reset and without one)
+    and its last gather, replayed kernel against plain; then each kernel's
+    device time, bound, plain and library times, the gather's copy back,
+    and the refresh latency from state against the rescan in this call."""
     from horaedb_tpu_torch.ops import livewindow as L
 
     calls = main["rec"].calls
     err = 0.0
     for kind in ("fold_reset", "fold"):
         check(kind in calls, f"the main path made no {kind} call")
-        err = max(err, _lw_fold_check(torch, *calls[kind], f"main path {kind} replay"))
+        rings_list, words, spans = calls[kind]
+        err = max(err, _lw_group_check(torch, rings_list, words, spans,
+                                       f"main path {kind} replay"))
     rings, idx, g = calls["gather"]
     gather_err = _lw_gather_check(torch, rings, idx, g, "main path gather replay")
     say(f"live-window replay: the last folds and gather equal their plain versions; "
         f"max |sum diff| {err}, gather max |diff| {gather_err}")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    rings, words, r, n, m = calls["fold_reset"]
-    scratch = rings.clone()
-    fold = lambda: L.fold(scratch, words, r, n, m)  # noqa: E731
-    reset_ms = _device_ms(torch, fold, "ring_reset", flush=flush)
-    scatter_ms = _device_ms(torch, fold, "ring_scatter", flush=flush)
+    rings_list, words, spans = calls["fold_reset"]
+    scratch = [r.clone() for r in rings_list]
+    fold = lambda: L.fold_group(scratch, words, spans)  # noqa: E731
+    fold_dev_ms = _device_ms(torch, fold, "ring_fold", flush=flush)
     fold_events_ms = _time_launch(torch, fold, flush=flush)
-    fold_ms = (reset_ms + scatter_ms) if None not in (reset_ms, scatter_ms) else fold_events_ms
-    fold_plain_ms = _time_launch(torch, lambda: L.fold_plain(scratch, words, r, n, m), reps=5,
-                                 flush=flush)
-    fold_bound, fold_bytes = _lw_fold_bound(rings, words, r, n, m)
-    _, w0, r0, n0, m0 = calls["fold"]
-    scatter_only_ms = _device_ms(torch, lambda: L.fold(scratch, w0, r0, n0, m0),
-                                 "ring_scatter", flush=flush)
+    fold_ms = fold_dev_ms if fold_dev_ms is not None else fold_events_ms
+
+    def plain():
+        for ring, (at, r, n, m) in zip(scratch, spans):
+            L.fold_plain(ring, words[at:], r, n, m)
+
+    fold_plain_ms = _time_launch(torch, plain, reps=5, flush=flush)
+    fold_bound, fold_bytes = _lw_group_bound(rings_list, words, spans)
+    rings0, w0, spans0 = calls["fold"]
+    scratch0 = [r.clone() for r in rings0]
+    no_reset_ms = _device_ms(torch, lambda: L.fold_group(scratch0, w0, spans0), "ring_fold",
+                             flush=flush)
     rings, idx, g = calls["gather"]
     gather = lambda: L.gather(rings, idx, g)  # noqa: E731
     gather_dev_ms = _device_ms(torch, gather, "ring_gather", flush=flush)
@@ -2377,8 +2453,7 @@ def phase_lw_timings(torch, main, card) -> list:
     launches = main["launches"]
     kernels = [
         {"name": "livewindow_fold", "route": "cuda", "source": LW_SRC,
-         "replaces": LW_REPLACES["fold"],
-         "launches": int(launches["fold_reset"] + launches["fold_scatter"]),
+         "replaces": LW_REPLACES["fold"], "launches": int(launches["fold"]),
          "max_abs_err": err, "ms": fold_ms, "plain_ms": fold_plain_ms, "bound_ms": fold_bound,
          "bound_by": "bytes", "library_ms": None},
         {"name": "livewindow_gather", "route": "cuda", "source": LW_SRC,
@@ -2386,10 +2461,13 @@ def phase_lw_timings(torch, main, card) -> list:
          "max_abs_err": gather_err, "ms": gather_ms, "plain_ms": gather_plain_ms,
          "bound_ms": gather_bound, "bound_by": "bytes", "library_ms": lib_ms},
     ]
+    rows = [n for _, _, n, _ in spans]
     detail = {
-        "fold_rows": n, "fold_pairs": m, "fold_reset_slots": r, "fold_bound_bytes": fold_bytes,
-        "reset_ms": reset_ms, "scatter_ms": scatter_ms, "fold_events_ms": fold_events_ms,
-        "scatter_ms_without_reset": scatter_only_ms, "fold_plain_ms": fold_plain_ms,
+        "fold_states": len(spans), "fold_rows": rows, "fold_pairs": [m for *_, m in spans],
+        "fold_reset_slots": [r for _, r, _, _ in spans], "fold_bound_bytes": fold_bytes,
+        "fold_ms": fold_dev_ms, "fold_events_ms": fold_events_ms,
+        "fold_ms_without_reset": no_reset_ms, "fold_plain_ms": fold_plain_ms,
+        "states_folded": main["states_folded"],
         "host_fold_ms_per_commit": main["host_fold_ms_per_commit"],
         "launch_ms_per_commit": main["launch_ms_per_commit"],
         "gather_n": n_idx, "gather_g": g, "gather_ms": gather_ms,
@@ -2398,14 +2476,14 @@ def phase_lw_timings(torch, main, card) -> list:
         "refresh_served_ms": served, "refresh_rescan_ms": rescan, "peak_bytes": main["peak"],
     }
     DETAIL["livewindow_timings"] = detail
-    say(f"kernel livewindow_fold at a head-advance commit ({n} rows, {m} pairs, {r} reset "
-        f"slot(s), {main['launches']['fold_scatter']} scatter + "
-        f"{main['launches']['fold_reset']} reset main-path launches): reset {reset_ms} ms + "
-        f"scatter {scatter_ms} ms on the device timeline ({fold_events_ms:.4f} ms by events "
-        f"incl. launches); scatter without a reset {scatter_only_ms} ms; plain "
-        f"{fold_plain_ms:.4f} ms; bound {fold_bound:.6f} ms ({fold_bytes} B); host "
-        f"{main['host_fold_ms_per_commit']:.3f} ms per commit beyond "
-        f"{main['launch_ms_per_commit']:.3f} ms in the wrapper [{card}]")
+    say(f"kernel livewindow_fold at a head-advance commit ({len(spans)} states in one launch, "
+        f"rows {rows}, reset slots {detail['fold_reset_slots']}; {launches['fold']} main-path "
+        f"launches for {main['states_folded']} state folds): {fold_dev_ms} ms on the device "
+        f"timeline ({fold_events_ms:.4f} ms by events incl. the launch); a commit without a "
+        f"reset {no_reset_ms} ms; plain {fold_plain_ms:.4f} ms; bound {fold_bound:.6f} ms "
+        f"({fold_bytes} B); host {main['host_fold_ms_per_commit']:.3f} ms per commit in the "
+        f"states' preparation, {main['launch_ms_per_commit']:.3f} ms in the launch path "
+        f"[{card}]")
     say(f"kernel livewindow_gather at n {n_idx} x g {g} ({launches['gather']} main-path "
         f"launches): {gather_ms:.4f} ms ({gather_events_ms:.4f} ms by events), plain "
         f"{gather_plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound {gather_bound:.6f} ms "
@@ -2561,7 +2639,7 @@ def phase_lw_promql(torch) -> dict:
     launches, plain_calls = dict(L.LAUNCHES), dict(L.PLAIN_CALLS)
     check(L.FOLD_ERRORS == 0, f"{L.FOLD_ERRORS} counter folds failed")
     if DEV == "cuda":
-        check(launches["fold_scatter"] == CTR_LIVE_COMMITS, f"counter folds {launches}")
+        check(launches["fold"] == CTR_LIVE_COMMITS, f"counter folds {launches}")
         check(launches["gather"] > 0, "no gather")
         check(not any(plain_calls.values()), f"plain versions ran on the card: {plain_calls}")
     say(f"alert CtrHigh fired for {len(fired)} hosts from state (route livewindow); "
@@ -2689,15 +2767,29 @@ def _raw_inputs(torch, rng, S, allow_frac, lits, lo, hi, key_lo=0, key_hi=0):
 
 def _raw_check(torch, kind, cols, session, dyn, kw, what) -> int:
     """One launch of the ``kind`` kernel and its plain version on the same
-    tensors; fails unless bit-equal (a selection's ``windows`` reach only
-    the kernel: the plain version scans every row). Returns the rows the
-    answer holds."""
+    tensors; fails unless bit-equal (``windows`` reach only the kernel:
+    the plain version scans every row). Returns the rows the answer
+    holds."""
+    import numpy as np
+
     from horaedb_tpu_torch.ops import scan_topk as T
 
     if kind == "raw_topk":
         # the slots alone, then with the keys they were ranked by (the
-        # sharded top-k's form): the same slots, the keys as the plain ones
-        alone = T.raw_topk_packed(*cols, session, dyn, **kw)
+        # sharded top-k's form): the same slots, the keys as the plain ones;
+        # given windows, the keys kernel counts their rows and tiles as it
+        # runs, and no others
+        if DEV == "cuda" and kw.get("windows") is not None:
+            stats = torch.zeros(len(T.TOPK_STATS), dtype=torch.int64, device=DEV)
+            alone = T.raw_topk_packed(*cols, session, dyn, stats=stats, **kw)
+            w = np.asarray(kw["windows"]).reshape(-1, 2)
+            want_rows = w[:, 1] - w[:, 0]
+            want_stats = [int(want_rows.sum()), int(((want_rows + T.TILE - 1) // T.TILE).sum())]
+            check(stats.tolist() == want_stats,
+                  f"{what}: the keys kernel decoded and walked {stats.tolist()} rows and "
+                  f"tiles, the windows hold {want_stats}")
+        else:
+            alone = T.raw_topk_packed(*cols, session, dyn, **kw)
         got = T.raw_topk_packed(*cols, session, dyn, with_keys=True, **kw)
         _sync(torch)
         want = T.raw_topk_plain(*cols, session, dyn, with_keys=True, **kw)
@@ -2800,10 +2892,13 @@ def _window_sets(torch, rng, cols, lay, session, dyn, filters, full: bool) -> di
     return sets
 
 
-def _raw_window_cases(torch, rng, cols, lay, session, dyn, filters, what, full=True) -> int:
+def _raw_window_cases(torch, rng, cols, lay, session, dyn, filters, what, full=True,
+                      topk=None) -> int:
     """The selection over each of ``_window_sets``' window sets against its
     plain version (which scans every row), bit-equal, with as many slots
-    as rows pass; the tiles a launch walks are the windows' tiles."""
+    as rows pass; the tiles a launch walks are the windows' tiles. With
+    ``topk`` (the top-k's keyword arguments), the top-k over each set
+    instead, its slots and keys bit-equal to the plain version's."""
     from horaedb_tpu_torch.ops import encoding as E, scan_topk as T
 
     n = E.layout_rows(cols[0], lay["series_layout"])
@@ -2811,6 +2906,11 @@ def _raw_window_cases(torch, rng, cols, lay, session, dyn, filters, what, full=T
                                    numeric_filters=filters, **lay)[0])
     n_cases = 0
     for name, w in _window_sets(torch, rng, cols, lay, session, dyn, filters, full).items():
+        if topk is not None:
+            _raw_check(torch, "raw_topk", cols, session, dyn, {**topk, "windows": w},
+                       f"{what} k={topk['k']} windows={name} ({len(w)})")
+            n_cases += 1
+            continue
         tiles = T.TILES["raw_select"]
         _raw_check(torch, "raw_select", cols, session, dyn,
                    dict(select_slots=count, numeric_filters=filters, windows=w, **lay),
@@ -2838,12 +2938,19 @@ def _raw_cases(torch, rng, n, layout, ks, keys, op_at) -> int:
         lo, hi = (0, ts_max + 1) if full else (15, max(ts_max - 25, 15))
         key_lo, key_hi = T.topk_key_bounds(desc, key_is_ts, lo, hi)
         session, dyn = _raw_inputs(torch, rng, n_series, 0.8, [5.0], lo, hi, key_lo, key_hi)
+        big = n >= 1 << 24  # over 2^24 rows, the windows of one key's allow list
         for k in sorted({min(k, max(n, 1)) for k in ks} | {max(n, 1)}):
             kw = dict(k=k, descending=desc, key_is_ts=key_is_ts, key_field=0,
                       numeric_filters=filters, **lay)
-            _raw_check(torch, "raw_topk", cols, session, dyn, kw,
-                       f"raw_topk n={n} {layout} ts={key_is_ts} desc={desc} {op} k={k}")
+            what = f"raw_topk n={n} {layout} ts={key_is_ts} desc={desc} {op}"
+            _raw_check(torch, "raw_topk", cols, session, dyn, kw, f"{what} k={k}")
             n_cases += 1
+            # over the window sets too, at the smallest k the executor gives
+            # and at k = n: every set at the first key, else the executor's
+            # (the allowed series' rows in range)
+            if n and k in (min(16, n), n) and (j == 0 or not big):
+                n_cases += _raw_window_cases(torch, rng, cols, lay, session, dyn, filters,
+                                             what, full=j == 0 and not big, topk=kw)
         count = int(T.raw_select_plain(*cols, session, dyn, select_slots=0,
                                        numeric_filters=filters, **lay)[0])
         for slots in sorted({count, count + 3, max(count - 1, 0)}):
@@ -2852,7 +2959,6 @@ def _raw_cases(torch, rng, n, layout, ks, keys, op_at) -> int:
                        f"raw_select n={n} {layout} {op} slots={slots} (count {count})")
             n_cases += 1
         what = f"raw_select n={n} {layout} {op} [{lo}, {hi})"
-        big = n >= 1 << 24  # over 2^24 rows, the windows of one key's allow list
         if j == 0 or not big:
             n_cases += _raw_window_cases(torch, rng, cols, lay, session, dyn, filters, what,
                                          full=not big)
@@ -3064,19 +3170,47 @@ def _select_geometry(T, kw, n_valid, walked, what) -> None:
         "windows": len(w), "rows": int(rows.sum()), "tiles": tiles, "walked": walked}
 
 
+def _topk_geometry(T, kw, n_valid, walked, what) -> None:
+    """The executor's windows of one top-k: sorted, disjoint, inside the
+    real rows [0, n_valid); on the card the launch's keys kernel counted
+    their rows and tiles as it ran, and no others (``walked``: the rows
+    and tiles its ``stats`` got, and the kernels the launch sequence
+    counted)."""
+    import numpy as np
+
+    w = np.asarray(kw["windows"], dtype=np.int64).reshape(-1, 2)
+    rows = w[:, 1] - w[:, 0]
+    tiles = int(((rows + T.TILE - 1) // T.TILE).sum())
+    check(len(w) > 0 and bool((rows > 0).all() and (w[1:, 0] > w[:-1, 1]).all())
+          and int(w[0, 0]) >= 0 and int(w[-1, 1]) <= n_valid,
+          f"{what}: windows {w[:4].tolist()}... outside the {n_valid} real rows")
+    check(DEV != "cuda" or walked[:2] == [int(rows.sum()), tiles],
+          f"{what}: the keys kernel decoded {walked[0]} rows and walked {walked[1]} tiles, "
+          f"the windows hold {int(rows.sum())} and {tiles}")
+    DETAIL.setdefault("topk_geometry", {})[what] = {
+        "windows": len(w), "rows": int(rows.sum()), "tiles": tiles, "visited": walked[0],
+        "walked": walked[1], "kernels": walked[2], "n_valid": n_valid}
+
+
 class RawRecorder:
     """Wraps the raw-read wrappers during the main path to keep, per query,
-    the last main-path call of its kernel (args and kwargs) for phase 16."""
+    the last main-path call of its kernel (args and kwargs) for phase 16.
+    On the card each top-k call also gets ``stats``, which its keys kernel
+    adds its row and tile counts to (``scan_topk.TOPK_STATS``)."""
 
-    def __init__(self, T):
+    def __init__(self, T, torch=None):
         self.T = T
         self.orig = (T.raw_topk_packed, T.raw_select_packed)
         self.calls: dict = {}
         self.query = ""
+        self.stats = (torch.zeros(len(T.TOPK_STATS), dtype=torch.int64, device=DEV)
+                      if torch is not None and DEV == "cuda" else None)
         orig_topk, orig_select = self.orig
 
         def topk(*a, **k):
             self.calls[self.query] = ("raw_topk", a, k)
+            if self.stats is not None:
+                k = {**k, "stats": self.stats}
             return orig_topk(*a, **k)
 
         def select(*a, **k):
@@ -3128,7 +3262,7 @@ def phase_raw_main(torch, main) -> dict:
         f"{default_s * 1e3:.3f} ms, equal to numpy; budget raised, cpu entry evicted")
     say(f"cpu rows at usage_user == 100.0 in the second 12 h: {exp['n_at_100_second_half']}; "
         f"high-cpu-1 reads host_{exp['hc_host']}")
-    rec = RawRecorder(T)
+    rec = RawRecorder(T, torch)
     _sync(torch)
     T.reset_counts()  # the raw main path's launches start here
     out = {"queries": {}}
@@ -3137,7 +3271,9 @@ def phase_raw_main(torch, main) -> dict:
             rec.query = name
             runs = []
             for _ in range(REPEATS):
-                tiles = T.TILES["raw_select"]
+                tiles, kernels = T.TILES["raw_select"], T.KERNELS["raw_topk"]
+                if rec.stats is not None:
+                    rec.stats.zero_()
                 t = time.perf_counter()
                 res = db.execute(sql)
                 secs = time.perf_counter() - t
@@ -3148,6 +3284,10 @@ def phase_raw_main(torch, main) -> dict:
                 if kernel == "select":
                     _select_geometry(T, rec.calls[name][2], cache._entries["cpu"].n_valid,
                                      T.TILES["raw_select"] - tiles, name)
+                else:
+                    stats = rec.stats.tolist() if rec.stats is not None else [None, None]
+                    _topk_geometry(T, rec.calls[name][2], cache._entries["cpu"].n_valid,
+                                   [*stats, T.KERNELS["raw_topk"] - kernels], name)
                 got = res.to_pylist()
                 _same_rows(got, exp[name], f"{name} vs numpy")
                 runs.append({"seconds": secs, "cache": m.get("cache"),
@@ -3218,6 +3358,10 @@ def phase_raw_main(torch, main) -> dict:
     for what, g in DETAIL.get("select_geometry", {}).items():
         say(f"raw {what} selection geometry: {g['windows']} windows of {g['rows']} rows in "
             f"{g['tiles']} tiles (walked {g['walked']}), inside the real rows")
+    for what, g in DETAIL.get("topk_geometry", {}).items():
+        say(f"raw {what} top-k geometry: {g['windows']} windows of {g['rows']} rows in "
+            f"{g['tiles']} tiles; its keys kernel counted {g['visited']} rows in "
+            f"{g['walked']} tiles, {g['kernels']} kernels, of {g['n_valid']} real rows")
     out.update(launches=launches, calls=rec.calls, default_budget_s=default_s,
                host_bytes=host_bytes)
     DETAIL["raw_main"] = {k: v for k, v in out.items() if k != "calls"}
@@ -3226,10 +3370,10 @@ def phase_raw_main(torch, main) -> dict:
 
 # ---- phase 16: raw-read replay and timings -----------------------------------
 
-# the selection's device work is its memset, the copy of its tile table and
-# the raw_select launch
-RAW_KERNELS = ("raw_init", "raw_keys", "topk_hist", "topk_pick", "raw_flags", "raw_scan",
-               "raw_write", "raw_fill", "raw_select", "Memset", "HtoD")
+# the top-k's device work is its memset, the copy of its tile table and
+# topk_keys, topk_refine and topk_write; the selection's, its memset, the
+# copy of its tile table and the raw_select launch
+RAW_KERNELS = ("topk_keys", "topk_refine", "topk_write", "raw_select", "Memset", "HtoD")
 
 
 def _raw_bound(torch, kind, args, kw) -> tuple[float, str, dict]:
@@ -3331,6 +3475,20 @@ def phase_raw_timings(torch, raw, card) -> list:
         plain_ms = _time_launch(torch, plain, reps=3)
         lib_ms = _time_launch(torch, _raw_library(torch, kind, args, kw))
         bound_ms, bound_by, work = _raw_bound(torch, kind, args, kw)
+        # the same bound over every real row, as if no window were given
+        real_ms, _, _ = _raw_bound(torch, kind, args,
+                                   {k: v for k, v in kw.items() if k != "windows"})
+        kernels_before = T.KERNELS.get(kind, 0)
+        if kind == "raw_topk":
+            # the rows the keys kernel decoded, counted on the card
+            stats = torch.zeros(len(T.TOPK_STATS), dtype=torch.int64, device=DEV)
+            launch_fn(*args, **kw, stats=stats)
+            visited = stats.tolist()[0]
+        else:
+            launch()
+            w = kw.get("windows")  # the selection: its windows' rows
+            visited = int(sum(b - a for a, b in w)) if w is not None else work["rows"]
+        n_kernels = T.KERNELS.get(kind, 0) - kernels_before
         copies = []
         for _ in range(10):
             out = launch()
@@ -3341,16 +3499,20 @@ def phase_raw_timings(torch, raw, card) -> list:
         copy_ms = statistics.median(copies)
         slots = kw.get("k", kw.get("select_slots"))
         say(f"kernel {kind} at {name} ({work['rows']} rows, {work['real']} real, {slots} slots, "
-            f"{work['bytes']} B): "
+            f"{work['bytes']} B; {visited} rows "
+            + ("visited" if kind == "raw_topk" else "in its windows")
+            + (f" by {n_kernels} kernels" if kind == "raw_topk" else "") + "): "
             f"{ms:.4f} ms on the device timeline "
             f"({'profiler' if device_ms is not None else 'events'}), {launch_ms:.4f} ms "
             f"launch incl. wrapper, plain {plain_ms:.4f} ms, "
             f"{'torch.topk' if kind == 'raw_topk' else 'torch.nonzero'} {lib_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), copy back {copy_ms:.4f} ms [{card}]")
+            f"bound {bound_ms:.6f} ms ({bound_by}, the window rows; {real_ms:.6f} over every "
+            f"real row), copy back {copy_ms:.4f} ms [{card}]")
         DETAIL.setdefault("raw_kernels", {})[name] = {
             "kernel": kind, "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound_ms, "bytes": work["bytes"],
-            "slots": slots, "copy_ms": copy_ms}
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_real_rows_ms": real_ms,
+            "bytes": work["bytes"], "slots": slots, "copy_ms": copy_ms,
+            "rows_visited": visited, "kernels": n_kernels}
         if heaviest[kind] == name:
             kernels.append({
                 "name": kind, "route": "cuda", "source": RAW_SRC,
@@ -4150,7 +4312,8 @@ def phase_flood_timings(torch, main, flood, raw, card) -> list:
     sess = torch.from_numpy(allow).to(session.device)
     dyns = dyn.repeat(32, 1)
     k = T.padded_k(E.layout_rows(sp, rkw["series_layout"]), 10)
-    ckw = {**rkw, "k": k}
+    # every member's rows: not host_7's windows
+    ckw = {**{n: v for n, v in rkw.items() if n != "windows"}, "k": k}
     got = T.raw_topk_cohort(sp, tp, vals, sess, dyns, **ckw)
     _sync(torch)
     want, p_ms = _time_once(torch, lambda: T.raw_topk_cohort_plain(sp, tp, vals, sess, dyns,

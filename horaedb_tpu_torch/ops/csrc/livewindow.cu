@@ -13,25 +13,34 @@
 // the buffer IN PLACE, and the gather writes one contiguous [5][n][g] output
 // so a read is one device-to-host copy.
 //
-// Fold = two launches on the caller's stream, in this order:
-//   ring_reset    only when the host's reset mask names a slot: every cell
-//                 of those slots goes back to (0, 0, +inf, -inf, 0). One
-//                 launch cannot order the reset before the scatter across
-//                 blocks, so the reset is its own kernel, and stream order
-//                 puts it first.
-//   ring_scatter  the rows, then the counter pairs. Each lane loads one row
-//                 per 32-row step; each warp walks a contiguous run of rows.
-//                 A step whose valid rows all land on one cell is reduced
-//                 with shuffles and carried in registers while the next
-//                 steps stay on that cell (one commit per run); the rows of
-//                 a mixed step commit lane by lane. Commits are atomicAdd
-//                 for count, sum and inc; min and max go through a CAS loop
-//                 on the float bits (NaN propagates, -0.0 is the min and
-//                 +0.0 the max of {-0.0, +0.0}, as the reference's scatter
-//                 gives them). A commit per row would serialise a hot cell
-//                 on its atomics and round its f32 sum once per row: at
-//                 2^20 rows on one cell that drifts past SUM_RTOL of the
-//                 sum of |x|; one commit per run keeps it inside.
+// Fold = ONE launch a commit for every state of a table (ring_fold): a
+// descriptor a state gives its ring, its packed words, its reset slots,
+// rows and counter pairs. The launch
+//   1. resets the reused slots of every state (when any state names one):
+//      each cell goes back to (0, 0, +inf, -inf, 0);
+//   2. waits at a grid-wide barrier, so no row lands in a slot before the
+//      slot is reset;
+//   3. scatters the rows, then the counter pairs: every state's rows are cut
+//      into runs of a shared length (a multiple of 32), one warp a run. Each
+//      lane loads one row per 32-row step; a step whose valid rows all land
+//      on one cell is reduced with shuffles and carried in registers while
+//      the next steps stay on that cell (one commit per run); the rows of a
+//      mixed step commit lane by lane. Commits are atomicAdd for count, sum
+//      and inc; min and max go through a CAS loop on the float bits (NaN
+//      propagates, -0.0 is the min and +0.0 the max of {-0.0, +0.0}, as the
+//      reference's scatter gives them). A commit per row would serialise a
+//      hot cell on its atomics and round its f32 sum once per row: at 2^20
+//      rows on one cell that drifts past SUM_RTOL of the sum of |x|; one
+//      commit per run keeps it inside.
+// The barrier is two counter words of the launch's own input (zeroed by the
+// host's copy, and again by the last block to leave it), so launches never
+// share it; the launch is cooperative when
+// it resets, so every block is resident and the barrier cannot hang. The
+// other way to order the reset, a split that needs no order (a block that
+// resets a slot scatters the rows landing in it), would put a head-advance
+// commit's rows, which all land in the new slot, on one block a state, or
+// make each block re-read its state's rows; a commit of 4000 rows a state
+// fills about 80 blocks, so one barrier costs less.
 // Indices follow the reference's scatter: an index in [-extent, -1] wraps
 // once (Python style); any other index outside [0, extent) drops the row.
 // slot == depth is how the state layer masks rows that must not fold.
@@ -39,9 +48,12 @@
 // below zero wraps once, then every index is clamped into [0, depth - 1].
 //
 // What bounds it: bytes, and at a commit's size launch latency. A commit of
-// a few thousand rows moves a few hundred kilobytes (12 B a row in, 4 planes
-// read and written per touched cell), microseconds at 3.35 TB/s; the two
-// launches cost more than the work.
+// a few thousand rows a state moves a few hundred kilobytes (12 B a row in,
+// 4 planes read and written per touched cell), microseconds at 3.35 TB/s.
+// Before, each state folded on its own: a reset launch and a scatter launch
+// of 16 blocks (one 32-row step a warp), ten launches a head-advance commit
+// of five states, each mostly the fixed cost of a launch; now one launch
+// carries the work of every state.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,15 +66,33 @@
 // cell take about two thousand commits, not a million
 #define SCATTER_BLOCKS_PER_SM 2
 
-struct FoldArgs {
+#define FOLD_MAX_STATES 32  // states of one ring_fold launch
+
+// one state of a fold launch; the host fills rings to cap, the launcher the rest
+struct FoldState {
   int32_t* rings;        // [PLANES][depth][cap]
   const int32_t* in;     // reset slots [n_reset], then slot, grp, val bits [n_rows] each,
                          // then pair_slot, pair_grp, pair_delta bits [n_pairs] each
-  long long n_reset;
-  long long n_rows;
-  long long n_pairs;
+  int n_reset;
+  int n_rows;
+  int n_pairs;
   int depth;
   int cap;
+  int row_warp0;         // the first warp of the state's rows, and of its pairs
+  int pair_warp0;
+  int pad_;
+  long long reset0;      // the state's first cell in the launch's reset cells
+};
+
+struct FoldArgs {
+  FoldState s[FOLD_MAX_STATES];
+  unsigned int* barrier; // two zeroed words of the launch's input
+  long long n_reset_cells;
+  int n_states;
+  int row_chunk;         // rows (and pairs) a warp, a multiple of 32
+  int pair_chunk;
+  int row_warps;
+  int pair_warps;
   int device;
 };
 
@@ -113,21 +143,49 @@ __device__ __forceinline__ bool scatter_index(int& i, int extent) {
   return i >= 0 && i < extent;
 }
 
-__global__ void ring_reset(FoldArgs a) {
-  const long long plane = (long long)a.depth * a.cap;
-  const long long total = a.n_reset * a.cap;
-  float* f = reinterpret_cast<float*>(a.rings);
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+// the last state whose first item (at ``off``) is at or below ``x``
+template <typename F>
+__device__ __forceinline__ int state_at(const FoldArgs& a, long long x, F off) {
+  int k = 0;
+  while (k + 1 < a.n_states && off(a.s[k + 1]) <= x) ++k;
+  return k;
+}
+
+__device__ __forceinline__ void reset_cells(const FoldArgs& a) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < a.n_reset_cells;
        i += (long long)gridDim.x * blockDim.x) {
-    int s = a.in[i / a.cap];
-    if (s < 0 || s >= a.depth) continue;
-    const long long o = (long long)s * a.cap + i % a.cap;
-    a.rings[o] = 0;
+    const FoldState& st = a.s[state_at(a, i, [](const FoldState& t) { return t.reset0; })];
+    const long long c = i - st.reset0;
+    const int s = st.in[c / st.cap];
+    if (s < 0 || s >= st.depth) continue;
+    const long long plane = (long long)st.depth * st.cap;
+    const long long o = (long long)s * st.cap + c % st.cap;
+    float* f = reinterpret_cast<float*>(st.rings);
+    st.rings[o] = 0;
     f[plane + o] = 0.0f;
     f[2 * plane + o] = INFINITY;
     f[3 * plane + o] = -INFINITY;
     f[4 * plane + o] = 0.0f;
   }
+}
+
+// every block of the launch arrives before any leaves (all resident: the
+// launch is cooperative); the fences make the resets visible to the
+// commits. count[0] counts arrivals, count[1] departures; the last block to
+// leave zeroes both, so the same input folds again (a replay) as it did.
+__device__ __forceinline__ void grid_barrier(unsigned int* count) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(&count[0], 1u);
+    while (*(volatile unsigned int*)&count[0] < gridDim.x) __nanosleep(64);
+    __threadfence();
+    if (atomicAdd(&count[1], 1u) == gridDim.x - 1) {
+      count[0] = 0;
+      count[1] = 0;
+    }
+  }
+  __syncthreads();
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -171,17 +229,12 @@ __device__ __forceinline__ void commit(const Planes& p, long long cell, int cnt,
   }
 }
 
+// rows [begin, end) of one state, by one warp
 template <bool ROWS>
 __device__ void scatter_runs(const Planes& p, const int32_t* slot, const int32_t* grp,
-                             const float* val, long long n, int depth, int cap) {
+                             const float* val, long long begin, long long end, int depth,
+                             int cap) {
   const int lane = threadIdx.x & 31;
-  const long long warp = ((long long)blockIdx.x * BLOCK + threadIdx.x) >> 5;
-  const long long n_warps = ((long long)gridDim.x * BLOCK) >> 5;
-  // a contiguous run of rows per warp, a multiple of 32
-  long long chunk = (n + n_warps - 1) / n_warps;
-  chunk = (chunk + 31) & ~31LL;
-  const long long begin = warp * chunk;
-  const long long end = min(begin + chunk, n);
 
   long long run_cell = -1;  // lane 0 carries the run
   int run_cnt = 0;
@@ -227,18 +280,36 @@ __device__ void scatter_runs(const Planes& p, const int32_t* slot, const int32_t
   if (lane == 0) commit<ROWS>(p, run_cell, run_cnt, run_sum, run_min, run_max);
 }
 
-__global__ void __launch_bounds__(BLOCK) ring_scatter(FoldArgs a) {
-  const long long plane = (long long)a.depth * a.cap;
-  float* f = reinterpret_cast<float*>(a.rings);
-  const Planes p{a.rings, f + plane, f + 2 * plane, f + 3 * plane, f + 4 * plane};
-  const int32_t* slot = a.in + a.n_reset;
-  const int32_t* grp = slot + a.n_rows;
-  const float* val = reinterpret_cast<const float*>(grp + a.n_rows);
-  const int32_t* pslot = grp + 2 * a.n_rows;
-  const int32_t* pgrp = pslot + a.n_pairs;
-  const float* pdelta = reinterpret_cast<const float*>(pgrp + a.n_pairs);
-  scatter_runs<true>(p, slot, grp, val, a.n_rows, a.depth, a.cap);
-  scatter_runs<false>(p, pslot, pgrp, pdelta, a.n_pairs, a.depth, a.cap);
+__device__ __forceinline__ Planes planes_of(const FoldState& st) {
+  const long long plane = (long long)st.depth * st.cap;
+  float* f = reinterpret_cast<float*>(st.rings);
+  return Planes{st.rings, f + plane, f + 2 * plane, f + 3 * plane, f + 4 * plane};
+}
+
+__global__ void __launch_bounds__(BLOCK) ring_fold(const __grid_constant__ FoldArgs a) {
+  if (a.n_reset_cells > 0) {
+    reset_cells(a);
+    grid_barrier(a.barrier);
+  }
+  const int warp = (int)(((long long)blockIdx.x * BLOCK + threadIdx.x) >> 5);
+  if (warp < a.row_warps) {
+    const FoldState& st = a.s[state_at(a, warp, [](const FoldState& t) { return (long long)t.row_warp0; })];
+    const int32_t* slot = st.in + st.n_reset;
+    const int32_t* grp = slot + st.n_rows;
+    const float* val = reinterpret_cast<const float*>(grp + st.n_rows);
+    const long long begin = (long long)(warp - st.row_warp0) * a.row_chunk;
+    scatter_runs<true>(planes_of(st), slot, grp, val, begin,
+                       min(begin + a.row_chunk, (long long)st.n_rows), st.depth, st.cap);
+  }
+  if (warp < a.pair_warps) {
+    const FoldState& st = a.s[state_at(a, warp, [](const FoldState& t) { return (long long)t.pair_warp0; })];
+    const int32_t* pslot = st.in + st.n_reset + 3LL * st.n_rows;
+    const int32_t* pgrp = pslot + st.n_pairs;
+    const float* pdelta = reinterpret_cast<const float*>(pgrp + st.n_pairs);
+    const long long begin = (long long)(warp - st.pair_warp0) * a.pair_chunk;
+    scatter_runs<false>(planes_of(st), pslot, pgrp, pdelta, begin,
+                        min(begin + a.pair_chunk, (long long)st.n_pairs), st.depth, st.cap);
+  }
 }
 
 __global__ void ring_gather(GatherArgs a) {
@@ -273,28 +344,74 @@ int livewindow_abi(long long* sizes) {
   sizes[0] = sizeof(FoldArgs);
   sizes[1] = sizeof(GatherArgs);
   sizes[2] = PLANES;
+  sizes[3] = FOLD_MAX_STATES;
   return 0;
 }
 
-int livewindow_reset_launch(const FoldArgs* a, void* stream) {
-  cudaError_t err = cudaSetDevice(a->device);
-  if (err != cudaSuccess) return (int)err;
-  if (a->n_reset <= 0 || a->depth <= 0 || a->cap <= 0) return (int)cudaErrorInvalidValue;
-  int grid = grid_for(a->n_reset * a->cap, a->device, 16, &err);
-  if (err != cudaSuccess) return (int)err;
-  ring_reset<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(*a);
-  return (int)cudaGetLastError();
+// rows a warp so that every state's runs fit ``warps`` warps: a multiple of 32
+static int chunk_for(long long total, int n_states, long long warps) {
+  const long long room = warps - n_states > 1 ? warps - n_states : 1;
+  long long c = (total + room - 1) / room;
+  c = (c + 31) & ~31LL;
+  return (int)(c < 32 ? 32 : c);
 }
 
-int livewindow_scatter_launch(const FoldArgs* a, void* stream) {
-  cudaError_t err = cudaSetDevice(a->device);
+// One ring_fold launch over a->n_states states (the host fills each state's
+// rings, in, n_reset, n_rows, n_pairs, depth and cap, and the barrier); the
+// launcher lays out the reset cells and the warps, cooperatively when a
+// state resets.
+int livewindow_fold_launch(const FoldArgs* in, void* stream) {
+  FoldArgs a = *in;
+  cudaError_t err = cudaSetDevice(a.device);
   if (err != cudaSuccess) return (int)err;
-  if (a->depth <= 0 || a->cap <= 0 || a->n_rows < 0 || a->n_pairs < 0)
+  if (a.n_states < 1 || a.n_states > FOLD_MAX_STATES || a.barrier == nullptr)
     return (int)cudaErrorInvalidValue;
-  const long long n = a->n_rows > a->n_pairs ? a->n_rows : a->n_pairs;
-  int grid = grid_for(n, a->device, SCATTER_BLOCKS_PER_SM, &err);
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, a.device);
   if (err != cudaSuccess) return (int)err;
-  ring_scatter<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(*a);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ring_fold, BLOCK, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm > SCATTER_BLOCKS_PER_SM) per_sm = SCATTER_BLOCKS_PER_SM;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long cap_blocks = (long long)(sms > 0 ? sms : 1) * per_sm;
+  const long long cap_warps = cap_blocks * (BLOCK / 32);
+  long long rows = 0, pairs = 0, cells = 0;
+  for (int k = 0; k < a.n_states; ++k) {
+    FoldState& st = a.s[k];
+    if (st.depth <= 0 || st.cap <= 0 || st.n_reset < 0 || st.n_rows < 0 || st.n_pairs < 0)
+      return (int)cudaErrorInvalidValue;
+    st.reset0 = cells;
+    cells += (long long)st.n_reset * st.cap;
+    rows += st.n_rows;
+    pairs += st.n_pairs;
+  }
+  a.row_chunk = chunk_for(rows, a.n_states, cap_warps);
+  a.pair_chunk = chunk_for(pairs, a.n_states, cap_warps);
+  long long rw = 0, pw = 0;
+  for (int k = 0; k < a.n_states; ++k) {
+    FoldState& st = a.s[k];
+    st.row_warp0 = (int)rw;
+    st.pair_warp0 = (int)pw;
+    rw += (st.n_rows + a.row_chunk - 1) / a.row_chunk;
+    pw += (st.n_pairs + a.pair_chunk - 1) / a.pair_chunk;
+  }
+  a.row_warps = (int)rw;
+  a.pair_warps = (int)pw;
+  a.n_reset_cells = cells;
+  long long warps = rw > pw ? rw : pw;
+  long long grid = (warps + BLOCK / 32 - 1) / (BLOCK / 32);
+  const long long reset_blocks = (cells + BLOCK - 1) / BLOCK;
+  if (grid < reset_blocks) grid = reset_blocks;
+  if (grid > cap_blocks) grid = cap_blocks;
+  if (grid < 1) grid = 1;
+  if (cells > 0) {
+    void* params[] = {&a};
+    err = cudaLaunchCooperativeKernel((const void*)ring_fold, dim3((unsigned)grid), dim3(BLOCK),
+                                      params, 0, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    ring_fold<<<(unsigned)grid, BLOCK, 0, (cudaStream_t)stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

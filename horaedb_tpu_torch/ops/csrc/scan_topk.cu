@@ -16,35 +16,41 @@
 // to INT32_MIN + 1 after the negation; INT32_MIN for masked-out rows. No
 // masked-in row has the key INT32_MIN, so the key buffer carries the mask.
 //
-// Top-k. The reference bisects 32 times for the threshold, each step a
-// count over every key. Here:
-//   raw_init     one block zeroes the state and the histogram;
-//   raw_keys     one pass decodes, masks and writes the int32 key buffer,
-//                counts the masked-in rows and histograms the top 8-bit
-//                digit of the key (sign bit flipped: unsigned order);
-//   topk_pick    one block picks the digit that holds the k-th largest key
-//                and carries the remaining rank on the device;
-//   topk_hist    three more passes histogram the next digit over the keys
-//                whose higher digits match the prefix so far; after the
-//                last pick the k-th key is exact, and the pick computes the
-//                threshold the bisection returns (see topk_pick);
-//   raw_flags    one pass over the keys writes ballot bit words of the
-//                rows strictly above the threshold and of the ties, with
-//                per-tile counts;
-//   raw_scan     one block scans the tile counts (exclusive prefix sums);
-//   raw_write    each tile writes its set bits' row ids at its offset:
-//                strict rows first, in row order, then ties in row order;
-//                tiles whose offset is past the last slot return at once;
-//   raw_fill     slots past the rows written get -1 (or n_rows where the
-//                reference's searchsorted runs past its stream); where the
-//                caller asks (key_out), every slot's key too, INT32_MIN for
-//                a slot that holds no row (the reference's keys output,
-//                which the sharded top-k merges on).
-// No host round trip between launches: one copy of the k slots comes back.
+// Top-k (B4; B7b top-k is it once a shard). The reference bisects 32 times
+// for the threshold, each step a count over every key. Here the launch
+// visits only the executor's row windows (the tile table the selection
+// walks too) and never writes or reads a key of a padded or out-of-window
+// row:
+//   topk_keys    one pass over the window tiles, in row order by ticket:
+//                decode, mask and key each row; drop the rows ranked below
+//                a running bound on (key, row), which a tile with more than
+//                k rows left raises to its own k-th; keep the tile's keys,
+//                its largest key and the first digit's histogram of what is
+//                left; the last block picks the first 8-bit digit of the
+//                k-th key (sign bit flipped: unsigned order);
+//   topk_refine  three passes histogram the next digit over the kept keys
+//                whose higher digits match, skipping tiles whose largest
+//                key lies below the prefix; the last block of each picks
+//                (after the last, the threshold the bisection returns);
+//   topk_write   cooperative: each tile counts its rows above the threshold
+//                and at it and publishes prefixes by a decoupled look-back;
+//                a grid barrier; each tile writes its strict rows, then its
+//                ties, in row order at their slots (with their keys where
+//                the caller asks, which the sharded top-k merges on), and
+//                the slots past them get n_rows (where the reference's
+//                searchsorted runs past its tie stream) or -1.
+// A memset of the state and one copy of the tile table come first; no host
+// round trip between launches, one copy of the k slots comes back. The
+// kernel's answer is the reference's bit for bit: the rows it drops can
+// hold no slot (see topk_keys), and within what it keeps the threshold,
+// the strict count and the ties are exact.
 //
-// What bounds top-k: the bytes of the resident columns (one decode pass)
-// and of the key buffer (written once, read four times); the picks and the
-// scan are single-block steps of a few microseconds each.
+// What bounds top-k: one decode of the window rows' columns; the refines
+// and the write read only the tiles with rows left. The first redesign
+// decoded every padded row (2^26 at the cpu table) into a key buffer that
+// four more passes re-read, and ran 14 launches, six of one block: those
+// re-reads were 63-64% of its time, and at 8,640 window rows the launches
+// alone kept 0.067 ms.
 //
 // Selection (B4 select; B7b select is it once a shard) visits only the rows
 // that can pass. The cache is sorted by (series, ts), so the allowed
@@ -169,27 +175,11 @@ __device__ __forceinline__ Scratch scratch_at(int* base, long long n_rows) {
   return s;
 }
 
-__device__ __forceinline__ Scratch scratch_of(const RawArgs& a) {
-  return scratch_at(a.scratch, a.n_rows);
-}
-
 // ---- mask and key -------------------------------------------------------------
 
-__device__ __forceinline__ bool row_mask(const RawArgs& a, long long i, int lo, int hi, int& ts) {
-  const int code = load_int(a.series, i);
-  if (a.session[code] == 0) return false;
-  ts = load_int(a.ts, i);
-  if (!(ts >= lo && ts < hi)) return false;
-  for (int f = 0; f < a.filt.n; ++f) {
-    const float v = load_value(a.fields[a.filt.field[f]], i);
-    if (!compare(v, a.filt.op[f], __int_as_float(a.dyn[f]))) return false;
-  }
-  return true;
-}
-
-// The selection's row_mask with a row's loads issued together: the series
-// code, the timestamp and the first EAGER_FILTERS filter fields, then the
-// allow list.
+// The selection's mask of a row (the reference's _raw_mask) with the row's
+// loads issued together: the series code, the timestamp and the first
+// EAGER_FILTERS filter fields, then the allow list.
 #define EAGER_FILTERS 2
 
 __device__ __forceinline__ bool row_mask_eager(const RawArgs& a, long long i, int lo, int hi) {
@@ -276,64 +266,7 @@ __device__ __forceinline__ void hist_flush(int* shared_hist, int* global_hist) {
   }
 }
 
-// ---- top-k: keys and the radix select --------------------------------------
-
-// One block: zeroes the state words and the histogram.
-__global__ void __launch_bounds__(BLOCK) raw_init(const __grid_constant__ RawArgs a) {
-  for (int t = threadIdx.x; t < ST_WORDS + 256; t += BLOCK) a.scratch[t] = 0;
-}
-
-__global__ void __launch_bounds__(BLOCK) raw_keys(const __grid_constant__ RawArgs a) {
-  __shared__ int hist[256];
-  const Scratch s = scratch_of(a);
-  const int nf = a.filt.n;
-  const int lo = a.dyn[nf], hi = a.dyn[nf + 1];
-  for (int t = threadIdx.x; t < 256; t += BLOCK) hist[t] = 0;
-  __syncthreads();
-  int count = 0;
-  const long long nt = n_tiles_of(a.n_rows);
-  for (long long tile = blockIdx.x; tile < nt; tile += gridDim.x) {
-    for (int j = 0; j < TILE / BLOCK; ++j) {
-      const long long i = tile * TILE + j * BLOCK + threadIdx.x;
-      int key = KEY_MASKED;
-      if (i < a.n_rows) {
-        int ts = 0;
-        if (row_mask(a, i, lo, hi, ts)) key = sort_key(a, i, ts);
-        a.keys[i] = key;
-      }
-      const bool in = key != KEY_MASKED;
-      count += in;
-      hist_add(hist, in ? (int)(flipped(key) >> 24) : 256);
-    }
-  }
-  hist_flush(hist, s.hist);
-  int total;
-  block_scan<BLOCK>(count, total);
-  if (threadIdx.x == 0 && total) atomicAdd(&s.st[ST_TOTAL], total);
-}
-
-__global__ void __launch_bounds__(BLOCK) topk_hist(const __grid_constant__ RawArgs a, int shift) {
-  __shared__ int hist[256];
-  const Scratch s = scratch_of(a);
-  if (!s.st[ST_ACTIVE]) return;  // fewer than k rows: no k-th key to find
-  const uint32_t want = (uint32_t)s.st[ST_PREFIX] >> (shift + 8);
-  for (int t = threadIdx.x; t < 256; t += BLOCK) hist[t] = 0;
-  __syncthreads();
-  const long long nt = n_tiles_of(a.n_rows);
-  for (long long tile = blockIdx.x; tile < nt; tile += gridDim.x) {
-    for (int j = 0; j < TILE / BLOCK; ++j) {
-      const long long i = tile * TILE + j * BLOCK + threadIdx.x;
-      int d = 256;
-      if (i < a.n_rows) {
-        const int key = a.keys[i];
-        const uint32_t u = flipped(key);
-        if (key != KEY_MASKED && (u >> (shift + 8)) == want) d = (int)((u >> shift) & 255u);
-      }
-      hist_add(hist, d);
-    }
-  }
-  hist_flush(hist, s.hist);
-}
+// ---- the cohort's radix select and ordered compaction (B4c) -------------------
 
 // One block. Picks the digit at ``shift`` that holds the k-th largest key
 // and clears the histogram for the next pass. After the last digit it sets
@@ -381,58 +314,6 @@ __device__ __forceinline__ void pick_digit(const Scratch& s, long long k, const 
   }
 }
 
-__global__ void __launch_bounds__(BLOCK) topk_pick(const __grid_constant__ RawArgs a, int shift) {
-  pick_digit(scratch_of(a), a.k, a.dyn, a.filt.n, shift);
-}
-
-// ---- ordered compaction -------------------------------------------------------
-
-// Ballot bit words and per-tile counts of the rows strictly above the
-// threshold (stream 0) and the ties (stream 1), from the key buffer.
-__global__ void __launch_bounds__(BLOCK) raw_flags(const __grid_constant__ RawArgs a) {
-  __shared__ int wsum[2][BLOCK / 32];
-  const Scratch s = scratch_of(a);
-  const int thr = s.st[ST_THR];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const long long nt = n_tiles_of(a.n_rows);
-  for (long long tile = blockIdx.x; tile < nt; tile += gridDim.x) {
-    int c0 = 0, c1 = 0;
-    for (int j = 0; j < TILE / BLOCK; ++j) {
-      const long long i = tile * TILE + j * BLOCK + threadIdx.x;
-      bool f0 = false, f1 = false;
-      if (i < a.n_rows) {
-        const int key = a.keys[i];
-        f0 = key > thr;
-        f1 = key != KEY_MASKED && key == thr;
-      }
-      const unsigned b0 = __ballot_sync(FULL_MASK, f0);
-      const unsigned b1 = __ballot_sync(FULL_MASK, f1);
-      if (lane == 0) {
-        const long long word = tile * WORDS + j * (BLOCK / 32) + w;
-        s.bits[0][word] = b0;
-        s.bits[1][word] = b1;
-        c0 += __popc(b0);
-        c1 += __popc(b1);
-      }
-    }
-    if (lane == 0) {
-      wsum[0][w] = c0;
-      wsum[1][w] = c1;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int t0 = 0, t1 = 0;
-      for (int k = 0; k < BLOCK / 32; ++k) {
-        t0 += wsum[0][k];
-        t1 += wsum[1][k];
-      }
-      s.cnt[0][tile] = t0;
-      s.cnt[1][tile] = t1;
-    }
-    __syncthreads();
-  }
-}
-
 // One block: exclusive prefix sums of the tile counts of both streams, in
 // place; the totals go to the state.
 __device__ __forceinline__ void scan_tiles(const Scratch& s, long long nt) {
@@ -449,10 +330,6 @@ __device__ __forceinline__ void scan_tiles(const Scratch& s, long long nt) {
     }
     if (threadIdx.x == 0) s.st[q == 0 ? ST_STRICT : ST_TIE] = carry;
   }
-}
-
-__global__ void __launch_bounds__(SCAN_THREADS) raw_scan(const __grid_constant__ RawArgs a) {
-  scan_tiles(scratch_of(a), n_tiles_of(a.n_rows));
 }
 
 // Each tile writes the row ids of its set bits, in row order, to slots
@@ -487,10 +364,6 @@ __device__ __forceinline__ void write_slots(const Scratch& s, long long n_rows, 
   }
 }
 
-__global__ void __launch_bounds__(WORDS) raw_write(const __grid_constant__ RawArgs a, int mode) {
-  write_slots(scratch_of(a), a.n_rows, a.k, a.out, mode, blockIdx.x, gridDim.x);
-}
-
 // Slots no tile wrote: -1 from min(k, total) on; below it only where the
 // reference's tie stream runs out (its searchsorted returns n_rows there;
 // never with seeds that bracket the keys).
@@ -507,8 +380,519 @@ __device__ __forceinline__ void fill_slots(const Scratch& s, long long n_rows, l
   }
 }
 
-__global__ void __launch_bounds__(BLOCK) raw_fill(const __grid_constant__ RawArgs a) {
-  fill_slots(scratch_of(a), a.n_rows, a.k, a.out, blockIdx.x, gridDim.x, a.keys, a.key_out);
+// ---- top-k (B4): the window rows, pruned, then the ordered write -------------
+
+// The scratch of one top-k launch (int32 words), its state and histograms
+// zeroed by the launcher's memset:
+//   [state 32 | histograms 4 x 256 | tile counts 2 x n_tiles | block counts
+//    2 x n_tiles | tile maxima n_tiles | tile table 2 x n_tiles]
+// and the keys, n_tiles x TILE, a buffer of their own.
+enum {
+  TK_DONE = 8,      // blocks done, one counter a pass (keys, then three refines)
+  TK_BARRIER = 13,  // the write's grid barrier
+  TK_BOUND = 14,    // the pruning bound: a 64-bit composite (key, row)
+  TK_ROWS = 16,     // 64-bit: the rows topk_keys decoded (the wrapper's stats)
+  TK_TILES = 18,    // 64-bit: the tiles topk_keys walked
+  TK_HEAD = 32,
+  TK_STATUS = TK_HEAD + 4 * 256,
+};
+
+struct TopkScratch {
+  int* st;
+  int* hist;                 // [4][256], one a digit
+  unsigned long long* count;   // [n_tiles]: a tile's strict rows and ties
+  unsigned long long* bcount;  // [blocks of the write]: a block's
+  int* tmax;                 // [n_tiles]: the tile's largest kept key
+  const int* tiles;          // [n_tiles][2]
+  int* keys;                 // [n_tiles][TILE]
+};
+
+__device__ __forceinline__ TopkScratch topk_scratch(const RawArgs& a) {
+  TopkScratch s;
+  s.st = a.scratch;
+  s.hist = a.scratch + TK_HEAD;
+  s.count = (unsigned long long*)(a.scratch + TK_STATUS);
+  s.bcount = (unsigned long long*)(a.scratch + TK_STATUS + 2 * a.n_tiles);
+  s.tmax = a.scratch + TK_STATUS + 4 * a.n_tiles;
+  s.tiles = a.tiles;
+  s.keys = a.keys;
+  return s;
+}
+
+// a row's (key, row) rank as one integer: larger is earlier in the answer
+// (key descending, then row ascending)
+__device__ __forceinline__ unsigned long long composite(int key, long long row) {
+  return ((unsigned long long)flipped(key) << 32) | (unsigned long long)(0xffffffffu - (uint32_t)row);
+}
+
+// load_int / load_value of N rows with the layout dispatched once: each
+// case is straight-line code, so the N rows' loads issue together.
+template <int N>
+__device__ __forceinline__ void load_ints(const Column& c, const long long (&i)[N], int (&out)[N]) {
+  const uint32_t* w = (const uint32_t*)c.data;
+  switch (c.kind) {
+    case LAY_RAW:
+#pragma unroll
+      for (int j = 0; j < N; ++j) out[j] = ((const int*)c.data)[i[j]];
+      break;
+    case LAY_DELTA:
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        out[j] = (int)((uint32_t)((const int*)c.aux)[i[j] >> 7] + unpack(w, c.width, i[j]));
+      break;
+    default:  // LAY_TSDICT
+#pragma unroll
+      for (int j = 0; j < N; ++j) out[j] = ((const int*)c.aux)[unpack(w, c.width, i[j])];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_values(const Column& c, const long long (&i)[N],
+                                            float (&out)[N]) {
+  const uint32_t* w = (const uint32_t*)c.data;
+  switch (c.kind) {
+    case LAY_RAW:
+#pragma unroll
+      for (int j = 0; j < N; ++j) out[j] = ((const float*)c.data)[i[j]];
+      break;
+    case LAY_BF16:
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        out[j] = __uint_as_float(((uint32_t)((const uint16_t*)c.data)[i[j]]) << 16);
+      break;
+    case LAY_DICT:
+#pragma unroll
+      for (int j = 0; j < N; ++j) out[j] = ((const float*)c.aux)[unpack(w, c.width, i[j])];
+      break;
+    default:  // LAY_CODES
+#pragma unroll
+      for (int j = 0; j < N; ++j) out[j] = (float)unpack(w, c.width, i[j]);
+  }
+}
+
+// The keys of N rows, KEY_MASKED where the mask drops a row: the series
+// codes, timestamps, key field and first filter field of all N are loaded
+// before the allow list answers, the other filters only for rows still in.
+template <int N>
+__device__ __forceinline__ void keys_of(const RawArgs& a, const long long (&i)[N], int lo, int hi,
+                                        int (&key)[N]) {
+  const int nf = a.filt.n;
+  int code[N], ts[N];
+  float kv[N], f0[N];
+  load_ints<N>(a.series, i, code);
+  load_ints<N>(a.ts, i, ts);
+  if (!a.key_is_ts) load_values<N>(a.fields[a.key_field], i, kv);
+  if (nf > 0) load_values<N>(a.fields[a.filt.field[0]], i, f0);
+  bool ok[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    ok[j] = (a.session[code[j]] != 0) & (ts[j] >= lo) & (ts[j] < hi);
+    if (nf > 0) ok[j] &= compare(f0[j], a.filt.op[0], __int_as_float(a.dyn[0]));
+  }
+  for (int f = 1; f < nf; ++f) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (ok[j])
+        ok[j] = compare(load_value(a.fields[a.filt.field[f]], i[j]), a.filt.op[f],
+                        __int_as_float(a.dyn[f]));
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    int k;
+    if (a.key_is_ts) {
+      k = a.descending ? ts[j] : neg(ts[j]);
+    } else {
+      k = f32_sort_key(kv[j]);
+      if (!a.descending) k = neg(k);
+      if (isnan(kv[j])) k = KEY_MASKED + 1;  // NaN below every real value
+    }
+    key[j] = ok[j] ? k : KEY_MASKED;
+  }
+}
+
+// rows a thread keys at once (TILE / BLOCK a tile, in batches), and the
+// keys pass's blocks a SM. The pass waits on its loads, so residency sets
+// its speed. On an H100 at the cpu table's top-k shapes: 4 blocks (at most
+// 64 registers) took 23-24% less than the compiler's own choice; 6 and 8
+// spilled and took 33-160% more; batches of 4 kept the tile's keys in
+// registers (8 put them on the stack) for 7-15% less; one of 16 took 21%
+// more.
+#define KEY_BATCH 4
+#define KEYS_BLOCKS_PER_SM 4
+
+// One warp: the digit of the 256-bin histogram h (descending) that holds
+// the ``rank``-th largest; returns it, and the rank left inside it in *left.
+__device__ __forceinline__ int warp_pick(const int* h, int rank, int* left) {
+  const int lane = threadIdx.x & 31;
+  int c[8], sum = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    c[j] = h[255 - 8 * lane - j];
+    sum += c[j];
+  }
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL_MASK, incl, o);
+    if (lane >= o) incl += y;
+  }
+  const unsigned hit = __ballot_sync(FULL_MASK, incl >= rank);
+  const int src = hit ? __ffs(hit) - 1 : 31;
+  int d = 0, r = 0;
+  if (lane == src) {
+    int cum = incl - sum;
+    int j = 0;
+    for (; j < 7; ++j) {
+      if (cum + c[j] >= rank) break;
+      cum += c[j];
+    }
+    d = 255 - 8 * lane - j;
+    r = rank - cum;
+  }
+  d = __shfl_sync(FULL_MASK, d, src);
+  *left = __shfl_sync(FULL_MASK, r, src);
+  return d;
+}
+
+// The block's k-th largest key among ``key`` (KEY_MASKED excluded; the
+// block holds more than k): four 8-bit digits over a shared histogram.
+__device__ int block_kth(const int (&key)[TILE / BLOCK], int k) {
+  __shared__ int h[256];
+  __shared__ int pick_s[2];
+  uint32_t prefix = 0;
+  int rank = k;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int t = threadIdx.x; t < 256; t += BLOCK) h[t] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < TILE / BLOCK; ++j) {
+      const uint32_t u = flipped(key[j]);
+      const bool in = key[j] != KEY_MASKED && (shift == 24 || (u >> (shift + 8)) == (prefix >> (shift + 8)));
+      hist_add(h, in ? (int)((u >> shift) & 255u) : 256);
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      int left;
+      const int d = warp_pick(h, rank, &left);
+      if (threadIdx.x == 0) {
+        pick_s[0] = d;
+        pick_s[1] = left;
+      }
+    }
+    __syncthreads();
+    prefix |= (uint32_t)pick_s[0] << shift;
+    rank = pick_s[1];
+    __syncthreads();
+  }
+  return (int)flipped((int)prefix);
+}
+
+// Called by one whole block after the pass that filled ``hist``: picks the
+// digit at ``shift`` holding the k-th largest kept key (the first pass also
+// sets whether the k-th key exists); once the key is whole, or when fewer
+// than k rows pass, sets the threshold the reference's bisection returns
+// (pick_digit's rule) and the slots that hold a row.
+__device__ void topk_pick(int* st, const int* hist, long long k, const int* dyn, int nf, int shift) {
+  __shared__ int h[256];
+  const int t = threadIdx.x;
+  h[t] = __ldcg(&hist[t]);
+  __syncthreads();
+  if (t >= 32) return;
+  const long long total = __ldcg(&st[ST_TOTAL]);
+  const bool first = shift == 24;
+  const bool active = first ? total >= k : __ldcg(&st[ST_ACTIVE]) != 0;
+  int left = first ? (int)(k < total ? k : total) : __ldcg(&st[ST_RANK]);
+  uint32_t prefix = first ? 0u : (uint32_t)__ldcg(&st[ST_PREFIX]);
+  if (active) prefix |= (uint32_t)warp_pick(h, left, &left) << shift;
+  if (t != 0) return;
+  st[ST_ACTIVE] = active;
+  st[ST_RANK] = left;
+  st[ST_PREFIX] = (int)prefix;
+  if (shift == 0 || !active) {
+    const long long key_lo = dyn[nf + 2], key_hi = dyn[nf + 3];
+    long long thr;
+    if (key_hi <= key_lo + 1) {
+      thr = key_hi;
+    } else {
+      thr = active ? (long long)(int)flipped((int)prefix) : (long long)KEY_MASKED;
+      if (thr < key_lo + 1) thr = key_lo + 1;
+      if (thr > key_hi) thr = key_hi;
+    }
+    st[ST_THR] = (int)thr;
+    st[ST_LIMIT] = (int)(k < total ? k : total);
+  }
+}
+
+// the last block to finish a pass (the pass's counter); the others return false
+__device__ __forceinline__ bool last_block(int* done) {
+  __shared__ bool last_s;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last_s = atomicAdd(done, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (last_s) __threadfence();
+  return last_s;
+}
+
+// Pass 1. Each block takes every gridDim-th tile of the window table (in
+// row order, so the bound rises early): it keys the tile's rows, drops those
+// below the bound, and where more than k rows stay, raises the bound to
+// its own k-th (key, last row) and drops its rows below that key. A tile
+// with rows left writes its keys and its largest; the rows left feed the
+// first digit's histogram. The last block picks the first digit.
+//
+// Why a dropped row cannot matter: the bound B is some tile's (t, its last
+// row) where k rows of that tile rank at or above (t, last row), so a row
+// below B has k rows ranked above it and is not among the top k by (key,
+// row). Those top k rows hold every row the answer writes, whenever the
+// bisection's threshold is the k-th key or the key_lo + 1 clamp; the cap
+// at (key_hi, row 0) keeps every row above key_hi, which the key_hi clamp
+// writes instead. So the threshold, the strict count and the ties the
+// answer needs all come out of the rows left.
+__global__ void __launch_bounds__(BLOCK, KEYS_BLOCKS_PER_SM) topk_keys(const __grid_constant__ RawArgs a) {
+  __shared__ int hist[256];
+  const TopkScratch s = topk_scratch(a);
+  const int nf = a.filt.n;
+  const int lo = a.dyn[nf], hi = a.dyn[nf + 1];
+  const unsigned long long cap = composite(a.dyn[nf + 3], 0);
+  unsigned long long* bound = (unsigned long long*)(s.st + TK_BOUND);
+  for (int t = threadIdx.x; t < 256; t += BLOCK) hist[t] = 0;
+  int passing = 0, decoded = 0, walked = 0;
+  for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    const long long r0 = s.tiles[2 * tile], r1 = s.tiles[2 * tile + 1];
+    ++walked;
+    int key[TILE / BLOCK];
+#pragma unroll
+    for (int h = 0; h < TILE / BLOCK; h += KEY_BATCH) {
+      long long i[KEY_BATCH];
+      int k[KEY_BATCH];
+#pragma unroll
+      for (int j = 0; j < KEY_BATCH; ++j) {
+        const long long r = r0 + (h + j) * BLOCK + threadIdx.x;
+        i[j] = r < r1 ? r : r0;  // a row past the tile reads row r0 and is dropped
+        decoded += r < r1;
+      }
+      keys_of<KEY_BATCH>(a, i, lo, hi, k);
+#pragma unroll
+      for (int j = 0; j < KEY_BATCH; ++j) {
+        key[h + j] = r0 + (h + j) * BLOCK + threadIdx.x < r1 ? k[j] : KEY_MASKED;
+        passing += key[h + j] != KEY_MASKED;
+      }
+    }
+    unsigned long long b = *(volatile unsigned long long*)bound;
+    if (b > cap) b = cap;
+    int kept = 0;
+#pragma unroll
+    for (int j = 0; j < TILE / BLOCK; ++j) {
+      if (key[j] != KEY_MASKED && composite(key[j], r0 + j * BLOCK + threadIdx.x) < b)
+        key[j] = KEY_MASKED;
+      kept += key[j] != KEY_MASKED;
+    }
+    int total;
+    block_scan<BLOCK>(kept, total);
+    if (total > a.k) {
+      const int t = block_kth(key, (int)a.k);
+      if (threadIdx.x == 0) atomicMax(bound, composite(t, r1 - 1));
+      // below the tile's own k-th key, and not above key_hi (the cap)
+      const long long below = min((long long)t, (long long)a.dyn[nf + 3] + 1);
+#pragma unroll
+      for (int j = 0; j < TILE / BLOCK; ++j)
+        if (key[j] != KEY_MASKED && key[j] < below) key[j] = KEY_MASKED;
+    }
+    int top = KEY_MASKED;
+#pragma unroll
+    for (int j = 0; j < TILE / BLOCK; ++j) top = max(top, key[j]);
+    for (int o = 16; o > 0; o >>= 1) top = max(top, __shfl_xor_sync(FULL_MASK, top, o));
+    __shared__ int wtop[BLOCK / 32];
+    if ((threadIdx.x & 31) == 0) wtop[threadIdx.x >> 5] = top;
+    __syncthreads();
+    top = KEY_MASKED;
+    for (int w = 0; w < BLOCK / 32; ++w) top = max(top, wtop[w]);
+    if (threadIdx.x == 0) s.tmax[tile] = top;
+    if (top != KEY_MASKED) {
+      int* dst = s.keys + tile * TILE;
+#pragma unroll
+      for (int j = 0; j < TILE / BLOCK; ++j) {
+        dst[j * BLOCK + threadIdx.x] = key[j];
+        hist_add(hist, key[j] != KEY_MASKED ? (int)(flipped(key[j]) >> 24) : 256);
+      }
+    }
+  }
+  hist_flush(hist, s.hist);
+  int total;
+  block_scan<BLOCK>(passing, total);
+  if (threadIdx.x == 0 && total) atomicAdd(&s.st[ST_TOTAL], total);
+  block_scan<BLOCK>(decoded, total);
+  if (threadIdx.x == 0) {
+    atomicAdd((unsigned long long*)(s.st + TK_ROWS), (unsigned long long)total);
+    atomicAdd((unsigned long long*)(s.st + TK_TILES), (unsigned long long)walked);
+  }
+  if (last_block(&s.st[TK_DONE])) topk_pick(s.st, s.hist, a.k, a.dyn, nf, 24);
+}
+
+// Passes 2-4: the next digit's histogram over the kept keys whose higher
+// digits match the prefix so far; tiles whose largest kept key lies below
+// the prefix are skipped unread. The last block picks the digit (after the
+// last one, the threshold).
+__global__ void __launch_bounds__(BLOCK) topk_refine(const __grid_constant__ RawArgs a, int shift) {
+  __shared__ int hist[256];
+  const TopkScratch s = topk_scratch(a);
+  if (!s.st[ST_ACTIVE]) return;  // fewer than k rows: the threshold is set
+  const uint32_t want = (uint32_t)s.st[ST_PREFIX] >> (shift + 8);
+  for (int t = threadIdx.x; t < 256; t += BLOCK) hist[t] = 0;
+  __syncthreads();
+  for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    const int top = s.tmax[tile];
+    if (top == KEY_MASKED || (flipped(top) >> (shift + 8)) < want) continue;
+    const int* src = s.keys + tile * TILE;
+#pragma unroll
+    for (int j = 0; j < TILE / BLOCK; ++j) {
+      const int key = src[j * BLOCK + threadIdx.x];
+      const uint32_t u = flipped(key);
+      const bool in = key != KEY_MASKED && (u >> (shift + 8)) == want;
+      hist_add(hist, in ? (int)((u >> shift) & 255u) : 256);
+    }
+  }
+  const int level = (24 - shift) / 8;
+  hist_flush(hist, s.hist + 256 * level);
+  if (last_block(&s.st[TK_DONE + level]))
+    topk_pick(s.st, s.hist + 256 * level, a.k, a.dyn, a.filt.n, shift);
+}
+
+// every block of the launch arrives before any leaves (the launch is
+// cooperative, so all are resident)
+__device__ __forceinline__ void grid_barrier(int* count) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1);
+    while (*(volatile int*)count < (int)gridDim.x) __nanosleep(64);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// a tile's (or a block's) strict rows (bits 31-61) and ties (bits 0-30)
+__device__ __forceinline__ unsigned long long pack_counts(long long strict, long long tie) {
+  return ((unsigned long long)strict << 31) | (unsigned long long)tie;
+}
+
+__device__ __forceinline__ long long strict_of(unsigned long long c) { return (long long)(c >> 31); }
+__device__ __forceinline__ long long tie_of(unsigned long long c) {
+  return (long long)(c & 0x7fffffffull);
+}
+
+// Thread w < WORDS of the block: the ballot word w of the tile's rows
+// strictly above the threshold (q 0) or at it (q 1), in row order.
+__device__ __forceinline__ void tile_flags(const TopkScratch& s, long long tile, int thr,
+                                           unsigned* words0, unsigned* words1) {
+  const int* src = s.keys + tile * TILE;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < TILE / BLOCK; ++j) {
+    const int key = src[j * BLOCK + threadIdx.x];
+    const unsigned b0 = __ballot_sync(FULL_MASK, key > thr);
+    const unsigned b1 = __ballot_sync(FULL_MASK, key != KEY_MASKED && key == thr);
+    if (lane == 0) {
+      words0[j * (BLOCK / 32) + w] = b0;
+      words1[j * (BLOCK / 32) + w] = b1;
+    }
+  }
+}
+
+// The sum over the block of each thread's v (every thread gets it).
+__device__ __forceinline__ unsigned long long block_sum(unsigned long long v) {
+  __shared__ unsigned long long part[BLOCK / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = 0;
+#pragma unroll
+  for (int w = 0; w < BLOCK / 32; ++w) v += part[w];
+  return v;
+}
+
+// Pass 5 (cooperative). Each block owns a contiguous run of tiles. Stage 1:
+// it counts each tile's rows above the threshold and at it (a tile whose
+// largest kept key is below the threshold counts 0 unread) and the run's
+// sum. A grid barrier. Stage 2: the runs before it give the block its first
+// slots; it walks its tiles in order and writes each one's strict rows in
+// row order from slot (strict rows before it), below k, and its ties from
+// slot (every strict row + ties before it), below min(k, total), with their
+// keys where asked. The slots no tile writes get n_rows below min(k,
+// total) (where the reference's searchsorted runs past its tie stream) and
+// -1 after.
+__global__ void __launch_bounds__(BLOCK) topk_write(const __grid_constant__ RawArgs a) {
+  __shared__ unsigned words0[WORDS], words1[WORDS];
+  const TopkScratch s = topk_scratch(a);
+  const int thr = s.st[ST_THR];
+  const long long limit = s.st[ST_LIMIT];
+  const long long per = (a.n_tiles + gridDim.x - 1) / gridDim.x;
+  const long long t0 = min((long long)blockIdx.x * per, a.n_tiles);
+  const long long t1 = min(t0 + per, a.n_tiles);
+  unsigned long long run = 0;
+  for (long long tile = t0; tile < t1; ++tile) {
+    const int top = s.tmax[tile];
+    unsigned long long c = 0;
+    if (top != KEY_MASKED && top >= thr) {
+      tile_flags(s, tile, thr, words0, words1);
+      __syncthreads();
+      const unsigned b0 = threadIdx.x < WORDS ? words0[threadIdx.x] : 0u;
+      const unsigned b1 = threadIdx.x < WORDS ? words1[threadIdx.x] : 0u;
+      c = block_sum(pack_counts(__popc(b0), __popc(b1)));
+    }
+    if (threadIdx.x == 0) s.count[tile] = c;
+    run += c;
+  }
+  if (threadIdx.x == 0) s.bcount[blockIdx.x] = run;
+  grid_barrier(&s.st[TK_BARRIER]);
+  // the runs before this block's, and all of them
+  unsigned long long before = 0, all = 0;
+  for (unsigned b = threadIdx.x; b < gridDim.x; b += BLOCK) {
+    const unsigned long long c = *(volatile unsigned long long*)&s.bcount[b];
+    all += c;
+    if (b < blockIdx.x) before += c;
+  }
+  before = block_sum(before);
+  all = block_sum(all);
+  const long long n_strict = strict_of(all), n_tie = tie_of(all);
+  long long e0 = strict_of(before), e1 = tie_of(before);
+  const int* src = s.keys;
+  for (long long tile = t0; tile < t1; ++tile) {
+    const unsigned long long c = s.count[tile];
+    const bool any0 = strict_of(c) != 0 && e0 < a.k;
+    const bool any1 = tie_of(c) != 0 && n_strict + e1 < limit;
+    if (any0 || any1) {  // block-uniform
+      tile_flags(s, tile, thr, words0, words1);
+      __syncthreads();
+      const long long r0 = s.tiles[2 * tile];
+      for (int q = 0; q < 2; ++q) {
+        if (q == 0 ? !any0 : !any1) continue;
+        const unsigned bits = threadIdx.x < WORDS ? (q == 0 ? words0 : words1)[threadIdx.x] : 0u;
+        int total;
+        long long pos = (q == 0 ? e0 : n_strict + e1) + block_scan<BLOCK>(__popc(bits), total);
+        const long long end = q == 0 ? a.k : limit;
+        for (unsigned b = bits; b && pos < end; b &= b - 1, ++pos) {
+          const int off = (int)threadIdx.x * 32 + __ffs(b) - 1;
+          a.out[pos] = (int)(r0 + off);
+          if (a.key_out) a.key_out[pos] = src[tile * TILE + off];
+        }
+      }
+      __syncthreads();
+    }
+    e0 += strict_of(c);
+    e1 += tie_of(c);
+  }
+  // slots past the rows written
+  const long long written = n_strict >= a.k ? a.k
+      : n_strict + (n_tie < limit - n_strict ? n_tie : limit - n_strict);
+  for (long long j = written + (long long)blockIdx.x * BLOCK + threadIdx.x; j < a.k;
+       j += (long long)gridDim.x * BLOCK) {
+    a.out[j] = j < limit ? (int)a.n_rows : -1;
+    if (a.key_out) a.key_out[j] = KEY_MASKED;
+  }
 }
 
 // ---- the bounded selection (B4 select): one launch over the tile table -------
@@ -827,39 +1211,7 @@ int scan_topk_abi(long long* sizes) {
   sizes[4] = ST_WORDS + 256;
   sizes[5] = sizeof(CohortRawArgs);
   sizes[6] = MAX_COHORT;
-  return 0;
-}
-
-int raw_topk_launch(const RawArgs* a, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  TRY(cudaSetDevice(a->device));
-  const long long nt = host_tiles(a->n_rows);
-  int grid, wgrid, fgrid;
-  TRY(grid_for(a->device, nt, 8, &grid));
-  TRY(grid_for(a->device, nt, 16, &wgrid));
-  TRY(grid_for(a->device, (a->k + BLOCK - 1) / BLOCK, 8, &fgrid));
-  raw_init<<<1, BLOCK, 0, s>>>(*a);
-  LAUNCHED();
-  raw_keys<<<grid, BLOCK, 0, s>>>(*a);
-  LAUNCHED();
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    if (shift != 24) {
-      topk_hist<<<grid, BLOCK, 0, s>>>(*a, shift);
-      LAUNCHED();
-    }
-    topk_pick<<<1, 256, 0, s>>>(*a, shift);
-    LAUNCHED();
-  }
-  raw_flags<<<grid, BLOCK, 0, s>>>(*a);
-  LAUNCHED();
-  raw_scan<<<1, SCAN_THREADS, 0, s>>>(*a);
-  LAUNCHED();
-  raw_write<<<wgrid, WORDS, 0, s>>>(*a, MODE_STRICT);
-  LAUNCHED();
-  raw_write<<<wgrid, WORDS, 0, s>>>(*a, MODE_TIE);
-  LAUNCHED();
-  raw_fill<<<fgrid, BLOCK, 0, s>>>(*a);
-  LAUNCHED();
+  sizes[7] = TK_STATUS;
   return 0;
 }
 
@@ -886,6 +1238,66 @@ long long raw_select_tiles(const long long* windows, long long n_windows, long l
   return n;
 }
 
+// The tile table of ``windows`` (``nt`` tiles) built on the host and
+// copied to ``dst`` on the card (from pageable memory: staged before the
+// call returns).
+static int copy_tiles(const long long* windows, long long n_windows, long long n_rows,
+                      long long nt, const int* dst, cudaStream_t s) {
+  if (nt <= 0) return 0;
+  int* host = (int*)malloc(sizeof(int) * 2 * nt);
+  if (host == nullptr) return (int)cudaErrorMemoryAllocation;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (raw_select_tiles(windows, n_windows, n_rows, host) == nt)
+    err = cudaMemcpyAsync((void*)dst, host, sizeof(int) * 2 * nt, cudaMemcpyHostToDevice, s);
+  free(host);
+  return (int)err;
+}
+
+// The top-k over the tile table of ``windows``. The wrapper's scratch
+// (a->scratch): [state and histograms TK_STATUS | tile counts 2 x n_tiles
+// | block counts 2 x n_tiles | tile maxima n_tiles | table 2 x n_tiles]
+// (a->tiles at the table), keys n_tiles x TILE (a->keys). One memset
+// zeroes the state and the histograms; the table is copied; then topk_keys, three
+// topk_refine (none when fewer than k rows lie in the windows: no k-th key
+// to find), and topk_write, cooperative. *kernels gets the kernels
+// launched.
+int raw_topk_launch(const RawArgs* a, const long long* windows, long long n_windows,
+                    int* kernels, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long nt = a->n_tiles;
+  if (nt < 0 || a->k < 1 || a->tiles != a->scratch + TK_STATUS + 5 * nt)
+    return (int)cudaErrorInvalidValue;
+  long long rows = 0;
+  for (long long w = 0; w < n_windows; ++w) rows += windows[2 * w + 1] - windows[2 * w];
+  TRY(cudaSetDevice(a->device));
+  TRY(cudaMemsetAsync(a->scratch, 0, sizeof(int) * TK_STATUS, s));
+  const int err = copy_tiles(windows, n_windows, a->n_rows, nt, a->tiles, s);
+  if (err) return err;
+  int grid, per_sm = 0, sms = 0;
+  TRY(grid_for(a->device, nt, 8, &grid));
+  topk_keys<<<grid, BLOCK, 0, s>>>(*a);
+  LAUNCHED();
+  *kernels = 1;
+  if (rows >= a->k) {
+    for (int shift = 16; shift >= 0; shift -= 8) {
+      topk_refine<<<grid, BLOCK, 0, s>>>(*a, shift);
+      LAUNCHED();
+      ++*kernels;
+    }
+  }
+  TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, a->device));
+  TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, topk_write, BLOCK, 0));
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long resident = (long long)sms * per_sm;
+  const unsigned wgrid = (unsigned)(nt < 1 ? 1 : (nt < resident ? nt : resident));
+  RawArgs args = *a;
+  void* params[] = {&args};
+  TRY(cudaLaunchCooperativeKernel((const void*)topk_write, dim3(wgrid), dim3(BLOCK), params, 0,
+                                  s));
+  ++*kernels;
+  return 0;
+}
+
 // The selection over the tile table of ``windows``. The wrapper's buffer:
 // [status 2 x n_tiles | ticket | out[0] | slots k | table 2 x n_tiles]
 // (a->scratch, a->out, a->tiles). One memset puts -1 in the status words,
@@ -900,16 +1312,8 @@ int raw_select_launch(const RawArgs* a, const long long* windows, long long n_wi
     return (int)cudaErrorInvalidValue;
   TRY(cudaSetDevice(a->device));
   TRY(cudaMemsetAsync(a->scratch, 0xff, sizeof(int) * (2 * nt + 2 + a->k), s));
-  if (nt > 0) {
-    int* host = (int*)malloc(sizeof(int) * 2 * nt);
-    if (host == nullptr) return (int)cudaErrorMemoryAllocation;
-    cudaError_t err = cudaErrorInvalidValue;
-    if (raw_select_tiles(windows, n_windows, a->n_rows, host) == nt)
-      err = cudaMemcpyAsync((void*)a->tiles, host, sizeof(int) * 2 * nt, cudaMemcpyHostToDevice,
-                            s);
-    free(host);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int err = copy_tiles(windows, n_windows, a->n_rows, nt, a->tiles, s);
+  if (err) return err;
   raw_select<<<nt > 0 ? nt : 1, BLOCK, 0, s>>>(*a);
   LAUNCHED();
   return 0;

@@ -8,12 +8,12 @@ buffer per state, ``[5, depth, cap]`` 32-bit words: plane 0 the counts
 
 Two kernels, written by hand in CUDA (``csrc/livewindow.cu``):
 
-- ``fold``   replaces ``horaedb_tpu/ops/livewindow.py:45`` ``_fold_body``:
-             reset the slots a head advance reuses (its own launch, only
-             when a slot is named, so stream order puts it before the
-             scatter), then scatter every row and counter pair with
-             atomics, updating the ring IN PLACE (the reference returns
-             new arrays);
+- ``fold_group`` replaces ``horaedb_tpu/ops/livewindow.py:45`` ``_fold_body``
+             for every state of a table at once: ONE launch resets the
+             slots a head advance reuses, waits at a grid-wide barrier,
+             then scatters every state's rows and counter pairs with
+             atomics, updating each ring IN PLACE (the reference returns
+             new arrays and folds one state a call);
 - ``gather`` replaces ``horaedb_tpu/ops/livewindow.py:64`` ``_gather_body``:
              ring rows by slot, the first ``g`` group columns of all five
              planes into one contiguous ``[5, n, g]`` output, so a read is
@@ -23,7 +23,8 @@ Both are bound by bytes and, at a commit's or a refresh's size, by launch
 latency. Each wrapper runs its plain PyTorch version for a CPU ring and
 launches its kernel (or raises) for a CUDA ring; nothing falls back.
 
-Layout contract of a fold (prepared by the state layer on host):
+Layout contract of a state's fold (prepared by the state layer on host,
+``FoldBatch``):
 
 - ``slot``  int32[N]: ring slot per row; ``depth`` for rows that must not
   fold (NULL values, below-tail late rows). As in the reference's scatter,
@@ -44,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import time as _time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -53,20 +55,37 @@ from .scan_agg import _from_key, _order_key
 PLANES = 5
 
 # Kernel launches, counted where each wrapper launches its kernel;
-# PLAIN_CALLS counts the plain versions the wrappers ran for CPU rings.
-LAUNCHES = {"fold_reset": 0, "fold_scatter": 0, "gather": 0}
+# PLAIN_CALLS counts the plain versions the wrappers ran for CPU rings (a
+# group's fold counts one, as its launch does); STATES_FOLDED the states
+# those folds carried.
+LAUNCHES = {"fold": 0, "gather": 0}
 PLAIN_CALLS = {"fold": 0, "gather": 0}
-# Folds that raised on the write path: each dropped its state
-# (state/livewindow.LiveWindowStore.on_write).
+STATES_FOLDED = 0
+# States dropped on the write path because their fold raised or missed the
+# batch (state/livewindow.LiveWindowStore.on_write), one each.
 FOLD_ERRORS = 0
+# states of one fold launch (checked against the kernel at load)
+MAX_GROUP = 32
 
 
 def reset_counts() -> None:
-    global FOLD_ERRORS
+    global FOLD_ERRORS, STATES_FOLDED
     for d in (LAUNCHES, PLAIN_CALLS):
         for k in d:
             d[k] = 0
-    FOLD_ERRORS = 0
+    FOLD_ERRORS = STATES_FOLDED = 0
+
+
+class FoldBatch(NamedTuple):
+    """One state's prepared ingest batch (the layout contract above)."""
+
+    reset_mask: np.ndarray
+    slot: np.ndarray
+    grp: np.ndarray
+    val: np.ndarray
+    pair_slot: np.ndarray
+    pair_grp: np.ndarray
+    pair_delta: np.ndarray
 
 
 # ---- the ring buffer -------------------------------------------------------
@@ -122,6 +141,29 @@ def pack_fold(reset_mask, slot, grp, val, pair_slot, pair_grp, pair_delta, out=N
 def fold_words(reset_mask, slot, grp, val, pair_slot, pair_grp, pair_delta) -> int:
     """Words ``pack_fold`` writes for these inputs."""
     return int(np.count_nonzero(reset_mask)) + 3 * len(slot) + 3 * len(pair_slot)
+
+
+def _barrier_words(n_states: int) -> int:
+    """Words of the barriers at the head of a group's words."""
+    return 2 * -(-n_states // MAX_GROUP)
+
+
+def pack_group(batches, out=None):
+    """A group's fold inputs as one int32 word array: two zero barrier
+    words per launch (``MAX_GROUP`` states each), then each state's
+    ``pack_fold`` words. Returns (words, spans): spans[i] = (offset,
+    n_reset, n_rows, n_pairs) of state i; ``out`` (a numpy view of a pinned
+    buffer) receives the words when given."""
+    head = _barrier_words(len(batches))
+    total = head + sum(fold_words(*b) for b in batches)
+    words = np.empty(total, dtype=np.int32) if out is None else out[:total]
+    words[:head] = 0
+    spans, at = [], head
+    for b in batches:
+        _, r, n, m = pack_fold(*b, out=words[at:])
+        spans.append((at, r, n, m))
+        at += r + 3 * n + 3 * m
+    return words, spans
 
 
 # ---- plain PyTorch versions ------------------------------------------------
@@ -198,17 +240,36 @@ def gather_plain(rings, idx, g: int) -> torch.Tensor:
 # ---- the CUDA kernels --------------------------------------------------------
 
 
-class _FoldArgs(ctypes.Structure):
-    """Mirror of ``FoldArgs`` in ops/csrc/livewindow.cu."""
+class _FoldState(ctypes.Structure):
+    """Mirror of ``FoldState`` in ops/csrc/livewindow.cu."""
 
     _fields_ = [
         ("rings", ctypes.c_void_p),
         ("inp", ctypes.c_void_p),
-        ("n_reset", ctypes.c_longlong),
-        ("n_rows", ctypes.c_longlong),
-        ("n_pairs", ctypes.c_longlong),
+        ("n_reset", ctypes.c_int),
+        ("n_rows", ctypes.c_int),
+        ("n_pairs", ctypes.c_int),
         ("depth", ctypes.c_int),
         ("cap", ctypes.c_int),
+        ("row_warp0", ctypes.c_int),
+        ("pair_warp0", ctypes.c_int),
+        ("pad_", ctypes.c_int),
+        ("reset0", ctypes.c_longlong),
+    ]
+
+
+class _FoldArgs(ctypes.Structure):
+    """Mirror of ``FoldArgs`` in ops/csrc/livewindow.cu."""
+
+    _fields_ = [
+        ("s", _FoldState * MAX_GROUP),
+        ("barrier", ctypes.c_void_p),
+        ("n_reset_cells", ctypes.c_longlong),
+        ("n_states", ctypes.c_int),
+        ("row_chunk", ctypes.c_int),
+        ("pair_chunk", ctypes.c_int),
+        ("row_warps", ctypes.c_int),
+        ("pair_warps", ctypes.c_int),
         ("device", ctypes.c_int),
     ]
 
@@ -241,16 +302,15 @@ def _kernels():
         lib = load("livewindow")
         lib.livewindow_abi.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
         lib.livewindow_abi.restype = ctypes.c_int
-        for fn, st in (("livewindow_reset_launch", _FoldArgs),
-                       ("livewindow_scatter_launch", _FoldArgs),
+        for fn, st in (("livewindow_fold_launch", _FoldArgs),
                        ("livewindow_gather_launch", _GatherArgs)):
             getattr(lib, fn).argtypes = [ctypes.POINTER(st), ctypes.c_void_p]
             getattr(lib, fn).restype = ctypes.c_int
         lib.livewindow_error_string.argtypes = [ctypes.c_int]
         lib.livewindow_error_string.restype = ctypes.c_char_p
-        sizes = (ctypes.c_longlong * 3)()
+        sizes = (ctypes.c_longlong * 4)()
         lib.livewindow_abi(sizes)
-        want = [ctypes.sizeof(_FoldArgs), ctypes.sizeof(_GatherArgs), PLANES]
+        want = [ctypes.sizeof(_FoldArgs), ctypes.sizeof(_GatherArgs), PLANES, MAX_GROUP]
         if list(sizes) != want:
             raise RuntimeError(f"livewindow ABI mismatch: kernel {list(sizes)} vs {want}")
         _lib = lib
@@ -281,33 +341,46 @@ def _run(lib, fn: str, args, what: str) -> None:
         )
 
 
-def fold(rings: torch.Tensor, words: torch.Tensor, n_reset: int, n_rows: int,
-         n_pairs: int) -> None:
-    """Fold one packed batch (``pack_fold``'s layout, on the ring's device)
-    into ``rings`` in place: the plain version for a CPU ring; for a CUDA
-    ring the reset kernel (only when ``n_reset``) and then the scatter
-    kernel, on the current stream."""
-    dev = _check_rings(rings)
+def fold_group(rings_list, words: torch.Tensor, spans) -> None:
+    """Fold each state's packed batch (``pack_group``'s layout, on the
+    rings' device; ``spans`` as it returns them) into ``rings_list[i]`` in
+    place: the plain version state by state for CPU rings; for CUDA rings
+    one ``ring_fold`` launch a ``MAX_GROUP`` states, on the current stream.
+    Every ring lies on one device."""
+    _check(len(rings_list) == len(spans) > 0, "one span per ring, at least one")
     _check(words.dtype == torch.int32 and words.dim() == 1 and words.is_contiguous(),
            "words must be contiguous int32 [n]")
-    _check(words.device == dev, f"words on {words.device}, rings on {dev}")
-    _check(min(n_reset, n_rows, n_pairs) >= 0, "negative count")
-    _check(words.shape[0] >= n_reset + 3 * n_rows + 3 * n_pairs, "too few words")
+    dev = words.device
+    head = _barrier_words(len(spans))
+    for rings, (at, r, n, m) in zip(rings_list, spans):
+        _check(_check_rings(rings) == dev, f"rings on {rings.device}, words on {dev}")
+        _check(min(r, n, m) >= 0 and at >= head, "negative count or offset")
+        _check(words.shape[0] >= at + r + 3 * n + 3 * m, "too few words")
+        _check(max(r, n, m) < 2**31, "a state's batch must fit int32 counts")
+    global STATES_FOLDED
     if dev.type == "cpu":
         PLAIN_CALLS["fold"] += 1
-        fold_plain(rings, words, n_reset, n_rows, n_pairs)
+        for rings, (at, r, n, m) in zip(rings_list, spans):
+            fold_plain(rings, words[at:], r, n, m)
+        STATES_FOLDED += len(spans)
         return
     lib = _kernels()
-    a = _FoldArgs()
-    a.rings, a.inp = rings.data_ptr(), words.data_ptr()
-    a.n_reset, a.n_rows, a.n_pairs = n_reset, n_rows, n_pairs
-    a.depth, a.cap = int(rings.shape[1]), int(rings.shape[2])
-    a.device = dev.index if dev.index is not None else torch.cuda.current_device()
-    if n_reset:
-        _run(lib, "livewindow_reset_launch", a, "reset")
-        LAUNCHES["fold_reset"] += 1
-    _run(lib, "livewindow_scatter_launch", a, "scatter")
-    LAUNCHES["fold_scatter"] += 1
+    base = words.data_ptr()
+    device = dev.index if dev.index is not None else torch.cuda.current_device()
+    for c in range(head // 2):
+        group = range(c * MAX_GROUP, min((c + 1) * MAX_GROUP, len(spans)))
+        a = _FoldArgs()
+        a.barrier, a.n_states, a.device = base + 8 * c, len(group), device
+        for j, i in enumerate(group):
+            at, r, n, m = spans[i]
+            rings = rings_list[i]
+            st = a.s[j]
+            st.rings, st.inp = rings.data_ptr(), base + 4 * at
+            st.n_reset, st.n_rows, st.n_pairs = r, n, m
+            st.depth, st.cap = int(rings.shape[1]), int(rings.shape[2])
+        _run(lib, "livewindow_fold_launch", a, "fold")
+        LAUNCHES["fold"] += 1
+    STATES_FOLDED += len(spans)
 
 
 def gather(rings: torch.Tensor, idx: torch.Tensor, g: int) -> torch.Tensor:
@@ -344,24 +417,22 @@ def _staged(n_words: int, device) -> torch.Tensor:
     return torch.empty(n_words, dtype=torch.int32, pin_memory=device.type == "cuda")
 
 
-def fold_batch(rings, reset_mask, slot, grp, val, pair_slot, pair_grp, pair_delta):
-    """Fold one prepared ingest batch into ``rings`` (in place; returned):
-    the inputs go to the ring's device in one copy, then ``fold``. Runs on
-    the current stream; the write thread does not wait for the card."""
+def fold_batches(rings_list, batches) -> None:
+    """Fold each state's prepared ``FoldBatch`` into its ring (in place),
+    every ring on one device: the inputs go to the device in one staging
+    buffer and one copy, then ``fold_group``. Runs on the current stream;
+    the write thread does not wait for the card."""
     from ..obs.device import timed_dispatch
     from ..utils.querystats import note_kernel_dispatch
 
-    dev = rings.device
-    depth, cap = int(rings.shape[1]), int(rings.shape[2])
-    host = _staged(fold_words(reset_mask, slot, grp, val, pair_slot, pair_grp, pair_delta), dev)
-    _, n_reset, n, m = pack_fold(reset_mask, slot, grp, val, pair_slot, pair_grp, pair_delta,
-                                 out=host.numpy())
+    dev = rings_list[0].device
+    host = _staged(_barrier_words(len(batches)) + sum(fold_words(*b) for b in batches), dev)
+    _, spans = pack_group(batches, out=host.numpy())
     words = host.to(dev, non_blocking=True) if dev.type == "cuda" else host
     t0 = _time.perf_counter()
-    timed_dispatch("state_fold", lambda: fold(rings, words, n_reset, n, m), dev)
-    note_kernel_dispatch(("state_fold", depth, cap), _time.perf_counter() - t0,
+    timed_dispatch("state_fold", lambda: fold_group(rings_list, words, spans), dev)
+    note_kernel_dispatch(("state_fold", len(batches)), _time.perf_counter() - t0,
                          kind="state_fold")
-    return rings
 
 
 def gather_buckets(rings, slots, g: int | None = None):

@@ -21,9 +21,12 @@ transform, so one integer threshold serves both ``ORDER BY ts`` and
 ``ORDER BY field``, and the masked-row sentinel (INT32_MIN) lies outside
 the real key domain (even ``-inf`` maps above it).
 
-Both are written by hand in CUDA (``csrc/scan_topk.cu``): one pass decodes,
-masks and keys; a radix select over four 8-bit digits finds the k-th key;
-an ordered stream compaction writes the slots. The plain PyTorch versions
+Both are written by hand in CUDA (``csrc/scan_topk.cu``) and visit only
+the executor's row windows, the rows its mask can pass. The top-k keys
+the window rows, drops the rows that cannot be among the top k, finds the
+k-th key by a radix select over four 8-bit digits of the rows left, and
+writes the slots by an ordered compaction; the selection compacts in one
+launch. The plain PyTorch versions
 below transcribe the reference's programs (its 32-step bisection and its
 cumsum + searchsorted compaction): they are the spec, and they run for
 CPU tensors. For a CUDA tensor the wrappers launch the kernels or raise.
@@ -67,18 +70,23 @@ from .scan_agg import (
 _I32_MIN = -(2**31)
 
 # Kernel launches, counted where each wrapper launches its kernel (a
-# cohort counts one launch per launch sequence); PLAIN_CALLS counts the
-# plain versions the wrappers ran for CPU tensors; TILES the tiles the
-# selection's launches walked (its launch geometry). Counts move under
-# scan_agg's lock (``_count``): wrappers run on several threads at once.
+# cohort and a top-k count one launch per launch sequence); PLAIN_CALLS
+# counts the plain versions the wrappers ran for CPU tensors; TILES the
+# tiles the selection's launches walked (its launch geometry); KERNELS the
+# kernels a top-k's launch sequences ran. Counts move under scan_agg's
+# lock (``_count``): wrappers run on several threads at once.
 LAUNCHES = {"raw_topk": 0, "raw_select": 0, "raw_topk_cohort": 0}
 PLAIN_CALLS = {"raw_topk": 0, "raw_select": 0, "raw_topk_cohort": 0}
 TILES = {"raw_select": 0}
+KERNELS = {"raw_topk": 0}
+# what a top-k's keys kernel counts on the card as it runs, added to the
+# wrapper's ``stats``: the rows it decoded and the tiles it walked
+TOPK_STATS = ("rows", "tiles")
 
 
 def reset_counts() -> None:
     with _COUNTS_LOCK:
-        for d in (LAUNCHES, PLAIN_CALLS, TILES):
+        for d in (LAUNCHES, PLAIN_CALLS, TILES, KERNELS):
             for k in d:
                 d[k] = 0
 
@@ -295,9 +303,11 @@ def _unpack_dyn(dyn, numeric_filters):
 def raw_topk_plain(series_parts, ts_parts, values, session, dyn, *, k: int,
                    descending: bool, key_is_ts: bool, key_field: int, numeric_filters,
                    value_layouts: tuple = (), ts_layout: tuple = ("raw",),
-                   series_layout: tuple = ("raw",), with_keys: bool = False):
+                   series_layout: tuple = ("raw",), with_keys: bool = False, windows=None):
     """Plain version of ``raw_topk_packed``: the same inputs, int32[k]
-    (int32[2, k] ``with_keys``)."""
+    (int32[2, k] ``with_keys``). It takes ``windows`` and ignores them, as
+    ``raw_select_plain`` does."""
+    del windows
     literals, lo, hi, key_lo, key_hi = _unpack_dyn(dyn, numeric_filters)
     sc, tr, vals = decode_layouts(series_parts, ts_parts, values, series_layout, ts_layout,
                                   value_layouts)
@@ -383,6 +393,10 @@ class _CohortRawArgs(ctypes.Structure):
 TILE = 4096
 _HEAD_WORDS = 16 + 256
 MAX_COHORT = 32
+# the top-k's state and histogram words, before its per-tile words; the
+# keys kernel's counts (TOPK_STATS, 64-bit) at state word 16
+_TOPK_HEAD = 32 + 4 * 256
+_TOPK_STATS_AT = 16
 
 _lib = None
 
@@ -397,7 +411,9 @@ def _kernels():
         lib = load("scan_topk")
         lib.scan_topk_abi.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
         lib.scan_topk_abi.restype = ctypes.c_int
-        lib.raw_topk_launch.argtypes = [ctypes.POINTER(_RawArgs), ctypes.c_void_p]
+        lib.raw_topk_launch.argtypes = [ctypes.POINTER(_RawArgs), ctypes.c_void_p,
+                                        ctypes.c_longlong, ctypes.POINTER(ctypes.c_int),
+                                        ctypes.c_void_p]
         lib.raw_topk_launch.restype = ctypes.c_int
         lib.raw_select_launch.argtypes = [ctypes.POINTER(_RawArgs), ctypes.c_void_p,
                                           ctypes.c_longlong, ctypes.c_void_p]
@@ -409,10 +425,10 @@ def _kernels():
         lib.raw_topk_cohort_launch.restype = ctypes.c_int
         lib.scan_topk_error_string.argtypes = [ctypes.c_int]
         lib.scan_topk_error_string.restype = ctypes.c_char_p
-        sizes = (ctypes.c_longlong * 7)()
+        sizes = (ctypes.c_longlong * 8)()
         lib.scan_topk_abi(sizes)
         want = [ctypes.sizeof(_RawArgs), MAX_FIELDS, MAX_FILTERS, TILE, _HEAD_WORDS,
-                ctypes.sizeof(_CohortRawArgs), MAX_COHORT]
+                ctypes.sizeof(_CohortRawArgs), MAX_COHORT, _TOPK_HEAD]
         if list(sizes) != want:
             raise RuntimeError(f"scan_topk ABI mismatch: kernel {list(sizes)} vs {want}")
         _lib = lib
@@ -493,18 +509,35 @@ def _run(lib, fn: str, a: _RawArgs, dev, *extra) -> None:
         )
 
 
+def _windows(lib, windows, n_rows: int):
+    """The windows as int64[W, 2] and their tile count, checked in C."""
+    w = np.ascontiguousarray(((0, n_rows),) if windows is None else windows,
+                             dtype=np.int64).reshape(-1, 2)
+    n_tiles = lib.raw_select_tiles(w.ctypes.data, len(w), n_rows, None)
+    _check(n_tiles >= 0, f"windows must be sorted, disjoint [start, end) ranges inside "
+                         f"[0, {n_rows})")
+    return w, n_tiles
+
+
 def raw_topk_packed(series_parts, ts_parts, values, session, dyn, *, k: int,
                     descending: bool, key_is_ts: bool, key_field: int, numeric_filters,
                     value_layouts: tuple = (), ts_layout: tuple = ("raw",),
-                    series_layout: tuple = ("raw",), with_keys: bool = False):
+                    series_layout: tuple = ("raw",), with_keys: bool = False, windows=None,
+                    stats=None):
     """-> int32[k] resident row indices, -1 in slots with no passing row;
     ``with_keys``: int32[2, k], the slots and then the int32 keys the
     kernel ranked them by (INT32_MIN in a slot with no row), one buffer.
 
     Resident series/ts/value part tuples, one session buffer (the allow
     list, int32[S + 1]), one dyn buffer [literals bitcast | lo, hi,
-    key_lo, key_hi]. A CUDA input launches ``raw_topk`` (csrc/scan_topk.cu);
-    a CPU input runs ``raw_topk_plain``."""
+    key_lo, key_hi]. ``windows``: sorted, disjoint [start, end) row ranges
+    that hold every row the mask can pass (the executor's), None for one
+    window over every resident row; the kernel visits only their rows.
+    A CUDA input launches the top-k (csrc/scan_topk.cu ``raw_topk_launch``:
+    a memset, the tile table's copy, ``topk_keys``, three ``topk_refine``
+    and ``topk_write``); a CPU input runs ``raw_topk_plain``, which scans
+    every row and ignores the windows. ``stats`` (int64[2], CUDA): the
+    launch adds to it the ``TOPK_STATS`` its keys kernel counted."""
     values = tuple(values)
     layouts = value_layouts or tuple(_dense_layout(p) for p in values)
     kw = dict(k=k, descending=descending, key_is_ts=key_is_ts, key_field=key_field,
@@ -514,21 +547,38 @@ def raw_topk_packed(series_parts, ts_parts, values, session, dyn, *, k: int,
     _check(key_is_ts or 0 <= key_field < len(values), f"key field {key_field} out of range")
     dev = session.device
     if dev.type == "cpu":
+        # the windows are checked as for a launch, then ignored
+        select_tiles(windows, layout_rows(series_parts, series_layout))
         _count(PLAIN_CALLS, "raw_topk")
         return raw_topk_plain(series_parts, ts_parts, values, session, dyn, **kw)
     a, n_rows = _args(series_parts, ts_parts, values, session, dyn, numeric_filters, layouts,
                       ts_layout, series_layout)
+    _check(k < 2**31, "k must fit int32")
     lib = _kernels()
-    keys = torch.empty(n_rows, dtype=torch.int32, device=dev)
-    scratch = torch.empty(_scratch_words(n_rows), dtype=torch.int32, device=dev)
+    w, n_tiles = _windows(lib, windows, n_rows)
+    # [state and histograms | tile counts 2 x tiles | block counts 2 x tiles
+    # (one block's at least) | tile maxima | table 2 x tiles]
+    scratch = torch.empty(_TOPK_HEAD + 7 * n_tiles + 2, dtype=torch.int32, device=dev)
+    keys = torch.empty(max(n_tiles, 1) * TILE, dtype=torch.int32, device=dev)
     out = torch.empty((2, k) if with_keys else k, dtype=torch.int32, device=dev)
-    a.keys, a.scratch, a.out = keys.data_ptr(), scratch.data_ptr(), out.data_ptr()
+    a.scratch, a.keys, a.out = scratch.data_ptr(), keys.data_ptr(), out.data_ptr()
+    a.tiles, a.n_tiles = a.scratch + 4 * (_TOPK_HEAD + 5 * n_tiles), n_tiles
     if with_keys:
         a.key_out = out[1].data_ptr()
     a.k = k
     a.descending, a.key_is_ts, a.key_field = int(descending), int(key_is_ts), key_field
-    _run(lib, "raw_topk_launch", a, dev)
-    _count(LAUNCHES, "raw_topk")
+    if stats is not None:
+        _check(stats.dtype == torch.int64 and stats.device == dev
+               and tuple(stats.shape) == (len(TOPK_STATS),),
+               f"stats is int64[{len(TOPK_STATS)}] on {dev}")
+    kernels = ctypes.c_int(0)
+    _run(lib, "raw_topk_launch", a, dev, w.ctypes.data, len(w), ctypes.byref(kernels))
+    with _COUNTS_LOCK:
+        LAUNCHES["raw_topk"] += 1
+        KERNELS["raw_topk"] += kernels.value
+    if stats is not None:
+        at = _TOPK_STATS_AT
+        stats += scratch[at:at + 2 * len(TOPK_STATS)].view(torch.int64)
     return out
 
 
@@ -614,15 +664,11 @@ def raw_select_packed(series_parts, ts_parts, values, session, dyn, *, select_sl
                                 series_layout=series_layout, windows=windows)
     a, n_rows = _args(series_parts, ts_parts, values, session, dyn, numeric_filters, layouts,
                       ts_layout, series_layout)
-    w = np.ascontiguousarray(((0, n_rows),) if windows is None else windows,
-                             dtype=np.int64).reshape(-1, 2)
     lib = _kernels()
     # the launcher builds the table (select_tiles, in C) and copies it to
     # the card; here only its size, for the one buffer the launch uses:
     # [look-back status 2 x tiles | ticket | count | slots | table 2 x tiles]
-    n_tiles = lib.raw_select_tiles(w.ctypes.data, len(w), n_rows, None)
-    _check(n_tiles >= 0, f"windows must be sorted, disjoint [start, end) ranges inside "
-                         f"[0, {n_rows})")
+    w, n_tiles = _windows(lib, windows, n_rows)
     head = 2 * n_tiles + 1
     buf = torch.empty(head + 1 + select_slots + 2 * n_tiles, dtype=torch.int32, device=dev)
     a.scratch, a.k, a.n_tiles = buf.data_ptr(), select_slots, n_tiles

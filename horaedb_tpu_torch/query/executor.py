@@ -1612,17 +1612,13 @@ class Executor:
         # All (or most) series selected: the full-scan kernel wins.
         if len(sel) == 0 or len(sel) > 256 or len(sel) * 4 > S:
             return None
-        # int32 relative timestamps survive the host-rows drop; clamp the
-        # bounds into their domain before searching.
-        ts_rel = entry.ts_rel_host  # sorted within each series range
-        lo_rel = int(np.clip(lo - entry.min_ts, -(2**31) + 1, 2**31 - 1))
-        hi_rel = int(np.clip(hi - entry.min_ts, -(2**31) + 1, 2**31 - 1))
+        # each series' rows in the range, from the entry's time index
+        starts, ends = entry.time_index.row_bounds(
+            sel, int(lo) - int(entry.min_ts), int(hi) - int(entry.min_ts)
+        )
         parts = []
         total = 0
-        for s in sel:
-            s0, s1 = int(offsets[s]), int(offsets[s + 1])
-            a = s0 + int(np.searchsorted(ts_rel[s0:s1], lo_rel, "left"))
-            b = s0 + int(np.searchsorted(ts_rel[s0:s1], hi_rel, "left"))
+        for a, b in zip(starts.tolist(), ends.tolist()):
             if b > a:
                 parts.append(np.arange(a, b, dtype=np.int32))
                 total += b - a
@@ -1901,6 +1897,12 @@ class Executor:
         estimate = windows = None
         if shape["topk_ok"] and limit + offset <= budget:
             kind = "topk"
+            # the top-k visits only the rows its mask can pass, as the
+            # selection does (a sharded entry's shards take every row)
+            if not empty_range and entry.mesh is None:
+                _, windows = self._raw_candidate_estimate(
+                    entry, allowed, lo_rel, hi_rel, exact=False
+                )
         else:
             estimate, windows = (
                 self._raw_candidate_estimate(entry, allowed, lo_rel, hi_rel)
@@ -2028,6 +2030,7 @@ class Executor:
                         key_is_ts=spec.key_is_ts,
                         key_field=spec.key_field,
                         numeric_filters=encode_filter_ops(nfilters),
+                        windows=windows,
                         **layouts,
                     ),
                     self.device,
@@ -2084,7 +2087,7 @@ class Executor:
         return out
 
     def _raw_candidate_estimate(
-        self, entry, allowed: np.ndarray, lo_rel: int, hi_rel: int
+        self, entry, allowed: np.ndarray, lo_rel: int, hi_rel: int, exact: bool = True
     ) -> tuple[int, np.ndarray]:
         """EXACT count of resident rows in allowed series within the
         relative time range, ignoring numeric filters (which only
@@ -2093,28 +2096,24 @@ class Executor:
         windows: int64[W, 2] sorted, disjoint [start, end) ranges, windows
         that touch merged (every series over the whole range: one window
         [0, n_valid)). Every row the selection's mask can pass lies in a
-        window, and the selection kernel visits only them. O(S log rows)
-        host work over the per-series sorted ranges."""
+        window, and the selection kernel visits only them. Each series'
+        bounds come from the entry's ``SeriesTimeIndex``, all series at
+        once. ``exact=False`` (the top-k, which needs no count): windows
+        that may hold up to one step of the index more rows at each
+        series' edge, read from the index alone, and their row count."""
         none = np.empty((0, 2), dtype=np.int64)
         if not allowed.any():
             return 0, none
-        ts_rel = entry.ts_rel_host
         # the largest relative timestamp is max_ts - min_ts: no scan of
         # the column per query
         full_range = lo_rel <= 0 and (
-            len(ts_rel) == 0 or hi_rel > entry.max_ts - entry.min_ts
+            entry.n_valid == 0 or hi_rel > entry.max_ts - entry.min_ts
         )
         if allowed.all() and full_range:
             n = entry.n_valid
             return n, np.array([[0, n]], dtype=np.int64) if n else none
-        offsets = np.asarray(entry.series_offsets, dtype=np.int64)
         series = np.nonzero(allowed)[0]
-        starts, ends = offsets[series], offsets[series + 1]
-        if not full_range:
-            for j, s in enumerate(series):
-                s0, s1 = int(starts[j]), int(ends[j])
-                ends[j] = s0 + np.searchsorted(ts_rel[s0:s1], hi_rel, "left")
-                starts[j] = s0 + np.searchsorted(ts_rel[s0:s1], lo_rel, "left")
+        starts, ends = entry.time_index.row_bounds(series, lo_rel, hi_rel, exact)
         keep = ends > starts
         starts, ends = starts[keep], ends[keep]
         total = int((ends - starts).sum())

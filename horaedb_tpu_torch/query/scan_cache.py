@@ -156,6 +156,98 @@ def _layout_encoding(layout: tuple) -> str:
     return layout[0]  # "raw" | "delta"
 
 
+def _segment_search(values: np.ndarray, starts: np.ndarray, ends: np.ndarray,
+                    x: np.ndarray) -> np.ndarray:
+    """For each j, the first index i in [starts[j], ends[j]) with
+    values[i] >= x[j] (ends[j] when there is none): ``np.searchsorted``
+    (side "left") over each sorted segment, all segments bisected at once."""
+    lo, hi = starts.copy(), ends.copy()
+    while True:
+        live = lo < hi
+        if not live.any():
+            return lo
+        mid = (lo + hi) >> 1
+        go = live & (values[np.where(live, mid, 0)] < x)
+        lo = np.where(go, mid + 1, lo)
+        hi = np.where(live & ~go, mid, hi)
+
+
+class SeriesTimeIndex:
+    """Each series' first row at ``n_steps + 1`` evenly spaced relative
+    timestamps: ``first[j, s]`` is the first row of series ``s`` with
+    ``ts_rel >= j * width`` (the series' end where there is none), about
+    ``ROWS_PER_STEP`` rows of a series apart. The row bounds of a time
+    range for every series then cost one row of the table and, to be
+    exact, a look at the few rows of one step of each series, with no
+    search per series. Built from the entry's int32 relative timestamps
+    (non-negative, sorted within each series range) and series offsets."""
+
+    ROWS_PER_STEP = 8
+    # rows a step of one series may hold before the exact bound bisects
+    # the step instead of reading all of its rows
+    _GATHER_MAX = 64
+    # rows counted a pass while building
+    _CHUNK = 1 << 22
+
+    def __init__(self, ts_rel: np.ndarray, offsets: np.ndarray):
+        self.ts_rel = ts_rel
+        self.offsets = np.asarray(offsets, dtype=np.int64)
+        n, S = len(ts_rel), len(self.offsets) - 1
+        self.n_steps = max(1, n // (self.ROWS_PER_STEP * max(S, 1)))
+        span = int(ts_rel.max()) + 1 if n else 1
+        self.width = -(-span // self.n_steps)  # n_steps * width >= span
+        first = np.empty((self.n_steps + 1, S), dtype=np.int32 if n < 2**31 else np.int64)
+        first[0] = self.offsets[:-1]
+        s0 = 0
+        while s0 < S:
+            # a run of series of about _CHUNK rows (one series at least):
+            # the rows of each series in each step, counted, then summed
+            s1 = int(np.searchsorted(self.offsets, self.offsets[s0] + self._CHUNK, "right")) - 1
+            s1 = min(max(s1, s0 + 1), S)
+            r0, r1 = self.offsets[s0], self.offsets[s1]
+            step = ts_rel[r0:r1].astype(np.int64) // self.width
+            step += np.repeat(np.arange(s1 - s0, dtype=np.int64) * self.n_steps,
+                              np.diff(self.offsets[s0:s1 + 1]))
+            per = np.bincount(step, minlength=(s1 - s0) * self.n_steps)
+            ends = np.cumsum(per.reshape(s1 - s0, self.n_steps), axis=1)
+            first[1:, s0:s1] = (ends + self.offsets[s0:s1, None]).T
+            s0 = s1
+        self.first = first
+
+    @property
+    def nbytes(self) -> int:
+        return self.first.nbytes
+
+    def row_bounds(self, series: np.ndarray, lo: int, hi: int,
+                   exact: bool = True) -> tuple[np.ndarray, np.ndarray]:
+        """int64 (starts, ends): the rows of each of ``series`` with
+        ``lo <= ts_rel < hi`` lie in [starts, ends) — exactly those rows,
+        or with ``exact=False`` up to one step of rows more at each end
+        (no timestamp read)."""
+        return self._first(series, lo, exact, 0), self._first(series, hi, exact, 1)
+
+    def _first(self, series, x: int, exact: bool, up: int) -> np.ndarray:
+        """The first row of each series with ``ts_rel >= x``; not exact:
+        the step's first row below it (``up`` 0) or above it (1)."""
+        if x <= 0:
+            return self.offsets[series]
+        if x >= self.n_steps * self.width:
+            return self.offsets[series + 1]
+        j, r = divmod(x, self.width)
+        if r == 0 or not exact:
+            return self.first[j + (up if r else 0), series].astype(np.int64)
+        a = self.first[j, series].astype(np.int64)
+        b = self.first[j + 1, series].astype(np.int64)
+        w = int((b - a).max()) if len(a) else 0
+        if w > self._GATHER_MAX:
+            return _segment_search(self.ts_rel, a, b, np.full(len(a), x, dtype=np.int64))
+        # the step's rows of each series, the last one repeated past its
+        # end: the rows below x are a prefix of them
+        rows = np.minimum(a[:, None] + np.arange(w), np.maximum(b - 1, 0)[:, None])
+        below = (self.ts_rel[rows] < x).sum(axis=1)
+        return a + np.minimum(below, b - a)
+
+
 @dataclass
 class CachedTableScan:
     """Device-resident state for one table fingerprint."""
@@ -226,6 +318,9 @@ class CachedTableScan:
     # no-NULLs flags, and a 0-row schema carrier for empty deltas.
     series_rows: Optional[RowGroup] = None
     ts_rel_host: Optional[np.ndarray] = None
+    # each series' first rows at evenly spaced relative timestamps: the
+    # raw reads' row windows without a search per series
+    time_index: Optional[SeriesTimeIndex] = None
     all_valid: dict = None
     empty_rows: Optional[RowGroup] = None
     # per-series (min, max) of each resident value column — the cached
@@ -947,6 +1042,7 @@ class ScanCache:
             {name: mask[first_idx] for name, mask in rows.validity.items()},
         )
         entry.ts_rel_host = (rows.timestamps - min_ts).astype(np.int32)
+        entry.time_index = SeriesTimeIndex(entry.ts_rel_host, offsets)
         entry.all_valid = {
             c.name: bool(rows.valid_mask(c.name).all()) for c in schema.columns
         }
@@ -955,6 +1051,7 @@ class ScanCache:
         entry.host_bytes = (
             _rowgroup_bytes(rows)
             + entry.ts_rel_host.nbytes
+            + entry.time_index.nbytes
             + _rowgroup_bytes(entry.series_rows)
         )
         # _extend uploads the value columns and then applies the host
@@ -1143,8 +1240,10 @@ class ScanCache:
             and _rowgroup_bytes(entry.rows) > self.max_host_rows_bytes
         ):
             entry.rows = None
-            entry.host_bytes = entry.ts_rel_host.nbytes + _rowgroup_bytes(
-                entry.series_rows
+            entry.host_bytes = (
+                entry.ts_rel_host.nbytes
+                + entry.time_index.nbytes
+                + _rowgroup_bytes(entry.series_rows)
             )
 
     def invalidate(self, table_name: str) -> None:

@@ -1,16 +1,18 @@
 """Live window state: device-resident incremental aggregates for the
 open tail (ROADMAP item 1; ref: StreamBox-HBM's ingest-time grouping
 into HBM, PAPERS.md). Each state's ring lives on its table's device; on a
-card every fold, growth and gather of one state runs on that state's own
-CUDA stream, so a refresh right after an acknowledged write sees its rows.
+card every fold, growth and gather runs on the one live-window CUDA
+stream of that device, so a refresh right after an acknowledged write
+sees its rows, and one launch can fold every state of a table.
 
 Rollups (rules/rewrite.py) answer for CLOSED buckets; the open tail —
 the "last 5m" edge every dashboard re-asks — still rescanned raw. This
 module keeps that tail as STATE: per hot (table, window, group-set)
 shape, a fixed-size device ring of (count, sum, min, max) partials per
-time bucket, folded per ingest batch by ONE fused scatter kernel
-(ops/livewindow.py, ``csrc/livewindow.cu`` on a card), so an open-tail
-refresh is a gather over O(buckets) partials instead of a raw rescan.
+time bucket. A committed batch folds into every state of its table in
+ONE launch (ops/livewindow.py ``fold_batches``, ``csrc/livewindow.cu`` on
+a card), so an open-tail refresh is a gather over O(buckets) partials
+instead of a raw rescan.
 
 Correctness contract (answers are never wrong):
 
@@ -26,10 +28,12 @@ Correctness contract (answers are never wrong):
   row sits below the floor.
 - NULL / non-finite values in the value column cannot be represented by
   the monoid cells; a batch carrying one drops the state (the shape can
-  re-promote; meanwhile every read is raw). So does a fold that raises
-  (a kernel that fails to build or launch): the write still succeeds, the
-  state is dropped and logged, and ``ops.livewindow.FOLD_ERRORS`` counts
-  it.
+  re-promote; meanwhile every read is raw). So does a state whose
+  preparation raises, and every state of a fold launch that fails (a
+  kernel that fails to build or launch): the write still succeeds, each
+  such state is dropped and logged, and ``ops.livewindow.FOLD_ERRORS``
+  counts it. A state is dropped while its lock is held, so a reader that
+  waited on the lock finds it gone.
 - PromQL counter chains are order-SENSITIVE: per-bucket increments are
   folded at write time (same-bucket consecutive pairs), per-bucket
   first/last samples ride a packed host sidecar, and cross-bucket
@@ -228,6 +232,22 @@ def _eval_conj(e: ast.Expr, vals: dict) -> bool:
 
 # ---- the per-shape state --------------------------------------------------
 
+_STREAMS: dict = {}
+_STREAMS_LOCK = threading.Lock()
+
+
+def _device_stream(device: torch.device):
+    """The live-window CUDA stream of ``device`` (None off a card): every
+    state there folds, grows and gathers on it, so one launch can fold
+    several states and a reader orders behind the folds it must see."""
+    if device.type != "cuda":
+        return None
+    with _STREAMS_LOCK:
+        stream = _STREAMS.get(device)
+        if stream is None:
+            stream = _STREAMS[device] = torch.cuda.Stream(device)
+        return stream
+
 
 class LiveState:
     """One promoted (table, window, group-set) shape's ring state."""
@@ -248,12 +268,13 @@ class LiveState:
         self.cap = 64
         self.lock = threading.RLock()
         # the table's device (``device`` only for a state with no table,
-        # as convert.livestate_from_reference builds); on a card, the one
-        # stream that orders this state's folds, growths and gathers
+        # as convert.livestate_from_reference builds); on a card, the
+        # device's live-window stream, which orders every state's folds,
+        # growths and gathers there
         self.device = torch.device(device if device is not None else table_data.device)
-        self.stream = (
-            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        )
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.stream = _device_stream(self.device)
         with self.on_device():
             self.rings = alloc_rings(self.depth, self.cap, self.device)
         # host sidecar for the counter chain: packed (ts_rel<<32 | f32
@@ -302,16 +323,20 @@ class LiveState:
 
     # -- write-time fold --------------------------------------------------
 
-    def fold(self, rows) -> bool:
-        """Fold one committed RowGroup; False => state must be dropped
-        (unrepresentable batch: NULL/non-finite values)."""
-        from ..ops.livewindow import fold_batch
+    def prepare(self, rows):
+        """The host half of a fold: advance the head, map the rows to ring
+        cells, run the counter chain. Returns the ``FoldBatch`` to launch,
+        None when there is nothing to fold, or False when the state must
+        be dropped (unrepresentable batch: NULL/non-finite values). The
+        caller holds the lock until the batch is enqueued on the state's
+        stream, and reads ``rings`` after this returns (it may grow)."""
+        from ..ops.livewindow import FoldBatch
 
         w = self.bucket_ms
         ts = np.asarray(rows.timestamps, dtype=np.int64)
         n = len(ts)
         if n == 0:
-            return True
+            return None
         raw = rows.column(self.value_col)
         if isinstance(raw, DictColumn):
             return False
@@ -384,14 +409,8 @@ class LiveState:
         p_slot, p_grp, p_delta = self._counter_prep(
             ts, vals, bucket, slot, grp, tsid, tail
         )
-        with self.on_device():
-            self.rings = fold_batch(
-                self.rings, reset, slot, grp, vals.astype(np.float32),
-                p_slot, p_grp, p_delta,
-            )
         self.max_folded_ts = max(self.max_folded_ts, int(ts.max()))
-        _M_FOLDS.inc()
-        return True
+        return FoldBatch(reset, slot, grp, vals.astype(np.float32), p_slot, p_grp, p_delta)
 
     def _add_group(self, key: tuple) -> Optional[int]:
         from ..ops.livewindow import grow_rings
@@ -558,7 +577,7 @@ def try_livewindow_counter(table_name: str, table, value_col: str,
         return None
     w = cand.bucket_ms
     with cand.lock:
-        if cand.head is None:
+        if cand.head is None or STORE.get(cand.key) is not cand:
             return None
         b_lo = max(cand.serve_floor(counter=True), -(-start_ms // w))
         b_hi = min(cand.head, (end_ms + 1) // w - 1)
@@ -720,6 +739,8 @@ class LiveWindowStore:
             self.drop_table(table_data.name, outcome="fold_error")
 
     def _fold_committed(self, table_data, rows) -> None:
+        from ..ops import livewindow as lw_ops
+
         states = self.states_for_table(table_data.name)
         if not states:
             return
@@ -728,23 +749,42 @@ class LiveWindowStore:
             for s in states:
                 self.drop(s.key, outcome="disabled")
             return
-        for s in states:
-            if s.anchor() is not table_data:
-                continue  # another incarnation of the name owns writes
-            try:
-                with s.lock:
-                    ok = s.fold(rows)
-            except Exception:
-                # the write has succeeded; a state that missed this batch
-                # must not serve, so it goes, and the miss is counted
-                from ..ops import livewindow as lw_ops
-
-                lw_ops.FOLD_ERRORS += 1
-                _log.exception("live-window fold failed for %s: state dropped", s.key)
-                self.drop(s.key, outcome="fold_error")
-                continue
-            if not ok:
-                self.drop(s.key, outcome="unfoldable")
+        # another incarnation of the name owns its own writes; the locks go
+        # in key order, so two writers of one table cannot deadlock
+        mine = sorted((s for s in states if s.anchor() is table_data), key=lambda s: s.key)
+        with contextlib.ExitStack() as held:
+            groups: dict = {}
+            for s in mine:
+                held.enter_context(s.lock)
+                try:
+                    batch = s.prepare(rows)
+                except Exception:
+                    # the write has succeeded; a state that missed this
+                    # batch must not serve, so it goes, and the miss is
+                    # counted
+                    lw_ops.FOLD_ERRORS += 1
+                    _log.exception("live-window fold failed for %s: state dropped", s.key)
+                    self.drop(s.key, outcome="fold_error")
+                    continue
+                if batch is False:
+                    self.drop(s.key, outcome="unfoldable")
+                elif batch is not None:
+                    groups.setdefault(s.device, []).append((s, batch))
+            # one launch a device for every state that prepared, enqueued
+            # before any lock goes; the rings are read after every prep
+            for group in groups.values():
+                try:
+                    with group[0][0].on_device():
+                        lw_ops.fold_batches([s.rings for s, _ in group], [b for _, b in group])
+                except Exception:
+                    _log.exception("live-window fold launch failed for %s: its %d states "
+                                   "dropped", table_data.name, len(group))
+                    for s, _ in group:
+                        lw_ops.FOLD_ERRORS += 1
+                        self.drop(s.key, outcome="fold_error")
+                    continue
+                for _ in group:
+                    _M_FOLDS.inc()
 
     # -- promotion / eviction ---------------------------------------------
 

@@ -121,6 +121,33 @@ def test_livewindow_gather_matches_plain(card, depth, cap, n):
         chip_smoke._lw_gather_check(torch, base, torch.from_numpy(idx).to(card), g, "gather")
 
 
+@pytest.mark.parametrize("n_states", [1, 6, 33])
+def test_livewindow_grouped_fold_matches_plain(card, n_states):
+    """One grouped fold launch over several states' rings on the card
+    (tests/torch_livewindow_cases.py: a reset slot the same commit's rows
+    land in, every slot reset, counter pairs, a long run on one cell, a
+    state without rows; 33 states take two launches) against the plain
+    version state by state: counts, mins and maxs bit-equal, sums within
+    SUM_RTOL of the cell's sum of |x|; the same words fold again alike."""
+    from horaedb_tpu_torch.ops import livewindow as L
+
+    from torch_livewindow_cases import grouped_commit
+
+    bases, batches = [], []
+    for depth, cap, warm, batch in grouped_commit(seed=n_states, n_states=n_states):
+        base = L.alloc_rings(depth, cap, card)
+        L.fold_plain(base, *chip_smoke._lw_words(torch, warm))
+        bases.append(base)
+        batches.append(batch)
+    words, spans = L.pack_group(batches)
+    words = torch.from_numpy(words).to(card)
+    L.reset_counts()
+    for _ in range(2):  # the barrier words are zero again after a launch
+        chip_smoke._lw_group_check(torch, bases, words, spans, f"{n_states} states")
+    assert L.LAUNCHES["fold"] == 2 * -(-n_states // L.MAX_GROUP)
+    assert L.STATES_FOLDED == 2 * n_states
+
+
 def test_livewindow_fold_on_one_thread_gather_on_another(card):
     """A writer thread's acknowledged INSERTs fold into the CUDA ring; a
     reader thread's refresh right after each acknowledgement, served from
@@ -175,7 +202,7 @@ def test_livewindow_fold_on_one_thread_gather_on_another(card):
         for t in threads:
             t.join(timeout=300)
         assert not errors, errors[:5]
-        assert L.LAUNCHES["fold_scatter"] == 40 and L.LAUNCHES["gather"] >= 40
+        assert L.LAUNCHES["fold"] == 40 and L.LAUNCHES["gather"] >= 40
         assert L.FOLD_ERRORS == 0
     finally:
         S.STORE.clear()
@@ -222,6 +249,78 @@ def test_raw_select_over_windows_matches_plain(card, layout):
         session, dyn = chip_smoke._raw_inputs(torch, rng, n_series, frac, [5.0], lo, hi)
         assert chip_smoke._raw_window_cases(torch, rng, cols, lay, session, dyn, filters,
                                             f"{layout} allow {frac}") >= 2
+
+
+@pytest.mark.parametrize("k", [16, 128, 1024, 1 << 18])
+@pytest.mark.parametrize("key_is_ts,desc", chip_smoke.RAW_KEYS)
+def test_raw_topk_over_windows_matches_plain(card, key_is_ts, desc, k):
+    """The top-k over row windows (the executor's series windows, every real
+    row, runs of passing rows, windows of one row, many short windows; ones
+    that start inside a 128-row delta block and end inside a tile) against
+    its plain version over every row: slots and keys bit-equal, at n not a
+    multiple of the tile, and each launch visits the windows' rows."""
+    from horaedb_tpu_torch.ops import scan_agg as S, scan_topk as T
+
+    rng = np.random.default_rng(k + 2 * key_is_ts + desc)
+    n = max(k, 1 << 16) + 4096 + 3 * 128
+    layout = chip_smoke.RAW_LAYOUTS[1 + (k.bit_length() % 2)]
+    cols, lay, n_series, ts_max = chip_smoke._raw_columns(torch, rng, n, layout)
+    filters = ((1, S._FILTER_OPS[">="]),)
+    for frac, lo, hi in ((0.8, 0, ts_max + 1), (0.3, 15, ts_max - 25)):
+        key_lo, key_hi = T.topk_key_bounds(desc, key_is_ts, lo, hi)
+        session, dyn = chip_smoke._raw_inputs(torch, rng, n_series, frac, [-20.0], lo, hi,
+                                              key_lo, key_hi)
+        kw = dict(k=k, descending=desc, key_is_ts=key_is_ts, key_field=0,
+                  numeric_filters=filters, **lay)
+        assert chip_smoke._raw_window_cases(torch, rng, cols, lay, session, dyn, filters,
+                                            f"{layout} allow {frac}", topk=kw) >= 2
+
+
+def test_raw_topk_walks_only_the_executor_windows(card, monkeypatch):
+    """A top-k through ``Connection.execute`` on the card launches over the
+    executor's windows: its keys kernel counts, as it runs, their rows and
+    tiles and no others, with at most five kernels, and answers as a CPU
+    connection does."""
+    import horaedb_tpu_torch
+    from horaedb_tpu_torch.ops import scan_topk as T
+
+    rows = ", ".join(f"('h{i % 9}', {float((i * 37) % 101)}, {1_700_000_000_000 + i * 1000})"
+                     for i in range(20_000))
+    sql = "SELECT host, v FROM rd WHERE host IN ('h2', 'h7') ORDER BY v DESC LIMIT 30"
+    answers, seen = [], []
+    real = T.raw_topk_packed
+    stats = torch.zeros(len(T.TOPK_STATS), dtype=torch.int64, device="cuda")
+
+    def spy(*a, **k):
+        seen.append(k)
+        if a[3].device.type == "cuda":
+            k = {**k, "stats": stats}
+        return real(*a, **k)
+
+    monkeypatch.setattr(T, "raw_topk_packed", spy)
+    for device in ("cpu", "cuda"):
+        db = horaedb_tpu_torch.connect(None, device=device)
+        try:
+            db.execute("CREATE TABLE rd (host string TAG, v double, "
+                       "ts timestamp NOT NULL, TIMESTAMP KEY(ts))")
+            db.execute(f"INSERT INTO rd (host, v, ts) VALUES {rows}")
+            for _ in range(2):
+                db.execute(sql)
+            stats.zero_()
+            kernels = T.KERNELS["raw_topk"]
+            out = db.execute(sql)
+            assert out.metrics.get("raw_kernel") == "topk"
+            answers.append(out.to_pylist())
+            n_valid = db.interpreters.executor.scan_cache._entries["rd"].n_valid
+        finally:
+            db.close()
+    w = seen[-1]["windows"]
+    assert 1 <= len(w) <= 2 and int(w[-1, 1]) <= n_valid
+    rows, tiles = stats.tolist()
+    assert rows == int((w[:, 1] - w[:, 0]).sum()) < n_valid
+    assert tiles == int(((w[:, 1] - w[:, 0] + T.TILE - 1) // T.TILE).sum())
+    assert 1 <= T.KERNELS["raw_topk"] - kernels <= 5
+    assert answers[0] == answers[1]
 
 
 def test_launcher_tile_table_is_select_tiles(card):

@@ -40,7 +40,7 @@ from horaedb_tpu_torch.state import livewindow as lw
 from horaedb_tpu_torch.utils.config import RulesSection
 from horaedb_tpu_torch.utils.querystats import STATS_STORE, finish_ledger, start_ledger
 
-from torch_livewindow_cases import two_writers_in_one_group
+from torch_livewindow_cases import grouped_commit, two_writers_in_one_group
 from torch_parity import assert_bit_equal, assert_sums_close, rows_match
 
 MIN = 60_000
@@ -61,6 +61,14 @@ class Rings:
         self.port = ops.alloc_rings(depth, cap, "cpu")
 
     def fold(self, reset, slot, grp, val, ps=(), pg=(), pd=()):
+        reset, arrs = self.fold_reference(reset, slot, grp, val, ps, pg, pd)
+        port = self.port
+        ops.fold_batches([port], [ops.FoldBatch(reset, *arrs)])
+        assert self.port is port  # in place
+        self.check()
+
+    def fold_reference(self, reset, slot, grp, val, ps=(), pg=(), pd=()):
+        """The reference's fold alone; returns the batch as the port takes it."""
         depth = self.port.shape[1]
         reset = np.asarray(reset, dtype=np.bool_).reshape(depth)
         arrs = (np.asarray(slot, np.int32), np.asarray(grp, np.int32),
@@ -73,8 +81,7 @@ class Rings:
         self.ref = ref_ops._fold_body(*self.ref, jnp.asarray(reset), s, g, v, a, b, d)
         self.abs = ref_ops._fold_body(*self.abs, jnp.asarray(reset), s, g,
                                       np.abs(v), a, b, np.abs(d))
-        assert ops.fold_batch(self.port, reset, *arrs) is self.port  # in place
-        self.check()
+        return reset, arrs
 
     def grow(self, cap: int):
         extra = cap - self.port.shape[2]
@@ -203,6 +210,43 @@ def test_cap_growth_keeps_the_ring_and_initialises_new_columns():
     r.gather(list(range(depth)), g=6)
 
 
+@pytest.mark.parametrize("n_states", [1, 6, 33])
+def test_grouped_fold_equals_the_reference_fold_of_each_state(n_states):
+    """One fold of a commit over several states (tests/torch_livewindow_cases.py:
+    a reset slot that the same commit's rows land in, every slot reset,
+    counter pairs, a long run on one cell, a state without rows; more
+    states than one launch carries) equals the reference's ``_fold_body``
+    over each state, and counts one fold and every state folded."""
+    rings, batches = [], []
+    for depth, cap, warm, batch in grouped_commit(seed=n_states, n_states=n_states):
+        r = Rings(depth, cap)
+        r.fold(*warm)
+        r.fold_reference(*batch)
+        rings.append(r)
+        batches.append(batch)
+    ops.reset_counts()
+    ports = [r.port for r in rings]
+    ops.fold_batches(ports, batches)
+    assert ops.PLAIN_CALLS["fold"] == 1 and ops.STATES_FOLDED == n_states
+    for r, port in zip(rings, ports):
+        assert r.port is port  # in place
+        r.check()
+
+
+def test_pack_group_lays_out_one_barrier_a_launch_then_each_state():
+    """``pack_group``: two zero barrier words a launch of MAX_GROUP states,
+    then each state's ``pack_fold`` words at the offsets its spans give."""
+    cases = grouped_commit(seed=3, n_states=ops.MAX_GROUP + 1)
+    batches = [b for _, _, _, b in cases]
+    words, spans = ops.pack_group(batches)
+    assert list(words[:4]) == [0, 0, 0, 0] and spans[0][0] == 4
+    for b, (at, r, n, m) in zip(batches, spans):
+        want, r2, n2, m2 = ops.pack_fold(*b)
+        assert (r, n, m) == (r2, n2, m2)
+        assert np.array_equal(words[at:at + len(want)], want)
+    assert len(words) == 4 + sum(ops.fold_words(*b) for b in batches)
+
+
 class _OnCard:
     """Stands in for a CUDA tensor (this machine has no card): what the
     wrappers check before they launch."""
@@ -230,11 +274,11 @@ def test_a_cuda_ring_launches_or_raises_and_never_runs_plain(monkeypatch, tmp_pa
     monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(ops, "_lib", None)
     rings = _OnCard(ops.alloc_rings(4, 8, "cpu"))
-    words = _OnCard(torch.zeros(3, dtype=torch.int32))
+    words = _OnCard(torch.zeros(5, dtype=torch.int32))
     idx = _OnCard(torch.zeros(2, dtype=torch.int32))
     before = dict(ops.PLAIN_CALLS)
     with pytest.raises(OSError):
-        ops.fold(rings, words, 0, 1, 0)
+        ops.fold_group([rings], words, [(2, 0, 1, 0)])
     with pytest.raises(OSError):
         ops.gather(rings, idx, 8)
     assert ops.PLAIN_CALLS == before and not any(ops.LAUNCHES.values())
@@ -340,7 +384,10 @@ def test_carried_state_folds_the_next_batches_like_the_reference(monkeypatch):
             folded.clear()
             _insert(ref, "lw_carry", rows)
             (rg,) = folded
-            assert state.fold(RowGroup(port_schema, dict(rg.columns), dict(rg.validity)))
+            batch = state.prepare(RowGroup(port_schema, dict(rg.columns), dict(rg.validity)))
+            assert batch is not False
+            if batch is not None:
+                ops.fold_batches([state.rings], [batch])
             _assert_states_equal(state, ref_state)
         assert state.cap == ref_state.cap == 128
     finally:
@@ -661,9 +708,9 @@ def test_a_failed_fold_drops_the_state_and_the_write_succeeds(both, monkeypatch)
     both.promote("lw_fail")
 
     def broken(*a, **k):
-        raise RuntimeError("livewindow scatter launch failed")
+        raise RuntimeError("livewindow fold launch failed")
 
-    monkeypatch.setattr(ops, "fold_batch", broken)
+    monkeypatch.setattr(ops, "fold_batches", broken)
     errors = ops.FOLD_ERRORS
     both.insert("lw_fail", [("h0", 1.0, END + MIN)])
     assert ops.FOLD_ERRORS == errors + 1
@@ -695,6 +742,159 @@ def test_a_failed_write_hook_drops_every_state_of_the_table(both, monkeypatch):
                  key=lambda r: (r["b"], r["host"]))
     assert both.port.interpreters.executor.last_path != "livewindow"
     rows_match(both.raw("lw_hook"), got, lambda r, c: None)
+
+
+# ---- one fold launch a commit for every state of the table -------------------
+
+GROUP_PANELS = [
+    "SELECT time_bucket(ts, '1m') AS b, host, sum(value) AS s, count(value) AS c, "
+    "min(value) AS mn, max(value) AS mx FROM {t} GROUP BY time_bucket(ts, '1m'), host",
+    "SELECT time_bucket(ts, '5m') AS b, host, sum(value) AS s, count(value) AS c "
+    "FROM {t} GROUP BY time_bucket(ts, '5m'), host",
+    "SELECT time_bucket(ts, '1m') AS b, sum(value) AS s, count(value) AS c "
+    "FROM {t} GROUP BY time_bucket(ts, '1m')",
+]
+
+
+def _promote_group(dbs, name, panels=GROUP_PANELS):
+    for q in panels:
+        for _ in range(3):
+            for db in dbs:
+                db.execute(q.format(t=name))
+
+
+def test_one_commit_folds_every_state_like_the_reference(both):
+    """Three states of one table (two windows, grouped by host and not)
+    fold each commit in one grouped fold, through a ring growth in the
+    preparation (70 new hosts) and head advances: each state equals the
+    reference's, which folds state by state with ``_fold_body``; one fold
+    a commit carries all three."""
+    both.seed("lw_grp", minutes=30)
+    _promote_group([both.port, both.ref], "lw_grp")
+    keys = sorted(s["key"] for s in lw.STORE.stats()["states"])
+    assert len(keys) == 3 and keys == sorted(s["key"] for s in ref_lw.STORE.stats()["states"])
+    rng = np.random.default_rng(4)
+    batches = [
+        [(f"h{h}", float(abs(rng.normal(10, 3))), END + 5_000 + h) for h in range(3)],
+        [(f"n{i}", float(i), END + 70_000 + i) for i in range(70)],
+        [("h0", 2.0, END + 6 * MIN), ("h1", 0.0, END + 6 * MIN + 1), ("h2", 5.0, END - 2 * MIN)],
+        [("h0", 3.0, END + 300 * MIN), ("n5", 4.0, END + 300 * MIN + 10)],
+    ]
+    for rows in batches:
+        ops.reset_counts()
+        both.insert("lw_grp", rows)
+        assert ops.PLAIN_CALLS["fold"] == 1 and ops.STATES_FOLDED == 3
+        for k in keys:
+            _assert_states_equal(lw.STORE.get(k), ref_lw.STORE.get(k))
+    assert sorted(lw.STORE.get(k).cap for k in keys) == [64, 128, 128]
+
+
+def _two_column_table():
+    db = horaedb_tpu_torch.connect(None, device="cpu")
+    db.execute("CREATE TABLE lw_two (host string TAG, value double NOT NULL, other double, "
+               "ts timestamp NOT NULL, TIMESTAMP KEY(ts)) ENGINE=Analytic "
+               "WITH (segment_duration='2h', update_mode='append')")
+    db.execute("INSERT INTO lw_two (host, value, other, ts) VALUES "
+               + ",".join(f"('h{h}', 1.0, 2.0, {END - k * 20_000 + h})"
+                          for k in range(30) for h in range(3)))
+    panels = [f"SELECT time_bucket(ts, '1m') AS b, host, sum({c}) AS s FROM {{t}} "
+              f"GROUP BY time_bucket(ts, '1m'), host" for c in ("value", "other")]
+    _promote_group([db], "lw_two", panels)
+    by_col = {s.value_col: s for s in lw.STORE.states_for_table("lw_two")}
+    assert sorted(by_col) == ["other", "value"]
+    return db, by_col
+
+
+def test_a_state_that_cannot_fold_is_dropped_alone():
+    """In one grouped fold, a state whose preparation refuses the batch (a
+    NULL in its column) is dropped as unfoldable, and one whose
+    preparation raises is dropped and counted in FOLD_ERRORS; the other
+    state of the table folds the batch."""
+    db, by_col = _two_column_table()
+    try:
+        ops.reset_counts()
+        db.execute(f"INSERT INTO lw_two (host, value, ts) VALUES ('h0', 3.0, {END + MIN})")
+        assert [s.value_col for s in lw.STORE.states_for_table("lw_two")] == ["value"]
+        assert ops.FOLD_ERRORS == 0 and ops.STATES_FOLDED == 1
+        assert by_col["value"].head == (END + MIN) // MIN
+    finally:
+        db.close()
+    lw.STORE.clear()
+    db, by_col = _two_column_table()
+    try:
+        def broken(rows):
+            raise RuntimeError("preparation failed")
+
+        by_col["other"].prepare = broken
+        ops.reset_counts()
+        db.execute(f"INSERT INTO lw_two (host, value, other, ts) VALUES ('h0', 3.0, 4.0, "
+                   f"{END + MIN})")
+        assert [s.value_col for s in lw.STORE.states_for_table("lw_two")] == ["value"]
+        assert ops.FOLD_ERRORS == 1 and ops.STATES_FOLDED == 1
+        assert by_col["value"].head == (END + MIN) // MIN
+    finally:
+        db.close()
+
+
+def test_a_failed_group_launch_drops_every_state_of_the_group(both, monkeypatch):
+    """A grouped fold launch that fails drops every state it carried, each
+    counted in FOLD_ERRORS; the write succeeds and the next reads are raw
+    and exact."""
+    both.seed("lw_gfail", minutes=30)
+    _promote_group([both.port, both.ref], "lw_gfail")
+    assert len(lw.STORE.states_for_table("lw_gfail")) == 3
+
+    def broken(*a, **k):
+        raise RuntimeError("livewindow fold launch failed")
+
+    monkeypatch.setattr(ops, "fold_batches", broken)
+    errors = ops.FOLD_ERRORS
+    both.insert("lw_gfail", [("h0", 1.0, END + MIN)])
+    assert ops.FOLD_ERRORS == errors + 3
+    assert not lw.STORE.states_for_table("lw_gfail")
+    got = sorted(both.port.execute(_panel("lw_gfail")).to_pylist(),
+                 key=lambda r: (r["b"], r["host"]))
+    assert both.port.interpreters.executor.last_path != "livewindow"
+    rows_match(both.raw("lw_gfail"), got, lambda r, c: None)
+
+
+class _OrderedLock:
+    """A state's lock that logs who takes it."""
+
+    def __init__(self, key, log):
+        self.key, self.log, self.lock = key, log, threading.RLock()
+
+    def __enter__(self):
+        self.lock.acquire()
+        self.log.append(self.key)
+        return self
+
+    def __exit__(self, *exc):
+        self.lock.release()
+
+
+def test_the_fold_takes_the_state_locks_in_key_order(both):
+    """The grouped fold holds every state's lock from its preparation to
+    the launch, taken in key order, so two writers of one table cannot
+    deadlock; two concurrent writers both fold."""
+    both.seed("lw_lock", minutes=30)
+    _promote_group([both.port], "lw_lock")
+    log: list = []
+    states = lw.STORE.states_for_table("lw_lock")
+    for s in states:
+        s.lock = _OrderedLock(s.key, log)
+    _insert(both.port, "lw_lock", [("h0", 1.0, END + MIN)])
+    assert log == sorted(s.key for s in states)
+    ops.reset_counts()
+    writers = [threading.Thread(target=_insert, args=(both.port, "lw_lock",
+                                                      [("h1", 2.0, END + MIN + k)]))
+               for k in range(2)]
+    for t in writers:
+        t.start()
+    for t in writers:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in writers)
+    assert ops.FOLD_ERRORS == 0 and ops.STATES_FOLDED == 6
 
 
 def test_writers_of_one_group_commit_read_their_rows_from_state():

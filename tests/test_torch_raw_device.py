@@ -268,6 +268,139 @@ class TestCandidateWindows:
         assert int(w[-1, 1]) <= entry.n_valid
 
 
+class TestSeriesTimeIndex:
+    """The row bounds of a time range for every series, from the index:
+    exact ones equal np.searchsorted over each series; the top-k's are a
+    superset by at most one step of rows at each end."""
+
+    @staticmethod
+    def _series(rng, S, crowded):
+        lens = rng.integers(0, 60, S)
+        if crowded:  # one series far denser than the others: steps of many rows
+            lens[int(rng.integers(0, S))] = 3000
+        ts = [np.sort(rng.integers(0, 5000, n)) for n in lens]
+        ts = np.concatenate(ts + [np.empty(0, np.int64)]).astype(np.int32)
+        return ts, np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+
+    @pytest.mark.parametrize("crowded", [False, True])
+    @pytest.mark.parametrize("seed", range(4))
+    def test_row_bounds_against_searchsorted(self, seed, crowded):
+        from horaedb_tpu_torch.query.scan_cache import SeriesTimeIndex
+
+        rng = np.random.default_rng(40 + seed)
+        ts, offsets = self._series(rng, int(rng.integers(1, 40)), crowded)
+        index = SeriesTimeIndex(ts, offsets)
+        S = len(offsets) - 1
+        span = int(ts.max()) + 1 if len(ts) else 1
+        xs = [-3, 0, 1, index.width, 2 * index.width + 1, span - 1, span, span + 9,
+              index.n_steps * index.width] + [int(x) for x in rng.integers(0, span, 12)]
+        for _ in range(6):
+            series = np.flatnonzero(rng.random(S) < 0.6)
+            for lo in xs:
+                for hi in xs[::3]:
+                    want_lo = [s0 + np.searchsorted(ts[s0:s1], lo, "left")
+                               for s0, s1 in zip(offsets[series], offsets[series + 1])]
+                    want_hi = [s0 + np.searchsorted(ts[s0:s1], hi, "left")
+                               for s0, s1 in zip(offsets[series], offsets[series + 1])]
+                    starts, ends = index.row_bounds(series, lo, hi)
+                    assert starts.tolist() == want_lo and ends.tolist() == want_hi
+                    wide_s, wide_e = index.row_bounds(series, lo, hi, exact=False)
+                    assert (wide_s <= starts).all() and (wide_e >= ends).all()
+                    assert (wide_s >= offsets[series]).all()
+                    assert (wide_e <= offsets[series + 1]).all()
+                    # at most the rows of one step beyond each exact bound
+                    step_of = lambda r: ts[np.minimum(r, len(ts) - 1)] // index.width  # noqa: E731
+                    inner = wide_s < starts
+                    assert (step_of(wide_s[inner]) == lo // index.width).all()
+                    outer = wide_e > ends
+                    assert (step_of(ends[outer]) == hi // index.width).all()
+
+    def test_steps_hold_about_rows_per_step(self):
+        from horaedb_tpu_torch.query.scan_cache import SeriesTimeIndex
+
+        ts = np.tile(np.arange(8640, dtype=np.int32) * 10_000, 50)
+        index = SeriesTimeIndex(ts, np.arange(51, dtype=np.int64) * 8640)
+        per_step = np.diff(index.first.astype(np.int64), axis=0)
+        assert index.n_steps == 8640 // SeriesTimeIndex.ROWS_PER_STEP
+        assert per_step.max() <= SeriesTimeIndex.ROWS_PER_STEP + 1
+        assert index.nbytes == index.first.nbytes < ts.nbytes // 4
+
+    def test_the_topk_windows_cover_the_exact_ones(self):
+        port, entry = TestCandidateWindows()._entry(4, n=900, hosts=11, step=1000)
+        try:
+            executor = port.interpreters.executor
+            span = int(entry.max_ts - entry.min_ts) + 1
+            rng = np.random.default_rng(7)
+            for _ in range(20):
+                allowed = rng.random(entry.n_series) < 0.7
+                lo = int(rng.integers(-10, span))
+                hi = lo + int(rng.integers(0, span))
+                count, exact = executor._raw_candidate_estimate(entry, allowed, lo, hi)
+                _, wide = executor._raw_candidate_estimate(entry, allowed, lo, hi, exact=False)
+                inside = np.zeros(entry.n_valid + 1, bool)
+                for a, b in wide:
+                    inside[a:b] = True
+                for a, b in exact:
+                    assert inside[a:b].all()
+                assert int(inside.sum()) >= count
+        finally:
+            port.close()
+
+
+class TestTopkWindows:
+    """The top-k gets the executor's row windows too: they cover every row
+    its mask passes, and the answer is the reference's."""
+
+    @pytest.mark.parametrize("sql", [
+        "SELECT host, v, ts FROM rd WHERE host = 'h3' ORDER BY ts DESC LIMIT 10",
+        f"SELECT host, v FROM rd WHERE ts >= {T0 + 150_000} AND ts < {T0 + 420_000} "
+        "ORDER BY v DESC LIMIT 25",
+        "SELECT host, w FROM rd WHERE v > 100 ORDER BY w ASC LIMIT 40 OFFSET 3",
+        "SELECT host, v FROM rd WHERE host IN ('h1', 'h6') ORDER BY v DESC LIMIT 7",
+    ])
+    def test_windows_cover_every_passing_row(self, dbs, monkeypatch, sql):
+        _seed(dbs, n=700, hosts=9, seed=5)
+        seen = []
+        real = port_kernels.raw_topk_packed
+
+        def spy(*a, **k):
+            seen.append((a, k))
+            return real(*a, **k)
+
+        monkeypatch.setattr(port_kernels, "raw_topk_packed", spy)
+        _parity(dbs, sql, monkeypatch, "topk")
+        args, kw = seen[-1]
+        w = kw["windows"]
+        entry = dbs[1].interpreters.executor.scan_cache._entries["rd"]
+        assert len(w) and int(w[0, 0]) >= 0 and int(w[-1, 1]) <= entry.n_valid
+        assert bool((w[1:, 0] > w[:-1, 1]).all())
+        sel = port_kernels.raw_select_plain(*args, select_slots=entry.n_valid,
+                                            numeric_filters=kw["numeric_filters"],
+                                            value_layouts=kw["value_layouts"],
+                                            ts_layout=kw["ts_layout"],
+                                            series_layout=kw["series_layout"])
+        passing = sel[1:1 + int(sel[0])].numpy()
+        inside = np.zeros(entry.padded_rows + 1, bool)
+        for a, b in w:
+            inside[a:b] = True
+        assert inside[passing].all()
+
+    def test_segment_search_is_searchsorted_per_segment(self):
+        from horaedb_tpu_torch.query.scan_cache import _segment_search
+
+        rng = np.random.default_rng(8)
+        for _ in range(50):
+            lens = rng.integers(0, 40, int(rng.integers(1, 30)))
+            values = np.concatenate([np.sort(rng.integers(0, 60, n)) for n in lens] +
+                                    [np.empty(0, np.int64)]).astype(np.int32)
+            ends = np.cumsum(lens)
+            starts = ends - lens
+            x = rng.integers(-5, 70, len(lens))
+            want = [s + np.searchsorted(values[s:e], t, "left")
+                    for s, e, t in zip(starts, ends, x)]
+            assert _segment_search(values, starts, ends, x).tolist() == want
+
+
 class TestHostRoutes:
     """Each deterministic rule that keeps a raw read on the host."""
 

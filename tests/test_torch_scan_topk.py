@@ -298,6 +298,66 @@ def test_select_over_windows_bit_equal(li, kind):
         assert np.array_equal(want, got.numpy()), (kind, want[:8], got[:8])
 
 
+def _port_args(cols, allow, dyn):
+    return (_port_parts(cols["series"]), _port_parts(cols["ts"]),
+            tuple(_port_parts(p, lay[0] == "bf16")
+                  for p, lay in zip(cols["values"], cols["value_layouts"])),
+            torch.from_numpy(allow), torch.from_numpy(dyn))
+
+
+def _topk_on_window_rows(cols, allow, dyn, windows, **kw):
+    """The plain top-k over only the rows of ``windows``: those rows'
+    decoded columns gathered into raw ones, the answer's slots mapped back
+    to resident row ids (a slot past the tie stream holds the full row
+    count, as it would over every row)."""
+    args = _port_args(cols, allow, dyn)
+    n = E.layout_rows(args[0], cols["series_layout"])
+    sc, tr, vals = E.decode_layouts(args[0], args[1], args[2], cols["series_layout"],
+                                    cols["ts_layout"], cols["value_layouts"])
+    rows = np.concatenate([np.arange(a, b) for a, b in windows] + [np.empty(0, np.int64)])
+    pick = torch.from_numpy(rows.astype(np.int64))
+    raw = {**kw, "value_layouts": tuple(("raw",) for _ in vals), "ts_layout": ("raw",),
+           "series_layout": ("raw",)}
+    got = port.raw_topk_plain((sc[pick].to(torch.int32),), (tr[pick].to(torch.int32),),
+                              tuple((v.float()[pick],) for v in vals), args[3], args[4],
+                              **raw).numpy()
+    idx = got[0] if got.ndim == 2 else got
+    mapped = np.where(idx < 0, -1, np.where(idx >= len(rows), n, rows[np.clip(idx, 0, max(
+        len(rows) - 1, 0))] if len(rows) else n))
+    return np.stack([mapped, got[1]]) if got.ndim == 2 else mapped
+
+
+@pytest.mark.parametrize("k", [16, 128, 1024, 1 << 18])
+@pytest.mark.parametrize("key_is_ts,desc", KEYS, ids=["ts-desc", "ts-asc", "f32-desc", "f32-asc"])
+def test_topk_over_windows_equals_the_unwindowed_answer(key_is_ts, desc, k):
+    """A top-k given row windows that hold every row its mask can pass
+    (the executor's series windows, windows of one row, short windows that
+    start inside a 128-row delta block and end inside a tile) answers as
+    the unwindowed plain version, slots and keys: its answer over only the
+    windows' rows is the answer over every row. ts and f32 keys both ways,
+    ties across the limit, +-0 and NaN, at k from 16 to 2**18."""
+    rng = np.random.default_rng(k + 2 * key_is_ts + desc)
+    # whole delta blocks, not whole tiles; more rows than k
+    n = max(k, 1 << 15) + 4096 + 3 * 128
+    # a dictionary of timestamps holds at most 4096: not LAYOUTS[2] here
+    cols = _columns(rng, n, LAYOUTS[(1, 3, 4, 0)[k.bit_length() % 4]], n_series=80)
+    allow = _allow(rng, cols, 0.7)
+    filters, lits = ((1, OPS[">="]),), [-40.0]
+    lo, hi = 35, cols["ts_max"] - 95
+    key_lo, key_hi = port.topk_key_bounds(desc, key_is_ts, lo, hi)
+    dyn = port.pack_raw_dyn(lits, lo, hi, key_lo, key_hi)
+    kw = dict(k=k, descending=desc, key_is_ts=key_is_ts, key_field=0, numeric_filters=filters,
+              value_layouts=cols["value_layouts"], ts_layout=cols["ts_layout"],
+              series_layout=cols["series_layout"], with_keys=True)
+    want = port.raw_topk_packed(*_port_args(cols, allow, dyn), **kw).numpy()
+    assert (want[0] >= 0).sum() == min(k, int((want[0] >= 0).sum()))
+    for kind in ("series", "singles", "short"):
+        windows = _windows(rng, cols, allow, lo, hi, kind)
+        got = port.raw_topk_packed(*_port_args(cols, allow, dyn), windows=windows, **kw).numpy()
+        assert np.array_equal(got, want), kind
+        assert np.array_equal(_topk_on_window_rows(cols, allow, dyn, windows, **kw), want), kind
+
+
 def test_plain_select_with_and_without_windows_is_the_reference_body():
     """``raw_select_plain`` takes the windows and ignores them: with them,
     without them and with a window list that misses passing rows, it is

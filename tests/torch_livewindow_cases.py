@@ -100,3 +100,50 @@ def two_writers_in_one_group(device: str) -> None:
     finally:
         S.STORE.clear()
         db.close()
+
+
+def grouped_commit(seed: int, n_states: int = 6):
+    """One commit's fold over ``n_states`` states of one table, as
+    ``(depth, cap, warm, batch)`` per state: ``warm`` an earlier batch that
+    leaves the ring non-empty, ``batch`` this commit's ``FoldBatch``. The
+    states cover a head advance whose rows all land in the slot it resets,
+    one reset slot among many cells with counter pairs, every slot reset
+    with masked, wrapped and dropped indices, a long run on one cell, a
+    state with no rows that resets, and +-0 and NaN values."""
+    import numpy as np
+
+    from horaedb_tpu_torch.ops.livewindow import FoldBatch
+
+    rng = np.random.default_rng(seed)
+
+    def batch(depth, cap, n, reset=(), slots=None, one_cell=False, pairs=0):
+        mask = np.zeros(depth, dtype=np.bool_)
+        mask[list(reset)] = True
+        if one_cell:
+            slot, grp = np.full(n, 3, np.int32), np.full(n, 5, np.int32)
+        else:
+            slot = (rng.integers(-depth - 1, depth + 2, n) if slots is None
+                    else np.asarray(slots)[rng.integers(0, len(slots), n)]).astype(np.int32)
+            grp = rng.integers(-cap, cap + 1, n).astype(np.int32)
+        val = rng.normal(0, 10, n).astype(np.float32)
+        if n >= 8:
+            val[:4] = np.array([-0.0, 0.0, np.nan, 0.0], np.float32)
+        ps = rng.integers(0, depth, pairs).astype(np.int32)
+        pg = rng.integers(0, cap, pairs).astype(np.int32)
+        pd = np.abs(rng.normal(0, 1, pairs)).astype(np.float32)
+        return FoldBatch(mask, slot, grp, val, ps, pg, pd)
+
+    shapes = [
+        (8, 64, dict(n=4000, reset=(2,), slots=(2,))),
+        (128, 4096, dict(n=4000, reset=(7,), pairs=500)),
+        (16, 64, dict(n=1000, reset=range(16))),
+        (8, 64, dict(n=24_000, one_cell=True)),
+        (128, 64, dict(n=0, reset=(0,))),
+        (32, 128, dict(n=3000, reset=(1, 9), slots=(1, 9, 10), pairs=40)),
+    ]
+    out = []
+    for i in range(n_states):
+        depth, cap, kw = shapes[i % len(shapes)]
+        warm = batch(depth, cap, 2000, slots=range(depth), pairs=100)
+        out.append((depth, cap, warm, batch(depth, cap, **kw)))
+    return out
