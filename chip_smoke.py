@@ -37,10 +37,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    time (CUDA events), and peak device memory.
 7. Merge kernels vs plain: the merge-dedup sort of every kind (rk, f32,
    f64, gen) against its plain version on the same CUDA tensors, at
-   MERGE_SIZES rows, unique and duplicate-heavy keys, dedup on and off,
-   n_valid = 0, and a stress set through the dispatcher (exact duplicates,
-   all-ones real keys, +-2**62 timestamps with a 64-bit seq span) that
-   must reach its kind by the counters. perm and keep bit-equal.
+   MERGE_SIZES rows (the tile's edges), unique and duplicate-heavy keys,
+   dedup on and off, exact and padded words (the largest size, 3,277
+   tiles so look-back chains are long, for f32 alone: unique keys, dedup);
+   keys constant in every digit (every pass skipped), keys that differ
+   only in the top bit of a word or at a digit boundary (the passes taken
+   checked on the card), n_valid = 0; one call twice on the same scratch,
+   the second finding the first's words there; and a stress set
+   through the dispatcher (exact duplicates, all-ones real keys, +-2**62
+   timestamps with a 64-bit seq span) that must reach its kind by the
+   counters. perm and keep bit-equal.
 8. Main path of BASELINE config 5: 64 overlapping L0 SSTs, 40M rows (the
    config's 100M, cut for the script's time limit), written through the
    engine's SstWriter and manifest; the SELECT before compaction (the f32
@@ -49,8 +55,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    independent numpy merge, as are the L1 SST's rows and order; host
    stage seconds.
 9. Merge replay and timings: the last f32 and rk main-path calls, kernel
-   against plain (bit-equal); per kind the kernel's time, radix passes,
-   bound, plain and library times, upload and download.
+   against plain (bit-equal), staged at exactly their real rows; per kind
+   the kernel's time on the profiler's timeline where its trace holds every
+   launch of the calls, else by CUDA events around calls queued behind a
+   device sleep; its split by kernel, radix passes, launches a call,
+   bound, plain and library times, upload and download bytes and ms.
 10. Live-window kernels vs plain: the ring fold and gather on CUDA rings
    against their plain versions: depth {8, 128} x cap {64, 4096} x rows
    {0, 1, 4000, 24000, 2**20} x {distinct cells, one cell} x reset
@@ -1039,6 +1048,49 @@ def _time_launch(torch, fn, reps=10, flush=None) -> float:
     return total / reps
 
 
+def _queued_ms(torch, fn, reps=5, flush=None):
+    """Mean device ms of one call of ``fn`` by CUDA events with the call
+    queued behind a device sleep: the host enqueues the events and every
+    launch while the card sleeps, so the events time the call's kernels
+    back to back, every launch inside, without the host's launch work.
+    Returns (ms, whether every enqueue ended before its sleep did)."""
+    import time
+
+    sleep = torch.cuda._sleep  # spins the card for a count of clock cycles
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    sleep(1 << 20)
+    b.record()
+    b.synchronize()
+    ms_a_cycle = a.elapsed_time(b) / (1 << 20)
+    t = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = 2 * host_ms + 5.0
+    total, hidden = 0.0, True
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        s0 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        sleep(int(sleep_ms / ms_a_cycle))
+        t = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        enqueue_ms = (time.perf_counter() - t) * 1e3
+        b.synchronize()
+        # the sleep must still have been running when the last launch was queued
+        hidden &= enqueue_ms < s0.elapsed_time(a)
+        total += a.elapsed_time(b)
+    return total / reps, hidden
+
+
 def _bytes_of(t) -> int:
     return int(t.numel() * t.element_size())
 
@@ -1235,7 +1287,12 @@ MERGE_REPLACES = {
     "f64": "horaedb_tpu/ops/merge_dedup.py:197",
     "gen": "horaedb_tpu/ops/merge_dedup.py:225",
 }
-MERGE_SIZES = (1, 2, 4095, 4097, (1 << 20) + 13, (1 << 23) + 5)
+# around the kernel's tile (md.TILE, 5120 rows), then 3,277 tiles
+MERGE_SIZES = (1, 2, 5119, 5120, 5121, (1 << 20) + 13, (1 << 24) + 5)
+MERGE_PAD_MAX = (1 << 20) + 13  # sizes up to this one also run with padded words
+# the kind that sorts the sizes above MERGE_PAD_MAX (long look-back chains):
+# the read merge's; the chains are the same in every kind's passes
+MERGE_LARGE_KIND = "f32"
 U32 = 0xFFFFFFFF
 
 
@@ -1278,11 +1335,44 @@ def _kind_words(rng, kind, n, dup=False):
             (1, 0, 0, 0, 0, 0, 0), (0, U32, U32, U32, U32, 0, 0))
 
 
-def _upload_words(torch, cols, fills, n):
+def _upload_words(torch, cols, fills, n, pad=0):
+    """The key words of ``n`` real rows on DEV, as the dispatcher stages
+    them, followed by ``pad`` pad rows of the kind's ``fills``."""
+    import numpy as np
+
     from horaedb_tpu_torch.ops import merge_dedup as md
 
-    host = md.stage(cols, fills, n, pinned=DEV == "cuda")
+    host = md.stage(cols, n, pinned=False)
+    if pad:
+        fill = np.array(fills, np.uint32)[:, None].repeat(pad, 1).view(np.int32)
+        host = torch.cat([host, torch.from_numpy(fill)], 1)
     return host.to(DEV).unbind(0)
+
+
+def _edge_words(kind, n, what):
+    """Key words of ``kind`` for ``n`` rows, random over four values a word:
+    ``const`` one value (every digit constant: no pass runs); ``top`` 0 and
+    2**31 (only each word's top digit varies); ``boundary`` the bits on
+    each side of the first digit boundary, DIGIT_BITS - 1 and DIGIT_BITS
+    (two digits a word vary). gen's word 0 (is_pad) stays 0. Returns the
+    words, the fills, the masks and the passes the card must take."""
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import merge_dedup as md
+
+    rng = np.random.default_rng(n + len(what) + len(kind))
+    b = md.DIGIT_BITS
+    values = {"const": [0x1234567], "top": [0, 1 << 31],
+              "boundary": [0, 1 << (b - 1), 1 << b, (1 << b) | (1 << (b - 1))]}[what]
+    n_words = md._SPEC[kind][0]
+    cols = [np.array(values, np.uint32)[rng.integers(0, len(values), n)]
+            for _ in range(n_words)]
+    _, fills, masks = _kind_words(rng, kind, 1)
+    varying = n_words - 1 if kind == "gen" else n_words
+    if kind == "gen":
+        cols[0][:] = 0
+    passes = {"const": 0, "top": varying, "boundary": 2 * varying}[what]
+    return cols, fills, masks, passes
 
 
 def _merge_check(torch, kind, words, masks, n_valid, dedup, what) -> int:
@@ -1339,29 +1429,73 @@ def _routing_cases(rng):
     return cases
 
 
+def _replay_check(torch, kind, words, masks, n_valid, what) -> None:
+    """One call twice on the same scratch: the second finds the first's
+    words in it (status words and tile counters of the same passes, with
+    the same tags); each answer bit-equal to the plain version."""
+    from horaedb_tpu_torch.ops import merge_dedup as md
+
+    held, orig = [], md._scratch
+
+    def same(layout, dev):
+        if not held:
+            held.append(orig(layout, dev))
+        return held[0]
+
+    md._scratch = same
+    try:
+        for r in range(2):
+            _merge_check(torch, kind, words, masks, n_valid, True, f"{what} replay {r}")
+    finally:
+        md._scratch = orig
+
+
 def phase_merge_kernels(torch) -> None:
     import numpy as np
 
     from horaedb_tpu_torch.ops import merge_dedup as md
 
+    check(md.TILE == 5120, f"MERGE_SIZES straddle a tile of 5120 rows, the kernel's is {md.TILE}")
     rng = np.random.default_rng(SEED)
     n_cases = 0
     passes: dict = {}
     for kind in md.KINDS:
         for n in MERGE_SIZES:
-            for dup in (False, True):
+            if n > MERGE_PAD_MAX and kind != MERGE_LARGE_KIND:
+                continue
+            # the largest size once: unique keys, dedup
+            for dup in (False, True) if n <= MERGE_PAD_MAX else (False,):
                 cols, fills, masks = _kind_words(rng, kind, n, dup)
-                words = _upload_words(torch, cols, fills, n)
-                for dedup in (True, False):
-                    p = _merge_check(torch, kind, words, masks, n, dedup,
-                                     f"merge {kind} n={n} dup={dup} dedup={dedup}")
-                    passes[f"{kind}/{n}/{'dup' if dup else 'uniq'}"] = p
-                    n_cases += 1
+                for pad in (0, n // 3 + 1) if n <= MERGE_PAD_MAX else (0,):
+                    words = _upload_words(torch, cols, fills, n, pad)
+                    for dedup in (True, False) if n <= MERGE_PAD_MAX else (True,):
+                        p = _merge_check(torch, kind, words, masks, n, dedup,
+                                         f"merge {kind} n={n} pad={pad} dup={dup} "
+                                         f"dedup={dedup}")
+                        passes[f"{kind}/{n}/{'dup' if dup else 'uniq'}"] = p
+                        n_cases += 1
+        # keys constant in every digit, or varying only across the top bit
+        # or a digit boundary: the skipped passes
+        for what in ("const", "top", "boundary"):
+            for pad in (0, 777):
+                cols, fills, masks, want = _edge_words(kind, 3 * md.TILE + 7, what)
+                words = _upload_words(torch, cols, fills, 3 * md.TILE + 7, pad)
+                p = _merge_check(torch, kind, words, masks, 3 * md.TILE + 7, True,
+                                 f"merge {kind} {what} pad={pad}")
+                # (gen's pads vary word 0 and the fills' digits)
+                check(DEV != "cuda" or (pad and kind == "gen") or p == want,
+                      f"merge {kind} {what} pad={pad}: {p} passes, expected {want}")
+                passes[f"{kind}/{what}"] = p
+                n_cases += 1
         # n_valid 0: every row a pad
         cols, fills, masks = _kind_words(rng, kind, 0)
-        words = _upload_words(torch, cols, fills, 0)
+        words = _upload_words(torch, cols, fills, 0, 300)
         _merge_check(torch, kind, words, masks, 0, True, f"merge {kind} n_valid=0")
-        n_cases += 1
+        # a replay on one scratch, at (1 << 20) + 13 rows
+        cols, fills, masks = _kind_words(rng, kind, MERGE_PAD_MAX, True)
+        words = _upload_words(torch, cols, fills, MERGE_PAD_MAX)
+        _replay_check(torch, kind, words, masks, MERGE_PAD_MAX, f"merge {kind}")
+        n_cases += 3
     # the stress set through the dispatcher: it reaches the kind its spans
     # route to (the counters), and agrees with the plain version
     counts = md.LAUNCHES if DEV == "cuda" else md.PLAIN_CALLS
@@ -1373,8 +1507,8 @@ def phase_merge_kernels(torch) -> None:
                                                  **kw).get()
             ran = [k for k in md.KINDS if counts[k] != before[k]]
             check(ran == [want_kind], f"{name}: routed to {ran}, expected {want_kind}")
-            kind, cols, fills, masks = md.pack_inputs(tsid, ts, seq, **kw)
-            words = _upload_words(torch, cols, fills, len(tsid))
+            kind, cols, masks = md.pack_inputs(tsid, ts, seq, **kw)
+            words = _upload_words(torch, cols, None, len(tsid))
             want = md._plain(kind, words, masks, len(tsid), dedup)
             n = len(tsid)
             check(np.array_equal(perm, want[0][:n].cpu().numpy()), f"{name}: perm differs")
@@ -1383,10 +1517,12 @@ def phase_merge_kernels(torch) -> None:
                 check(keep.all(), f"{name}: the all-ones row lost to a pad")
             n_cases += 1
     _sync(torch)
+    n = MERGE_PAD_MAX
     say(f"merge kernels vs plain: {n_cases} cases bit-equal; radix passes taken at "
-        f"n={MERGE_SIZES[-1]}: " + ", ".join(
-            f"{k} {passes[f'{k}/{MERGE_SIZES[-1]}/uniq']}/{passes[f'{k}/{MERGE_SIZES[-1]}/dup']}"
-            for k in md.KINDS) + " (unique/dup)")
+        f"n={n}: " + ", ".join(
+            f"{k} {passes[f'{k}/{n}/uniq']}/{passes[f'{k}/{n}/dup']}" for k in md.KINDS)
+        + f" (unique/dup), at n={MERGE_SIZES[-1]}: {MERGE_LARGE_KIND} "
+        f"{passes[f'{MERGE_LARGE_KIND}/{MERGE_SIZES[-1]}/uniq']} (unique)")
     DETAIL["merge_cases"] = n_cases
     DETAIL["merge_case_passes"] = passes
 
@@ -1688,6 +1824,8 @@ def phase_merge_replay(torch, comp) -> dict:
     calls = {**comp["compact_calls"], **comp["read_calls"]}
     passes = {}
     for kind, (words, masks, n_valid, dedup) in calls.items():
+        check(words[0].shape[0] == n_valid, f"main path {kind}: {words[0].shape[0]} rows "
+              f"staged for {n_valid} real rows")
         passes[kind] = _merge_check(torch, kind, words, masks, n_valid, dedup,
                                     f"main path {kind} replay")
         say(f"main path {kind} ({words[0].shape[0]} rows, {n_valid} real): kernel = plain, "
@@ -1696,26 +1834,30 @@ def phase_merge_replay(torch, comp) -> dict:
     return passes
 
 
-MERGE_KERNELS = ("init_hist", "plan_passes", "tile_hist", "digit_scan", "tile_scatter",
-                 "epilogue")
+MERGE_KERNELS = ("Memset", "init_hist", "plan_passes", "sort_pass", "epilogue")
 
 
-def _family_device_ms(torch, fn, names, reps=5, label=None, flush=None):
+def _family_device_ms(torch, fn, names, reps=5, label=None, flush=None, lead=0):
     """Mean device ms of one call of ``fn``: the sum of its kernels (every
     event whose kernel name, without its signature and template arguments,
     is one of ``names``; a memset is "Memset", a copy from the host "HtoD")
     on the profiler's device timeline; None without
     CUPTI tracing or when two traces record none of them. With ``label``,
     the window's mean ms a call of each kernel goes to
-    DETAIL["device_ms_windows"] and to the phase's output; ``flush``
-    evicts L2 before each call."""
+    DETAIL["device_ms_windows"] and to the phase's output, with the
+    launches a call of each; ``flush`` evicts L2 before each call.
+    ``lead`` one-element fills run first in the traced window, so that
+    records a trace loses at its start fall on them, not on the calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    pad = torch.empty(1, device="cuda")
     torch.cuda.synchronize()
     for _ in range(2):
         try:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(lead):
+                    pad.zero_()
                 for _ in range(reps):
                     if flush is not None:
                         flush.zero_()
@@ -1725,16 +1867,18 @@ def _family_device_ms(torch, fn, names, reps=5, label=None, flush=None):
             say(f"profiler unavailable ({e}); times from CUDA events")
             return None
         split: dict = {}
+        count: dict = {}
         for e in prof.events():
             # "void name<args, ...>(params)": the name without its template
             # arguments, whose ", " would split it
             base = e.name.split("(")[0].split("<")[0].strip().split(" ")[-1]
             if base in names:
                 split[base] = split.get(base, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+                count[base] = count.get(base, 0) + 1 / reps
         if split:
             if label is not None:
                 DETAIL.setdefault("device_ms_windows", []).append(
-                    {"name": label, "ms_a_call": split})
+                    {"name": label, "ms_a_call": split, "launches_a_call": count})
                 say(f"  device ms a call of {label}: " + ", ".join(
                     f"{k} {v:.4f}" for k, v in split.items()))
             return sum(split.values())
@@ -1750,6 +1894,37 @@ def _merge_bound(words, n_valid, kind) -> tuple[float, int]:
     n_real = int((words[0] == 0).sum()) if kind == "gen" else n_valid
     nbytes = (4 * len(words) + 5) * n_real
     return nbytes / PEAK_BYTES_S * 1e3, nbytes
+
+
+def _merge_design_bytes(kind, words, masks, n_valid, ran) -> int:
+    """Bytes the sort's design moves for this call (ops/csrc/merge_dedup.cu),
+    each array read or written once where the design touches it: init_hist
+    reads the key words of the sorted rows; each pass that ran (``ran``, a
+    flag a pass) reads the arrays it carries (the first from the input, its
+    row index made, not read) and writes them with the index, and writes
+    its look-back words; the epilogue reads the sorted index and each word
+    the compare sees (gen's is_pad too; a dropped word gathered, 4 B), and
+    writes perm and keep. The memset of the look-back words beside."""
+    from horaedb_tpu_torch.ops import merge_dedup as md
+
+    n_words, n = len(words), words[0].shape[0]
+    n_sort = md.sort_rows(kind, n, n_valid)
+    dpw = md.DIGITS_PER_WORD
+    status = 8 * md.RADIX * -(-n_sort // md.TILE)
+
+    def dropped(w):  # as the kernel's dropped()
+        return w > 0 and sum(ran[(n_words - w) * dpw:]) >= md.DROP_AFTER
+
+    total, first = 4 * n_words * n_sort + status, True
+    for p, r in enumerate(ran):
+        if not r:
+            continue
+        word = n_words - 1 - p // dpw
+        carried = sum(1 for w in range(n_words) if w <= word or not dropped(w))
+        total += (4 * carried + (0 if first else 4) + 4 * (carried + 1)) * n_sort + 2 * status
+        first = False
+    seen = sum(1 for m in masks if int(m) & U32) + (kind == "gen")
+    return total + (4 + 4 * seen) * n_sort + 5 * n
 
 
 def phase_merge_timings(torch, comp, replay_passes, card) -> list:
@@ -1774,9 +1949,24 @@ def phase_merge_timings(torch, comp, replay_passes, card) -> list:
         n = words[0].shape[0]
         launch = lambda k=kind, w=words, m=masks, v=n_valid, d=dedup: md.sort_dedup(k, w, m, v, d)  # noqa: E731
         plain = lambda k=kind, w=words, m=masks, v=n_valid, d=dedup: md._plain(k, w, m, v, d)  # noqa: E731
-        events_ms = _time_launch(torch, launch, reps=5, flush=flush)
-        device_ms = _family_device_ms(torch, launch, MERGE_KERNELS)
-        ms = device_ms if device_ms is not None else events_ms
+        queued_ms, hidden = _queued_ms(torch, launch, reps=5, flush=flush)
+        # 64 fills lead the trace: late in this script a trace has lost its
+        # first 24-27 kernel records (whole calls of the sort)
+        device_ms = _family_device_ms(torch, launch, MERGE_KERNELS, flush=flush, lead=64,
+                                      label=f"merge_dedup[{kind}]")
+        window = DETAIL["device_ms_windows"][-1] if device_ms is not None else {}
+        launches_a_call = round(sum(window.get("launches_a_call", {}).values()), 2)
+        # a trace that missed some of a call's kernels undercounts the call:
+        # then the time is the events' around calls queued behind a sleep
+        timed_by = "profiler, L2 flushed"
+        if launches_a_call != md.launches_of(kind):
+            say(f"  the trace holds {launches_a_call} of {md.launches_of(kind)} kernels a "
+                "call: the time by CUDA events around calls queued behind a sleep")
+            device_ms = None
+            timed_by = "events behind a sleep, L2 flushed"
+            check(hidden, f"merge_dedup[{kind}]: the host queued a call slower than the "
+                  "card slept, so the events would time the host")
+        ms = device_ms if device_ms is not None else queued_ms
         plain_ms = _time_launch(torch, plain, reps=2, flush=flush)
         lib_ms = None
         if kind == "rk":
@@ -1793,8 +1983,12 @@ def phase_merge_timings(torch, comp, replay_passes, card) -> list:
 
             lib_ms = _time_launch(torch, lib, reps=5, flush=flush)
         bound_ms, nbytes = _merge_bound(words, n_valid, kind)
+        ran = md.unpack(launch(), n)[2][:md.passes_of(kind)].cpu().tolist()
+        design_bytes = _merge_design_bytes(kind, words, masks, n_valid, ran)
+        design_ms = design_bytes / PEAK_BYTES_S * 1e3
         # H2D of the words and D2H of the packed result, pinned, as the
-        # dispatcher moves them
+        # dispatcher moves them: the n staged rows
+        up_bytes, down_bytes = 4 * len(words) * n, 5 * n + md.MAX_PASSES
         host_in = torch.empty((len(words), n), dtype=torch.int32, pin_memory=True)
         up_ms = _time_launch(torch, lambda h=host_in: h.to("cuda", non_blocking=True), reps=3)
         dev_out = torch.empty(5 * n + md.MAX_PASSES, dtype=torch.uint8, device="cuda")
@@ -1809,16 +2003,22 @@ def phase_merge_timings(torch, comp, replay_passes, card) -> list:
             "library_ms": lib_ms,
         })
         DETAIL.setdefault("merge_timings", {})[kind] = {
-            "rows": n, "n_valid": n_valid, "passes": replay_passes[kind], "events_ms": events_ms,
-            "device_ms": device_ms, "upload_ms": up_ms, "download_ms": down_ms,
-            "bound_bytes": nbytes,
+            "rows": n, "n_valid": n_valid, "passes": replay_passes[kind],
+            "passes_of_kind": md.passes_of(kind), "launches_a_call": launches_a_call,
+            "queued_ms": queued_ms, "queued_hidden": hidden,
+            "device_ms": device_ms, "timed_by": timed_by, "upload_bytes": up_bytes,
+            "upload_ms": up_ms, "download_bytes": down_bytes, "download_ms": down_ms,
+            "bound_bytes": nbytes, "design_bytes": design_bytes, "design_floor_ms": design_ms,
         }
         say(f"kernel merge_dedup[{kind}] at {n} rows ({n_valid} real, "
-            f"{replay_passes[kind]} radix passes, {launches} main-path launches): {ms:.4f} ms "
-            f"({'profiler' if device_ms is not None else 'events'}; {events_ms:.4f} ms by "
-            f"events incl. launches), plain {plain_ms:.4f} ms, library "
+            f"{replay_passes[kind]} of {md.passes_of(kind)} radix passes of "
+            f"{md.DIGIT_BITS} bits, {launches_a_call} kernel launches a call, {launches} "
+            f"main-path calls): {ms:.4f} ms ({timed_by}; {queued_ms:.4f} ms by events behind "
+            f"a sleep), plain {plain_ms:.4f} ms, library "
             f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none'}, bound {bound_ms:.4f} ms "
-            f"({nbytes} B); upload {up_ms:.4f} ms, download {down_ms:.4f} ms [{card}]")
+            f"({nbytes} B); the design's traffic floor {design_ms:.4f} ms ({design_bytes} B); "
+            f"upload {up_bytes} B in {up_ms:.4f} ms, download {down_bytes} B in "
+            f"{down_ms:.4f} ms [{card}]")
     return kernels
 
 

@@ -24,14 +24,15 @@ column) engage only when the measured spans don't fit.
 Every word compares UNSIGNED: the plain versions widen the uint32 bits
 (held in int32 tensors) to int64 before sorting.
 
-Newest-wins ties without a tie-break word: the input is REVERSED on host
-before padding, and the sort is stable — among rows with identical
-(key, seq) the LAST input row sorts first, which is what the reference's
-overwrite-in-order memtable semantics require. Pad rows carry all-ones
-keys (sort to the tail) and are identified exactly by their sorted row
-index >= n_valid — no dedicated is_pad word, and a real row whose key
-words are all ones still wins its tie against the pads because it precedes
-them in input order.
+Newest-wins ties without a tie-break word: the input is REVERSED on host,
+and the sort is stable — among rows with identical (key, seq) the LAST
+input row sorts first, which is what the reference's overwrite-in-order
+memtable semantics require. The dispatcher stages only the real rows.
+Words padded past ``n_valid`` (the sharded merge pads each shard) carry
+all-ones keys (sort to the tail) and are identified exactly by their
+sorted row index >= n_valid — no dedicated is_pad word, and a real row
+whose key words are all ones still wins its tie against the pads because
+it precedes them in input order.
 
 Four kinds, each with a plain PyTorch version beside the kernel, behind
 one wrapper, ``sort_dedup(kind, ...)``: it runs the plain version for CPU
@@ -56,15 +57,23 @@ import logging
 import numpy as np
 import torch
 
-from .encoding import shape_bucket, split_i64_sortable, split_u64
+from .encoding import split_i64_sortable, split_u64
 
 _U32_MAX = 0xFFFFFFFF
 
-# The kernel's limits (ops/csrc/merge_dedup.cu): key words per row, radix
-# passes (four 8-bit digits a word), rows per tile.
+# The kernel's constants (ops/csrc/merge_dedup.cu): key words per row, the
+# digit width (four 8-bit digits a word), radix passes (one a digit), rows
+# per tile, the executed passes after a word's last that stop it being
+# carried (the epilogue gathers it), and a call's launches besides its
+# passes (the memset, init_hist, plan_passes, the epilogue).
 MAX_WORDS = 7
-MAX_PASSES = 4 * MAX_WORDS
-TILE = 4096
+DIGIT_BITS = 8
+RADIX = 1 << DIGIT_BITS
+DIGITS_PER_WORD = 32 // DIGIT_BITS
+MAX_PASSES = DIGITS_PER_WORD * MAX_WORDS
+TILE = 5120
+DROP_AFTER = 5
+FIXED_LAUNCHES = 4
 
 KINDS = ("rk", "f32", "f64", "gen")
 # per kind: (key words, sort sequence reversed, perm = n_valid - 1 - idx,
@@ -206,10 +215,11 @@ class _SortArgs(ctypes.Structure):
     _fields_ = [
         ("inp", ctypes.c_void_p * MAX_WORDS),
         ("buf", (ctypes.c_void_p * (MAX_WORDS + 1)) * 2),
-        ("counts", ctypes.c_void_p),
-        ("totals", ctypes.c_void_p),
         ("ghist", ctypes.c_void_p),
-        ("plan", ctypes.c_void_p),
+        ("bases", ctypes.c_void_p),
+        ("status", ctypes.c_void_p),
+        ("tile_ctr", ctypes.c_void_p),
+        ("ran", ctypes.c_void_p),
         ("perm", ctypes.c_void_p),
         ("keep", ctypes.c_void_p),
         ("passes", ctypes.c_void_p),
@@ -244,9 +254,10 @@ def _kernels():
         lib.merge_dedup_launch.restype = ctypes.c_int
         lib.merge_dedup_error_string.argtypes = [ctypes.c_int]
         lib.merge_dedup_error_string.restype = ctypes.c_char_p
-        sizes = (ctypes.c_longlong * 4)()
+        sizes = (ctypes.c_longlong * 6)()
         lib.merge_dedup_abi(sizes)
-        want = [ctypes.sizeof(_SortArgs), MAX_WORDS, MAX_PASSES, TILE]
+        want = [ctypes.sizeof(_SortArgs), MAX_WORDS, MAX_PASSES, TILE, DROP_AFTER,
+                FIXED_LAUNCHES]
         if list(sizes) != want:
             raise RuntimeError(f"merge_dedup ABI mismatch: kernel {list(sizes)} vs {want}")
         _lib = lib
@@ -260,6 +271,43 @@ def _check(cond: bool, what: str) -> None:
 
 def _align(n: int) -> int:
     return -(-n // 64) * 64  # int32 elements: 256-byte sub-buffers
+
+
+def sort_rows(kind: str, n: int, n_valid: int) -> int:
+    """Rows the kernel sorts: the real rows (rk/f32/f64 place their pads
+    after them without sorting them); gen sorts every row."""
+    return n if _SPEC[kind][3] else n_valid
+
+
+def scratch_layout(kind: str, n_sort: int) -> list[tuple[str, int]]:
+    """The kernel's scratch as (name, int32 elements) in address order:
+    the ping-pong buffers of the key words and the row index, then the
+    region one memset zeroes (the digit counts of every pass, the passes'
+    tile counters and the mask of the passes that run, a 64-bit look-back
+    status word a tile and digit), then the digits' bases. Each part starts
+    256 bytes aligned."""
+    n_words = _SPEC[kind][0]
+    n_tiles = -(-n_sort // TILE)
+    return ([(f"buf{s}.{i}", _align(n_sort)) for s in range(2) for i in range(n_words + 1)]
+            + [("ghist", _align(MAX_PASSES * RADIX)), ("tile_ctr", _align(MAX_PASSES + 1)),
+               ("status", _align(2 * RADIX * n_tiles)), ("bases", _align(MAX_PASSES * RADIX))])
+
+
+def _scratch(layout, dev) -> torch.Tensor:
+    """Uninitialised scratch for ``layout``: the call zeroes what must
+    start at zero, so a call may find any earlier call's words in it."""
+    return torch.empty(sum(s for _, s in layout), dtype=torch.int32, device=dev)
+
+
+def passes_of(kind: str) -> int:
+    """Radix passes the kind's key words take before any is skipped."""
+    return DIGITS_PER_WORD * _SPEC[kind][0]
+
+
+def launches_of(kind: str) -> int:
+    """Launches a call of the kind makes on the card: a sort_pass a radix
+    pass (a skipped pass returns at once) and FIXED_LAUNCHES."""
+    return passes_of(kind) + FIXED_LAUNCHES
 
 
 def _launch(kind: str, words, masks, n_valid: int, dedup: bool) -> torch.Tensor:
@@ -279,18 +327,12 @@ def _launch(kind: str, words, masks, n_valid: int, dedup: bool) -> torch.Tensor:
         _check(w.dim() == 1 and w.shape[0] == n and w.is_contiguous(),
                f"word {i} must be contiguous [{n}]")
     lib = _kernels()
-    # rk/f32/f64: rows from n_valid on are pads with all-ones keys, and
-    # the sort places them after every real row in input order without
-    # sorting them; gen tells its pads by is_pad and sorts every row.
-    n_sort = n if pad_mode else n_valid
-    n_tiles = -(-n_sort // TILE)
-    sizes = [_align(n_sort)] * (2 * (n_words + 1)) + [
-        _align(256 * n_tiles), _align(256), _align(MAX_PASSES * 256),
-        _align(2 * MAX_PASSES + 1)]
-    scratch = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
-    ptrs, at = [], scratch.data_ptr()
-    for s in sizes:
-        ptrs.append(at)
+    n_sort = sort_rows(kind, n, n_valid)
+    layout = scratch_layout(kind, n_sort)
+    scratch = _scratch(layout, dev)
+    ptrs, at = {}, scratch.data_ptr()
+    for name, s in layout:
+        ptrs[name] = at
         at += 4 * s
     out = torch.empty(5 * n + MAX_PASSES, dtype=torch.uint8, device=dev)
     a = _SortArgs()
@@ -298,12 +340,13 @@ def _launch(kind: str, words, masks, n_valid: int, dedup: bool) -> torch.Tensor:
         a.inp[i] = w.data_ptr()
     for s in range(2):
         for i in range(n_words + 1):
-            a.buf[s][i] = ptrs[s * (n_words + 1) + i]
-    a.counts, a.totals, a.ghist, a.plan = ptrs[2 * (n_words + 1):]
+            a.buf[s][i] = ptrs[f"buf{s}.{i}"]
+    a.ghist, a.bases, a.status = ptrs["ghist"], ptrs["bases"], ptrs["status"]
+    a.tile_ctr, a.ran = ptrs["tile_ctr"], ptrs["tile_ctr"] + 4 * MAX_PASSES
     a.perm = out.data_ptr()
     a.keep = out.data_ptr() + 4 * n
     a.passes = out.data_ptr() + 5 * n
-    a.n, a.n_sort, a.n_valid, a.n_tiles = n, n_sort, n_valid, n_tiles
+    a.n, a.n_sort, a.n_valid, a.n_tiles = n, n_sort, n_valid, -(-n_sort // TILE)
     for i, m in enumerate(masks):
         a.mask[i] = int(m) & _U32_MAX
     a.n_words, a.reversed, a.perm_mode, a.pad_mode = n_words, reverse, perm_mode, pad_mode
@@ -433,40 +476,36 @@ class MergeHandle:
         if self._event is not None:
             self._event.synchronize()
         buf = self._out.numpy()
-        bucket = (len(buf) - MAX_PASSES) // 5
-        perm = buf[: 4 * bucket].view(np.int32)
-        keep = buf[4 * bucket: 5 * bucket].view(np.bool_)
+        n = self._n
         if self._event is not None:
             # a pass whose digit is the same in every row is skipped on the card
-            _log.debug("merge_dedup %s: %d rows, %d radix passes", self._kind, self._n,
-                       int(buf[5 * bucket:].sum()))
-        return perm[: self._n], keep[: self._n]
+            _log.debug("merge_dedup %s: %d rows, %d radix passes", self._kind, n,
+                       int(buf[5 * n:].sum()))
+        return buf[: 4 * n].view(np.int32), buf[4 * n: 5 * n].view(np.bool_)
 
 
 _NO_ROWS = torch.zeros(MAX_PASSES, dtype=torch.uint8)
 
 
-def stage(cols, fills, n: int, pinned: bool) -> torch.Tensor:
-    """The key word columns padded to ``shape_bucket(n)`` with their pad
-    fills, in one int32 [words, bucket] host tensor (pinned for a card)."""
-    bucket = shape_bucket(n)
-    if bucket >= 2**31:
+def stage(cols, n: int, pinned: bool) -> torch.Tensor:
+    """The key word columns of ``n`` rows in one int32 [words, n] host
+    tensor (pinned for a card): the real rows only, no pads."""
+    if n >= 2**31:
         raise ValueError(f"{n} rows: perm is int32")
-    host = torch.empty((len(cols), bucket), dtype=torch.int32, pin_memory=pinned)
+    host = torch.empty((len(cols), n), dtype=torch.int32, pin_memory=pinned)
     view = host.numpy().view(np.uint32)
-    for w, (col, fill) in enumerate(zip(cols, fills)):
-        view[w, :n] = col
-        view[w, n:] = fill
+    for w, col in enumerate(cols):
+        view[w] = col
     return host
 
 
-def _dispatch(kind: str, cols, fills, masks, n: int, dedup: bool, device) -> MergeHandle:
+def _dispatch(kind: str, cols, masks, n: int, dedup: bool, device) -> MergeHandle:
     """Stage the key words, upload them without blocking, and queue the
     sort and the copy of its result back."""
     device = torch.device(device)
     if n == 0:
         return MergeHandle(_NO_ROWS, 0)
-    host = stage(cols, fills, n, pinned=device.type == "cuda")
+    host = stage(cols, n, pinned=device.type == "cuda")
     if device.type == "cpu":
         return MergeHandle(sort_dedup(kind, host.unbind(0), masks, n, dedup), n, kind)
     from ..obs.device import timed_dispatch
@@ -485,9 +524,9 @@ def _dispatch(kind: str, cols, fills, masks, n: int, dedup: bool, device) -> Mer
 
 def pack_composite(comp: np.ndarray, mask_hi, mask_lo):
     """The rk kind's inputs from a pre-packed composite (see
-    pack_ranked_key): (kind, key word columns, pad fills, dedup masks)."""
+    pack_ranked_key): (kind, key word columns, dedup masks)."""
     hi, lo = split_u64(comp)
-    return "rk", (hi, lo), (_U32_MAX, _U32_MAX), (mask_hi, mask_lo)
+    return "rk", (hi, lo), (mask_hi, mask_lo)
 
 
 def pack_inputs(
@@ -499,7 +538,7 @@ def pack_inputs(
     unique: bool = False,
 ):
     """Host packing of a merge: the narrowest kind the measured spans
-    allow, and its (kind, key word columns, pad fills, dedup masks)."""
+    allow, and its (kind, key word columns, dedup masks)."""
     ts64 = ts.astype(np.int64, copy=False)
     seq64 = seq.astype(np.uint64, copy=False)
     if tsid_rank is not None and unique:
@@ -516,8 +555,8 @@ def pack_inputs(
         cols = (np.zeros(n, dtype=np.uint32), tsid_hi, tsid_lo, ts_hi, ts_lo, negseq_hi,
                 negseq_lo)
         masks = (0, _U32_MAX, _U32_MAX, _U32_MAX, _U32_MAX, 0, 0)
-        return kind, cols, (1, 0, 0, 0, 0, 0, 0), masks
-    # Reverse BEFORE splitting/padding: stable sort + reversed input
+        return kind, cols, masks
+    # Reverse BEFORE splitting: stable sort + reversed input
     # = newest input row first among exact-duplicate (key, seq) rows.
     rev = slice(None, None, -1)
     tsid_hi, tsid_lo = split_u64(tsid[rev])
@@ -528,7 +567,7 @@ def pack_inputs(
         hi, lo, mask_hi, mask_lo = packed
         cols = (tsid_hi, tsid_lo, hi[rev], lo[rev])
         masks = (_U32_MAX, _U32_MAX, mask_hi, mask_lo)
-    return kind, cols, (_U32_MAX,) * len(cols), masks
+    return kind, cols, masks
 
 
 def merge_dedup_dispatch_packed(
@@ -541,8 +580,8 @@ def merge_dedup_dispatch_packed(
 ) -> MergeHandle:
     """Dispatch the 2-key kind on a pre-packed composite (see
     pack_ranked_key). Caller guarantees composite uniqueness."""
-    kind, cols, fills, masks = pack_composite(comp, mask_hi, mask_lo)
-    return _dispatch(kind, cols, fills, masks, len(comp), dedup, device)
+    kind, cols, masks = pack_composite(comp, mask_hi, mask_lo)
+    return _dispatch(kind, cols, masks, len(comp), dedup, device)
 
 
 def merge_dedup_dispatch(
@@ -569,8 +608,8 @@ def merge_dedup_dispatch(
     n = len(tsid)
     if n == 0:
         return MergeHandle(_NO_ROWS, 0)
-    kind, cols, fills, masks = pack_inputs(tsid, ts, seq, tsid_rank, n_ranks, unique)
-    return _dispatch(kind, cols, fills, masks, n, dedup, device)
+    kind, cols, masks = pack_inputs(tsid, ts, seq, tsid_rank, n_ranks, unique)
+    return _dispatch(kind, cols, masks, n, dedup, device)
 
 
 def merge_dedup_permutation(

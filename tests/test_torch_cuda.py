@@ -42,17 +42,43 @@ def test_cached_kernel_matches_plain(card, arm, G, B, case, selective):
 
 
 @pytest.mark.parametrize("kind", ["rk", "f32", "f64", "gen"])
-@pytest.mark.parametrize("n", [1, 4095, 4097, 100_003])
+@pytest.mark.parametrize("n", [1, 5119, 5120, 5121, 100_003])
 @pytest.mark.parametrize("dup", [False, True])
 def test_merge_kernel_matches_plain(card, kind, n, dup):
     """The merge-dedup sort of each kind against its plain version on the
     same CUDA tensors (chip_smoke.py's phase 7 at test size): perm and
-    keep bit-equal, with dedup on and off."""
+    keep bit-equal, with dedup on and off, on exact and padded words."""
     rng = np.random.default_rng(n + len(kind) + dup)
     cols, fills, masks = chip_smoke._kind_words(rng, kind, n, dup)
+    for pad in (0, 1000):
+        words = chip_smoke._upload_words(torch, cols, fills, n, pad)
+        for dedup in (True, False):
+            chip_smoke._merge_check(torch, kind, words, masks, n, dedup,
+                                    f"{kind} n={n} pad={pad}")
+
+
+@pytest.mark.parametrize("kind", ["rk", "f32", "f64", "gen"])
+@pytest.mark.parametrize("what", ["const", "top", "boundary"])
+def test_merge_kernel_skips_constant_digits(card, kind, what):
+    """Keys constant in every digit take no pass; keys that vary only in
+    the top bit of a word take one a word, across the first digit boundary
+    two: perm and keep still bit-equal to the plain version."""
+    n = 3 * 5120 + 7
+    cols, fills, masks, want = chip_smoke._edge_words(kind, n, what)
     words = chip_smoke._upload_words(torch, cols, fills, n)
-    for dedup in (True, False):
-        chip_smoke._merge_check(torch, kind, words, masks, n, dedup, f"{kind} n={n}")
+    assert chip_smoke._merge_check(torch, kind, words, masks, n, True, what) == want
+
+
+@pytest.mark.parametrize("kind", ["rk", "f32", "f64", "gen"])
+def test_merge_kernel_replays_on_one_scratch(card, kind):
+    """One call twice on the same scratch, the second finding the first's
+    status words and tile counters there: the same answer as the plain
+    version both times."""
+    rng = np.random.default_rng(len(kind))
+    n = 100_003
+    cols, fills, masks = chip_smoke._kind_words(rng, kind, n, True)
+    words = chip_smoke._upload_words(torch, cols, fills, n)
+    chip_smoke._replay_check(torch, kind, words, masks, n, kind)
 
 
 def test_cuda_compaction_raises_when_the_kernel_cannot_build(card, monkeypatch, tmp_path):

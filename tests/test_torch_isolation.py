@@ -19,7 +19,8 @@ PORT_DIR = os.path.join(REPO, "horaedb_tpu_torch")
 
 def _port_sources() -> list[str]:
     out = [os.path.join(REPO, f)
-           for f in ("chip_smoke.py", "flood_timeline.py", "scan_agg_ab.py", "topk_fold_ab.py")]
+           for f in ("ab_turns.py", "chip_smoke.py", "flood_timeline.py", "merge_ab.py",
+                     "scan_agg_ab.py", "topk_fold_ab.py")]
     for root, _, files in os.walk(PORT_DIR):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -11,6 +11,8 @@ counters show which kind ran.
 
 from __future__ import annotations
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -252,3 +254,133 @@ def test_random_sizes_and_spans(n, n_tsid, ts_bits, seq_bits, dedup, seed):
     seq = rng.integers(0, 2**seq_bits, n, dtype=np.uint64) if seq_bits else np.zeros(
         n, np.uint64)
     _both(tsid, ts, seq, dedup=dedup)
+
+
+_WORDS = {"rk": 2, "f32": 3, "f64": 4, "gen": 7}
+
+
+def _kind_case(kind, n, rng):
+    """Key word columns of ``kind`` for ``n`` real rows (no pads), with ties
+    on the first words and the top bit set; rk's composites are unique (the
+    reference's sort of that kind is unstable). Returns (cols, masks)."""
+    words = rng.integers(0, 2**32, (_WORDS[kind], n), dtype=np.uint64).astype(np.uint32)
+    words >>= rng.integers(0, 32, (_WORDS[kind], 1)).astype(np.uint32)
+    words[:, 1::3] = words[:, 0:n - 1:3]
+    words[:, 2::5] |= np.uint32(1 << 31)
+    if kind == "rk":
+        words[1] = rng.choice(2**32, n, replace=False)
+    if kind == "gen":
+        words[0] = 0
+        masks = (0, _U32, _U32, _U32, _U32, 0, 0)
+    else:
+        masks = tuple(int(m) for m in rng.integers(0, 2**32, _WORDS[kind], dtype=np.uint64))
+        if kind != "rk":
+            masks = (_U32, _U32, *masks[2:])
+    return list(words), masks
+
+
+def _reference_kernel(kind, words, masks, dedup):
+    """The reference's jitted kernel of ``kind`` on the same words, every
+    row real."""
+    w = [jnp.asarray(x) for x in words]
+    n = len(words[0])
+    if kind == "rk":
+        return ref_md._ranked_kernel(*w, jnp.uint32(masks[0]), jnp.uint32(masks[1]),
+                                     jnp.int32(n), dedup=dedup)
+    if kind == "f32":
+        return ref_md._fused32_kernel(*w, jnp.uint32(masks[2]), jnp.int32(n), dedup=dedup)
+    if kind == "f64":
+        return ref_md._fused64_kernel(*w, jnp.uint32(masks[2]), jnp.uint32(masks[3]),
+                                      jnp.int32(n), dedup=dedup)
+    return ref_md._general_kernel(*w, dedup=dedup)
+
+
+@pytest.mark.parametrize("kind", md.KINDS)
+@pytest.mark.parametrize("n", [1, 3001, 5121])
+@pytest.mark.parametrize("dedup", [True, False])
+def test_dispatch_stages_exactly_n_rows_and_matches_reference(kind, n, dedup, monkeypatch):
+    """The dispatcher stages the key words of exactly n rows (no bucket of
+    pads), and its perm and keep over n rows, not a power of two, equal the
+    reference's jitted kernel of the kind on the same rows."""
+    rng = np.random.default_rng(n + _WORDS[kind] + dedup)
+    cols, masks = _kind_case(kind, n, rng)
+    staged, orig = [], md.sort_dedup
+
+    def spy(k, words, m, n_valid, d):
+        staged.append((k, [w.shape for w in words], n_valid))
+        return orig(k, words, m, n_valid, d)
+
+    monkeypatch.setattr(md, "sort_dedup", spy)
+    perm, keep = md._dispatch(kind, cols, masks, n, dedup, "cpu").get()
+    assert staged == [(kind, [(n,)] * _WORDS[kind], n)]
+    assert perm.shape == (n,) and keep.shape == (n,)
+    want = _reference_kernel(kind, cols, masks, dedup)
+    assert_bit_equal(perm, np.asarray(want[0]), "perm")
+    assert_bit_equal(keep, np.asarray(want[1]), "keep")
+
+
+@pytest.mark.parametrize("n", [1, 7, 4096])
+def test_stage_holds_exactly_n_rows(n):
+    cols = [np.arange(n, dtype=np.uint32) * np.uint32(w + 1) | np.uint32(1 << 31)
+            for w in range(3)]
+    host = md.stage(cols, n, pinned=False)
+    assert host.shape == (3, n) and host.dtype == torch.int32
+    np.testing.assert_array_equal(host.numpy().view(np.uint32), np.stack(cols))
+
+
+def test_merge_handle_reads_n_rows_from_an_n_row_buffer():
+    """get() splits a buffer of 5n + MAX_PASSES bytes into n-row perm and
+    keep, with no bucket worked out from its length."""
+    n = 5
+    perm = np.array([4, 0, 3, 1, 2], np.int32)
+    keep = np.array([1, 0, 1, 1, 0], np.bool_)
+    buf = np.concatenate([perm.view(np.uint8), keep.view(np.uint8),
+                          np.ones(md.MAX_PASSES, np.uint8)])
+    got = md.MergeHandle(torch.from_numpy(buf), n, "f32").get()
+    np.testing.assert_array_equal(got[0], perm)
+    np.testing.assert_array_equal(got[1], keep)
+    empty = md.MergeHandle(torch.zeros(md.MAX_PASSES, dtype=torch.uint8), 0).get()
+    assert len(empty[0]) == 0 and len(empty[1]) == 0
+
+
+@pytest.mark.parametrize("kind", md.KINDS)
+@pytest.mark.parametrize("n,n_valid", [(1, 1), (5120, 5120), (5121, 17), (1 << 20, 1000003)])
+def test_scratch_layout_follows_the_kinds_key_widths(kind, n, n_valid):
+    """The wrapper's pass count and scratch sizes against the kind's key
+    words: a pass per digit, two ping-pong copies of the words and the
+    index, the zeroed region (digit counts, tile counters, the mask of the
+    passes that run, a 64-bit look-back word a tile and digit) in one piece,
+    256-byte aligned parts."""
+    words = _WORDS[kind]
+    assert md.passes_of(kind) == words * md.DIGITS_PER_WORD == words * 32 // md.DIGIT_BITS
+    assert md.passes_of(kind) <= md.MAX_PASSES
+    n_sort = md.sort_rows(kind, n, n_valid)
+    assert n_sort == (n if kind == "gen" else n_valid)
+    layout = md.scratch_layout(kind, n_sort)
+    names = [name for name, _ in layout]
+    assert names == [f"buf{s}.{i}" for s in range(2) for i in range(words + 1)] + [
+        "ghist", "tile_ctr", "status", "bases"]
+    size = dict(layout)
+    assert all(s % 64 == 0 for s in size.values())  # int32 elements: 256 bytes
+    assert all(size[f"buf{s}.{i}"] >= n_sort for s in range(2) for i in range(words + 1))
+    assert size["ghist"] >= md.MAX_PASSES * md.RADIX <= size["bases"]
+    assert size["tile_ctr"] >= md.MAX_PASSES + 1
+    n_tiles = -(-n_sort // md.TILE)
+    assert 2 * md.RADIX * n_tiles <= size["status"] < 2 * md.RADIX * n_tiles + 64
+
+
+def test_python_constants_mirror_the_kernel_source():
+    """The wrapper's copies of the kernel's constants (the card checks them
+    through merge_dedup_abi at load) agree with ops/csrc/merge_dedup.cu."""
+    import re
+
+    src = open(os.path.join(os.path.dirname(md.__file__), "csrc", "merge_dedup.cu")).read()
+    define = {k: v for k, v in re.findall(r"^#define (\w+) (\d+)\b", src, re.M)}
+    assert int(define["MAX_WORDS"]) == md.MAX_WORDS
+    assert int(define["DIGIT_BITS"]) == md.DIGIT_BITS
+    assert int(define["BLOCK"]) * int(define["ITEMS"]) == md.TILE
+    assert int(define["DROP_AFTER"]) == md.DROP_AFTER
+    assert int(define["FIXED_LAUNCHES"]) == md.FIXED_LAUNCHES
+    assert md.RADIX == int(define["BLOCK"])  # a thread of a pass owns one digit
+    for kind in md.KINDS:
+        assert md.launches_of(kind) == md.passes_of(kind) + md.FIXED_LAUNCHES

@@ -3,7 +3,7 @@
 live-window fold (B6a) in turns on one NVIDIA card: this checkout and
 another one (its parent commit, unpacked with ``git archive``), in the
 order other, this, this, other, each turn a process of its own that
-imports that checkout's ``horaedb_tpu_torch``.
+imports that checkout's ``horaedb_tpu_torch`` (ab_turns.py).
 
     mkdir -p chip_proof/parent
     git archive HEAD~1 horaedb_tpu_torch | tar -x -C chip_proof/parent
@@ -37,25 +37,18 @@ from __future__ import annotations
 
 import argparse
 import hashlib
-import json
-import os
 import statistics
-import subprocess
 import sys
 import time
 
-REPO = os.path.dirname(os.path.abspath(__file__))
-OUT = os.path.join(REPO, "chiprun_out")
+from ab_turns import emit, enter, run_turns, say, write_report
+
 TOPK_QUERIES = ("lastpoint-host", "hottest-12h", "coolest-asc")
 # every kernel either checkout's top-k and fold launch, by base name
 RAW_NAMES = ("raw_init", "raw_keys", "topk_hist", "topk_pick", "raw_flags", "raw_scan",
              "raw_write", "raw_fill", "topk_keys", "topk_refine", "topk_write", "Memset",
              "HtoD")
 FOLD_NAMES = ("ring_reset", "ring_scatter", "ring_fold", "HtoD")
-
-
-def say(*parts) -> None:
-    print(*parts, flush=True)
 
 
 def query_runs(C, n_runs: int) -> dict:
@@ -275,8 +268,7 @@ def arm_fold(torch, C, card, n_commits: int) -> dict:
 
 def arm(opt) -> int:
     """One turn: this process imports the checkout ``opt.arm``."""
-    sys.path.insert(0, os.path.abspath(opt.arm))
-    sys.path.insert(1, REPO)
+    enter(opt.arm)
     import torch
 
     import chip_smoke as C
@@ -287,7 +279,7 @@ def arm(opt) -> int:
     if opt.commits:
         res["fold"] = arm_fold(torch, C, card, opt.commits)
     res["raw"] = arm_raw(torch, C, card, opt.runs)
-    print("ARM " + json.dumps(res), flush=True)
+    emit(res)
     return 0
 
 
@@ -300,33 +292,9 @@ def main(argv) -> int:
     opt = ap.parse_args(argv)
     if opt.arm:
         return arm(opt)
-    import torch
-
-    if not torch.cuda.is_available():
-        say("no CUDA card: torch.cuda.is_available() is False")
-        return 1
-    other = os.path.abspath(opt.other)
-    report = {"turns": []}
-    for label, d in (("other", other), ("this", REPO), ("this", REPO), ("other", other)):
-        cmd = [sys.executable, os.path.abspath(__file__), "--arm", d, "--runs", str(opt.runs),
-               "--commits", str(opt.commits)]
-        say(f"---- turn {label}: {d}")
-        p = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO)
-        for line in p.stdout.splitlines():
-            if not line.startswith("ARM "):
-                say(f"  {line}")
-        if p.returncode != 0:
-            say(p.stderr[-4000:])
-            return p.returncode
-        res = json.loads([x for x in p.stdout.splitlines() if x.startswith("ARM ")][-1][4:])
-        res["label"] = label
-        report["turns"].append(res)
-    turns = report["turns"]
-    card = turns[0]["card"]
-    report["card"] = card
-    os.makedirs(OUT, exist_ok=True)
-    with open(os.path.join(OUT, "topk_fold_ab.json"), "w") as f:
-        json.dump(report, f, indent=1)
+    turns = run_turns(__file__, opt.other,
+                      ["--runs", str(opt.runs), "--commits", str(opt.commits)])
+    card = write_report("topk_fold_ab.json", turns)
     same = True
     for q, r in turns[0]["raw"].items():
         equal = all(t["raw"][q]["digests"] == r["digests"] for t in turns)
