@@ -2031,6 +2031,9 @@ LW_DEPTHS = (8, 128)
 LW_CAPS = (64, 4096)
 LW_ROWS = (0, 1, 4000, 24_000, 1 << 20)
 LW_GATHER_N = (1, 60, 128)
+# group columns a gather reads, by cap: the whole ring, a half plus one, and
+# at cap 4096 widths off 16 bytes (1, 3, 4001) and the main path's 4000
+LW_GATHER_G = {64: (64, 33), 4096: (4096, 2049, 1, 3, 4000, 4001)}
 # groups of states folded in one launch: (depth, cap, rows, one cell, reset,
 # pairs) a state; cpu-live's five states at a head advance, mixed shapes
 # with a state of no rows, and more states than one launch carries
@@ -2167,10 +2170,49 @@ def _lw_gather_check(torch, rings, idx, g, what) -> float:
     return err
 
 
+def _lw_odd_rings(torch, base):
+    """Two copies of ``base`` the gather's 16-byte path must not take: its
+    first cap - 3 group columns (a cap off 16 bytes, sliced from the wider
+    ring), and the whole ring at a base 4 bytes past a 16-byte boundary."""
+    narrow = base[:, :, :base.shape[2] - 3].contiguous()
+    flat = torch.empty(base.numel() + 1, dtype=torch.int32, device=base.device)
+    shifted = flat[1:].view(base.shape)
+    shifted.copy_(base)
+    return (("sliced", narrow), ("shifted", shifted))
+
+
+def _lw_gather_cases(torch, rng, base, what) -> tuple[float, int]:
+    """``base`` gathered at every width of ``LW_GATHER_G`` and every count
+    of ``LW_GATHER_N`` (from 4 slots on, slots past depth and below zero),
+    and its odd copies (``_lw_odd_rings``) at their widest width and the
+    main path's; each against the plain version. Returns the largest
+    |difference| and the cases."""
+    import numpy as np
+
+    depth, cap = int(base.shape[1]), int(base.shape[2])
+    err, cases = 0.0, 0
+    rings = [("", base, LW_GATHER_G[cap])]
+    rings += [(f" {name}", r, sorted({int(r.shape[2]), min(4000, int(r.shape[2]))}))
+              for name, r in _lw_odd_rings(torch, base)]
+    for label, ring, widths in rings:
+        for g in widths:
+            for nq in LW_GATHER_N:
+                idx = rng.integers(0, depth, nq).astype(np.int32)
+                if nq >= 4:
+                    idx[:4] = (depth, depth + 7, -1, -depth - 3)
+                err = max(err, _lw_gather_check(
+                    torch, ring, torch.from_numpy(idx).to(base.device), g,
+                    f"{what}{label} cap {int(ring.shape[2])} n {nq} g {g}"))
+                cases += 1
+    return err, cases
+
+
 def phase_lw_kernels(torch) -> float:
     """Fold and gather on CUDA rings against their plain versions over
     depth x cap x rows x {distinct cells, one cell} x reset x pairs, and
-    gathers with out-of-range slots. Returns the largest |sum diff|."""
+    gathers at every width of ``LW_GATHER_G`` (also on a ring sliced to a
+    cap off 16 bytes and one at a base off 16 bytes) with out-of-range
+    slots. Returns the largest |sum diff|."""
     import numpy as np
 
     from horaedb_tpu_torch.ops import livewindow as L
@@ -2194,15 +2236,9 @@ def phase_lw_kernels(torch) -> float:
                             err = max(err, _lw_fold_check(torch, base, *_lw_words(torch, batch),
                                                           what))
                             n_cases += 1
-            for g in (cap, cap // 2 + 1):
-                for nq in LW_GATHER_N:
-                    idx = rng.integers(0, depth, nq).astype(np.int32)
-                    if nq >= 4:
-                        idx[:4] = (depth, depth + 7, -1, -depth - 3)
-                    gather_err = max(gather_err, _lw_gather_check(
-                        torch, base, torch.from_numpy(idx).to(DEV), g,
-                        f"gather depth {depth} cap {cap} n {nq} g {g}"))
-                    n_cases += 1
+            e, cases = _lw_gather_cases(torch, rng, base, f"gather depth {depth}")
+            gather_err = max(gather_err, e)
+            n_cases += cases
     for g, states in enumerate(LW_GROUPS):
         bases, batches = [], []
         for depth, cap, n, one_cell, reset, pairs in states:
@@ -2642,6 +2678,9 @@ def phase_lw_timings(torch, main, card) -> list:
     lib_ms = _time_launch(torch, lambda: torch.index_select(rings[:, :, :g], 1, idx_long),
                           flush=flush)
     out = gather()
+    # a yardstick for the gather's copy: one device-to-device copy of its bytes
+    dup = torch.empty_like(out)
+    copy_ms = _device_ms(torch, lambda: dup.copy_(out), "Memcpy DtoD", flush=flush)
     host = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
     d2h_ms = _time_launch(torch, lambda: host.copy_(out, non_blocking=True))
     n_idx = int(idx.shape[0])
@@ -2672,7 +2711,8 @@ def phase_lw_timings(torch, main, card) -> list:
         "launch_ms_per_commit": main["launch_ms_per_commit"],
         "gather_n": n_idx, "gather_g": g, "gather_ms": gather_ms,
         "gather_events_ms": gather_events_ms, "gather_plain_ms": gather_plain_ms,
-        "index_select_ms": lib_ms, "d2h_ms": d2h_ms, "gather_bound_bytes": gather_bytes,
+        "index_select_ms": lib_ms, "dtod_copy_ms": copy_ms, "d2h_ms": d2h_ms,
+        "gather_bound_bytes": gather_bytes,
         "refresh_served_ms": served, "refresh_rescan_ms": rescan, "peak_bytes": main["peak"],
     }
     DETAIL["livewindow_timings"] = detail
@@ -2687,7 +2727,8 @@ def phase_lw_timings(torch, main, card) -> list:
     say(f"kernel livewindow_gather at n {n_idx} x g {g} ({launches['gather']} main-path "
         f"launches): {gather_ms:.4f} ms ({gather_events_ms:.4f} ms by events), plain "
         f"{gather_plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound {gather_bound:.6f} ms "
-        f"({gather_bytes} B); copy back {d2h_ms:.4f} ms [{card}]")
+        f"({gather_bytes} B), a DtoD copy of its {gather_bytes // 2} B {copy_ms} ms; copy "
+        f"back {d2h_ms:.4f} ms [{card}]")
     say(f"refresh at the checkpoints: from state median {statistics.median(served):.3f} ms, "
         f"kill-switch rescan median {statistics.median(rescan):.3f} ms; peak device memory "
         f"{main['peak']} B [{card}]")
@@ -5225,19 +5266,26 @@ def phase_mesh_kernels(torch) -> float:
 
 class MeshRecorder:
     """Keeps the last mesh_combine call, each sharded full scan's
-    ``dist_cached_step`` call and, while ``keep_raw`` is set, the per-shard
-    top-k and selection calls, by wrapping the module functions the
-    sharded steps call; ``restore`` puts them back."""
+    ``dist_cached_step`` call and, while ``keep_raw`` is set, the global
+    row windows the executor hands the sharded top-k and selection
+    (``windows``) and their per-shard calls, by wrapping the module
+    functions the sharded steps call; ``restore`` puts them back. On the
+    card each kept top-k shard call also gets a ``stats`` of its own
+    (``topk_stats``), which its keys kernel adds its row and tile counts
+    to."""
 
-    def __init__(self, S, T):
-        from horaedb_tpu_torch.parallel import dist_agg
+    def __init__(self, torch, S, T):
+        from horaedb_tpu_torch.parallel import dist_agg, dist_raw
 
-        self.S, self.T, self.D = S, T, dist_agg
+        self.S, self.T, self.D, self.R = S, T, dist_agg, dist_raw
         self.orig = (S.mesh_combine, T.raw_topk_packed, T.raw_select_packed)
         self.orig_step = dist_agg.dist_cached_step
+        self.orig_dist = (dist_raw.dist_raw_topk, dist_raw.dist_raw_select)
         self.combine = None
         self.steps: list = []
         self.raw: dict = {"raw_topk": [], "raw_select": []}
+        self.windows: dict = {}
+        self.topk_stats: list = []
         self.keep_raw = False
         orig_combine, orig_topk, orig_select = self.orig
 
@@ -5255,16 +5303,31 @@ class MeshRecorder:
             def call(*a, **k):
                 if self.keep_raw:
                     self.raw[kind].append((a, k))
+                    if kind == "raw_topk" and DEV == "cuda":
+                        stats = torch.zeros(len(T.TOPK_STATS), dtype=torch.int64,
+                                            device=a[3].device)
+                        self.topk_stats.append(stats)
+                        k = {**k, "stats": stats}
+                return orig(*a, **k)
+            return call
+
+        def keep_windows(kind, orig):
+            def call(*a, **k):
+                if self.keep_raw:
+                    self.windows[kind] = k.get("windows")
                 return orig(*a, **k)
             return call
 
         S.mesh_combine = combine
         T.raw_topk_packed = keep("raw_topk", orig_topk)
         T.raw_select_packed = keep("raw_select", orig_select)
+        dist_raw.dist_raw_topk = keep_windows("raw_topk", self.orig_dist[0])
+        dist_raw.dist_raw_select = keep_windows("raw_select", self.orig_dist[1])
 
     def restore(self) -> None:
         self.S.mesh_combine, self.T.raw_topk_packed, self.T.raw_select_packed = self.orig
         self.D.dist_cached_step = self.orig_step
+        self.R.dist_raw_topk, self.R.dist_raw_select = self.orig_dist
 
 
 def _bits_equal(a, b, what) -> None:
@@ -5326,7 +5389,9 @@ def phase_mesh_main(torch, main, card) -> list:
     high-cpu-1. Every answer equals numpy and the single-device answer
     (counts, mins and maxs bit-equal, raw rows in order); every run reports
     the mesh and moves the counters by one launch a shard and one
-    mesh_combine an aggregate. Then dist_merge_dedup at a compaction
+    mesh_combine an aggregate, and a raw read by one launch a shard whose
+    clipped windows hold rows (each over its part, as its keys kernel or
+    tile count shows on the card). Then dist_merge_dedup at a compaction
     chunk's shape against the single-device f32 merge; the last combine,
     the last top-k's and selection's shard launches and the merge's shard
     launches replayed against their plain versions and timed against their
@@ -5335,7 +5400,7 @@ def phase_mesh_main(torch, main, card) -> list:
     import numpy as np
 
     from horaedb_tpu_torch.ops import merge_dedup as md, scan_agg as S, scan_topk as T
-    from horaedb_tpu_torch.parallel import dist_merge
+    from horaedb_tpu_torch.parallel import dist_merge, dist_raw
     from horaedb_tpu_torch.parallel.mesh import Mesh, on_device, use_mesh
     from horaedb_tpu_torch.query.path_router import KERNEL_ROUTER
     from horaedb_tpu_torch.tools import tsbs
@@ -5375,7 +5440,7 @@ def phase_mesh_main(torch, main, card) -> list:
     # whichever arm phase 20's host-dominated dispatch times favoured
     KERNEL_ROUTER.reset()
 
-    rec = MeshRecorder(S, T)
+    rec = MeshRecorder(torch, S, T)
     results = {}
     _sync(torch)
     for mod in (S, T, md):
@@ -5408,8 +5473,10 @@ def phase_mesh_main(torch, main, card) -> list:
                               and not moved.get("cached_selective"),
                               f"{name} run {r}: {path}, launches {moved}")
                     else:
+                        # a shard whose clipped windows hold no row is not
+                        # launched: checked against the windows after the runs
                         check(path == "raw_device" and m.get("raw_kernel") == kind
-                              and moved.get(f"raw_{kind}") == n_sh,
+                              and 1 <= moved.get(f"raw_{kind}", 0) <= n_sh,
                               f"{name} run {r}: {path}, launches {moved}")
                     _bits_equal(res, single[name]["res"], f"{name} run {r} vs single-device")
                     runs.append({"seconds": secs, "path": path, "cache": m.get("cache"),
@@ -5457,20 +5524,45 @@ def phase_mesh_main(torch, main, card) -> list:
     if DEV == "cuda":
         check(not any(v for d in plain.values() for v in d.values()),
               f"plain versions ran: {plain}")
-    for kind, calls in rec.raw.items():
-        check(len(calls) == n_sh, f"{len(calls)} recorded shard launches of {kind}")
-        check(launches[kind] == REPEATS_MESH * n_sh, f"{kind} launches {launches}")
-    # the selection's windows, clipped per shard: inside the shard's real
-    # rows, and on the card the last run walked their tiles and no others
-    tiles = 0
-    for d, (a, k) in enumerate(rec.raw["raw_select"]):
-        w = np.asarray(k["windows"], dtype=np.int64).reshape(-1, 2)
-        check(len(w) == 0 or (int(w[0, 0]) >= 0 and int(w[-1, 1]) <= real[d]),
-              f"high-cpu-1 shard {d}: windows {w.tolist()} outside its {real[d]} real rows")
-        tiles += len(T.select_tiles(w, per))
+    # each sharded raw read's shards: the executor's global windows clipped
+    # to each shard; only the shards whose part holds a row launched, each
+    # over its part inside its real rows, in every run
+    shard_parts = {}
+    for kind, query in (("raw_topk", "lastpoint-host"), ("raw_select", "high-cpu-1")):
+        glob = rec.windows.get(kind)
+        check(glob is not None, f"{query}: the executor handed the mesh no windows")
+        parts = [(d, dist_raw.shard_windows(glob, d * per, per)) for d in range(n_sh)]
+        parts = [(d, w) for d, w in parts if int((w[:, 1] - w[:, 0]).sum())]
+        calls = rec.raw[kind]
+        check(len(calls) == len(parts) >= 1,
+              f"{query}: {len(calls)} shard launches recorded, {len(parts)} shards hold "
+              f"window rows")
+        check(launches[kind] == REPEATS_MESH * len(parts),
+              f"{kind} launches {launches}: {REPEATS_MESH} runs x {len(parts)} shards with "
+              f"window rows")
+        for (d, want), (a, k) in zip(parts, calls):
+            w = np.asarray(k["windows"], dtype=np.int64).reshape(-1, 2)
+            check(np.array_equal(w, want) and int(w[0, 0]) >= 0 and int(w[-1, 1]) <= real[d],
+                  f"{query} shard {d}: windows {w.tolist()} are not its clipped part "
+                  f"{want.tolist()} inside its {real[d]} real rows")
+        shard_parts[kind] = parts
+    # on the card the last runs walked the windows' rows and tiles and no
+    # others: the selection's tiles, and each top-k shard's keys kernel's
+    # rows and tiles as it counted them
+    tiles = sum(len(T.select_tiles(w, per)) for _, w in shard_parts["raw_select"])
     walked = results["high-cpu-1"]["runs"][-1]["launches"].get("select_tiles", 0)
     check(DEV != "cuda" or walked == tiles,
           f"high-cpu-1 on the mesh walked {walked} tiles, its shard windows hold {tiles}")
+    topk_walked = [s.tolist() for s in rec.topk_stats]
+    for (d, w), got in zip(shard_parts["raw_topk"], topk_walked):
+        rows_w = w[:, 1] - w[:, 0]
+        want = [int(rows_w.sum()), int(((rows_w + T.TILE - 1) // T.TILE).sum())]
+        check(got == want, f"lastpoint-host shard {d}: the keys kernel counted rows and "
+                           f"tiles {got}, its windows hold {want}")
+    DETAIL["mesh_raw_shards"] = {
+        kind: [{"shard": d, "windows": w.tolist()} for d, w in parts]
+        for kind, parts in shard_parts.items()}
+    DETAIL["mesh_raw_shards"]["topk_walked"] = topk_walked
     say(f"mesh: {mesh} ({n_sh} shards); real rows per shard {real} of {per} "
         f"(the last shard{' is' if real[-1] == 0 else ' is not'} all padding); "
         f"main path {path_s:.1f} s; launches {launches}")
@@ -5546,7 +5638,8 @@ def phase_mesh_main(torch, main, card) -> list:
         return lambda: [fn(), *(torch.cuda.synchronize(d) for d in mesh.devices)]
 
     # B7b: the last run's per-shard top-k (lastpoint-host) and selection
-    # (high-cpu-1) launches, replayed (each on its shard's card) and timed
+    # (high-cpu-1) launches, the shards whose windows hold rows, replayed
+    # (each on its shard's card) and timed
     for kind, query, plain_fn, lib_name in (
             ("raw_topk", "lastpoint-host", T.raw_topk_plain, "torch.topk"),
             ("raw_select", "high-cpu-1", T.raw_select_plain, "torch.nonzero")):
@@ -5579,10 +5672,11 @@ def phase_mesh_main(torch, main, card) -> list:
         size = (f"k {calls[0][1]['k']}, keys out" if kind == "raw_topk"
                 else f"{[k['select_slots'] for _, k in calls]} slots a shard")
         dev_text = f"{dev_b:.4f} ms" if dev_b is not None else "not measured"
-        say(f"kernel dist_{kind} at {query} ({n_sh} shard launches, {size}): {ms_b:.4f} ms "
-            f"(events, wrappers included), {dev_text} on the device timeline, "
-            f"plain {plain_b:.4f} ms, {lib_name} x{n_sh} {lib_b:.4f} ms, bound "
-            f"{bound_b:.6f} ms (bytes), kernel = plain [{card}]")
+        say(f"kernel dist_{kind} at {query} ({len(calls)} shard launches of {n_sh} shards, "
+            f"the shards whose windows hold rows; {size}): {ms_b:.4f} ms (events, wrappers "
+            f"included), {dev_text} on the device timeline, plain {plain_b:.4f} ms, "
+            f"{lib_name} x{len(calls)} {lib_b:.4f} ms, bound {bound_b:.6f} ms (bytes, the "
+            f"window rows), kernel = plain [{card}]")
         del libs
     # B7c: the merge's per-shard sorts, replayed and timed
     idxs, words, masks = dist_merge.shard_words(mesh, tsid, ts, seq)

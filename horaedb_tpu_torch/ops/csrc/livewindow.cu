@@ -47,13 +47,27 @@
 // The gather clamps instead, as the reference's gather does: an index
 // below zero wraps once, then every index is clamped into [0, depth - 1].
 //
-// What bounds it: bytes, and at a commit's size launch latency. A commit of
-// a few thousand rows a state moves a few hundred kilobytes (12 B a row in,
-// 4 planes read and written per touched cell), microseconds at 3.35 TB/s.
-// Before, each state folded on its own: a reset launch and a scatter launch
-// of 16 blocks (one 32-row step a warp), ten launches a head-advance commit
-// of five states, each mostly the fixed cost of a launch; now one launch
-// carries the work of every state.
+// What bounds the fold: bytes, and at a commit's size launch latency. A
+// commit of a few thousand rows a state moves a few hundred kilobytes (12 B
+// a row in, 4 planes read and written per touched cell), microseconds at
+// 3.35 TB/s. Before, each state folded on its own: a reset launch and a
+// scatter launch of 16 blocks (one 32-row step a warp), ten launches a
+// head-advance commit of five states, each mostly the fixed cost of a
+// launch; now one launch carries the work of every state.
+//
+// Gather = a copy of 5 * n rows of g contiguous words (ring row (p, s) to
+// output row (p, r)), bound by bytes: a refresh's 60 slots x 4000 groups
+// read and write 9.6 MB, 2.9 us at 3.35 TB/s, so at this size the launch
+// and the ramp of the first loads count too. The design spends its
+// instructions on bytes and none on index arithmetic: a block copies one
+// chunk of one output row (no division a word), reads and clamps its slot
+// once, moves 16 bytes a thread a load and a store (int4) when the ring's
+// cap, g and both bases allow it (a 4-byte path in the same kernel
+// otherwise), keeps four such loads in flight a thread before it stores,
+// reads the ring through the read-only path and streams the output past
+// the caches (it is read once, by the copy to the host). A chunk is 8 KB
+// on the 16-byte path, so the main path's 300 rows of 16 KB are 600 blocks
+// of 128 threads, all resident at once on 132 SMs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -105,6 +119,8 @@ struct GatherArgs {
   int cap;
   int g;                 // leading group columns to gather (g <= cap)
   int device;
+  int vec;               // the launcher's: 1 for the 16-byte path
+  int chunks;            // the launcher's: blocks an output row
 };
 
 __device__ __forceinline__ float fmin_t(float a, float b) {
@@ -312,29 +328,51 @@ __global__ void __launch_bounds__(BLOCK) ring_fold(const __grid_constant__ FoldA
   }
 }
 
-__global__ void ring_gather(GatherArgs a) {
-  const long long per_plane = a.n * a.g;
-  const long long total = PLANES * per_plane;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long p = i / per_plane;
-    const long long r = (i / a.g) % a.n;
-    const long long c = i % a.g;
-    int s = a.idx[r];
-    if (s < 0) s += a.depth;
-    s = s < 0 ? 0 : (s >= a.depth ? a.depth - 1 : s);
-    a.out[i] = a.rings[(p * a.depth + s) * a.cap + c];
+#define GATHER_BLOCK 128
+#define GATHER_UNROLL 4  // loads in flight a thread
+// words a block copies: GATHER_UNROLL loads of int4 (or int32) a thread
+#define GATHER_CHUNK_VEC (GATHER_BLOCK * GATHER_UNROLL * 4)
+#define GATHER_CHUNK_WORD (GATHER_BLOCK * GATHER_UNROLL)
+
+// ``len`` elements from src to dst, GATHER_UNROLL loads a thread issued
+// before the first store
+template <typename W>
+__device__ __forceinline__ void copy_chunk(const W* __restrict__ src, W* __restrict__ dst,
+                                           int len) {
+  const int t = threadIdx.x;
+  W v[GATHER_UNROLL];
+#pragma unroll
+  for (int u = 0; u < GATHER_UNROLL; ++u) {
+    const int i = t + u * GATHER_BLOCK;
+    if (i < len) v[u] = __ldg(src + i);
+  }
+#pragma unroll
+  for (int u = 0; u < GATHER_UNROLL; ++u) {
+    const int i = t + u * GATHER_BLOCK;
+    if (i < len) __stcs(dst + i, v[u]);
   }
 }
 
-// blocks for ``work`` items, one per thread, at most per_sm blocks per SM
-static int grid_for(long long work, int device, int per_sm, cudaError_t* err) {
-  int sms = 0;
-  *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long cap = (long long)(sms > 0 ? sms : 1) * per_sm;
-  long long want = (work + BLOCK - 1) / BLOCK;
-  if (want < 1) want = 1;
-  return (int)(want < cap ? want : cap);
+// one chunk of one output row a block: blockIdx.x = row * chunks + chunk,
+// row = p * n + r
+__global__ void __launch_bounds__(GATHER_BLOCK) ring_gather_rows(const GatherArgs a) {
+  const long long row = blockIdx.x / a.chunks;
+  const int chunk = (int)(blockIdx.x - row * a.chunks);
+  const long long p = row / a.n;
+  const long long r = row - p * a.n;
+  int s = __ldg(a.idx + r);
+  if (s < 0) s += a.depth;
+  s = s < 0 ? 0 : (s >= a.depth ? a.depth - 1 : s);
+  const int32_t* src = a.rings + (p * a.depth + s) * a.cap;
+  int32_t* dst = a.out + row * a.g;
+  if (a.vec) {
+    const int c0 = chunk * (GATHER_CHUNK_VEC / 4);  // in int4
+    copy_chunk(reinterpret_cast<const int4*>(src) + c0, reinterpret_cast<int4*>(dst) + c0,
+               min(a.g / 4 - c0, GATHER_CHUNK_VEC / 4));
+  } else {
+    const int c0 = chunk * GATHER_CHUNK_WORD;
+    copy_chunk(src + c0, dst + c0, min(a.g - c0, GATHER_CHUNK_WORD));
+  }
 }
 
 extern "C" {
@@ -415,13 +453,20 @@ int livewindow_fold_launch(const FoldArgs* in, void* stream) {
   return (int)cudaGetLastError();
 }
 
-int livewindow_gather_launch(const GatherArgs* a, void* stream) {
-  cudaError_t err = cudaSetDevice(a->device);
+// One ring_gather_rows launch: the 16-byte path when cap, g and both bases
+// are multiples of 16 bytes; each output row cut into chunks of one block.
+int livewindow_gather_launch(const GatherArgs* in, void* stream) {
+  GatherArgs a = *in;
+  cudaError_t err = cudaSetDevice(a.device);
   if (err != cudaSuccess) return (int)err;
-  if (a->n <= 0 || a->depth <= 0 || a->g <= 0 || a->g > a->cap) return (int)cudaErrorInvalidValue;
-  int grid = grid_for(PLANES * a->n * a->g, a->device, 16, &err);
-  if (err != cudaSuccess) return (int)err;
-  ring_gather<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(*a);
+  if (a.n <= 0 || a.depth <= 0 || a.g <= 0 || a.g > a.cap) return (int)cudaErrorInvalidValue;
+  a.vec = a.cap % 4 == 0 && a.g % 4 == 0 && (uintptr_t)a.rings % 16 == 0 &&
+          (uintptr_t)a.out % 16 == 0;
+  const int chunk = a.vec ? GATHER_CHUNK_VEC : GATHER_CHUNK_WORD;
+  a.chunks = (a.g + chunk - 1) / chunk;
+  const long long blocks = (long long)PLANES * a.n * a.chunks;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  ring_gather_rows<<<(unsigned)blocks, GATHER_BLOCK, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

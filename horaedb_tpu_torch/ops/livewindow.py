@@ -17,7 +17,9 @@ Two kernels, written by hand in CUDA (``csrc/livewindow.cu``):
 - ``gather`` replaces ``horaedb_tpu/ops/livewindow.py:64`` ``_gather_body``:
              ring rows by slot, the first ``g`` group columns of all five
              planes into one contiguous ``[5, n, g]`` output, so a read is
-             one device-to-host copy.
+             one device-to-host copy. One launch of ``ring_gather_rows``
+             copies the 5 * n rows, a block a chunk of a row, 16 bytes a
+             thread a load where the ring's cap, ``g`` and both bases allow.
 
 Both are bound by bytes and, at a commit's or a refresh's size, by launch
 latency. Each wrapper runs its plain PyTorch version for a CPU ring and
@@ -286,6 +288,8 @@ class _GatherArgs(ctypes.Structure):
         ("cap", ctypes.c_int),
         ("g", ctypes.c_int),
         ("device", ctypes.c_int),
+        ("vec", ctypes.c_int),
+        ("chunks", ctypes.c_int),
     ]
 
 

@@ -3,23 +3,24 @@
 When a table's scan-cache entry is sharded over the mesh (contiguous row
 blocks, one per device, raw layouts), raw reads run the SAME kernels as
 the single-device path (ops/scan_topk, B4) once per shard, on the shard's
-device:
+device. The executor's row windows (global resident rows that hold every
+row the mask can pass) are clipped to each shard's rows and shifted to its
+local ids (``shard_windows``): a shard visits only its part of them, and a
+shard whose part holds no row is not launched (it can pass no row). Every
+launched shard's launch is issued before the first answer is fetched.
 
 - **top-k**: each shard computes its local top-k (the caller clamps k to
   the shard length: a shard shorter than k contributes all its passing
   rows, still a superset of the global top-k). Local row ids become GLOBAL
   resident ids (+ shard index x shard length); each launch hands back its
   slots with the keys it ranked them by (one buffer, one fetch), and the
-  host merges the n_dev lists with ``np.lexsort``
+  host merges the lists with ``np.lexsort``
   (key descending, row id ascending) and cuts them at the count the
   caller needs, never at the shard-clamped k.
 - **selection**: each shard compacts its passing rows into its own
-  bounded buffer; the shards' valid prefixes stitch in shard order, which
-  is the global resident (series, ts) order. The executor's row windows
-  (global resident rows) are clipped to each shard's rows and shifted to
-  its local ids (``shard_windows``): a shard visits only its part of them,
-  and its buffer holds exactly as many slots as its part has rows. Every
-  shard's launch is issued before the first answer is fetched.
+  bounded buffer, as many slots as its part of the windows has rows; the
+  shards' valid prefixes stitch in shard order, which is the global
+  resident (series, ts) order.
 """
 
 from __future__ import annotations
@@ -63,9 +64,26 @@ def merge_topk(keys: np.ndarray, ids: np.ndarray, need: int, key_lo: int) -> np.
     return np.concatenate([strict, ties])
 
 
+def _shard_launches(mesh: Mesh, spec: RawScanSpec, series_shards, value_shards, windows):
+    """(shard, device, layouts, row offset, local windows) of every shard
+    to launch: each shard with ``windows`` None (every row), else only the
+    shards whose clipped windows hold a row."""
+    from ..ops.encoding import layout_rows
+
+    out, offset = [], 0
+    for d, dev in enumerate(mesh.devices):
+        lay = _layouts(spec, len(value_shards[d]))
+        rows = layout_rows(series_shards[d], lay["series_layout"])
+        local = None if windows is None else shard_windows(windows, offset, rows)
+        if local is None or int((local[:, 1] - local[:, 0]).sum()):
+            out.append((d, dev, lay, offset, local))
+        offset += rows
+    return out
+
+
 def dist_raw_topk(
     mesh: Mesh, spec: RawScanSpec, series_shards, ts_shards, value_shards, session, dyn,
-    *, need: int, key_lo: int,
+    *, need: int, key_lo: int, windows=None,
 ) -> np.ndarray:
     """Run the top-k on every shard (``spec.k``, which the caller clamps to
     the shard length) and merge the candidates on the host: global resident
@@ -73,32 +91,32 @@ def dist_raw_topk(
     single-device kernel gives for k = ``need`` (``merge_topk``; ``key_lo``
     is the dyn row's lower key seed). ``need`` may exceed ``spec.k``: the
     union holds up to n_dev * k candidates and is cut at the requested
-    count. ``session`` (the allow list) and ``dyn`` [literals | lo, hi,
-    key_lo, key_hi] lie on ``mesh.first``."""
+    count. ``windows``: the executor's global row windows (every passing
+    row lies in one); each shard visits its clipped part, and a shard with
+    none is not launched. Without them every shard takes all its rows.
+    ``session`` (the allow list) and ``dyn`` [literals | lo, hi, key_lo,
+    key_hi] lie on ``mesh.first``."""
     from ..ops import scan_topk
-    from ..ops.encoding import layout_rows
     from ..ops.scan_agg import encode_filter_ops
 
     nfilters = encode_filter_ops(spec.numeric_filters)
     inputs = _per_device(mesh, (session, dyn))
-    outs, offsets = [], []
-    offset = 0
-    for d, dev in enumerate(mesh.devices):
-        lay = _layouts(spec, len(value_shards[d]))
+    outs = []
+    for d, dev, lay, offset, local in _shard_launches(mesh, spec, series_shards, value_shards,
+                                                      windows):
         with on_device(dev):
-            outs.append(scan_topk.raw_topk_packed(
+            outs.append((offset, scan_topk.raw_topk_packed(
                 series_shards[d], ts_shards[d], value_shards[d], *inputs[dev], k=spec.k,
                 descending=spec.descending, key_is_ts=spec.key_is_ts,
-                key_field=spec.key_field, numeric_filters=nfilters, with_keys=True, **lay,
-            ))
-        offsets.append(offset)
-        offset += layout_rows(series_shards[d], lay["series_layout"])
-    keys, ids = [], []
-    for out, off in zip(outs, offsets):
+                key_field=spec.key_field, numeric_filters=nfilters, with_keys=True,
+                windows=local, **lay,
+            )))
+    keys, ids = [np.empty(0, dtype=np.int64)], [np.empty(0, dtype=np.int64)]
+    for off, out in outs:
         slots, key = out.cpu().numpy().astype(np.int64)
-        local = slots >= 0
-        keys.append(key[local])
-        ids.append(slots[local] + off)
+        held = slots >= 0
+        keys.append(key[held])
+        ids.append(slots[held] + off)
     ids = np.concatenate(ids)
     if not len(ids):
         return ids
@@ -121,35 +139,27 @@ def dist_raw_select(
     """Run the selection on every shard -> (global row ids in resident
     order, total passing count). ``windows``: the executor's global row
     windows (every passing row lies in one); each shard gets its clipped
-    part and a buffer of as many slots as that part has rows. Without
-    them every shard scans its rows into ``spec.select_slots`` slots. A
-    total past ``len(ids)`` means a shard overflowed its buffer: the
-    caller's bound was wrong, and the caller raises."""
+    part and a buffer of as many slots as that part has rows, and a shard
+    with none is not launched. Without them every shard scans its rows
+    into ``spec.select_slots`` slots. A total past ``len(ids)`` means a
+    shard overflowed its buffer: the caller's bound was wrong, and the
+    caller raises."""
     from ..ops import scan_topk
-    from ..ops.encoding import layout_rows
     from ..ops.scan_agg import encode_filter_ops
 
     nfilters = encode_filter_ops(spec.numeric_filters)
     inputs = _per_device(mesh, (session, dyn))
-    outs, offsets = [], []
-    offset = 0
-    for d, dev in enumerate(mesh.devices):
-        lay = _layouts(spec, len(value_shards[d]))
-        rows = layout_rows(series_shards[d], lay["series_layout"])
-        local = slots = None
-        if windows is not None:
-            local = shard_windows(windows, offset, rows)
-            slots = int((local[:, 1] - local[:, 0]).sum())
+    outs = []
+    for d, dev, lay, offset, local in _shard_launches(mesh, spec, series_shards, value_shards,
+                                                      windows):
+        slots = spec.select_slots if local is None else int((local[:, 1] - local[:, 0]).sum())
         with on_device(dev):
-            outs.append(scan_topk.raw_select_packed(
+            outs.append((offset, scan_topk.raw_select_packed(
                 series_shards[d], ts_shards[d], value_shards[d], *inputs[dev],
-                select_slots=spec.select_slots if slots is None else slots,
-                numeric_filters=nfilters, windows=local, **lay,
-            ))
-        offsets.append(offset)
-        offset += rows
-    parts, total = [], 0
-    for out, off in zip(outs, offsets):
+                select_slots=slots, numeric_filters=nfilters, windows=local, **lay,
+            )))
+    parts, total = [np.empty(0, dtype=np.int64)], 0
+    for off, out in outs:
         got = out.cpu().numpy()
         n = int(got[0])
         total += n

@@ -1898,8 +1898,8 @@ class Executor:
         if shape["topk_ok"] and limit + offset <= budget:
             kind = "topk"
             # the top-k visits only the rows its mask can pass, as the
-            # selection does (a sharded entry's shards take every row)
-            if not empty_range and entry.mesh is None:
+            # selection does (a sharded entry's shards their clipped part)
+            if not empty_range:
                 _, windows = self._raw_candidate_estimate(
                     entry, allowed, lo_rel, hi_rel, exact=False
                 )
@@ -2005,7 +2005,8 @@ class Executor:
                 if kind == "topk":
                     idx = timed_dispatch(
                         dkind,
-                        lambda: dist_raw_topk(mesh, spec, *shards, need=k, key_lo=key_lo),
+                        lambda: dist_raw_topk(mesh, spec, *shards, need=k, key_lo=key_lo,
+                                              windows=windows),
                         entry.device,
                     )
                 else:

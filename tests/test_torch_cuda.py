@@ -143,8 +143,31 @@ def test_livewindow_gather_matches_plain(card, depth, cap, n):
     idx = rng.integers(0, depth, n).astype(np.int32)
     if n >= 4:
         idx[:4] = (depth, depth + 7, -1, -depth - 3)
-    for g in (cap, cap // 2 + 1):
-        chip_smoke._lw_gather_check(torch, base, torch.from_numpy(idx).to(card), g, "gather")
+    # the whole ring, a half plus one, and at cap 4096 widths off 16 bytes
+    # (1, 3, 4001) and the main path's 4000
+    for g in chip_smoke.LW_GATHER_G[cap]:
+        chip_smoke._lw_gather_check(torch, base, torch.from_numpy(idx).to(card), g,
+                                    f"gather g {g}")
+
+
+@pytest.mark.parametrize("odd", ["sliced", "shifted"])
+@pytest.mark.parametrize("n", [1, 60, 128])
+def test_livewindow_gather_on_odd_rings_matches_plain(card, odd, n):
+    """A ring of cap 4093 sliced from a wider one, and one whose base lies
+    4 bytes past a 16-byte boundary: the gather takes its 4-byte path and
+    stays bit-equal to the plain version."""
+    from horaedb_tpu_torch.ops import livewindow as L
+
+    rng = np.random.default_rng(n)
+    base = L.alloc_rings(128, 4096, card)
+    warm = chip_smoke._lw_batch(rng, 128, 4096, 2 * 128 * 4096, False, "none", True)
+    L.fold_plain(base, *chip_smoke._lw_words(torch, warm))
+    ring = dict(chip_smoke._lw_odd_rings(torch, base))[odd]
+    assert ring.shape[2] % 4 != 0 or ring.data_ptr() % 16 != 0
+    idx = rng.integers(-140, 140, n).astype(np.int32)
+    for g in sorted({int(ring.shape[2]), 4000}):
+        chip_smoke._lw_gather_check(torch, ring, torch.from_numpy(idx).to(card), g,
+                                    f"{odd} gather g {g} n {n}")
 
 
 @pytest.mark.parametrize("n_states", [1, 6, 33])
@@ -660,6 +683,69 @@ def test_sharded_sql_on_a_logical_mesh_launches_the_kernels(card, monkeypatch):
         assert out.metrics["mesh_devices"] == 4
         assert sum(S.LAUNCHES["cached"].values()) == 4 and S.COMBINE_LAUNCHES["packed"] == 1
         assert out.to_pylist() == one
+    db.close()
+
+
+def test_sharded_topk_over_windows_matches_one_device(card, monkeypatch):
+    """Raw top-k reads over a table sharded on 4 logical shards of the card:
+    only the shards whose clipped windows hold rows launch, each keys
+    kernel counts its part's rows and tiles and no others, and the answer
+    is one device's."""
+    import horaedb_tpu_torch
+    from horaedb_tpu_torch.ops import scan_topk as T
+    from horaedb_tpu_torch.parallel import dist_raw
+    from horaedb_tpu_torch.parallel.mesh import Mesh, use_mesh
+
+    rows = ", ".join(f"('h{i % 9}', {float((i * 37) % 101)}, {1_700_000_000_000 + i * 1000})"
+                     for i in range(20_000))
+    queries = ["SELECT host, v FROM rd WHERE host = 'h4' ORDER BY v DESC LIMIT 30",
+               "SELECT host, v, ts FROM rd WHERE host IN ('h2', 'h3') ORDER BY ts DESC LIMIT 50",
+               "SELECT host, v FROM rd ORDER BY v ASC LIMIT 40"]
+    db = horaedb_tpu_torch.connect(None, device="cuda")
+    db.execute("CREATE TABLE rd (host string TAG, v double, ts timestamp NOT NULL, "
+               "TIMESTAMP KEY(ts)) ENGINE=Analytic")
+    db.execute(f"INSERT INTO rd (host, v, ts) VALUES {rows}")
+    one = {}
+    for sql in queries:
+        for _ in range(3):
+            one[sql] = db.execute(sql).to_pylist()
+    db.interpreters.executor.scan_cache.invalidate("rd")
+    monkeypatch.setenv("HORAEDB_DIST_MIN_ROWS", "1")
+    real = T.raw_topk_packed
+    shard_calls, windows = [], []
+    real_dist = dist_raw.dist_raw_topk
+
+    def spy(*a, **k):
+        stats = torch.zeros(len(T.TOPK_STATS), dtype=torch.int64, device="cuda")
+        shard_calls.append((k["windows"], stats))
+        return real(*a, **k, stats=stats)
+
+    def dist(*a, **k):
+        windows.append(k["windows"])
+        return real_dist(*a, **k)
+
+    monkeypatch.setattr(T, "raw_topk_packed", spy)
+    monkeypatch.setattr(dist_raw, "dist_raw_topk", dist)
+    with use_mesh(Mesh.logical("cuda", 4)):
+        for sql in queries:
+            for _ in range(2):
+                db.execute(sql)
+            shard_calls.clear()
+            windows.clear()
+            before = T.LAUNCHES["raw_topk"]
+            out = db.execute(sql)
+            assert out.metrics["mesh_devices"] == 4 and out.metrics["raw_kernel"] == "topk"
+            assert out.to_pylist() == one[sql], sql
+            per = db.interpreters.executor.scan_cache._entries["rd"].padded_rows // 4
+            parts = [dist_raw.shard_windows(windows[0], d * per, per) for d in range(4)]
+            parts = [w for w in parts if int((w[:, 1] - w[:, 0]).sum())]
+            assert T.LAUNCHES["raw_topk"] - before == len(shard_calls) == len(parts)
+            for w, (got, stats) in zip(parts, shard_calls):
+                assert np.array_equal(np.asarray(got).reshape(-1, 2), w)
+                n = w[:, 1] - w[:, 0]
+                assert stats.tolist() == [int(n.sum()), int(((n + T.TILE - 1) // T.TILE).sum())]
+            if "ORDER BY v ASC" not in sql:
+                assert len(parts) < 4
     db.close()
 
 

@@ -488,7 +488,7 @@ def test_sharded_selection_over_clipped_windows(seed, mesh8):
     time range), clipped to each of the 8 shards and shifted to its local
     rows, cover every row that shard's mask passes and lie inside it; the
     sharded selection over them gives the reference's ids and total, each
-    shard's buffer holding exactly its windows' rows."""
+    launched shard's buffer holding exactly its windows' rows."""
     rng = np.random.default_rng(40 + seed)
     codes, ts, v, S = _raw_table(rng)
     allow = np.append(rng.random(S) < 0.5, False).astype(np.int32)
@@ -526,8 +526,144 @@ def test_sharded_selection_over_clipped_windows(seed, mesh8):
     finally:
         pT.raw_select_packed = real
     assert total == want_total and np.array_equal(ids, np.asarray(want_ids))
+    # a shard whose part holds no row is not launched
     assert [k["select_slots"] for k in seen] == [
-        int(keep[d * per:(d + 1) * per].sum()) for d in range(8)]
+        n for n in (int(keep[d * per:(d + 1) * per].sum()) for d in range(8)) if n]
+
+
+WINDOW_SETS = ("one-shard", "straddle", "empty", "every-row")
+
+
+def _window_query(codes, ts, S, case):
+    """(allow list, lo, hi) of a query whose allowed rows in [lo, hi) -- the
+    executor's windows -- lie inside one of the 8 shards, straddle a shard
+    boundary, hold no row, or are every real row of ``_raw_table``."""
+    n = len(codes)
+    per = n // 8
+    allow = np.zeros(S + 1, np.int32)
+    if case == "every-row":
+        allow[:S] = 1
+        return allow, 0, int(ts.max()) + 1
+    if case == "empty":
+        allow[S // 2] = 1
+        return allow, int(ts.max()) + 1, int(ts.max()) + 50
+    for s in range(S):
+        a, b = np.searchsorted(codes, [s, s + 1])
+        for edge in range(per, n, per):
+            if case == "straddle" and a + 20 <= edge <= b - 20:
+                lo, hi = edge - 20, edge + 20
+                break
+            if case == "one-shard" and a + 40 <= edge <= b:
+                lo, hi = edge - 35, edge - 5
+                break
+        else:
+            continue
+        allow[s] = 1
+        return allow, int(ts[lo]), int(ts[hi - 1]) + 1
+    raise AssertionError(f"no series for {case}")
+
+
+def _windows_of(keep):
+    f = np.concatenate([[False], keep, [False]])
+    return np.flatnonzero(f[1:] != f[:-1]).reshape(-1, 2).astype(np.int64)
+
+
+def _check_shard_windows(windows, passing, per, seen):
+    """Every row a shard's mask passes lies in its clipped windows, and
+    exactly the shards whose clipped windows hold rows were launched, each
+    with its part. Returns the shards with rows."""
+    parts = []
+    for d in range(8):
+        local = dist_raw.shard_windows(windows, d * per, per)
+        inside = np.zeros(per + 1, np.int64)
+        np.add.at(inside, local[:, 0], 1)
+        np.add.at(inside, local[:, 1], -1)
+        assert (np.cumsum(inside)[:per] > 0)[passing[d * per:(d + 1) * per]].all()
+        if int((local[:, 1] - local[:, 0]).sum()):
+            parts.append(local)
+    assert len(seen) == len(parts)
+    for k, local in zip(seen, parts):
+        assert np.array_equal(np.asarray(k["windows"]).reshape(-1, 2), local)
+    return len(parts)
+
+
+def _spy(monkeypatch, name):
+    seen = []
+    real = getattr(pT, name)
+
+    def spy(*a, **k):
+        seen.append(k)
+        return real(*a, **k)
+
+    monkeypatch.setattr(pT, name, spy)
+    return seen
+
+
+@pytest.mark.parametrize("k", [16, 300])
+@pytest.mark.parametrize("key_is_ts,desc", KEYS, ids=["ts-desc", "ts-asc", "f32-desc",
+                                                      "f32-asc"])
+@pytest.mark.parametrize("case", WINDOW_SETS)
+def test_sharded_topk_over_clipped_windows(case, key_is_ts, desc, k, mesh8, monkeypatch):
+    """The sharded top-k given the executor's windows: each shard visits its
+    clipped part, a shard with none is not launched, and the answer is the
+    reference's and the port's single-device top-k, order included."""
+    rng = np.random.default_rng(60 + k + 10 * key_is_ts + desc)
+    codes, ts, v, S = _raw_table(rng)
+    allow, lo, hi = _window_query(codes, ts, S, case)
+    keep = (allow[codes] != 0) & (ts >= lo) & (ts < hi)
+    windows = _windows_of(keep)
+    key_lo, key_hi = rT.topk_key_bounds(desc, key_is_ts, lo, hi)
+    dyn = rT.pack_raw_dyn([0.0], lo, hi, key_lo, key_hi)
+    kw = dict(k=k, descending=desc, key_is_ts=key_is_ts, key_field=0,
+              numeric_filters=((1, 5),))
+    want = np.asarray(rT.raw_topk_packed(jnp.asarray(codes), jnp.asarray(ts), jnp.asarray(v),
+                                         jnp.asarray(allow), jnp.asarray(dyn), **kw))
+    single = pT.raw_topk_packed((torch.from_numpy(codes),), (torch.from_numpy(ts),),
+                                tuple((torch.from_numpy(x),) for x in v),
+                                torch.from_numpy(allow), torch.from_numpy(dyn), windows=windows,
+                                **kw).numpy()
+    assert np.array_equal(want, single)
+    per = len(codes) // 8
+    spec = pT.RawScanSpec(k=min(k, per), descending=desc, key_is_ts=key_is_ts, key_field=0,
+                          numeric_filters=((1, ">="),))
+    calls = pT.PLAIN_CALLS["raw_topk"]
+    seen = _spy(monkeypatch, "raw_topk_packed")
+    got = dist_raw.dist_raw_topk(mesh8, spec, *_raw_args(codes, ts, v, 8),
+                                 torch.from_numpy(allow), torch.from_numpy(dyn), need=k,
+                                 key_lo=key_lo, windows=windows)
+    assert np.array_equal(got, single[single >= 0]), (got, single)
+    launched = _check_shard_windows(windows, keep & (v[1] >= 0.0), per, seen)
+    assert pT.PLAIN_CALLS["raw_topk"] == calls + launched
+    assert launched == {"one-shard": 1, "straddle": 2, "empty": 0, "every-row": 8}[case]
+
+
+@pytest.mark.parametrize("case", WINDOW_SETS)
+def test_sharded_selection_launches_only_shards_with_window_rows(case, mesh8, monkeypatch):
+    """The sharded selection given the executor's windows launches exactly
+    the shards whose clipped windows hold rows, and answers as the
+    reference's ``dist_raw_select``."""
+    rng = np.random.default_rng(70 + WINDOW_SETS.index(case))
+    codes, ts, v, S = _raw_table(rng)
+    allow, lo, hi = _window_query(codes, ts, S, case)
+    keep = (allow[codes] != 0) & (ts >= lo) & (ts < hi)
+    windows = _windows_of(keep)
+    lits, filters = [-20.0], ((0, ">"),)
+    slots = max(int(keep.sum()), 1)
+    want_ids, want_total = r_raw.dist_raw_select(
+        _jmesh(8), rT.RawScanSpec(select_slots=slots, numeric_filters=filters),
+        jnp.asarray(codes), jnp.asarray(ts), jnp.asarray(v), jnp.asarray(allow), lits, lo, hi)
+    spec = pT.RawScanSpec(select_slots=slots, numeric_filters=filters)
+    dyn = torch.from_numpy(rT.pack_raw_dyn(lits, lo, hi))
+    calls = pT.PLAIN_CALLS["raw_select"]
+    seen = _spy(monkeypatch, "raw_select_packed")
+    ids, total = dist_raw.dist_raw_select(mesh8, spec, *_raw_args(codes, ts, v, 8),
+                                          torch.from_numpy(allow), dyn, windows=windows)
+    assert total == want_total and np.array_equal(ids, np.asarray(want_ids))
+    assert ids.dtype == np.int64
+    launched = _check_shard_windows(windows, keep & (v[0] > -20.0), len(codes) // 8, seen)
+    assert pT.PLAIN_CALLS["raw_select"] == calls + launched
+    assert [k["select_slots"] for k in seen] == [
+        int((w[:, 1] - w[:, 0]).sum()) for w in (np.asarray(k["windows"]) for k in seen)]
 
 
 def test_merge_topk_cuts_at_need_in_slot_order():
@@ -623,6 +759,9 @@ RAW_QUERIES = {
     "high-cpu-16": ("SELECT * FROM cpu WHERE hostname IN ("
                     + ", ".join(f"'host_{i}'" for i in range(16))
                     + ") AND usage_user > 50 AND ts >= 0 AND ts < 3600000", "select"),
+    "hottest-3-hosts": ("SELECT hostname, ts, usage_user FROM cpu WHERE hostname IN "
+                        "('host_3', 'host_21', 'host_38') AND ts >= 1800000 "
+                        "ORDER BY usage_user DESC LIMIT 12", "topk"),
 }
 
 
@@ -711,14 +850,55 @@ def test_first_query_takes_the_sharded_direct_path(monkeypatch):
     port.close()
 
 
+def _shard_passing(a, k) -> np.ndarray:
+    """The rows a shard's raw call's mask passes (its plain version's)."""
+    sp, tp, vals, session, dyn = a
+    lits, lo, hi, _, _ = pT._unpack_dyn(dyn, k["numeric_filters"])
+    sc, tr, dv = penc.decode_layouts(sp, tp, vals, k["series_layout"], k["ts_layout"],
+                                     k["value_layouts"])
+    return pT._raw_mask(sc, tr, dv, session != 0, lits, lo, hi,
+                        k["numeric_filters"]).numpy()
+
+
 @pytest.mark.parametrize("query", list(RAW_QUERIES))
 def test_sql_raw_reads_on_the_mesh_match_the_reference(sql_dbs, query, sharded, monkeypatch):
     """The selection against the reference on its mesh; the top-k against
-    the reference on one device (its sharded top-k does not run here)."""
+    the reference on one device (its sharded top-k does not run here).
+    The last run's windows: the executor hands the mesh its global row
+    windows; exactly the shards whose clipped part holds rows are
+    launched, each with that part, and every row a shard's mask passes
+    lies in it."""
     ref, single, port = sql_dbs
     sql, kind = RAW_QUERIES[query]
-    for _ in range(3):
+    for _ in range(2):
+        port.execute(sql)
+    name = f"raw_{kind}_packed"
+    shard_calls, global_windows = [], []
+    real_shard, real_dist = getattr(pT, name), getattr(dist_raw, f"dist_raw_{kind}")
+
+    def shard(*a, **k):
+        shard_calls.append((a, k))
+        return real_shard(*a, **k)
+
+    def dist(*a, **k):
+        global_windows.append(k["windows"])
+        return real_dist(*a, **k)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(pT, name, shard)
+        mp.setattr(dist_raw, f"dist_raw_{kind}", dist)
         got_rs = port.execute(sql)
+    per = port.interpreters.executor.scan_cache._entries["cpu"].padded_rows // 8
+    (windows,) = global_windows
+    parts = [dist_raw.shard_windows(windows, d * per, per) for d in range(8)]
+    launched = [w for w in parts if int((w[:, 1] - w[:, 0]).sum())]
+    assert 1 <= len(shard_calls) == len(launched) < 8
+    for w, (a, k) in zip(launched, shard_calls):
+        assert np.array_equal(np.asarray(k["windows"]).reshape(-1, 2), w)
+        inside = np.zeros(per + 1, np.int64)
+        np.add.at(inside, w[:, 0], 1)
+        np.add.at(inside, w[:, 1], -1)
+        assert (np.cumsum(inside)[:per] > 0)[_shard_passing(a, k)].all()
     m = got_rs.metrics
     assert m.get("path") == "raw_device" and m.get("raw_kernel") == kind, m
     assert m.get("mesh_devices") == 8

@@ -1,16 +1,29 @@
 #!/usr/bin/env python3
-"""Time two checkouts' raw reads (the B4 top-k and the selection) and
-live-window fold (B6a) in turns on one NVIDIA card: this checkout and
-another one (its parent commit, unpacked with ``git archive``), in the
-order other, this, this, other, each turn a process of its own that
-imports that checkout's ``horaedb_tpu_torch`` (ab_turns.py).
+"""Time two checkouts' raw reads (the B4 top-k and the selection, on one
+device and on a 4-shard logical mesh) and live window (the B6a fold and
+the B6b gather) in turns on one NVIDIA card: this checkout and another one
+(its parent commit, unpacked with ``git archive``), in the order other,
+this, this, other, each turn a process of its own that imports that
+checkout's ``horaedb_tpu_torch`` (ab_turns.py).
 
     mkdir -p chip_proof/parent
     git archive HEAD~1 horaedb_tpu_torch | tar -x -C chip_proof/parent
-    python3 topk_fold_ab.py --other chip_proof/parent [--runs 12] [--commits 120]
+    python3 topk_fold_ab.py --other chip_proof/parent [--runs 12] [--commits 120] \
+        [--arms fold,gather,raw,mesh]
 
-Each turn:
+Each turn runs the arms named in ``--arms``:
 
+- fold: the cpu-live scenario of chip_smoke.py's phase 11 (one hour of
+  history, the five per-field panels promoted, ``--commits`` live commits
+  of 4000 rows): each commit's wall time, the write hook's host time
+  split into the states' preparation and the launch path, the fold
+  launches a commit; then the last head-advance commit's folds replayed
+  on copies of the rings, device time with L2 flushed.
+- gather: after the same commits, a refresh of the first panel over the
+  last hour (phase 11's refresh: 60 slots x 4000 groups), its gather
+  replayed: the kernel against its plain version (bit-equal, and the same
+  words in every turn), device time on the profiler's timeline with L2
+  flushed, split by kernel, and by CUDA events.
 - raw: the TSBS cpu table (4000 hosts x 24 h at 10 s, seed 123) written
   through the engine; chip_smoke.py's five raw queries through
   ``Connection.execute``, ``--runs`` times each after the cache miss and
@@ -22,12 +35,13 @@ Each turn:
   version (bit-equal), its device time on the profiler's timeline with L2
   flushed before each call, split by kernel, and, where the checkout's
   wrapper counts them, the rows its keys kernel decoded.
-- fold: the cpu-live scenario of chip_smoke.py's phase 11 (one hour of
-  history, the five per-field panels promoted, ``--commits`` live commits
-  of 4000 rows): each commit's wall time, the write hook's host time
-  split into the states' preparation and the launch path, the fold
-  launches a commit; then the last head-advance commit's folds replayed
-  on copies of the rings, device time with L2 flushed.
+- mesh: the same cpu table rebuilt over 4 logical shards of the card
+  (phase 22's mesh); lastpoint-host and high-cpu-1, ``--runs`` instances
+  each as above, each run's shard launches counted (a run whose allow
+  list or range passes nothing launches none); the shard launches of the
+  last run that launched any replayed against their plain versions and
+  timed on the device timeline (L2 flushed, split by kernel) and by CUDA
+  events around the shards' wrappers.
 
 Prints every time with the card's name and power limit; writes
 chiprun_out/topk_fold_ab.json. Needs one card and nvcc.
@@ -44,11 +58,15 @@ import time
 from ab_turns import emit, enter, run_turns, say, write_report
 
 TOPK_QUERIES = ("lastpoint-host", "hottest-12h", "coolest-asc")
-# every kernel either checkout's top-k and fold launch, by base name
+# every kernel either checkout's top-k and selection launch, by base name
 RAW_NAMES = ("raw_init", "raw_keys", "topk_hist", "topk_pick", "raw_flags", "raw_scan",
-             "raw_write", "raw_fill", "topk_keys", "topk_refine", "topk_write", "Memset",
-             "HtoD")
+             "raw_write", "raw_fill", "topk_keys", "topk_refine", "topk_write", "raw_select",
+             "Memset", "HtoD")
 FOLD_NAMES = ("ring_reset", "ring_scatter", "ring_fold", "HtoD")
+# either checkout's gather kernel
+GATHER_NAMES = ("ring_gather", "ring_gather_rows")
+ARMS = ("fold", "gather", "raw", "mesh")
+MESH_QUERIES = ("lastpoint-host", "high-cpu-1")
 
 
 def query_runs(C, n_runs: int) -> dict:
@@ -85,9 +103,10 @@ def query_runs(C, n_runs: int) -> dict:
     }
 
 
-def arm_raw(torch, C, card, n_runs: int) -> dict:
+def cpu_table(C):
+    """A CUDA connection holding the TSBS cpu table, its host-copy budget
+    raised for raw reads of 34.56M rows."""
     import horaedb_tpu_torch
-    from horaedb_tpu_torch.ops import scan_topk as T
     from horaedb_tpu_torch.tools import tsbs
 
     db = horaedb_tpu_torch.connect(None, device="cuda")
@@ -100,6 +119,22 @@ def arm_raw(torch, C, card, n_runs: int) -> dict:
     del rows
     say(f"cpu table: {C.HOSTS} hosts x {C.HOURS} h in {time.perf_counter() - t0:.1f} s")
     db.interpreters.executor.scan_cache.max_host_rows_bytes = 64 << 30
+    return db
+
+
+def last_split(C) -> dict | None:
+    """The ms a call of each kernel in the last window
+    ``C._family_device_ms`` timed with a label."""
+    return (C.DETAIL.get("device_ms_windows") or [{}])[-1].get("ms_a_call")
+
+
+def digest(res) -> str:
+    return hashlib.sha1(repr(res.to_pylist()).encode()).hexdigest()
+
+
+def arm_raw(torch, C, card, db, n_runs: int) -> dict:
+    from horaedb_tpu_torch.ops import scan_topk as T
+
     calls, orig = {}, T.raw_topk_packed
     current = [""]
 
@@ -123,7 +158,7 @@ def arm_raw(torch, C, card, n_runs: int) -> dict:
                 m = res.metrics
                 if m.get("path") != "raw_device" or m.get("raw_kernel") != kernel:
                     raise AssertionError(f"{name}: path {m.get('path')} {m.get('raw_host')}")
-                digests.append(hashlib.sha1(repr(res.to_pylist()).encode()).hexdigest())
+                digests.append(digest(res))
             out[name] = {"runs_ms": runs, "warm_ms": statistics.median(runs),
                          "digests": digests}
             say(f"raw {name}: warm execute median {out[name]['warm_ms']:.3f} ms over "
@@ -149,11 +184,132 @@ def arm_raw(torch, C, card, n_runs: int) -> dict:
         out[name].update(ms=ms, k=kw["k"], visited=visited)
         say(f"raw {name} (k {kw['k']}): kernel {ms:.4f} ms on the device timeline, L2 "
             f"flushed; rows the keys kernel decoded {visited} [{card}]")
-    db.close()
     return out
 
 
-def arm_fold(torch, C, card, n_commits: int) -> dict:
+def arm_mesh(torch, C, card, db, n_runs: int) -> dict:
+    """lastpoint-host and high-cpu-1 on the cpu table sharded over
+    ``C.MESH_SHARDS`` logical shards of the card."""
+    from horaedb_tpu_torch.ops import scan_topk as T
+    from horaedb_tpu_torch.parallel.mesh import Mesh, on_device, use_mesh
+
+    cache = db.interpreters.executor.scan_cache
+    cache.invalidate("cpu")
+    cache._candidate.pop("cpu", None)
+    mesh = Mesh.logical(torch.device("cuda", 0), C.MESH_SHARDS)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    runs_of = query_runs(C, n_runs)
+    kept = {"raw_topk": [], "raw_select": []}  # each shard call of the current run
+    orig = {kind: getattr(T, f"{kind}_packed") for kind in kept}
+
+    def recorder(kind):
+        def call(*a, **k):
+            kept[kind].append((a, k))
+            return orig[kind](*a, **k)
+        return call
+
+    out = {}
+    try:
+        for kind in kept:
+            setattr(T, f"{kind}_packed", recorder(kind))
+        with use_mesh(mesh):
+            for name in MESH_QUERIES:
+                kernel, sqls = runs_of[name]
+                kind = f"raw_{kernel}"
+                for _ in range(3):  # a miss, then the sharded build
+                    m = db.execute(sqls[0]).metrics
+                    if m.get("path") == "raw_device" and m.get("mesh_devices") == mesh.size:
+                        break
+                runs, digests, launches, calls = [], [], [], []
+                for sql in sqls:
+                    kept[kind].clear()
+                    before = T.LAUNCHES[kind]
+                    t = time.perf_counter()
+                    res = db.execute(sql)
+                    runs.append((time.perf_counter() - t) * 1e3)
+                    launches.append(T.LAUNCHES[kind] - before)
+                    m = res.metrics
+                    # a run whose allow list or range passes nothing launches
+                    # nothing and reports no mesh
+                    if (m.get("path") != "raw_device" or m.get("raw_kernel") != kernel
+                            or m.get("mesh_devices", None if launches[-1] == 0 else 0)
+                            not in (mesh.size, None)):
+                        raise AssertionError(f"mesh {name}: {m}, {launches[-1]} launches")
+                    digests.append(digest(res))
+                    calls = list(kept[kind]) or calls  # the last run that launched
+
+                def shards(fn, calls=calls):
+                    res = []
+                    for a, k in calls:
+                        with on_device(a[3].device):
+                            res.append(fn(*a, **k))
+                    return res
+
+                plain = getattr(T, f"{kind}_plain")
+                for got, want in zip(shards(orig[kind]), shards(plain)):
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"mesh {name}: a shard's kernel differs from plain")
+                fn = lambda s=shards, f=orig[kind]: s(f)  # noqa: E731
+                dev_ms = C._family_device_ms(torch, fn, RAW_NAMES, reps=10, flush=flush,
+                                             label=f"mesh {name}")
+                split = last_split(C) if dev_ms else None
+                events_ms = C._time_launch(torch, fn, flush=flush)
+                out[name] = {"runs_ms": runs, "warm_ms": statistics.median(runs),
+                             "digests": digests, "launches": launches,
+                             "shards_launched": len(calls), "device_ms": dev_ms,
+                             "split": split, "events_ms": events_ms}
+                say(f"mesh {name}: warm execute median {out[name]['warm_ms']:.3f} ms over "
+                    f"{len(runs)} runs; shard launches a run {launches}; the last launching "
+                    f"run's {len(calls)} shard launches {dev_ms} ms on the device timeline, L2 "
+                    f"flushed, {events_ms:.4f} ms by events with the wrappers [{card}]")
+    finally:
+        for kind in kept:
+            setattr(T, f"{kind}_packed", orig[kind])
+    return out
+
+
+def gather_replay(torch, C, card, db, L, field: str, clock: int, flush) -> dict:
+    """Phase 11's refresh of ``field``'s panel over the hour before
+    ``clock``, served from state; its gather replayed."""
+    rec, orig = [], L.gather
+
+    def gather(rings, idx, g):
+        rec.append((rings, idx, g))
+        return orig(rings, idx, g)
+
+    L.gather = gather
+    try:
+        db.execute(C._lw_panel(field, clock - 60 * 60_000))
+    finally:
+        L.gather = orig
+    path = db.interpreters.executor.last_path
+    if path != "livewindow" or not rec:
+        raise AssertionError(f"the refresh took {path}, {len(rec)} gathers")
+    rings, idx, g = rec[-1]
+    fn = lambda: L.gather(rings, idx, g)  # noqa: E731
+    got = fn()
+    if not torch.equal(got, L.gather_plain(rings, idx, g)):
+        raise AssertionError("the gather differs from its plain version")
+    words = hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest()
+    n = int(idx.shape[0])
+    device_ms = C._family_device_ms(torch, fn, GATHER_NAMES, reps=20, flush=flush,
+                                    label="the refresh's gather")
+    split = last_split(C) if device_ms else None
+    events_ms = C._time_launch(torch, fn, flush=flush)
+    bound_ms = 2 * 20 * n * g / C.PEAK_BYTES_S * 1e3
+    # a yardstick: one device-to-device copy of the same bytes
+    copy = torch.empty_like(got)
+    copy_ms = C._family_device_ms(torch, lambda: copy.copy_(got), ("DtoD",), reps=20,
+                                  flush=flush)
+    say(f"gather (n {n} x g {g}, the refresh of {field}): {device_ms} ms on the device "
+        f"timeline, L2 flushed ({split}), {events_ms:.4f} ms by events; bound {bound_ms:.6f} "
+        f"ms; a DtoD copy of the same {got.numel() * 4} B {copy_ms} ms; equal to plain "
+        f"[{card}]")
+    return {"n": n, "g": g, "device_ms": device_ms, "split": split, "events_ms": events_ms,
+            "bound_ms": bound_ms, "copy_ms": copy_ms, "words": words}
+
+
+def arm_fold(torch, C, card, n_commits: int, arms) -> dict:
     import numpy as np
 
     import horaedb_tpu_torch
@@ -230,8 +386,12 @@ def arm_fold(torch, C, card, n_commits: int) -> dict:
         setattr(L, kernel_name, orig_kernel)
     if errors:
         raise AssertionError(f"{errors} fold errors")
-    # one head-advance commit's folds, replayed on copies of its rings
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    gathered = None
+    if "gather" in arms:
+        gathered = gather_replay(torch, C, card, db, L, fields[0],
+                                 live_t0 + n_commits * tsbs.INTERVAL_MS, flush)
+    # one head-advance commit's folds, replayed on copies of its rings
     if grouped:
         (rings_list, words, spans), = last_adv_calls
         copies = [r.clone() for r in rings_list]
@@ -254,7 +414,7 @@ def arm_fold(torch, C, card, n_commits: int) -> dict:
         "commit_ms": med(commit_ms), "commit_ms_advance": med(commit_ms, adv),
         "hook_ms": med(hook_ms), "launch_path_ms": med(launch_ms),
         "prep_ms": med(np.asarray(hook_ms) - np.asarray(launch_ms)),
-        "device_ms_advance_commit": device_ms,
+        "device_ms_advance_commit": device_ms, "gather": gathered,
     }
     say(f"fold ({'one grouped launch a commit' if grouped else 'per state'}; {n_commits} "
         f"commits, launches {launches}): commit median {out['commit_ms']:.3f} ms (head advance "
@@ -275,10 +435,17 @@ def arm(opt) -> int:
 
     C.DEV = "cuda"
     card = C.phase_card(torch)
+    arms = opt.arms.split(",")
     res = {"dir": opt.arm, "card": card}
-    if opt.commits:
-        res["fold"] = arm_fold(torch, C, card, opt.commits)
-    res["raw"] = arm_raw(torch, C, card, opt.runs)
+    if {"fold", "gather"} & set(arms):
+        res["fold"] = arm_fold(torch, C, card, opt.commits, arms)
+    if {"raw", "mesh"} & set(arms):
+        db = cpu_table(C)
+        if "raw" in arms:
+            res["raw"] = arm_raw(torch, C, card, db, opt.runs)
+        if "mesh" in arms:
+            res["mesh"] = arm_mesh(torch, C, card, db, opt.runs)
+        db.close()
     emit(res)
     return 0
 
@@ -288,28 +455,56 @@ def main(argv) -> int:
     ap.add_argument("--other", help="a checkout of the other commit")
     ap.add_argument("--arm", help="(internal) run one turn with this checkout")
     ap.add_argument("--runs", type=int, default=12, help="instances of each raw query a turn")
-    ap.add_argument("--commits", type=int, default=120, help="0: no fold turn")
+    ap.add_argument("--commits", type=int, default=120, help="live commits before the fold "
+                    "and gather arms' replays")
+    ap.add_argument("--arms", default=",".join(ARMS),
+                    help=f"comma-separated, of {', '.join(ARMS)}")
     opt = ap.parse_args(argv)
+    arms = set(opt.arms.split(","))
+    if not arms <= set(ARMS):
+        ap.error(f"--arms takes some of {', '.join(ARMS)}")
+    if arms & {"fold", "gather"} and opt.commits < 1:
+        ap.error("the fold and gather arms need --commits of 1 or more")
     if opt.arm:
         return arm(opt)
-    turns = run_turns(__file__, opt.other,
-                      ["--runs", str(opt.runs), "--commits", str(opt.commits)])
+    turns = run_turns(__file__, opt.other, ["--runs", str(opt.runs), "--commits",
+                                            str(opt.commits), "--arms", opt.arms])
     card = write_report("topk_fold_ab.json", turns)
+
+    def each(f) -> str:
+        return " / ".join(f"{t['label']} {f(t)}" for t in turns)
+
     same = True
-    for q, r in turns[0]["raw"].items():
+    for q, r in turns[0].get("raw", {}).items():
         equal = all(t["raw"][q]["digests"] == r["digests"] for t in turns)
         same &= equal
-        kernel = (" kernel ms " + " / ".join(f"{t['label']} {t['raw'][q]['ms']:.4f}"
-                                             for t in turns) + ";") if q in TOPK_QUERIES else ""
-        say(f"{q}:{kernel} warm execute ms " + " / ".join(
-            f"{t['label']} {t['raw'][q]['warm_ms']:.3f}" for t in turns)
+        kernel = (" kernel ms " + each(lambda t: f"{t['raw'][q]['ms']:.4f}") + ";"
+                  if q in TOPK_QUERIES else "")
+        say(f"{q}:{kernel} warm execute ms " + each(lambda t: f"{t['raw'][q]['warm_ms']:.3f}")
             + f"; the same rows in every turn: {equal} [{card}]")
-    if opt.commits:
-        say("fold a head-advance commit, device ms " + " / ".join(
-            f"{t['label']} {t['fold']['device_ms_advance_commit']:.4f}" for t in turns)
-            + "; commit median ms " + " / ".join(f"{t['fold']['commit_ms']:.3f}" for t in turns)
-            + "; launches a commit " + " / ".join(f"{t['fold']['launches_per_commit']:.2f}"
-                                                   for t in turns) + f" [{card}]")
+    for q, r in turns[0].get("mesh", {}).items():
+        equal = all(t["mesh"][q]["digests"] == r["digests"] for t in turns)
+        same &= equal
+        say(f"mesh {q}: shard launches device ms "
+            + each(lambda t: t["mesh"][q]["device_ms"]) + "; events ms "
+            + each(lambda t: f"{t['mesh'][q]['events_ms']:.4f}") + "; shards launched "
+            + each(lambda t: t["mesh"][q]["shards_launched"]) + "; warm execute ms "
+            + each(lambda t: f"{t['mesh'][q]['warm_ms']:.3f}")
+            + f"; the same rows in every turn: {equal} [{card}]")
+    if "fold" in arms:
+        say("fold a head-advance commit, device ms "
+            + each(lambda t: f"{t['fold']['device_ms_advance_commit']:.4f}")
+            + "; commit median ms " + each(lambda t: f"{t['fold']['commit_ms']:.3f}")
+            + "; launches a commit " + each(lambda t: f"{t['fold']['launches_per_commit']:.2f}")
+            + f" [{card}]")
+    if "gather" in arms:
+        equal = all(t["fold"]["gather"]["words"] == turns[0]["fold"]["gather"]["words"]
+                    for t in turns)
+        same &= equal
+        say("gather at the refresh, device ms " + each(lambda t: t["fold"]["gather"]["device_ms"])
+            + "; events ms " + each(lambda t: f"{t['fold']['gather']['events_ms']:.4f}")
+            + "; a DtoD copy of its bytes ms " + each(lambda t: t["fold"]["gather"]["copy_ms"])
+            + f"; the same words in every turn: {equal} [{card}]")
     return 0 if same else 1
 
 
