@@ -2268,7 +2268,10 @@ LW_LIVE_COMMITS = 540            # 90 min of 10 s scrapes, one commit each: 150 
 LW_LATE_AT = 350                 # after this commit: a batch 30 min back (in the ring)
 LW_OLD_AT = 450                  # after this commit: a batch 130 min back (below the tail)
 LW_CHECKPOINTS = (1, 30, 61, 90)  # refresh minutes also rescanned
-LW_TRACE = (414, 426)  # commits [lo, hi) traced for the device's idle share: minutes 69-71
+# commits [lo, hi) traced for the device's idle share: minutes 69-71, and
+# minutes 71-73 only where the first trace kept no record of the path
+LW_TRACE = ((414, 426), (426, 438))
+LW_TRACE_LEAD = 128  # device spins opening a traced window (see _device_busy_ms)
 LW_T0 = 1_786_000_000_000 // 3_600_000 * 3_600_000  # the simulated clock's start
 
 
@@ -2330,13 +2333,18 @@ def _lw_panel(field: str, start: int) -> str:
             f"FROM cpu WHERE ts >= {start} GROUP BY time_bucket(ts, '1m'), hostname")
 
 
-def _device_busy_ms(prof) -> tuple[float, int]:
+def _device_busy_ms(prof) -> tuple[float, int, int]:
     """The union of the device intervals (kernels, copies, memsets) of a
-    profiler trace, in ms, and how many there were."""
+    profiler trace, in ms, how many there were, and how many lead spins
+    (``torch.cuda._sleep``'s ``spin_kernel``) it kept. The spins open the
+    window so that the records a trace loses at its start (24 to all 54 of
+    this window's in runs on an H100) fall on them; they are not counted."""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if "spin_kernel" not in e.name)
+    n_lead = len(events) - len(spans)
     busy_us, lo, hi = 0.0, None, None
     for a, b in spans:
         if hi is None or a > hi:
@@ -2347,7 +2355,7 @@ def _device_busy_ms(prof) -> tuple[float, int]:
             hi = max(hi, b)
     if hi is not None:
         busy_us += hi - lo
-    return busy_us / 1e3, len(spans)
+    return busy_us / 1e3, len(spans), n_lead
 
 
 class LwRecorder:
@@ -2451,27 +2459,38 @@ def phase_lw_main(torch) -> dict:
     # a torch.profiler trace over a steady window (no late batch, no
     # checkpoint): the device's idle share of the wall time of the window's
     # commits and refreshes, the script's own checks left out
-    prof, trace_wall_s, trace = None, 0.0, None
+    prof, trace = None, None
+    windows = list(LW_TRACE) if DEV == "cuda" else []
     try:
         for k in range(LW_LIVE_COMMITS):
-            if DEV == "cuda" and k == LW_TRACE[0]:
+            if prof is not None and k == windows[0][1]:
+                _sync(torch)
+                prof.stop()
+                trace_wall_s = sum(commit_s[n_commit:]) + sum(refresh_s[n_refresh:])
+                busy_ms, n_events, n_lead = _device_busy_ms(prof)
+                lo, hi = windows.pop(0)
+                trace = {"window": [lo, hi], "commits": len(commit_s) - n_commit,
+                         "refreshes": len(refresh_s) - n_refresh,
+                         "wall_ms": trace_wall_s * 1e3, "device_busy_ms": busy_ms,
+                         "device_events": n_events, "lead_kept": n_lead,
+                         "idle_share": 1.0 - busy_ms / (trace_wall_s * 1e3)}
+                prof = None
+                if n_events:
+                    windows = []
+                elif windows:
+                    say(f"  the trace of commits {lo}-{hi - 1} kept no record of the path "
+                        f"({n_lead} of {LW_TRACE_LEAD} lead spins); tracing commits "
+                        f"{windows[0][0]}-{windows[0][1] - 1}")
+            if windows and k == windows[0][0]:
                 from torch.profiler import ProfilerActivity, profile
 
                 _sync(torch)
                 prof = profile(activities=[ProfilerActivity.CUDA])
                 prof.start()
-                n_commit, n_refresh = len(commit_s), len(refresh_s)
-            if prof is not None and k == LW_TRACE[1]:
+                for _ in range(LW_TRACE_LEAD):
+                    torch.cuda._sleep(1000)
                 _sync(torch)
-                prof.stop()
-                trace_wall_s = sum(commit_s[n_commit:]) + sum(refresh_s[n_refresh:])
-                busy_ms, n_events = _device_busy_ms(prof)
-                trace = {"commits": len(commit_s) - n_commit,
-                         "refreshes": len(refresh_s) - n_refresh,
-                         "wall_ms": trace_wall_s * 1e3, "device_busy_ms": busy_ms,
-                         "device_events": n_events,
-                         "idle_share": 1.0 - busy_ms / (trace_wall_s * 1e3)}
-                prof = None
+                n_commit, n_refresh = len(commit_s), len(refresh_s)
             rows = live.slice(k * HOSTS, (k + 1) * HOSTS)
             batches = [rows]
             if k == LW_LATE_AT:
@@ -2555,9 +2574,11 @@ def phase_lw_main(torch) -> dict:
         f"{statistics.median(check_s) * 1e3:.3f} ms; peak device memory {peak} B")
     if trace is not None:
         check(trace["device_events"] > 0, "the traced window ran nothing on the device")
-        say(f"  traced commits {LW_TRACE[0]}-{LW_TRACE[1] - 1} ({trace['commits']} commits, "
+        lo, hi = trace["window"]
+        say(f"  traced commits {lo}-{hi - 1} ({trace['commits']} commits, "
             f"{trace['refreshes']} refreshes): device busy {trace['device_busy_ms']:.3f} ms "
-            f"({trace['device_events']} kernels and copies) of {trace['wall_ms']:.3f} ms of "
+            f"({trace['device_events']} kernels and copies; {trace['lead_kept']} of "
+            f"{LW_TRACE_LEAD} lead spins kept) of {trace['wall_ms']:.3f} ms of "
             f"their wall time, idle share {trace['idle_share']:.6f}")
     out = {
         "db": db, "rec": rec, "launches": launches, "states_folded": folded,
@@ -3774,7 +3795,8 @@ COHORT_REPLACES = {
     "raw_topk_cohort": "horaedb_tpu/ops/scan_topk.py:397",
     "selective": "horaedb_tpu/ops/scan_agg.py:423",
 }
-RAW_COHORT_BS = (1, 3, 32)
+RAW_COHORT_BS = (1, 5, 32, 33)  # 33: two launch sequences
+COHORT_WINDOWS = (None, "series", "padded")
 
 
 def _cohort_abs_sums(torch, args, kw):
@@ -4002,10 +4024,40 @@ def _prefix_case(torch, rng, n_agg, need_minmax, arm, B, prefix, per=5003, speci
     return err, taken, got
 
 
+def _cohort_windows(rng, cols, lay, sessions, dyns, filters, kind):
+    """Each member's row windows, covering every row its mask can pass:
+    ``series`` its allowed series' in-range rows, as the executor builds
+    them (none for a member that allows no series or no time); ``padded``
+    those widened by 0-3000 rows a side, so that members' windows overlap
+    and start inside a 128-row delta block."""
+    import numpy as np
+
+    from horaedb_tpu_torch.ops import encoding as E, scan_topk as T
+
+    sp, tp, vals = cols
+    sc, tr, _ = E.decode_layouts(sp, tp, vals, lay.get("series_layout", ("raw",)),
+                                 lay.get("ts_layout", ("raw",)), lay["value_layouts"])
+    codes, ts = sc.cpu().numpy().astype(np.int64), tr.cpu().numpy()
+    out = []
+    for b in range(sessions.shape[0]):
+        allow = sessions[b].cpu().numpy() != 0
+        _, lo, hi, _, _ = T._unpack_dyn(dyns[b].cpu(), filters)
+        w = _runs(allow[codes] & (ts >= lo) & (ts < hi))
+        if kind == "padded" and len(w):
+            n_real = int((codes < len(allow) - 1).sum())
+            grow = rng.integers(0, 3001, w.shape)
+            w = _union(np.clip(w + grow * np.array([-1, 1]), 0, n_real))
+        out.append(w.reshape(-1, 2))
+    return out
+
+
 def _raw_cohort_case(torch, rng, cols, lay, n_series, ts_max, B, k, key_is_ts, desc, op,
-                     what) -> int:
+                     what, windows=None) -> int:
     """B4c against its plain version and against B solo top-k launches,
-    bit-equal; member 1 allows no series, member 2 has no time."""
+    bit-equal; member 1 allows no series, member 2 has no time. With
+    ``windows`` (a ``_cohort_windows`` kind) the members' windows go to the
+    cohort and to each member's solo launch; on the card the launch runs at
+    most five kernels a sequence of 32 members."""
     import numpy as np
 
     from horaedb_tpu_torch.ops import scan_agg as S, scan_topk as T
@@ -4027,13 +4079,21 @@ def _raw_cohort_case(torch, rng, cols, lay, n_series, ts_max, B, k, key_is_ts, d
     dyn = torch.from_numpy(np.stack(dyns)).to(dev)
     kw = dict(k=k, descending=desc, key_is_ts=key_is_ts, key_field=0, numeric_filters=filters,
               **lay)
-    got = T.raw_topk_cohort(*cols, sess, dyn, **kw)
+    wins = (None if windows is None
+            else _cohort_windows(rng, cols, lay, sess, dyn, filters, windows))
+    before = T.KERNELS["raw_topk_cohort"]
+    got = T.raw_topk_cohort(*cols, sess, dyn, windows=wins, **kw)
     _sync(torch)
+    if DEV == "cuda":
+        ran = T.KERNELS["raw_topk_cohort"] - before
+        check(ran <= 5 * -(-B // T.MAX_COHORT), f"{what}: {ran} kernels for {B} members")
     want = T.raw_topk_cohort_plain(*cols, sess, dyn, **kw)
-    check(torch.equal(got, want), f"{what}: cohort kernel differs from plain")
+    check(torch.equal(got, want), f"{what} windows={windows}: cohort kernel differs from plain")
     for b in range(B):
-        solo = T.raw_topk_packed(*cols, sess[b], dyn[b], **kw)
-        check(torch.equal(solo, got[b]), f"{what}: member {b} differs from its solo launch")
+        solo = T.raw_topk_packed(*cols, sess[b], dyn[b], windows=None if wins is None
+                                 else wins[b], **kw)
+        check(torch.equal(solo, got[b]), f"{what} windows={windows}: member {b} differs from "
+                                         f"its solo launch")
     return 1
 
 
@@ -4078,9 +4138,10 @@ def phase_cohort_kernels(torch) -> None:
                 at = li * 4 + j + n
                 k = min(RAW_KS[at % len(RAW_KS)], max(n, 1))
                 n_b4c += _raw_cohort_case(
-                    torch, rng, cols, lay, n_series, ts_max, RAW_COHORT_BS[at % 3], k,
-                    key_is_ts, desc, OPS[at % 6],
-                    f"raw_topk_cohort n={n} {layout} ts={key_is_ts} desc={desc}")
+                    torch, rng, cols, lay, n_series, ts_max,
+                    RAW_COHORT_BS[at % len(RAW_COHORT_BS)], k, key_is_ts, desc, OPS[at % 6],
+                    f"raw_topk_cohort n={n} {layout} ts={key_is_ts} desc={desc}",
+                    COHORT_WINDOWS[at % len(COHORT_WINDOWS)])
     # the +-0 trap at the threshold, three members
     pm0 = np.array([-0.0, -0.0, -0.0, -0.0, -5.0, 0.0, -1.0, -2.0, -3.0, -4.0, -6.0, -7.0],
                    dtype=np.float32)
@@ -4093,7 +4154,8 @@ def phase_cohort_kernels(torch) -> None:
         for desc in (True, False):
             n_b4c += _raw_cohort_case(
                 torch, rng, cols, dict(value_layouts=(("raw",), ("raw",))), 1, 11, 3, k, False,
-                desc, ">=", f"raw_topk_cohort +-0 k={k} desc={desc}")
+                desc, ">=", f"raw_topk_cohort +-0 k={k} desc={desc}",
+                COHORT_WINDOWS[(k + desc) % len(COHORT_WINDOWS)])
     # B1d: the unpacked selective form against the packed SELECTIVE kernel
     n_b1d = 0
     for arm, G, nb in arms:
@@ -4540,63 +4602,94 @@ def phase_flood_timings(torch, main, flood, raw, card) -> list:
                                                   p.width_i) for p in preps])).to(dev))
     whole = _time_cohort(torch, full, kw, "the 32 flood texts as one cohort", flush, card)
     DETAIL["cohort_kernel"] = {"last": last, "all_32": whole}
-    # ---- B4c: 32 lastpoint-host members, hosts 0-31
+    # ---- B4c: 32 lastpoint-host members, hosts 0-31, each over its windows
     _, rargs, rkw = raw["calls"]["lastpoint-host"]
     sp, tp, vals, session, dyn = rargs
     from horaedb_tpu_torch.common_types.dict_column import as_values
 
-    entry = main["db"].interpreters.executor.scan_cache._entries["cpu"]
+    ex = main["db"].interpreters.executor
+    entry = ex.scan_cache._entries["cpu"]
     names = np.asarray(as_values(entry.series_rows.columns["hostname"]), dtype=object)
     allow = np.zeros((32, session.shape[0]), dtype=np.int32)
     for h in range(32):
         allow[h, int(np.flatnonzero(names == f"host_{h}")[0])] = 1
     sess = torch.from_numpy(allow).to(session.device)
     dyns = dyn.repeat(32, 1)
-    k = T.padded_k(E.layout_rows(sp, rkw["series_layout"]), 10)
-    # every member's rows: not host_7's windows
+    n_rows = E.layout_rows(sp, rkw["series_layout"])
+    k = T.padded_k(n_rows, 10)
+    n_f = len(rkw["numeric_filters"])
+    lo, hi = (int(x) for x in dyn[n_f:n_f + 2].tolist())
+    # each member's windows as the executor computes them for its top-k
+    wins = [ex._raw_candidate_estimate(entry, allow[h, :-1] != 0, lo, hi, exact=False)[1]
+            for h in range(32)]
     ckw = {**{n: v for n, v in rkw.items() if n != "windows"}, "k": k}
-    got = T.raw_topk_cohort(sp, tp, vals, sess, dyns, **ckw)
+    before = T.KERNELS["raw_topk_cohort"]
+    got = T.raw_topk_cohort(sp, tp, vals, sess, dyns, windows=wins, **ckw)
     _sync(torch)
+    c_kernels = T.KERNELS["raw_topk_cohort"] - before
+    check(c_kernels <= 5, f"raw_topk_cohort ran {c_kernels} kernels for 32 members")
     want, p_ms = _time_once(torch, lambda: T.raw_topk_cohort_plain(sp, tp, vals, sess, dyns,
                                                                     **ckw))
-    check(torch.equal(got, want), "raw_topk_cohort replay differs from plain")
+    check(torch.equal(got, want), "raw_topk_cohort over the members' windows differs from plain")
     c_err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-    solos = torch.stack([T.raw_topk_packed(sp, tp, vals, sess[h], dyns[h], **ckw)
-                         for h in range(32)])
+    whole = T.raw_topk_cohort(sp, tp, vals, sess, dyns, **ckw)
+    check(torch.equal(whole, want), "raw_topk_cohort over every row differs from plain")
+    solos = torch.stack([T.raw_topk_packed(sp, tp, vals, sess[h], dyns[h], windows=wins[h],
+                                           **ckw) for h in range(32)])
     check(torch.equal(got, solos), "raw_topk_cohort differs from 32 solo top-k launches")
     check(bool((got >= 0).all()), "raw_topk_cohort: a lastpoint member found no row")
-    c_launch = lambda: T.raw_topk_cohort(sp, tp, vals, sess, dyns, **ckw)  # noqa: E731
-    s_launch = lambda: [T.raw_topk_packed(sp, tp, vals, sess[h], dyns[h], **ckw)  # noqa: E731
-                        for h in range(32)]
-    cohort_names = ("cohort_init", "cohort_keys", "cohort_hist", "cohort_pick", "cohort_flags",
-                    "cohort_scan", "cohort_write", "cohort_fill")
-    c_ms = _family_device_ms(torch, c_launch, cohort_names, reps=3)
-    c_ms = c_ms if c_ms is not None else _time_launch(torch, c_launch, reps=3)
-    s_ms = _family_device_ms(torch, s_launch, RAW_KERNELS, reps=2)
-    s_ms = s_ms if s_ms is not None else _time_launch(torch, s_launch, reps=2)
-    lits, lo, hi, _, _ = T._unpack_dyn(dyn, rkw["numeric_filters"])
+    c_launch = lambda: T.raw_topk_cohort(sp, tp, vals, sess, dyns, windows=wins,  # noqa: E731
+                                         **ckw)
+    n_launch = lambda: T.raw_topk_cohort(sp, tp, vals, sess, dyns, **ckw)  # noqa: E731
+    s_launch = lambda: [T.raw_topk_packed(sp, tp, vals, sess[h], dyns[h],  # noqa: E731
+                                          windows=wins[h], **ckw) for h in range(32)]
+    cohort_names = ("cohort_topk_keys", "cohort_topk_refine", "cohort_topk_write", "Memset",
+                    "HtoD")
+    # 64 fills lead each trace: a trace late in the process can lose its
+    # first records (PERF.md §7)
+    c_ms = _family_device_ms(torch, c_launch, cohort_names, reps=10, lead=64,
+                             label="raw_topk_cohort, 32 members' windows")
+    c_ms = c_ms if c_ms is not None else _time_launch(torch, c_launch, reps=10)
+    n_ms = _family_device_ms(torch, n_launch, cohort_names, reps=3, lead=64,
+                             label="raw_topk_cohort, every row")
+    n_ms = n_ms if n_ms is not None else _time_launch(torch, n_launch, reps=3)
+    c_ev = _time_launch(torch, c_launch, reps=10)
+    s_ms = _family_device_ms(torch, s_launch, RAW_KERNELS, reps=3, lead=64)
+    s_ms = s_ms if s_ms is not None else _time_launch(torch, s_launch, reps=3)
+    # torch.topk of the members' masked keys over the rows of their windows
+    union = _union(np.concatenate(wins))
+    rows = torch.from_numpy(np.concatenate([np.arange(a, b) for a, b in union])).to(sess.device)
+    lits = dyn[:n_f].contiguous().view(torch.float32)
     sc, tr, dv = E.decode_layouts(sp, tp, vals, rkw["series_layout"], rkw["ts_layout"],
                                   rkw["value_layouts"])
+    sc, tr, dv = sc[rows], tr[rows], [v[rows] for v in dv]
     keys = torch.stack([
         T._sort_key(tr, dv, T._raw_mask(sc, tr, dv, sess[h] != 0, lits, lo, hi,
                                         rkw["numeric_filters"]),
                     descending=rkw["descending"], key_is_ts=rkw["key_is_ts"],
                     key_field=rkw["key_field"]) for h in range(32)])
-    del sc, tr, dv
-    t_ms = _time_launch(torch, lambda: torch.topk(keys, k, dim=1), reps=3)
+    del sc, tr, dv, rows
+    t_ms = _time_launch(torch, lambda: torch.topk(keys, k, dim=1), reps=10)
     del keys
     torch.cuda.empty_cache()
+    # the bound: the union's rows read once, as the top-k's over its windows
     b_ms, b_by, b_work = _raw_bound(torch, "raw_topk", (sp, tp, vals, sess.amax(0), dyn),
-                                    {**rkw, "k": 32 * k})
+                                    {**ckw, "k": 32 * k, "windows": union})
     b_ms += (_bytes_of(sess) + _bytes_of(dyns) - _bytes_of(session) - _bytes_of(dyn)) \
         / PEAK_BYTES_S * 1e3
-    say(f"kernel raw_topk_cohort, 32 lastpoint-host members (k {k}, {b_work['rows']} rows, "
-        f"{b_work['real']} real): {c_ms:.4f} ms on the device timeline; 32 solo top-k "
-        f"launches {s_ms:.4f} ms; plain {p_ms:.4f} ms; torch.topk of the [32, n] masked keys "
-        f"{t_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); bit-equal to plain and to the solo "
-        f"launches [{card}]")
-    DETAIL["raw_topk_cohort"] = {"ms": c_ms, "solo_ms": s_ms, "plain_ms": p_ms,
-                                 "library_ms": t_ms, "bound_ms": b_ms, "k": k}
+    w_rows = [int((w[:, 1] - w[:, 0]).sum()) for w in wins]
+    say(f"kernel raw_topk_cohort, 32 lastpoint-host members (k {k}, {n_rows} rows, windows of "
+        f"{min(w_rows)}-{max(w_rows)} rows a member, {int((union[:, 1] - union[:, 0]).sum())} "
+        f"in their union; {c_kernels} kernels): {c_ms:.4f} ms on the device timeline, "
+        f"{c_ev:.4f} ms by events with the wrapper; over every row {n_ms:.4f} ms; 32 solo "
+        f"top-k launches over their windows {s_ms:.4f} ms; plain {p_ms:.4f} ms; torch.topk of "
+        f"the [32, window rows] masked keys {t_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by}, the "
+        f"window rows); bit-equal to plain, to every row's answer and to the solo launches "
+        f"[{card}]")
+    DETAIL["raw_topk_cohort"] = {"ms": c_ms, "events_ms": c_ev, "every_row_ms": n_ms,
+                                 "solo_ms": s_ms, "plain_ms": p_ms, "library_ms": t_ms,
+                                 "bound_ms": b_ms, "k": k, "kernels": c_kernels,
+                                 "window_rows": w_rows, "bound_work": b_work}
     kernels.append({
         "name": "raw_topk_cohort", "route": "cuda", "source": RAW_SRC,
         "replaces": COHORT_REPLACES["raw_topk_cohort"], "launches": 0,
@@ -5516,7 +5609,23 @@ def phase_mesh_main(torch, main, card) -> list:
         launches["dist_merge_f32"] = _mesh_counts(S, T, md)["merge_f32"] - f32_one
         check(np.array_equal(got, want), "dist_merge_dedup differs from the one-device merge")
         n_collide = MERGE_CHUNK_ROWS - len(want)
-        check(launches["dist_merge_f32"] == n_sh, f"merge shard launches {launches}")
+        full = sum(1 for i in dist_merge.shard_words(mesh, tsid, ts, seq)[0] if len(i))
+        check(launches["dist_merge_f32"] == full, f"merge shard launches {launches}, {full} "
+                                                  f"shards hold rows")
+        # fewer tsids than shards: an empty shard launches nothing
+        few = tsid[:MERGE_CHUNK_ROWS // 8] % np.uint64(max(n_sh - 1, 1))
+        few_args = (few, ts[:len(few)], seq[:len(few)])
+        perm, keep = md.merge_dedup_permutation(*few_args, device=mesh.first)
+        f32_before = _mesh_counts(S, T, md)["merge_f32"]
+        few_got = dist_merge.dist_merge_dedup(mesh, *few_args)
+        few_launches = _mesh_counts(S, T, md)["merge_f32"] - f32_before
+        few_full = sum(1 for i in dist_merge.shard_words(mesh, *few_args)[0] if len(i))
+        check(np.array_equal(few_got, perm[keep]),
+              "dist_merge_dedup with an empty shard differs from the one-device merge")
+        check(few_launches == few_full < max(n_sh, 2),
+              f"dist_merge_dedup with an empty shard: {few_launches} launches, {few_full} "
+              f"shards hold rows of {n_sh}")
+        launches["dist_merge_f32_empty_shard"] = few_launches
         plain = {"scan_agg": dict(S.PLAIN_CALLS), "combine": dict(S.COMBINE_PLAIN_CALLS),
                  "scan_topk": dict(T.PLAIN_CALLS), "merge_dedup": dict(md.PLAIN_CALLS)}
     finally:
@@ -5678,29 +5787,68 @@ def phase_mesh_main(torch, main, card) -> list:
             f"{lib_name} x{len(calls)} {lib_b:.4f} ms, bound {bound_b:.6f} ms (bytes, the "
             f"window rows), kernel = plain [{card}]")
         del libs
-    # B7c: the merge's per-shard sorts, replayed and timed
-    idxs, words, masks = dist_merge.shard_words(mesh, tsid, ts, seq)
-    for idx, w in zip(idxs, words):
-        n = w[0].shape[0]
-        kp, kk = (x[:len(idx)] for x in md.unpack(md.sort_dedup("f32", w, masks, len(idx), True),
-                                                   n)[:2])
+    # B7c: the merge's per-shard sorts, replayed and timed: one after another
+    # on the current stream, then each on its own stream as the call queues
+    # them, and the whole call from the host arrays to the answer
+    idxs, host, masks = dist_merge.shard_words(mesh, tsid, ts, seq, pinned=DEV == "cuda")
+    shards = [(i, h, d) for i, h, d in zip(idxs, host, mesh.devices) if len(i)]
+    words = []
+    for idx, h, dev in shards:
+        w = h.to(dev).unbind(0)
+        words.append(w)
+        with on_device(dev):
+            kp, kk = md.unpack(md.sort_dedup("f32", w, masks, len(idx), True), len(idx))[:2]
         pp, pk = md._plain("f32", w, masks, len(idx), True)
-        check(torch.equal(kp, pp[:len(idx)]) and torch.equal(kk, pk[:len(idx)]),
-              "a shard's merge sort: kernel != plain")
-    ms_c = _time_launch(torch, every_card(lambda: [md.sort_dedup("f32", w, masks, len(i), True)
-                                                    for i, w in zip(idxs, words)]), flush=flush)
+        check(torch.equal(kp, pp) and torch.equal(kk, pk), "a shard's merge sort: kernel != plain")
+
+    def one_by_one():
+        for (idx, _, dev), w in zip(shards, words):
+            with on_device(dev):
+                md.sort_dedup("f32", w, masks, len(idx), True)
+
+    streams, slots = [], {}  # the call's shard streams, a card's in turn
+    for _, _, dev in shards if DEV == "cuda" else ():
+        slots[dev] = slots.get(dev, -1) + 1
+        streams.append(dist_merge.shard_stream(dev, slots[dev]))
+
+    def side_by_side():
+        """Each shard's sort on a stream of its own, as dist_merge_dedup
+        queues them; the current stream waits for all of them."""
+        if DEV != "cuda":
+            return one_by_one()
+        for (idx, _, dev), w, st in zip(shards, words, streams):
+            st.wait_stream(torch.cuda.current_stream(dev))
+            with on_device(dev), torch.cuda.stream(st):
+                md.sort_dedup("f32", w, masks, len(idx), True)
+        for (_, _, dev), st in zip(shards, streams):
+            torch.cuda.current_stream(dev).wait_stream(st)
+
+    ms_c = _time_launch(torch, every_card(one_by_one), flush=flush)
+    ms_s = _time_launch(torch, every_card(side_by_side), flush=flush)
+    call_ms = []
+    for _ in range(5):
+        _sync(torch)
+        t = time.perf_counter()
+        dist_merge.dist_merge_dedup(mesh, tsid, ts, seq)
+        call_ms.append((time.perf_counter() - t) * 1e3)
     plain_c = _time_launch(torch, every_card(lambda: [md._plain("f32", w, masks, len(i), True)
-                                                       for i, w in zip(idxs, words)]), reps=3)
-    bound_c = sum(_merge_bound(w, len(i), "f32")[0] for i, w in zip(idxs, words))
+                                                       for (i, _, _), w in zip(shards, words)]),
+                           reps=3)
+    bound_c = sum(_merge_bound(w, len(i), "f32")[0] for (i, _, _), w in zip(shards, words))
     rows.append({"name": "dist_merge_dedup (merge_dedup f32 per shard)", "route": "cuda",
                  "source": MERGE_SRC, "replaces": MESH_REPLACES["merge"],
-                 "launches": launches["dist_merge_f32"], "max_abs_err": 0.0, "ms": ms_c,
+                 "launches": launches["dist_merge_f32"], "max_abs_err": 0.0, "ms": ms_s,
                  "plain_ms": plain_c, "bound_ms": bound_c, "bound_by": "bytes",
                  "library_ms": None})
     say(f"kernel dist_merge_dedup at {MERGE_CHUNK_ROWS} rows ({[len(i) for i in idxs]} a "
-        f"shard): {ms_c:.4f} ms, plain {plain_c:.4f} ms, bound {bound_c:.4f} ms (bytes), "
-        f"kernel = plain [{card}]")
-    del idxs, words, flush
+        f"shard, {len(shards)} sorted): {ms_s:.4f} ms with each shard's sort on its own "
+        f"stream, {ms_c:.4f} ms one after another (events, L2 flushed); the whole call from the host arrays {statistics.median(call_ms):.3f} ms "
+        f"(host clock, median of 5); plain {plain_c:.4f} ms, bound {bound_c:.4f} ms (bytes, "
+        f"the real rows), kernel = plain [{card}]")
+    DETAIL["dist_merge"] = {"side_by_side_ms": ms_s, "one_by_one_ms": ms_c, "call_ms": call_ms,
+                            "shard_rows": [len(i) for i in idxs], "plain_ms": plain_c,
+                            "bound_ms": bound_c}
+    del idxs, host, words, shards, streams, flush
     if DEV == "cuda":
         torch.cuda.empty_cache()
     DETAIL["mesh_main"] = {"mesh": str(mesh), "real_rows": real, "shard_rows": per,

@@ -84,34 +84,56 @@
 // only on tiles whose tickets came before its own, which are running.
 //
 // Cohort top-k (B4c): B queries of one shape (the same k, key and filter
-// fields; their own allow lists, time ranges and literals) in one launch
-// sequence, at most MAX_COHORT members a sequence. The key of a row does
-// not depend on the member, only whether it passes does, so:
-//   cohort_init   one block per member zeroes its state and histogram;
-//   cohort_keys   one pass decodes each row once, writes ONE key buffer
-//                 (not B) and, per member, a ballot bit word of the rows
-//                 that pass, the passing count and the top-digit histogram;
-//   cohort_hist   three passes read each key once and histogram the next
-//                 digit for every member whose bits and prefix match;
-//   cohort_pick   topk_pick, one block per member;
-//   cohort_flags  one pass reads each key once and writes every member's
-//                 strict and tie bit words and per-tile counts;
-//   cohort_scan, cohort_write, cohort_fill
-//                 raw_scan, raw_write and raw_fill with the member on the
-//                 grid (block = chunk * B + member where blocks share rows).
-// Member b's slots are those raw_topk gives for its session and dyn row:
-// the same keys, mask, histograms and threshold rule.
+// fields; their own allow lists, time ranges, literals and row windows) in
+// one launch sequence, at most MAX_COHORT members a sequence. It is B4's
+// top-k batched over the members: the key of a row does not depend on the
+// member, only whether the row passes does. The launcher cuts the union of
+// the members' windows into one tile table (raw_cohort_tiles: tiles of at
+// most TILE rows inside one union window, in row order, each with the mask
+// of the members whose windows meet it, one bit a member) and lists each
+// member's tiles (its "items", member by member, in row order); one copy
+// brings both to the card. Then:
+//   cohort_topk_keys    tiles by ticket in row order: decode each row once,
+//                       key it once, and judge it for each member of the
+//                       tile's mask (allow list, time range, literals); per
+//                       member with rows in the tile, drop the rows below
+//                       its running (key, row) bound, raise the bound to the
+//                       tile's own k-th where more than k stay (topk_keys'
+//                       rule), and keep the item's ballot words, largest key
+//                       and first-digit histogram; the tile's keys once;
+//                       the last block picks every member's first digit;
+//   cohort_topk_refine  three passes, the member on the grid's y: the next
+//                       digit over the member's kept rows, only its items
+//                       whose largest kept key reaches the prefix;
+//   cohort_topk_write   cooperative: each item counts its strict rows and
+//                       ties; a grid barrier; a block a member scans its
+//                       items' counts into offsets; a grid barrier; each
+//                       item writes its rows at their slots, and the slots
+//                       past them get n_rows or -1.
+// A memset of the members' state and histograms comes first. At most 7
+// launches for up to 32 members (the memset, the copy, the keys, three
+// refines, the write), and no refine where no member has k window rows.
+// The scratch is sized by the tiles of the windows: one key a tile row, and
+// a member's ballot words only on its own tiles. Member b's slots are those
+// raw_topk gives for its session, dyn row and windows, bit for bit: the same
+// keys, mask, pruning rule, digits and slot rule. What bounds it: one decode
+// of the union's rows; the member loop costs a compare a member whose series
+// a row belongs to. The first design ran 14 kernels over every padded row
+// (2^26 at the cpu table), each a full pass, with one key a row and three
+// bit words a row and member. A decoupled look-back over the items, one
+// ticket each, took the write 6.5 ms on an H100 at 2^26 rows (524,288
+// items, one a member and tile); the member scans take it one pass.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdlib.h>
 
 #include "layouts.cuh"
 
 #define BLOCK 256
 #define TILE 4096             // rows per tile, 16 per thread
 #define WORDS (TILE / 32)     // ballot words per tile
-#define SCAN_THREADS 1024
 #define FULL_MASK 0xffffffffu
 #define KEY_MASKED (-2147483647 - 1)
 
@@ -122,12 +144,8 @@ enum {
   ST_PREFIX = 2,  // the k-th key's digits picked so far (flipped bits)
   ST_ACTIVE = 3,  // total >= k: the k-th key exists
   ST_THR = 4,     // the threshold
-  ST_STRICT = 5,  // rows strictly above the threshold
-  ST_TIE = 6,     // masked-in rows at the threshold
   ST_LIMIT = 7,   // min(k, total): slots that hold a row
-  ST_WORDS = 16,
 };
-enum { MODE_STRICT = 0, MODE_TIE = 1 };
 
 struct RawArgs {
   Column series;
@@ -135,13 +153,13 @@ struct RawArgs {
   Column fields[MAX_FIELDS];
   const int* session;  // allow list [S + 1]
   const int* dyn;      // [literal bits (n_f) | lo, hi, key_lo, key_hi]
-  int* keys;           // [n_rows] (top-k only)
-  int* scratch;        // top-k [state | hist 256 | counts 2 x tiles | bits 2 x tiles x
-                       // WORDS]; selection [status 2 x n_tiles | ticket], out after it
-  int* out;            // top-k [k]; selection [1 + k]
+  int* keys;           // top-k and cohort: [n_tiles][TILE]
+  int* scratch;        // each kind's own layout (see its launcher)
+  int* out;            // top-k [k]; cohort [members][k]; selection [1 + k]
   int* key_out;        // top-k: the slots' keys [k], or null
-  const int* tiles;    // selection: [n_tiles][2] rows [row0, row1) of each tile
-  long long n_tiles;   // selection: tiles of the table
+  const int* tiles;    // the tile table: [n_tiles][2] rows [row0, row1) of each
+                       // tile; the cohort's [n_tiles][4] and its item lists
+  long long n_tiles;   // tiles of the table
   long long n_rows;
   long long k;         // top-k slots, or the selection's slots
   int descending;
@@ -150,30 +168,6 @@ struct RawArgs {
   int device;
   Filters filt;
 };
-
-// a cohort member's scratch adds the bit words of the rows it passes
-struct Scratch {
-  int* st;
-  int* hist;
-  int* cnt[2];
-  unsigned* bits[2];
-  unsigned* mask;
-};
-
-__device__ __forceinline__ long long n_tiles_of(long long n) { return (n + TILE - 1) / TILE; }
-
-__device__ __forceinline__ Scratch scratch_at(int* base, long long n_rows) {
-  const long long nt = n_tiles_of(n_rows);
-  Scratch s;
-  s.st = base;
-  s.hist = base + ST_WORDS;
-  s.cnt[0] = s.hist + 256;
-  s.cnt[1] = s.cnt[0] + nt;
-  s.bits[0] = (unsigned*)(s.cnt[1] + nt);
-  s.bits[1] = s.bits[0] + nt * WORDS;
-  s.mask = s.bits[1] + nt * WORDS;
-  return s;
-}
 
 // ---- mask and key -------------------------------------------------------------
 
@@ -210,43 +204,35 @@ __device__ __forceinline__ int f32_sort_key(float v) {
   return (int)(u2 ^ 0x80000000u);
 }
 
-__device__ __forceinline__ int sort_key(const RawArgs& a, long long i, int ts) {
-  if (a.key_is_ts) return a.descending ? ts : neg(ts);
-  const float v = load_value(a.fields[a.key_field], i);
-  int key = f32_sort_key(v);
-  if (!a.descending) key = neg(key);
-  // NaN ranks below every real value in both directions
-  return isnan(v) ? KEY_MASKED + 1 : key;
-}
-
 __device__ __forceinline__ uint32_t flipped(int key) { return (uint32_t)key ^ 0x80000000u; }
 
 // ---- block helpers ------------------------------------------------------------
 
-// exclusive prefix sum over the block; ``total`` gets the block's sum
-template <int NT>
-__device__ __forceinline__ int block_scan(int v, int& total) {
-  __shared__ int ws[NT / 32];
+// exclusive prefix sum over the block (int or unsigned long long);
+// ``total`` gets the block's sum
+template <int NT, typename T>
+__device__ __forceinline__ T block_scan(T v, T& total) {
+  __shared__ T ws[NT / 32];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  int x = v;
+  T x = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(FULL_MASK, x, o);
+    const T y = __shfl_up_sync(FULL_MASK, x, o);
     if (lane >= o) x += y;
   }
   if (lane == 31) ws[w] = x;
   __syncthreads();
   if (w == 0) {
-    int s = lane < NT / 32 ? ws[lane] : 0;
+    T s = lane < NT / 32 ? ws[lane] : 0;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL_MASK, s, o);
+      const T y = __shfl_up_sync(FULL_MASK, s, o);
       if (lane >= o) s += y;
     }
     if (lane < NT / 32) ws[lane] = s;
   }
   __syncthreads();
-  const int excl = x - v + (w ? ws[w - 1] : 0);
+  const T excl = x - v + (w ? ws[w - 1] : 0);
   total = ws[NT / 32 - 1];
   __syncthreads();  // ws is reused by the next call
   return excl;
@@ -263,120 +249,6 @@ __device__ __forceinline__ void hist_flush(int* shared_hist, int* global_hist) {
   __syncthreads();
   for (int t = threadIdx.x; t < 256; t += BLOCK) {
     if (shared_hist[t]) atomicAdd(&global_hist[t], shared_hist[t]);
-  }
-}
-
-// ---- the cohort's radix select and ordered compaction (B4c) -------------------
-
-// One block. Picks the digit at ``shift`` that holds the k-th largest key
-// and clears the histogram for the next pass. After the last digit it sets
-// the threshold the reference's bisection (_kth_threshold) returns for the
-// seeds [key_lo, key_hi]: with c(t) = count(key > t), the bisection keeps
-// c(hi) < k and ends at min(key_hi, max(key_lo + 1, t*)), t* the least t
-// with c(t) < k (the k-th largest key when total >= k, else INT32_MIN), or
-// at key_hi when key_hi <= key_lo + 1 and it never runs.
-__device__ __forceinline__ void pick_digit(const Scratch& s, long long k, const int* dyn, int nf,
-                                           int shift) {
-  __shared__ int h[256];
-  const int t = threadIdx.x;
-  h[t] = s.hist[t];
-  s.hist[t] = 0;
-  __syncthreads();
-  if (t != 0) return;
-  int* st = s.st;
-  if (shift == 24) {
-    st[ST_ACTIVE] = (long long)st[ST_TOTAL] >= k;
-    st[ST_RANK] = (int)(k < st[ST_TOTAL] ? k : st[ST_TOTAL]);
-    st[ST_PREFIX] = 0;
-  }
-  if (st[ST_ACTIVE]) {
-    const int r = st[ST_RANK];
-    int cum = 0, d = 255;
-    for (; d > 0; --d) {
-      if (cum + h[d] >= r) break;
-      cum += h[d];
-    }
-    st[ST_RANK] = r - cum;
-    st[ST_PREFIX] = (int)((uint32_t)st[ST_PREFIX] | ((uint32_t)d << shift));
-  }
-  if (shift == 0) {
-    const long long key_lo = dyn[nf + 2], key_hi = dyn[nf + 3];
-    long long thr;
-    if (key_hi <= key_lo + 1) {
-      thr = key_hi;
-    } else {
-      thr = st[ST_ACTIVE] ? (long long)(int)flipped(st[ST_PREFIX]) : (long long)KEY_MASKED;
-      if (thr < key_lo + 1) thr = key_lo + 1;
-      if (thr > key_hi) thr = key_hi;
-    }
-    st[ST_THR] = (int)thr;
-    st[ST_LIMIT] = (int)(k < st[ST_TOTAL] ? k : st[ST_TOTAL]);
-  }
-}
-
-// One block: exclusive prefix sums of the tile counts of both streams, in
-// place; the totals go to the state.
-__device__ __forceinline__ void scan_tiles(const Scratch& s, long long nt) {
-  for (int q = 0; q < 2; ++q) {
-    int* cnt = s.cnt[q];
-    int carry = 0;
-    for (long long base = 0; base < nt; base += SCAN_THREADS) {
-      const long long t = base + threadIdx.x;
-      const int v = t < nt ? cnt[t] : 0;
-      int total;
-      const int excl = block_scan<SCAN_THREADS>(v, total);
-      if (t < nt) cnt[t] = carry + excl;
-      carry += total;
-    }
-    if (threadIdx.x == 0) s.st[q == 0 ? ST_STRICT : ST_TIE] = carry;
-  }
-}
-
-// Each tile writes the row ids of its set bits, in row order, to slots
-// [first + offset, ...) below ``limit``: strict rows from slot 0 and below
-// k; ties from slot n_strict and below min(k, total). One thread per bit
-// word.
-// blocks ``blk`` of ``nblk`` share the tiles
-__device__ __forceinline__ void write_slots(const Scratch& s, long long n_rows, long long k,
-                                            int* out, int mode, long long blk, long long nblk) {
-  const int q = mode == MODE_TIE ? 1 : 0;
-  long long first, limit;
-  if (mode == MODE_STRICT) {
-    first = 0;
-    limit = k;
-  } else {
-    first = s.st[ST_STRICT];
-    limit = s.st[ST_LIMIT];
-  }
-  const long long nt = n_tiles_of(n_rows);
-  for (long long tile = blk; tile < nt; tile += nblk) {
-    const long long start = first + s.cnt[q][tile];
-    if (start >= limit) continue;  // the whole tile lands past the last slot
-    unsigned bits = s.bits[q][tile * WORDS + threadIdx.x];
-    int total;
-    long long pos = start + block_scan<WORDS>(__popc(bits), total);
-    const long long row0 = tile * TILE + (long long)threadIdx.x * 32;
-    while (bits && pos < limit) {
-      const int b = __ffs(bits) - 1;
-      out[pos++] = (int)(row0 + b);
-      bits &= bits - 1;
-    }
-  }
-}
-
-// Slots no tile wrote: -1 from min(k, total) on; below it only where the
-// reference's tie stream runs out (its searchsorted returns n_rows there;
-// never with seeds that bracket the keys).
-__device__ __forceinline__ void fill_slots(const Scratch& s, long long n_rows, long long k,
-                                           int* out, long long blk, long long nblk,
-                                           const int* keys = nullptr, int* key_out = nullptr) {
-  const long long stride = nblk * BLOCK;
-  const long long n_strict = s.st[ST_STRICT], n_tie = s.st[ST_TIE], limit = s.st[ST_LIMIT];
-  for (long long j = blk * BLOCK + threadIdx.x; j < k; j += stride) {
-    const bool written = j < n_strict || (j < limit && j - n_strict < n_tie);
-    const int row = written ? out[j] : (j < limit ? (int)n_rows : -1);
-    if (!written) out[j] = row;
-    if (key_out) key_out[j] = row >= 0 && row < n_rows ? keys[row] : KEY_MASKED;
   }
 }
 
@@ -554,9 +426,11 @@ __device__ __forceinline__ int warp_pick(const int* h, int rank, int* left) {
   return d;
 }
 
-// The block's k-th largest key among ``key`` (KEY_MASKED excluded; the
-// block holds more than k): four 8-bit digits over a shared histogram.
-__device__ int block_kth(const int (&key)[TILE / BLOCK], int k) {
+// The block's k-th largest key among the rows j of ``key`` for which
+// ``in(j)`` holds (the block holds more than k): four 8-bit digits over a
+// shared histogram.
+template <typename In>
+__device__ int block_kth_if(const int (&key)[TILE / BLOCK], int k, In in) {
   __shared__ int h[256];
   __shared__ int pick_s[2];
   uint32_t prefix = 0;
@@ -567,8 +441,8 @@ __device__ int block_kth(const int (&key)[TILE / BLOCK], int k) {
 #pragma unroll
     for (int j = 0; j < TILE / BLOCK; ++j) {
       const uint32_t u = flipped(key[j]);
-      const bool in = key[j] != KEY_MASKED && (shift == 24 || (u >> (shift + 8)) == (prefix >> (shift + 8)));
-      hist_add(h, in ? (int)((u >> shift) & 255u) : 256);
+      const bool hit = in(j) && (shift == 24 || (u >> (shift + 8)) == (prefix >> (shift + 8)));
+      hist_add(h, hit ? (int)((u >> shift) & 255u) : 256);
     }
     __syncthreads();
     if (threadIdx.x < 32) {
@@ -587,24 +461,35 @@ __device__ int block_kth(const int (&key)[TILE / BLOCK], int k) {
   return (int)flipped((int)prefix);
 }
 
-// Called by one whole block after the pass that filled ``hist``: picks the
+// the k-th largest among the keys that are not KEY_MASKED
+__device__ int block_kth(const int (&key)[TILE / BLOCK], int k) {
+  return block_kth_if(key, k, [&](int j) { return key[j] != KEY_MASKED; });
+}
+
+// Called by one whole warp after the pass that filled ``hist``: picks the
 // digit at ``shift`` holding the k-th largest kept key (the first pass also
 // sets whether the k-th key exists); once the key is whole, or when fewer
-// than k rows pass, sets the threshold the reference's bisection returns
-// (pick_digit's rule) and the slots that hold a row.
+// than k rows pass, sets the threshold the reference's bisection
+// (_kth_threshold) returns for the seeds [key_lo, key_hi] and the slots
+// that hold a row. With c(t) = count(key > t), the bisection keeps c(hi) < k
+// and ends at min(key_hi, max(key_lo + 1, t*)), t* the least t with c(t) < k
+// (the k-th largest key when total >= k, else INT32_MIN), or at key_hi when
+// key_hi <= key_lo + 1 and it never runs. Each warp of a block has its own
+// copy of the histogram, so the warps of one block can pick for several
+// cohort members at once.
 __device__ void topk_pick(int* st, const int* hist, long long k, const int* dyn, int nf, int shift) {
-  __shared__ int h[256];
-  const int t = threadIdx.x;
-  h[t] = __ldcg(&hist[t]);
-  __syncthreads();
-  if (t >= 32) return;
+  __shared__ int hs[BLOCK / 32][256];
+  const int lane = threadIdx.x & 31;
+  int* h = hs[threadIdx.x >> 5];
+  for (int t = lane; t < 256; t += 32) h[t] = __ldcg(&hist[t]);
+  __syncwarp();
   const long long total = __ldcg(&st[ST_TOTAL]);
   const bool first = shift == 24;
   const bool active = first ? total >= k : __ldcg(&st[ST_ACTIVE]) != 0;
   int left = first ? (int)(k < total ? k : total) : __ldcg(&st[ST_RANK]);
   uint32_t prefix = first ? 0u : (uint32_t)__ldcg(&st[ST_PREFIX]);
   if (active) prefix |= (uint32_t)warp_pick(h, left, &left) << shift;
-  if (t != 0) return;
+  if (lane != 0) return;
   st[ST_ACTIVE] = active;
   st[ST_RANK] = left;
   st[ST_PREFIX] = (int)prefix;
@@ -727,7 +612,7 @@ __global__ void __launch_bounds__(BLOCK, KEYS_BLOCKS_PER_SM) topk_keys(const __g
     atomicAdd((unsigned long long*)(s.st + TK_ROWS), (unsigned long long)total);
     atomicAdd((unsigned long long*)(s.st + TK_TILES), (unsigned long long)walked);
   }
-  if (last_block(&s.st[TK_DONE])) topk_pick(s.st, s.hist, a.k, a.dyn, nf, 24);
+  if (last_block(&s.st[TK_DONE]) && threadIdx.x < 32) topk_pick(s.st, s.hist, a.k, a.dyn, nf, 24);
 }
 
 // Passes 2-4: the next digit's histogram over the kept keys whose higher
@@ -755,7 +640,7 @@ __global__ void __launch_bounds__(BLOCK) topk_refine(const __grid_constant__ Raw
   }
   const int level = (24 - shift) / 8;
   hist_flush(hist, s.hist + 256 * level);
-  if (last_block(&s.st[TK_DONE + level]))
+  if (last_block(&s.st[TK_DONE + level]) && threadIdx.x < 32)
     topk_pick(s.st, s.hist + 256 * level, a.k, a.dyn, a.filt.n, shift);
 }
 
@@ -978,207 +863,439 @@ __global__ void __launch_bounds__(BLOCK) raw_select(const __grid_constant__ RawA
   for (unsigned b = bits; b && pos < 1 + a.k; b &= b - 1) a.out[pos++] = (int)(row0 + __ffs(b) - 1);
 }
 
-// ---- cohort top-k (B4c) ---------------------------------------------------------
+// ---- cohort top-k (B4c): B4's top-k over the union of the members' windows --
 
 #define MAX_COHORT 32
+// the keys pass's blocks a SM: its member loop keeps each row's member bits
+// beside its key, so it takes more registers than topk_keys
+#define COHORT_KEYS_BLOCKS_PER_SM 2
 
-// r: the columns, statics, the shared key buffer (r.keys) and the bases of
-// the scratch and the slots (r.session and r.dyn unused); member b reads
-// sessions + b * sess_w and dyns + b * dyn_w, keeps its scratch at
-// r.scratch + b * member_words and writes its k slots at r.out + b * k.
+// r: the columns, the statics, the keys (r.keys, [n_tiles][TILE]), the
+// scratch (r.scratch), the slots (r.out, [members][k]) and the table
+// (r.tiles, r.n_tiles); r.session and r.dyn unused. Member m reads
+// sessions + m * sess_w and dyns + m * dyn_w.
 struct CohortRawArgs {
   RawArgs r;
   const int* sessions;
   const int* dyns;
-  long long member_words;
+  long long n_items;  // items: the members' tiles, summed over the members
   int members;
   int sess_w;
   int dyn_w;
   int pad_;
 };
 
-__device__ __forceinline__ Scratch member_scratch(const CohortRawArgs& a, int m) {
-  return scratch_at(a.r.scratch + (long long)m * a.member_words, a.r.n_rows);
+// The scratch of one launch sequence (int32 words):
+//   [head CH_HEAD | a member's state and histograms TK_STATUS, each member]
+//   (zeroed by the launcher's memset)
+//   [item offsets 2 x items | item counts 2 x items | item maxima items |
+//    item ballot words items x WORDS | the table, 16-byte aligned: tiles
+//    4 x n_tiles, tile_p items, member_off members + 1, member_tiles items]
+// An item is one member's tile. Items are numbered member by member, each
+// member's in row order: member m's are [member_off[m], member_off[m + 1]),
+// member_tiles[p] the tile of item p. A tile {row0, row1, mask, item_off}
+// lists its members' items, in bit order, at tile_p[item_off ...].
+enum {
+  CH_KEYS_TICKET = 0,
+  CH_KEYS_DONE = 1,
+  CH_BARRIER = 2,  // the write's two grid barriers, a word each
+  CH_HEAD = 16,
+  CM_ALL = 16,     // a member's state word: its strict rows and ties (64-bit pack_counts)
+};
+
+__host__ __device__ __forceinline__ long long cohort_items_at(int members) {
+  return CH_HEAD + (long long)members * TK_STATUS;
 }
 
-__global__ void __launch_bounds__(BLOCK) cohort_init(const __grid_constant__ CohortRawArgs a) {
-  int* base = a.r.scratch + (long long)blockIdx.x * a.member_words;
-  for (int t = threadIdx.x; t < ST_WORDS + 256; t += BLOCK) base[t] = 0;
+__host__ __device__ __forceinline__ long long cohort_table_at(int members, long long items) {
+  return (cohort_items_at(members) + (5 + WORDS) * items + 3) & ~3LL;  // after the items' words
 }
 
-__global__ void __launch_bounds__(BLOCK) cohort_keys(const __grid_constant__ CohortRawArgs a) {
-  __shared__ int hist[MAX_COHORT][256];
-  __shared__ int count[MAX_COHORT];
-  __shared__ int lo_s[MAX_COHORT], hi_s[MAX_COHORT];
+struct CohortScratch {
+  int* head;
+  int* member;                 // [members][TK_STATUS]: B4's state and histograms
+  unsigned long long* excl;    // [items]: its member's strict rows and ties before it
+  unsigned long long* count;   // [items]: the item's strict rows and ties
+  int* tmax;                   // [items]: the item's largest kept key
+  unsigned* bits;              // [items][WORDS]: the item's kept rows
+  const int4* tiles;           // [n_tiles]
+  const int* tile_p;           // [items]
+  const int* member_off;       // [members + 1]
+  const int* member_tiles;     // [items]
+};
+
+__device__ __forceinline__ CohortScratch cohort_scratch(const CohortRawArgs& a) {
+  CohortScratch s;
+  const long long items = a.n_items;
+  s.head = a.r.scratch;
+  s.member = a.r.scratch + CH_HEAD;
+  s.excl = (unsigned long long*)(a.r.scratch + cohort_items_at(a.members));
+  s.count = s.excl + items;
+  s.tmax = (int*)(s.count + items);
+  s.bits = (unsigned*)(s.tmax + items);
+  s.tiles = (const int4*)a.r.tiles;
+  s.tile_p = a.r.tiles + 4 * a.r.n_tiles;
+  s.member_off = s.tile_p + items;
+  s.member_tiles = s.member_off + a.members + 1;
+  return s;
+}
+
+// The largest v over the block (every thread gets it).
+__device__ __forceinline__ int block_max(int v) {
+  __shared__ int part[BLOCK / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL_MASK, v, o));
+  __syncthreads();  // part may still be read by the last call
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = part[0];
+#pragma unroll
+  for (int w = 1; w < BLOCK / 32; ++w) v = max(v, part[w]);
+  return v;
+}
+
+// N rows of a tile: each one's key (the members' key wherever a member
+// passes it; KEY_MASKED where none does) and its members (bit m: member m
+// of the tile's ``tmask`` passes it). A row's candidates are the members
+// whose allow list holds its series; a thread's rows mostly share one
+// series, so it keeps its last series' allow bits (``code_s``, ``allow_s``).
+template <int N>
+__device__ __forceinline__ void cohort_rows(const CohortRawArgs& a, const long long (&i)[N],
+                                            const bool (&real)[N], unsigned tmask, int& code_s,
+                                            unsigned& allow_s, int (&key)[N], unsigned (&pass)[N]) {
   const RawArgs& r = a.r;
+  const int nf = r.filt.n;
+  int code[N], ts[N];
+  float kv[N];
+  load_ints<N>(r.series, i, code);
+  load_ints<N>(r.ts, i, ts);
+  if (!r.key_is_ts) load_values<N>(r.fields[r.key_field], i, kv);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    int k;
+    if (r.key_is_ts) {
+      k = r.descending ? ts[j] : neg(ts[j]);
+    } else {
+      k = f32_sort_key(kv[j]);
+      if (!r.descending) k = neg(k);
+      if (isnan(kv[j])) k = KEY_MASKED + 1;  // NaN below every real value
+    }
+    if (code[j] != code_s) {
+      code_s = code[j];
+      allow_s = 0;
+      for (unsigned b = tmask; b; b &= b - 1) {
+        const int m = __ffs(b) - 1;
+        if (a.sessions[(long long)m * a.sess_w + code_s] != 0) allow_s |= 1u << m;
+      }
+    }
+    unsigned p = 0;
+    for (unsigned b = real[j] ? allow_s : 0u; b; b &= b - 1) {
+      const int m = __ffs(b) - 1;
+      const int* dyn = a.dyns + (long long)m * a.dyn_w;
+      bool ok = ts[j] >= dyn[nf] && ts[j] < dyn[nf + 1];
+      for (int f = 0; ok && f < nf; ++f)
+        ok = compare(load_value(r.fields[r.filt.field[f]], i[j]), r.filt.op[f],
+                     __int_as_float(dyn[f]));
+      if (ok) p |= 1u << m;
+    }
+    key[j] = p ? k : KEY_MASKED;
+    pass[j] = p;
+  }
+}
+
+// Pass 1. Blocks take the table's tiles by ticket, in row order. Each tile's
+// rows are decoded and keyed once and judged for every member of its mask.
+// Then, member by member where any row passes, topk_keys' rule: drop the
+// rows below the member's bound (capped at (key_hi, row 0)); where more than
+// k stay, raise the bound to the tile's own k-th (key, last row) and drop
+// the rows below that key; the item keeps its largest key, its rows' ballot
+// words and their first digits in the member's histogram. A tile where some
+// member keeps a row writes its keys once. The last block picks every
+// member's first digit (or its threshold, with fewer than k rows).
+__global__ void __launch_bounds__(BLOCK, COHORT_KEYS_BLOCKS_PER_SM)
+    cohort_topk_keys(const __grid_constant__ CohortRawArgs a) {
+  __shared__ int hist[MAX_COHORT][256];
+  __shared__ int passing[MAX_COHORT];
+  __shared__ long long tile_s;
+  __shared__ unsigned any_s;
+  const RawArgs& r = a.r;
+  const CohortScratch s = cohort_scratch(a);
   const int M = a.members, nf = r.filt.n;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   for (int t = threadIdx.x; t < M * 256; t += BLOCK) hist[t >> 8][t & 255] = 0;
-  for (int m = threadIdx.x; m < M; m += BLOCK) {
-    count[m] = 0;
-    lo_s[m] = a.dyns[(long long)m * a.dyn_w + nf];
-    hi_s[m] = a.dyns[(long long)m * a.dyn_w + nf + 1];
-  }
-  __syncthreads();
-  const long long nt = n_tiles_of(r.n_rows);
-  for (long long tile = blockIdx.x; tile < nt; tile += gridDim.x) {
-    for (int j = 0; j < TILE / BLOCK; ++j) {
-      const long long i = tile * TILE + j * BLOCK + threadIdx.x;
-      int key = KEY_MASKED;
-      unsigned pass = 0;  // bit m: member m keeps the row
-      if (i < r.n_rows) {
-        const int code = load_int(r.series, i);
-        unsigned allow = 0;
-        for (int m = 0; m < M; ++m)
-          if (a.sessions[(long long)m * a.sess_w + code] != 0) allow |= 1u << m;
-        if (allow) {
-          const int ts = load_int(r.ts, i);
-          key = sort_key(r, i, ts);
-          float fv[MAX_FILTERS];
+  for (int m = threadIdx.x; m < M; m += BLOCK) passing[m] = 0;
+  for (;;) {
+    __syncthreads();  // the last tile's shared words are read
+    if (threadIdx.x == 0) {
+      tile_s = atomicAdd(&s.head[CH_KEYS_TICKET], 1);
+      any_s = 0;
+    }
+    __syncthreads();
+    const long long tile = tile_s;
+    if (tile >= r.n_tiles) break;
+    const int4 tt = s.tiles[tile];
+    const long long r0 = tt.x, r1 = tt.y;
+    const unsigned tmask = (unsigned)tt.z;
+    int key[TILE / BLOCK];
+    unsigned pass[TILE / BLOCK];
+    int code_s = -1;
+    unsigned allow_s = 0;
 #pragma unroll
-          for (int f = 0; f < MAX_FILTERS; ++f)
-            if (f < nf) fv[f] = load_value(r.fields[r.filt.field[f]], i);
-          if (key != KEY_MASKED) {
-            for (int m = 0; m < M; ++m) {
-              if (!((allow >> m) & 1u) || ts < lo_s[m] || ts >= hi_s[m]) continue;
-              const int* lit = a.dyns + (long long)m * a.dyn_w;
-              bool ok = true;
+    for (int h = 0; h < TILE / BLOCK; h += KEY_BATCH) {
+      long long i[KEY_BATCH];
+      bool real[KEY_BATCH];
+      int k[KEY_BATCH];
+      unsigned p[KEY_BATCH];
 #pragma unroll
-              for (int f = 0; f < MAX_FILTERS; ++f)
-                if (f < nf && ok) ok = compare(fv[f], r.filt.op[f], __int_as_float(lit[f]));
-              if (ok) pass |= 1u << m;
-            }
-          }
-        }
-        r.keys[i] = key;
+      for (int j = 0; j < KEY_BATCH; ++j) {
+        const long long row = r0 + (h + j) * BLOCK + threadIdx.x;
+        real[j] = row < r1;
+        i[j] = real[j] ? row : r0;  // a row past the tile reads row r0 and passes nothing
       }
-      const long long word = tile * WORDS + j * (BLOCK / 32) + w;
-      const int digit = (int)(flipped(key) >> 24);
-      for (int m = 0; m < M; ++m) {
-        const bool in = (pass >> m) & 1u;
-        const unsigned b = __ballot_sync(FULL_MASK, in);
-        if (lane == 0) {
-          member_scratch(a, m).mask[word] = b;
-          if (b) atomicAdd(&count[m], __popc(b));
-        }
-        if (b) hist_add(hist[m], in ? digit : 256);
+      cohort_rows<KEY_BATCH>(a, i, real, tmask, code_s, allow_s, k, p);
+#pragma unroll
+      for (int j = 0; j < KEY_BATCH; ++j) {
+        key[h + j] = k[j];
+        pass[h + j] = p[j];
       }
     }
+    unsigned any = 0;
+#pragma unroll
+    for (int j = 0; j < TILE / BLOCK; ++j) any |= pass[j];
+    any = __reduce_or_sync(FULL_MASK, any);
+    if (lane == 0 && any) atomicOr(&any_s, any);
+    __syncthreads();
+    const unsigned any_b = any_s;
+    bool wrote = false;  // block-uniform
+    for (unsigned rest = tmask; rest; rest &= rest - 1) {
+      const int m = __ffs(rest) - 1;
+      const long long p = s.tile_p[tt.w + __popc(tmask & ((1u << m) - 1))];
+      if (!((any_b >> m) & 1u)) {
+        if (threadIdx.x == 0) s.tmax[p] = KEY_MASKED;
+        continue;
+      }
+      int* st = s.member + (long long)m * TK_STATUS;
+      const int key_hi = a.dyns[(long long)m * a.dyn_w + nf + 3];
+      unsigned long long* bound = (unsigned long long*)(st + TK_BOUND);
+      unsigned long long b = *(volatile unsigned long long*)bound;
+      const unsigned long long cap = composite(key_hi, 0);
+      if (b > cap) b = cap;
+      unsigned keep = 0;
+      int in = 0;
+#pragma unroll
+      for (int j = 0; j < TILE / BLOCK; ++j) {
+        if ((pass[j] >> m) & 1u) {
+          ++in;
+          if (composite(key[j], r0 + j * BLOCK + threadIdx.x) >= b) keep |= 1u << j;
+        }
+      }
+      int total;  // passing rows << 16 | kept rows (a tile holds at most 4096)
+      block_scan<BLOCK>((in << 16) | __popc(keep), total);
+      if (threadIdx.x == 0) passing[m] += total >> 16;
+      if ((total & 0xffff) > r.k) {
+        const int t = block_kth_if(key, (int)r.k, [&](int j) { return ((keep >> j) & 1u) != 0; });
+        if (threadIdx.x == 0) atomicMax(bound, composite(t, r1 - 1));
+        // below the tile's own k-th key, and not above key_hi (the cap)
+        const long long below = min((long long)t, (long long)key_hi + 1);
+#pragma unroll
+        for (int j = 0; j < TILE / BLOCK; ++j)
+          if (key[j] < below) keep &= ~(1u << j);
+      }
+      int top = KEY_MASKED;
+#pragma unroll
+      for (int j = 0; j < TILE / BLOCK; ++j)
+        if ((keep >> j) & 1u) top = max(top, key[j]);
+      top = block_max(top);
+      if (threadIdx.x == 0) s.tmax[p] = top;
+      if (top != KEY_MASKED) {
+        wrote = true;
+        unsigned* words = s.bits + p * WORDS;
+#pragma unroll
+        for (int j = 0; j < TILE / BLOCK; ++j) {
+          const bool kept = (keep >> j) & 1u;
+          const unsigned wb = __ballot_sync(FULL_MASK, kept);
+          if (lane == 0) words[j * (BLOCK / 32) + w] = wb;
+          hist_add(hist[m], kept ? (int)(flipped(key[j]) >> 24) : 256);
+        }
+      }
+    }
+    if (wrote) {
+      int* dst = r.keys + tile * TILE;
+#pragma unroll
+      for (int j = 0; j < TILE / BLOCK; ++j) dst[j * BLOCK + threadIdx.x] = key[j];
+    }
   }
-  __syncthreads();
   for (int t = threadIdx.x; t < M * 256; t += BLOCK) {
-    const int m = t >> 8;
-    if (hist[m][t & 255]) atomicAdd(&member_scratch(a, m).hist[t & 255], hist[m][t & 255]);
+    const int m = t >> 8, d = t & 255;
+    if (hist[m][d]) atomicAdd(&s.member[(long long)m * TK_STATUS + TK_HEAD + d], hist[m][d]);
   }
   for (int m = threadIdx.x; m < M; m += BLOCK)
-    if (count[m]) atomicAdd(&member_scratch(a, m).st[ST_TOTAL], count[m]);
+    if (passing[m]) atomicAdd(&s.member[(long long)m * TK_STATUS + ST_TOTAL], passing[m]);
+  if (last_block(&s.head[CH_KEYS_DONE])) {  // a warp a member
+    for (int m = threadIdx.x >> 5; m < M; m += BLOCK / 32) {
+      int* st = s.member + (long long)m * TK_STATUS;
+      topk_pick(st, st + TK_HEAD, r.k, a.dyns + (long long)m * a.dyn_w, nf, 24);
+    }
+  }
 }
 
-__global__ void __launch_bounds__(BLOCK) cohort_hist(const __grid_constant__ CohortRawArgs a,
-                                                     int shift) {
-  __shared__ int hist[MAX_COHORT][256];
-  __shared__ unsigned want[MAX_COHORT];
-  __shared__ int active[MAX_COHORT];
+// Passes 2-4, member blockIdx.y: the next digit's histogram over the
+// member's kept rows whose higher digits match its prefix, on its items
+// only; an item whose largest kept key lies below the prefix is skipped
+// unread. The member's last block picks the digit (after the last, the
+// threshold).
+__global__ void __launch_bounds__(BLOCK) cohort_topk_refine(const __grid_constant__ CohortRawArgs a,
+                                                          int shift) {
+  __shared__ int hist[256];
+  const CohortScratch s = cohort_scratch(a);
+  const int m = blockIdx.y;
+  int* st = s.member + (long long)m * TK_STATUS;
+  if (!st[ST_ACTIVE]) return;  // fewer than k rows: the threshold is set
+  const uint32_t want = (uint32_t)st[ST_PREFIX] >> (shift + 8);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int t = threadIdx.x; t < 256; t += BLOCK) hist[t] = 0;
+  __syncthreads();
+  for (long long p = s.member_off[m] + blockIdx.x; p < s.member_off[m + 1]; p += gridDim.x) {
+    const int top = s.tmax[p];
+    if (top == KEY_MASKED || (flipped(top) >> (shift + 8)) < want) continue;
+    const int* src = a.r.keys + (long long)s.member_tiles[p] * TILE;
+    const unsigned* words = s.bits + p * WORDS;
+#pragma unroll
+    for (int j = 0; j < TILE / BLOCK; ++j) {
+      const uint32_t u = flipped(src[j * BLOCK + threadIdx.x]);
+      const bool in = ((words[j * (BLOCK / 32) + w] >> lane) & 1u) && (u >> (shift + 8)) == want;
+      hist_add(hist, in ? (int)((u >> shift) & 255u) : 256);
+    }
+  }
+  const int level = (24 - shift) / 8;
+  hist_flush(hist, st + TK_HEAD + 256 * level);
+  if (last_block(&st[TK_DONE + level]) && threadIdx.x < 32)
+    topk_pick(st, st + TK_HEAD + 256 * level, a.r.k, a.dyns + (long long)m * a.dyn_w,
+              a.r.filt.n, shift);
+}
+
+// Thread w < WORDS of the block: the ballot word w of the item's kept rows
+// strictly above the threshold (words0) and at it (words1), in row order.
+__device__ __forceinline__ void cohort_flags(const int* src, const unsigned* bits, int thr,
+                                             unsigned* words0, unsigned* words1) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < TILE / BLOCK; ++j) {
+    const int key = src[j * BLOCK + threadIdx.x];
+    const bool in = (bits[j * (BLOCK / 32) + w] >> lane) & 1u;
+    const unsigned b0 = __ballot_sync(FULL_MASK, in && key > thr);
+    const unsigned b1 = __ballot_sync(FULL_MASK, in && key == thr);
+    if (lane == 0) {
+      words0[j * (BLOCK / 32) + w] = b0;
+      words1[j * (BLOCK / 32) + w] = b1;
+    }
+  }
+}
+
+// Pass 5 (cooperative), in three stages with a grid barrier between them.
+// 1: each item counts its kept rows above its member's threshold and at it
+// (none, unread, where its largest key lies below). 2: a block a member
+// turns its items' counts into offsets, in row order, and keeps the
+// member's totals. 3: each item writes its strict rows from slot (strict
+// rows before it), below k, and its ties from slot (all the member's strict
+// rows + ties before it), below min(k, total), in row order; then every
+// member's slots past its rows get n_rows below min(k, total) and -1 after
+// (topk_write's rule). Each stage walks the members in turn, item p on
+// block p mod gridDim.x; the members' item offsets, thresholds, limits and
+// totals sit in shared memory, so a member that holds none of a block's
+// items costs it no load from device memory.
+// The first of a member's items [begin, ...) that falls to this block when
+// every item p goes to block p mod gridDim.x: the blocks share each member's
+// items evenly, however few it has.
+__device__ __forceinline__ long long first_item(long long begin) {
+  const long long g = gridDim.x;
+  return begin + ((blockIdx.x - begin) % g + g) % g;
+}
+
+__global__ void __launch_bounds__(BLOCK) cohort_topk_write(const __grid_constant__ CohortRawArgs a) {
+  __shared__ unsigned words0[WORDS], words1[WORDS];
+  __shared__ int off[MAX_COHORT + 1], thr[MAX_COHORT];
+  __shared__ long long limit[MAX_COHORT];
+  __shared__ unsigned long long all[MAX_COHORT];
+  const CohortScratch s = cohort_scratch(a);
   const RawArgs& r = a.r;
   const int M = a.members;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  for (int t = threadIdx.x; t < M * 256; t += BLOCK) hist[t >> 8][t & 255] = 0;
+  for (int m = threadIdx.x; m <= M; m += BLOCK) off[m] = s.member_off[m];
   for (int m = threadIdx.x; m < M; m += BLOCK) {
-    const Scratch s = member_scratch(a, m);
-    active[m] = s.st[ST_ACTIVE];  // fewer than k rows: no k-th key to find
-    want[m] = (uint32_t)s.st[ST_PREFIX] >> (shift + 8);
+    thr[m] = s.member[(long long)m * TK_STATUS + ST_THR];
+    limit[m] = s.member[(long long)m * TK_STATUS + ST_LIMIT];
   }
   __syncthreads();
-  const long long nt = n_tiles_of(r.n_rows);
-  for (long long tile = blockIdx.x; tile < nt; tile += gridDim.x) {
-    for (int j = 0; j < TILE / BLOCK; ++j) {
-      const long long i = tile * TILE + j * BLOCK + threadIdx.x;
-      const uint32_t u = flipped(i < r.n_rows ? r.keys[i] : KEY_MASKED);
-      const long long word = tile * WORDS + j * (BLOCK / 32) + w;
-      for (int m = 0; m < M; ++m) {
-        if (!active[m]) continue;
-        const unsigned bits = member_scratch(a, m).mask[word];  // the same word in every lane
-        if (bits == 0) continue;
-        const bool in = ((bits >> lane) & 1u) && (u >> (shift + 8)) == want[m];
-        hist_add(hist[m], in ? (int)((u >> shift) & 255u) : 256);
+  for (int m = 0; m < M; ++m) {
+    for (long long p = first_item(off[m]); p < off[m + 1]; p += gridDim.x) {
+      const int top = s.tmax[p];
+      unsigned long long c = 0;
+      if (top != KEY_MASKED && top >= thr[m]) {  // block-uniform
+        cohort_flags(r.keys + (long long)s.member_tiles[p] * TILE, s.bits + p * WORDS, thr[m],
+                     words0, words1);
+        __syncthreads();
+        const unsigned b0 = threadIdx.x < WORDS ? words0[threadIdx.x] : 0u;
+        const unsigned b1 = threadIdx.x < WORDS ? words1[threadIdx.x] : 0u;
+        c = block_sum(pack_counts(__popc(b0), __popc(b1)));
       }
+      if (threadIdx.x == 0) s.count[p] = c;
     }
   }
+  grid_barrier(&s.head[CH_BARRIER]);
+  for (int m = blockIdx.x; m < M; m += gridDim.x) {
+    unsigned long long carry = 0;
+    for (long long base = off[m]; base < off[m + 1]; base += BLOCK) {
+      const long long p = base + threadIdx.x;
+      const unsigned long long c = p < off[m + 1] ? __ldcg(&s.count[p]) : 0ull;
+      unsigned long long total;
+      const unsigned long long excl = block_scan<BLOCK>(c, total);
+      if (p < off[m + 1]) s.excl[p] = carry + excl;
+      carry += total;
+    }
+    if (threadIdx.x == 0)
+      *(unsigned long long*)(s.member + (long long)m * TK_STATUS + CM_ALL) = carry;
+  }
+  grid_barrier(&s.head[CH_BARRIER + 1]);
+  for (int m = threadIdx.x; m < M; m += BLOCK)
+    all[m] = __ldcg((const unsigned long long*)(s.member + (long long)m * TK_STATUS + CM_ALL));
   __syncthreads();
-  for (int t = threadIdx.x; t < M * 256; t += BLOCK) {
-    const int m = t >> 8;
-    if (hist[m][t & 255]) atomicAdd(&member_scratch(a, m).hist[t & 255], hist[m][t & 255]);
-  }
-}
-
-__global__ void __launch_bounds__(BLOCK) cohort_pick(const __grid_constant__ CohortRawArgs a,
-                                                     int shift) {
-  const int m = blockIdx.x;
-  pick_digit(member_scratch(a, m), a.r.k, a.dyns + (long long)m * a.dyn_w, a.r.filt.n, shift);
-}
-
-__global__ void __launch_bounds__(BLOCK) cohort_flags(const __grid_constant__ CohortRawArgs a) {
-  __shared__ int thr_s[MAX_COHORT];
-  __shared__ int c0[MAX_COHORT], c1[MAX_COHORT];
-  const RawArgs& r = a.r;
-  const int M = a.members;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  for (int m = threadIdx.x; m < M; m += BLOCK) thr_s[m] = member_scratch(a, m).st[ST_THR];
-  const long long nt = n_tiles_of(r.n_rows);
-  for (long long tile = blockIdx.x; tile < nt; tile += gridDim.x) {
-    for (int m = threadIdx.x; m < M; m += BLOCK) c0[m] = c1[m] = 0;
-    __syncthreads();
-    for (int j = 0; j < TILE / BLOCK; ++j) {
-      const long long i = tile * TILE + j * BLOCK + threadIdx.x;
-      const int key = i < r.n_rows ? r.keys[i] : KEY_MASKED;
-      const long long word = tile * WORDS + j * (BLOCK / 32) + w;
-      for (int m = 0; m < M; ++m) {
-        const Scratch s = member_scratch(a, m);
-        const unsigned bits = s.mask[word];  // the same word in every lane
-        unsigned b0 = 0, b1 = 0;
-        if (bits) {
-          const bool in = (bits >> lane) & 1u;
-          b0 = __ballot_sync(FULL_MASK, in && key > thr_s[m]);
-          b1 = __ballot_sync(FULL_MASK, in && key == thr_s[m]);
-        }
-        if (lane == 0) {
-          s.bits[0][word] = b0;
-          s.bits[1][word] = b1;
-          if (b0) atomicAdd(&c0[m], __popc(b0));
-          if (b1) atomicAdd(&c1[m], __popc(b1));
-        }
+  for (int m = 0; m < M; ++m) {
+    const long long n_strict = strict_of(all[m]);
+    int* out = r.out + (long long)m * r.k;
+    for (long long p = first_item(off[m]); p < off[m + 1]; p += gridDim.x) {
+      const unsigned long long c = __ldcg(&s.count[p]), excl = __ldcg(&s.excl[p]);
+      const long long e0 = strict_of(excl), e1 = tie_of(excl);
+      const bool any0 = strict_of(c) != 0 && e0 < r.k;
+      const bool any1 = tie_of(c) != 0 && n_strict + e1 < limit[m];
+      if (!(any0 || any1)) continue;  // block-uniform
+      const long long tile = s.member_tiles[p];
+      cohort_flags(r.keys + tile * TILE, s.bits + p * WORDS, thr[m], words0, words1);
+      __syncthreads();
+      const long long r0 = s.tiles[tile].x;
+      for (int q = 0; q < 2; ++q) {
+        if (q == 0 ? !any0 : !any1) continue;
+        const unsigned bits = threadIdx.x < WORDS ? (q == 0 ? words0 : words1)[threadIdx.x] : 0u;
+        int total;
+        long long pos = (q == 0 ? e0 : n_strict + e1) + block_scan<BLOCK>((int)__popc(bits), total);
+        const long long end = q == 0 ? r.k : limit[m];
+        for (unsigned b = bits; b && pos < end; b &= b - 1, ++pos)
+          out[pos] = (int)(r0 + (int)threadIdx.x * 32 + __ffs(b) - 1);
       }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int m = threadIdx.x; m < M; m += BLOCK) {
-      const Scratch s = member_scratch(a, m);
-      s.cnt[0][tile] = c0[m];
-      s.cnt[1][tile] = c1[m];
-    }
-    __syncthreads();
   }
-}
-
-__global__ void __launch_bounds__(SCAN_THREADS) cohort_scan(const __grid_constant__ CohortRawArgs a) {
-  scan_tiles(member_scratch(a, blockIdx.x), n_tiles_of(a.r.n_rows));
-}
-
-__global__ void __launch_bounds__(WORDS) cohort_write(const __grid_constant__ CohortRawArgs a,
-                                                      int mode) {
-  const int m = (int)(blockIdx.x % (unsigned)a.members);
-  write_slots(member_scratch(a, m), a.r.n_rows, a.r.k, a.r.out + (long long)m * a.r.k, mode,
-              blockIdx.x / (unsigned)a.members, gridDim.x / (unsigned)a.members);
-}
-
-__global__ void __launch_bounds__(BLOCK) cohort_fill(const __grid_constant__ CohortRawArgs a) {
-  const int m = (int)(blockIdx.x % (unsigned)a.members);
-  fill_slots(member_scratch(a, m), a.r.n_rows, a.r.k, a.r.out + (long long)m * a.r.k,
-             blockIdx.x / (unsigned)a.members, gridDim.x / (unsigned)a.members);
+  for (long long j = (long long)blockIdx.x * BLOCK + threadIdx.x; j < M * r.k;
+       j += (long long)gridDim.x * BLOCK) {
+    const int m = (int)(j / r.k);
+    const long long slot = j - m * r.k;
+    const long long n_strict = strict_of(all[m]), n_tie = tie_of(all[m]);
+    const long long written = n_strict >= r.k ? r.k
+        : n_strict + (n_tie < limit[m] - n_strict ? n_tie : limit[m] - n_strict);
+    if (slot >= written) r.out[j] = slot < limit[m] ? (int)r.n_rows : -1;
+  }
 }
 
 // ---- host launch (plain C interface, loaded with ctypes) --------------------
-
-static long long host_tiles(long long n) { return (n + TILE - 1) / TILE; }
 
 static cudaError_t grid_for(int device, long long work, int per_sm, int* grid) {
   int sms = 0;
@@ -1208,7 +1325,7 @@ int scan_topk_abi(long long* sizes) {
   sizes[1] = MAX_FIELDS;
   sizes[2] = MAX_FILTERS;
   sizes[3] = TILE;
-  sizes[4] = ST_WORDS + 256;
+  sizes[4] = CH_HEAD;
   sizes[5] = sizeof(CohortRawArgs);
   sizes[6] = MAX_COHORT;
   sizes[7] = TK_STATUS;
@@ -1319,41 +1436,179 @@ int raw_select_launch(const RawArgs* a, const long long* windows, long long n_wi
   return 0;
 }
 
-// one launch sequence for a cohort of at most MAX_COHORT members
-int raw_topk_cohort_launch(const CohortRawArgs* a, void* stream) {
+struct Span {
+  long long start, end;
+};
+
+static int by_start(const void* x, const void* y) {
+  const long long a = ((const Span*)x)->start, b = ((const Span*)y)->start;
+  return a < b ? -1 : a > b;
+}
+
+// The cohort's tile table (its spec: ops/scan_topk.py cohort_tiles). Member
+// m's windows are the int64 [start, end) pairs windows[2 * w ...] for w in
+// [win_off[m], win_off[m + 1]), in host memory: sorted, disjoint, inside [0,
+// n_rows). The union of every member's windows (merged where they overlap
+// or touch) is cut into tiles of at most TILE rows, each inside one union
+// window, in row order; a tile's mask has bit m where a window of member m
+// meets it. Unless ``tiles`` is null, writes the tiles (row0, row1, mask,
+// item_off: 4 ints a tile), tile_p (a tile's items, one a member of its
+// mask in bit order, as each item's index), member_off (members + 1) and
+// member_tiles (each item's tile; member by member, in row order). Returns
+// the tile count and sets *n_items; -1 for windows it refuses, -2 where
+// host memory runs out.
+long long raw_cohort_tiles(const long long* windows, const long long* win_off, int members,
+                           long long n_rows, int* tiles, int* tile_p, int* member_off,
+                           int* member_tiles, long long* n_items) {
+  if (members < 1 || members > MAX_COHORT || win_off[0] != 0) return -1;
+  const long long n_windows = win_off[members];
+  for (int m = 0; m < members; ++m) {
+    long long prev = 0;
+    for (long long w = win_off[m]; w < win_off[m + 1]; ++w) {
+      const long long start = windows[2 * w], end = windows[2 * w + 1];
+      if (start < prev || end < start || end > n_rows) return -1;
+      prev = end;
+    }
+  }
+  Span* u = (Span*)malloc(sizeof(Span) * (n_windows > 0 ? n_windows : 1));
+  if (u == nullptr) return -2;
+  long long n_u = 0;
+  for (long long w = 0; w < n_windows; ++w)
+    if (windows[2 * w + 1] > windows[2 * w]) u[n_u++] = {windows[2 * w], windows[2 * w + 1]};
+  qsort(u, n_u, sizeof(Span), by_start);
+  long long merged = 0;
+  for (long long w = 0; w < n_u; ++w) {
+    if (merged > 0 && u[w].start <= u[merged - 1].end) {
+      if (u[w].end > u[merged - 1].end) u[merged - 1].end = u[w].end;
+    } else {
+      u[merged++] = u[w];
+    }
+  }
+  long long nt = 0;
+  for (long long w = 0; w < merged; ++w) nt += (u[w].end - u[w].start + TILE - 1) / TILE;
+  Span* t = (Span*)malloc(sizeof(Span) * (nt > 0 ? nt : 1));
+  unsigned* mask = (unsigned*)calloc(nt > 0 ? nt : 1, sizeof(unsigned));
+  if (t == nullptr || mask == nullptr) {
+    free(u);
+    free(t);
+    free(mask);
+    return -2;
+  }
+  long long i = 0;
+  for (long long w = 0; w < merged; ++w)
+    for (long long r = u[w].start; r < u[w].end; r += TILE, ++i)
+      t[i] = {r, r + TILE < u[w].end ? r + TILE : u[w].end};
+  free(u);
+  long long items = 0;
+  for (int m = 0; m < members; ++m) {
+    for (long long w = win_off[m]; w < win_off[m + 1]; ++w) {
+      const long long start = windows[2 * w], end = windows[2 * w + 1];
+      if (end <= start) continue;
+      long long lo = 0, hi = nt;  // the first tile ending past start
+      while (lo < hi) {
+        const long long mid = (lo + hi) / 2;
+        if (t[mid].end > start) hi = mid; else lo = mid + 1;
+      }
+      for (long long j = lo; j < nt && t[j].start < end; ++j) {
+        items += !((mask[j] >> m) & 1u);
+        mask[j] |= 1u << m;
+      }
+    }
+  }
+  *n_items = items;
+  if (tiles != nullptr) {
+    member_off[0] = 0;
+    for (int m = 0; m < members; ++m) {
+      long long c = 0;
+      for (long long j = 0; j < nt; ++j) c += (mask[j] >> m) & 1u;
+      member_off[m + 1] = (int)(member_off[m] + c);
+    }
+    int cursor[MAX_COHORT];
+    for (int m = 0; m < members; ++m) cursor[m] = member_off[m];
+    int at = 0;
+    for (long long j = 0; j < nt; ++j) {
+      tiles[4 * j] = (int)t[j].start;
+      tiles[4 * j + 1] = (int)t[j].end;
+      tiles[4 * j + 2] = (int)mask[j];
+      tiles[4 * j + 3] = at;
+      for (int m = 0; m < members; ++m) {
+        if (!((mask[j] >> m) & 1u)) continue;
+        member_tiles[cursor[m]] = (int)j;
+        tile_p[at++] = cursor[m]++;
+      }
+    }
+  }
+  free(t);
+  free(mask);
+  return nt;
+}
+
+// One launch sequence of the cohort top-k for at most MAX_COHORT members,
+// member m over its windows (raw_cohort_tiles' arguments). The wrapper's
+// scratch (a->r.scratch) is laid out as CohortScratch says, a->r.tiles at
+// its table; the keys (a->r.keys) n_tiles x TILE. One memset zeroes the
+// head, the members' state and histograms and the look-back status; the
+// table is built here and copied to the card (from pageable memory: staged
+// before the call returns); then cohort_topk_keys, three cohort_topk_refine
+// (none when no member has k window rows: no k-th key to find) and
+// cohort_topk_write, cooperative. *kernels gets the kernels launched.
+int raw_topk_cohort_launch(const CohortRawArgs* a, const long long* windows,
+                           const long long* win_off, int* kernels, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int M = a->members;
-  if (M < 1 || M > MAX_COHORT) return (int)cudaErrorInvalidValue;
-  TRY(cudaSetDevice(a->r.device));
-  const long long nt = host_tiles(a->r.n_rows);
-  int grid, wgrid, fgrid;
-  TRY(grid_for(a->r.device, nt, 8, &grid));
-  TRY(grid_for(a->r.device, nt, 16, &wgrid));
-  TRY(grid_for(a->r.device, (a->r.k + BLOCK - 1) / BLOCK, 8, &fgrid));
-  // the member-on-grid kernels: each member's share, all resident together
-  const int wg = wgrid / M > 0 ? wgrid / M : 1, fg = fgrid / M > 0 ? fgrid / M : 1;
-  cohort_init<<<M, BLOCK, 0, s>>>(*a);
-  LAUNCHED();
-  cohort_keys<<<grid, BLOCK, 0, s>>>(*a);
-  LAUNCHED();
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    if (shift != 24) {
-      cohort_hist<<<grid, BLOCK, 0, s>>>(*a, shift);
-      LAUNCHED();
-    }
-    cohort_pick<<<M, 256, 0, s>>>(*a, shift);
-    LAUNCHED();
+  const long long nt = a->r.n_tiles, items = a->n_items;
+  if (M < 1 || M > MAX_COHORT || nt < 0 || items < 0 || a->r.k < 1 ||
+      a->r.tiles != a->r.scratch + cohort_table_at(M, items))
+    return (int)cudaErrorInvalidValue;
+  long long most_rows = 0;
+  for (int m = 0; m < M; ++m) {
+    long long rows = 0;
+    for (long long w = win_off[m]; w < win_off[m + 1]; ++w) rows += windows[2 * w + 1] - windows[2 * w];
+    most_rows = rows > most_rows ? rows : most_rows;
   }
-  cohort_flags<<<grid, BLOCK, 0, s>>>(*a);
+  TRY(cudaSetDevice(a->r.device));
+  TRY(cudaMemsetAsync(a->r.scratch, 0, sizeof(int) * cohort_items_at(M), s));
+  const long long words = 4 * nt + 2 * items + M + 1;
+  int* host = (int*)malloc(sizeof(int) * words);
+  if (host == nullptr) return (int)cudaErrorMemoryAllocation;
+  int* member_off = host + 4 * nt + items;
+  long long got = -1;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (raw_cohort_tiles(windows, win_off, M, a->r.n_rows, host, host + 4 * nt, member_off,
+                       member_off + M + 1, &got) == nt && got == items)
+    err = cudaMemcpyAsync((void*)a->r.tiles, host, sizeof(int) * words, cudaMemcpyHostToDevice, s);
+  long long most_items = 0;
+  for (int m = 0; m < M && err == cudaSuccess; ++m) {
+    const long long c = member_off[m + 1] - member_off[m];
+    most_items = c > most_items ? c : most_items;
+  }
+  free(host);
+  if (err != cudaSuccess) return (int)err;
+  int grid, sms = 0, per_sm = 0;
+  TRY(grid_for(a->r.device, nt, COHORT_KEYS_BLOCKS_PER_SM, &grid));
+  cohort_topk_keys<<<grid, BLOCK, 0, s>>>(*a);
   LAUNCHED();
-  cohort_scan<<<M, SCAN_THREADS, 0, s>>>(*a);
-  LAUNCHED();
-  cohort_write<<<wg * M, WORDS, 0, s>>>(*a, MODE_STRICT);
-  LAUNCHED();
-  cohort_write<<<wg * M, WORDS, 0, s>>>(*a, MODE_TIE);
-  LAUNCHED();
-  cohort_fill<<<fg * M, BLOCK, 0, s>>>(*a);
-  LAUNCHED();
+  *kernels = 1;
+  TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, a->r.device));
+  if (most_rows >= a->r.k) {
+    // each member's share of eight blocks an SM, over its own items
+    const long long share = (long long)sms * 8 / M > 0 ? (long long)sms * 8 / M : 1;
+    const unsigned gx = (unsigned)(most_items < 1 ? 1 : (most_items < share ? most_items : share));
+    for (int shift = 16; shift >= 0; shift -= 8) {
+      cohort_topk_refine<<<dim3(gx, M), BLOCK, 0, s>>>(*a, shift);
+      LAUNCHED();
+      ++*kernels;
+    }
+  }
+  TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cohort_topk_write, BLOCK, 0));
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long resident = (long long)sms * per_sm;
+  const unsigned wgrid = (unsigned)(items < 1 ? 1 : (items < resident ? items : resident));
+  CohortRawArgs args = *a;
+  void* params[] = {&args};
+  TRY(cudaLaunchCooperativeKernel((const void*)cohort_topk_write, dim3(wgrid), dim3(BLOCK), params,
+                                  0, s));
+  ++*kernels;
   return 0;
 }
 

@@ -35,7 +35,8 @@ Packed entry points keep the reference's serving discipline: one
 content-cached session upload (the allow-list), one per-query int32 dyn
 upload (filter literals bitcast + time bounds + key seeds), one int32
 fetch. ``raw_topk_cohort`` serves B top-k queries of one shape (stacked
-session and dyn rows) in one launch sequence per 32 members; like the
+session and dyn rows, each member's row windows) in one launch sequence per
+32 members, over the tiles of the union of their windows; like the
 reference, no executor route calls it yet.
 """
 
@@ -78,7 +79,7 @@ _I32_MIN = -(2**31)
 LAUNCHES = {"raw_topk": 0, "raw_select": 0, "raw_topk_cohort": 0}
 PLAIN_CALLS = {"raw_topk": 0, "raw_select": 0, "raw_topk_cohort": 0}
 TILES = {"raw_select": 0}
-KERNELS = {"raw_topk": 0}
+KERNELS = {"raw_topk": 0, "raw_topk_cohort": 0}
 # what a top-k's keys kernel counts on the card as it runs, added to the
 # wrapper's ``stats``: the rows it decoded and the tiles it walked
 TOPK_STATS = ("rows", "tiles")
@@ -334,9 +335,11 @@ def raw_select_plain(series_parts, ts_parts, values, session, dyn, *, select_slo
     return torch.cat([head, out])
 
 
-def raw_topk_cohort_plain(series_parts, ts_parts, values, sessions, dyns, **kw):
+def raw_topk_cohort_plain(series_parts, ts_parts, values, sessions, dyns, windows=None, **kw):
     """Plain version of ``raw_topk_cohort``: ``raw_topk_plain`` per member
-    (row b of ``sessions`` and ``dyns``); int32[B, k]."""
+    (row b of ``sessions`` and ``dyns``); int32[B, k]. It takes ``windows``
+    and ignores them, as ``raw_topk_plain`` does."""
+    del windows
     rows = [raw_topk_plain(series_parts, ts_parts, values, sessions[b], dyns[b], **kw)
             for b in range(sessions.shape[0])]
     if rows:
@@ -379,7 +382,7 @@ class _CohortRawArgs(ctypes.Structure):
         ("r", _RawArgs),
         ("sessions", ctypes.c_void_p),
         ("dyns", ctypes.c_void_p),
-        ("member_words", ctypes.c_longlong),
+        ("n_items", ctypes.c_longlong),
         ("members", ctypes.c_int),
         ("sess_w", ctypes.c_int),
         ("dyn_w", ctypes.c_int),
@@ -387,16 +390,17 @@ class _CohortRawArgs(ctypes.Structure):
     ]
 
 
-# rows per tile of the kernels' ordered compaction, the state and
-# histogram words at the head of their scratch, and the members of one
-# cohort launch sequence (checked at load)
+# rows per tile of the kernels' tile tables, and the members of one cohort
+# launch sequence (checked at load)
 TILE = 4096
-_HEAD_WORDS = 16 + 256
 MAX_COHORT = 32
-# the top-k's state and histogram words, before its per-tile words; the
-# keys kernel's counts (TOPK_STATS, 64-bit) at state word 16
+# the top-k's state and histogram words, before its per-tile words (a
+# cohort member's too); the keys kernel's counts (TOPK_STATS, 64-bit) at
+# state word 16
 _TOPK_HEAD = 32 + 4 * 256
 _TOPK_STATS_AT = 16
+# the words of a cohort launch's head, before its members' states
+_COHORT_HEAD = 16
 
 _lib = None
 
@@ -421,26 +425,24 @@ def _kernels():
         lib.raw_select_tiles.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                                          ctypes.c_void_p]
         lib.raw_select_tiles.restype = ctypes.c_longlong
-        lib.raw_topk_cohort_launch.argtypes = [ctypes.POINTER(_CohortRawArgs), ctypes.c_void_p]
+        lib.raw_cohort_tiles.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                         ctypes.c_longlong] + [ctypes.c_void_p] * 4 + [
+                                             ctypes.POINTER(ctypes.c_longlong)]
+        lib.raw_cohort_tiles.restype = ctypes.c_longlong
+        lib.raw_topk_cohort_launch.argtypes = [ctypes.POINTER(_CohortRawArgs), ctypes.c_void_p,
+                                               ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                                               ctypes.c_void_p]
         lib.raw_topk_cohort_launch.restype = ctypes.c_int
         lib.scan_topk_error_string.argtypes = [ctypes.c_int]
         lib.scan_topk_error_string.restype = ctypes.c_char_p
         sizes = (ctypes.c_longlong * 8)()
         lib.scan_topk_abi(sizes)
-        want = [ctypes.sizeof(_RawArgs), MAX_FIELDS, MAX_FILTERS, TILE, _HEAD_WORDS,
+        want = [ctypes.sizeof(_RawArgs), MAX_FIELDS, MAX_FILTERS, TILE, _COHORT_HEAD,
                 ctypes.sizeof(_CohortRawArgs), MAX_COHORT, _TOPK_HEAD]
         if list(sizes) != want:
             raise RuntimeError(f"scan_topk ABI mismatch: kernel {list(sizes)} vs {want}")
         _lib = lib
     return _lib
-
-
-def _scratch_words(n_rows: int, cohort: bool = False) -> int:
-    """int32 words of the top-k kernels' scratch for ``n_rows`` rows: state
-    and histogram, two streams of per-tile counts and of ballot bit words;
-    a cohort member's adds the bit words of the rows it passes."""
-    tiles = -(-n_rows // TILE)
-    return _HEAD_WORDS + 2 * tiles + (3 if cohort else 2) * tiles * (TILE // 32)
 
 
 def select_tiles(windows, n_rows: int) -> np.ndarray:
@@ -463,6 +465,77 @@ def select_tiles(windows, n_rows: int) -> np.ndarray:
     row0 = np.repeat(w[:, 0], per) + TILE * (np.arange(int(per.sum())) - first)
     row1 = np.minimum(row0 + TILE, np.repeat(w[:, 1], per))
     return np.stack([row0, row1], axis=1).astype(np.int32)
+
+
+def _member_windows(windows, members: int, n_rows: int, check: bool) -> list:
+    """Each member's windows as int64[W, 2], with ``check`` checked as
+    ``select_tiles`` checks them (a launch's table builder checks them in
+    C); None: one window over every row for each member."""
+    if windows is None:
+        return [np.array([[0, n_rows]], dtype=np.int64)] * members
+    _check(len(windows) == members, f"{len(windows)} window lists for {members} members")
+    if check:
+        for w in windows:
+            select_tiles(w, n_rows)
+    return [np.asarray(w, dtype=np.int64).reshape(-1, 2) for w in windows]
+
+
+def cohort_tiles(windows, n_rows: int):
+    """The cohort top-k's tile table (the launcher builds it in C,
+    ``raw_cohort_tiles``) for the members' windows (``_member_windows``):
+
+    - tiles int32[n_tiles, 4]: (row0, row1, mask, item_off). The union of
+      every member's windows, merged where they overlap or touch, cut into
+      tiles of at most TILE rows inside one union window, in row order;
+      ``mask`` has bit m where a window of member m meets the tile.
+    - tile_p int32[items]: from ``item_off`` on, one per member of the
+      tile's mask in bit order, its item's index.
+    - member_off int32[B + 1] and member_tiles int32[items]: items are
+      numbered member by member, each member's tiles in row order."""
+    members = len(windows)
+    _check(1 <= members <= MAX_COHORT, f"{members} members: 1 to {MAX_COHORT} a table")
+    spans = np.concatenate([np.asarray(w, dtype=np.int64).reshape(-1, 2) for w in windows])
+    spans = spans[spans[:, 1] > spans[:, 0]]
+    spans = spans[np.argsort(spans[:, 0], kind="stable")]
+    union = []
+    for start, end in spans.tolist():
+        if union and start <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], end)
+        else:
+            union.append([start, end])
+    rows = select_tiles(np.array(union, dtype=np.int64).reshape(-1, 2), n_rows).astype(np.int64)
+    nt = len(rows)
+    member = np.zeros((nt, members), dtype=bool)
+    for m, w in enumerate(windows):
+        select_tiles(w, n_rows)  # checked as the builder checks them
+        w = np.asarray(w, dtype=np.int64).reshape(-1, 2)
+        w = w[w[:, 1] > w[:, 0]]
+        lo = np.searchsorted(rows[:, 1], w[:, 0], side="right")
+        hi = np.searchsorted(rows[:, 0], w[:, 1], side="left")
+        edge = np.zeros(nt + 1, dtype=np.int64)
+        np.add.at(edge, lo, 1)
+        np.add.at(edge, hi, -1)
+        member[:, m] = np.cumsum(edge)[:nt] > 0
+    mask = (member.astype(np.int64) << np.arange(members)).sum(axis=1)
+    count = member.sum(axis=1)
+    tile_of, member_of = np.nonzero(member)  # tile by tile, bits in order
+    order = np.lexsort((tile_of, member_of))  # member by member, in row order
+    tile_p = np.empty(len(order), dtype=np.int64)
+    tile_p[order] = np.arange(len(order))
+    tiles = np.stack([rows[:, 0], rows[:, 1], mask, np.cumsum(count) - count], axis=1)
+    member_off = np.concatenate([[0], np.cumsum(member.sum(axis=0))])
+    return (tiles.astype(np.int64).astype(np.uint32).view(np.int32).reshape(nt, 4),
+            tile_p.astype(np.int32), member_off.astype(np.int32),
+            tile_of[order].astype(np.int32))
+
+
+def cohort_scratch_words(members: int, n_tiles: int, items: int) -> tuple[int, int]:
+    """(where the table starts, all words) of a cohort launch sequence's
+    int32 scratch: the head and each member's state and histograms (zeroed
+    by a memset), the items' offsets, counts, maxima and ballot words, then
+    the table, 16-byte aligned (csrc/scan_topk.cu ``CohortScratch``)."""
+    at = (_COHORT_HEAD + members * _TOPK_HEAD + (5 + TILE // 32) * items + 3) // 4 * 4
+    return at, at + 4 * n_tiles + 2 * items + members + 1
 
 
 def _args(series_parts, ts_parts, values, session, dyn, numeric_filters, value_layouts,
@@ -585,16 +658,21 @@ def raw_topk_packed(series_parts, ts_parts, values, session, dyn, *, k: int,
 def raw_topk_cohort(series_parts, ts_parts, values, sessions, dyns, *, k: int,
                     descending: bool, key_is_ts: bool, key_field: int, numeric_filters,
                     value_layouts: tuple = (), ts_layout: tuple = ("raw",),
-                    series_layout: tuple = ("raw",)):
+                    series_layout: tuple = ("raw",), windows=None):
     """-> int32[B, k]: row b the slots ``raw_topk_packed`` gives for session
-    row b (int32[B, S + 1]) and dyn row b (int32[B, n_f + 4]) over the same
-    resident columns; -1 in slots with no passing row.
+    row b (int32[B, S + 1]), dyn row b (int32[B, n_f + 4]) and window list
+    b over the same resident columns; -1 in slots with no passing row.
 
-    A CUDA input launches the cohort top-k (csrc/scan_topk.cu) once per
-    MAX_COHORT members; a CPU input runs ``raw_topk_cohort_plain``. The
-    scratch is one int32 key per row, shared by the members, and for each
-    member of a launch sequence its state, tile counts and three bit
-    words per 32 rows (at 2**26 rows: 256 MB of keys and 25 MB a member)."""
+    ``windows``: None (every resident row, for every member) or B lists of
+    sorted, disjoint [start, end) row ranges, each holding every row its
+    member's mask can pass (the executor's ``_raw_candidate_estimate``,
+    ``exact=False``, per member); checked on every device. A CUDA input
+    launches the cohort top-k (csrc/scan_topk.cu ``raw_topk_cohort_launch``)
+    once per MAX_COHORT members: a memset, the tile table's copy,
+    ``cohort_topk_keys``, three ``cohort_topk_refine`` (none when no member
+    has k window rows) and ``cohort_topk_write``, over the tiles of the
+    union of the members' windows; its scratch is sized by those tiles. A
+    CPU input runs ``raw_topk_cohort_plain``, which ignores the windows."""
     values = tuple(values)
     layouts = value_layouts or tuple(_dense_layout(p) for p in values)
     kw = dict(k=k, descending=descending, key_is_ts=key_is_ts, key_field=key_field,
@@ -602,38 +680,55 @@ def raw_topk_cohort(series_parts, ts_parts, values, sessions, dyns, *, k: int,
               series_layout=series_layout)
     _check(k >= 1, f"k {k} must be at least 1")
     _check(key_is_ts or 0 <= key_field < len(values), f"key field {key_field} out of range")
+    B = sessions.shape[0]
     dev = sessions.device
+    wins = _member_windows(windows, B, layout_rows(series_parts, series_layout),
+                           check=dev.type == "cpu")
     if dev.type == "cpu":
         _count(PLAIN_CALLS, "raw_topk_cohort")
         return raw_topk_cohort_plain(series_parts, ts_parts, values, sessions, dyns, **kw)
     a, n_rows = _args(series_parts, ts_parts, values, sessions, dyns, numeric_filters, layouts,
                       ts_layout, series_layout, ndim=2)
-    B = sessions.shape[0]
     _check(dyns.shape[0] == B, "one dyn row per session row")
+    _check(k < 2**31, "k must fit int32")
     out = torch.empty((B, k), dtype=torch.int32, device=dev)
     if B == 0:
         return out
     lib = _kernels()
-    words = _scratch_words(n_rows, cohort=True)
-    keys = torch.empty(n_rows, dtype=torch.int32, device=dev)
-    scratch = torch.empty(min(B, MAX_COHORT) * words, dtype=torch.int32, device=dev)
-    a.keys, a.scratch, a.k = keys.data_ptr(), scratch.data_ptr(), k
+    a.k = k
     a.descending, a.key_is_ts, a.key_field = int(descending), int(key_is_ts), key_field
     c = _CohortRawArgs()
-    c.member_words, c.sess_w, c.dyn_w = words, sessions.shape[1], dyns.shape[1]
+    c.sess_w, c.dyn_w = sessions.shape[1], dyns.shape[1]
     stream = torch.cuda.current_stream(dev).cuda_stream
     for b0 in range(0, B, MAX_COHORT):
-        c.members = min(MAX_COHORT, B - b0)
-        a.out = out[b0].data_ptr()
+        M = min(MAX_COHORT, B - b0)
+        part = wins[b0:b0 + M]
+        flat = np.ascontiguousarray(np.concatenate(part), dtype=np.int64)
+        win_off = np.cumsum([0] + [len(w) for w in part], dtype=np.int64)
+        items = ctypes.c_longlong(0)
+        n_tiles = lib.raw_cohort_tiles(flat.ctypes.data, win_off.ctypes.data, M, n_rows, None,
+                                       None, None, None, ctypes.byref(items))
+        _check(n_tiles >= 0, "windows must be sorted, disjoint [start, end) ranges inside "
+                             f"[0, {n_rows})" if n_tiles == -1 else "no host memory for the table")
+        at, words = cohort_scratch_words(M, n_tiles, items.value)
+        scratch = torch.empty(words, dtype=torch.int32, device=dev)
+        keys = torch.empty(max(n_tiles, 1) * TILE, dtype=torch.int32, device=dev)
+        a.scratch, a.keys, a.out = scratch.data_ptr(), keys.data_ptr(), out[b0].data_ptr()
+        a.tiles, a.n_tiles = a.scratch + 4 * at, n_tiles
         c.r = a
         c.sessions, c.dyns = sessions[b0].data_ptr(), dyns[b0].data_ptr()
-        err = lib.raw_topk_cohort_launch(ctypes.byref(c), stream)
+        c.n_items, c.members = items.value, M
+        kernels = ctypes.c_int(0)
+        err = lib.raw_topk_cohort_launch(ctypes.byref(c), flat.ctypes.data, win_off.ctypes.data,
+                                         ctypes.byref(kernels), stream)
         if err != 0:
             raise RuntimeError(
                 f"raw_topk_cohort_launch failed: {lib.scan_topk_error_string(err).decode()} "
                 f"({err})"
             )
-        _count(LAUNCHES, "raw_topk_cohort")
+        with _COUNTS_LOCK:
+            LAUNCHES["raw_topk_cohort"] += 1
+            KERNELS["raw_topk_cohort"] += kernels.value
     return out
 
 

@@ -6,7 +6,7 @@ each turn a process of its own that imports that checkout's
 
     mkdir -p chip_proof/parent
     git archive HEAD~1 horaedb_tpu_torch | tar -x -C chip_proof/parent
-    python3 merge_ab.py --other chip_proof/parent [--compaction]
+    python3 merge_ab.py --other chip_proof/parent [--compaction] [--shapes read,chunk,dist]
 
 Each turn builds the keys of the two main-path calls of chip_smoke.py's
 phase 8 (BASELINE config 5: 64 overlapping runs of 1000 series in one 2 h
@@ -29,6 +29,14 @@ with its kernel launches a call and the radix passes it took, the
 dispatch's host wall time, and a digest of perm and keep over the real
 rows, which must be the same in every turn. The kernel is also held
 against the checkout's plain version on the same words (bit-equal).
+``--shapes`` picks the calls (read and chunk by default); ``dist`` is the
+sharded merge (B7c) of chip_smoke.py's phase 22: a compaction chunk of
+MERGE_CHUNK_ROWS rows over MESH_SHARDS logical shards of the card, through
+the checkout's own ``dist_merge_dedup``, its shards' launches, the host wall
+time of the whole call (median of 5) and of its split and staging, and in
+one traced call the span of its device work (copies and kernels, the first
+start to the last end; shards sorted side by side shorten it) and the sum
+of its sort kernels' times.
 ``--compaction`` adds chip_smoke.py's phase 8 to each turn (the table of
 64 SSTs written, the SELECT that runs the read merge, ``compact()``, the
 SELECT after, each checked against numpy), for its wall times and host
@@ -52,7 +60,7 @@ from ab_turns import REPO, emit, enter, events_ms, run_turns, say, write_report
 # every kernel either checkout's sort launches, by base name
 NAMES = ("Memset", "init_hist", "plan_passes", "tile_hist", "digit_scan", "tile_scatter",
          "sort_pass", "epilogue")
-SHAPES = ("read", "chunk")
+SHAPES = ("read", "chunk", "dist")
 
 
 def config5_keys(C):
@@ -183,6 +191,67 @@ def arm_shape(torch, C, md, card, shape, dispatch, flush) -> dict:
     return res
 
 
+def base_name(e) -> str:
+    """A profiler event's kernel name without its signature and template
+    arguments."""
+    return e.name.split("(")[0].split("<")[0].strip().split(" ")[-1]
+
+
+def arm_dist(torch, C, card) -> dict:
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from horaedb_tpu_torch.ops import merge_dedup as md
+    from horaedb_tpu_torch.parallel import dist_merge
+    from horaedb_tpu_torch.parallel.mesh import Mesh
+
+    tsid, ts, seq = C._merge_chunk(C.MERGE_CHUNK_ROWS)
+    mesh = Mesh.logical(torch.device("cuda", 0), C.MESH_SHARDS)
+    before = md.LAUNCHES["f32"]
+    got = dist_merge.dist_merge_dedup(mesh, tsid, ts, seq)
+    launches = md.LAUNCHES["f32"] - before
+    perm, keep = md.merge_dedup_permutation(tsid, ts, seq, device="cuda")
+    if not np.array_equal(got, perm[keep]):
+        raise AssertionError("dist: the sharded merge differs from the one-device merge")
+    wall = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dist_merge.dist_merge_dedup(mesh, tsid, ts, seq)
+        wall.append((time.perf_counter() - t) * 1e3)
+    stage = []
+    for _ in range(3):  # the host split and staging alone (the parent's uploads too)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dist_merge.shard_words(mesh, tsid, ts, seq)
+        torch.cuda.synchronize()
+        stage.append((time.perf_counter() - t) * 1e3)
+    spans, sums = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            dist_merge.dist_merge_dedup(mesh, tsid, ts, seq)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if dev:  # every kernel and copy of the call, first start to last end
+            spans.append((max(e.time_range.end for e in dev)
+                          - min(e.time_range.start for e in dev)) / 1e3)
+            sums.append(sum(e.time_range.elapsed_us() for e in dev
+                            if base_name(e) in NAMES) / 1e3)
+    res = {"rows": len(tsid), "launches": launches, "call_ms": statistics.median(wall),
+           "stage_ms": statistics.median(stage),
+           "span_ms": statistics.median(spans) if spans else None,
+           "sum_ms": statistics.median(sums) if sums else None,
+           "digest": hashlib.sha1(got.tobytes()).hexdigest()}
+    say(f"dist ({len(tsid)} rows, {C.MESH_SHARDS} logical shards, {launches} sorts): the "
+        f"call {res['call_ms']:.1f} ms by the host clock, its split and staging "
+        f"{res['stage_ms']:.1f} ms; the call's device work (copies and kernels) spans "
+        f"{res['span_ms']} ms on the device timeline, its sorts' kernels {res['sum_ms']} ms "
+        f"summed [{card}]")
+    return res
+
+
 def arm(opt) -> int:
     """One turn: this process imports the checkout ``opt.arm``."""
     enter(opt.arm)
@@ -194,13 +263,19 @@ def arm(opt) -> int:
     C.DEV = "cuda"
     card = C.phase_card(torch)
     md._kernels()
-    t = time.perf_counter()
-    calls = main_path_calls(C, md)
-    say(f"config 5 keys and packing: {time.perf_counter() - t:.1f} s")
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    shapes = opt.shapes.split(",")
     res = {"dir": opt.arm, "card": card}
-    for shape in SHAPES:
-        res[shape] = arm_shape(torch, C, md, card, shape, calls[shape], flush)
+    if "dist" in shapes:
+        res["dist"] = arm_dist(torch, C, card)
+    calls = None
+    if {"read", "chunk"} & set(shapes):
+        t = time.perf_counter()
+        calls = main_path_calls(C, md)
+        say(f"config 5 keys and packing: {time.perf_counter() - t:.1f} s")
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        for shape in ("read", "chunk"):
+            if shape in shapes:
+                res[shape] = arm_shape(torch, C, md, card, shape, calls[shape], flush)
     if opt.compaction:
         del calls
         out = C.phase_compaction(torch, C.COMPACTION_ROWS)["out"]
@@ -216,14 +291,31 @@ def main(argv) -> int:
     ap.add_argument("--other", help="a checkout of the other commit")
     ap.add_argument("--compaction", action="store_true",
                     help="each turn also runs chip_smoke.py's phase 8")
+    ap.add_argument("--shapes", default="read,chunk",
+                    help=f"comma-separated, of {', '.join(SHAPES)}")
     ap.add_argument("--arm", help="(internal) run one turn with this checkout")
     opt = ap.parse_args(argv)
+    shapes = opt.shapes.split(",")
+    if not set(shapes) <= set(SHAPES):
+        ap.error(f"--shapes takes some of {', '.join(SHAPES)}")
     if opt.arm:
         return arm(opt)
-    turns = run_turns(__file__, opt.other, ["--compaction"] if opt.compaction else [])
+    turns = run_turns(__file__, opt.other, ["--shapes", opt.shapes]
+                      + (["--compaction"] if opt.compaction else []))
     card = write_report("merge_ab.json", turns)
     same = True
-    for shape in SHAPES:
+    if "dist" in shapes:
+        equal = len({t["dist"]["digest"] for t in turns}) == 1
+        same &= equal
+        say("dist: the call's device span ms " + " / ".join(
+            f"{t['label']} {t['dist']['span_ms']}" for t in turns)
+            + "; its sorts' kernels summed ms " + " / ".join(str(t["dist"]["sum_ms"])
+                                                            for t in turns)
+            + "; the call ms " + " / ".join(f"{t['dist']['call_ms']:.1f}" for t in turns)
+            + "; its staging ms " + " / ".join(f"{t['dist']['stage_ms']:.1f}" for t in turns)
+            + "; sorts " + " / ".join(str(t["dist"]["launches"]) for t in turns)
+            + f"; the same rows in every turn: {equal} [{card}]")
+    for shape in (x for x in ("read", "chunk") if x in shapes):
         equal = len({t[shape]["digest"] for t in turns}) == 1
         same &= equal
         say(f"{shape}: sort ms " + " / ".join(

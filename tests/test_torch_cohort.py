@@ -12,7 +12,12 @@ PyTorch versions):
   segment's sum of |x| (tests/torch_parity.py); against the port's solo
   version the whole packed row is bit-equal (the same arithmetic).
 - ``raw_topk_cohort`` (B4c) against the reference's and against the
-  port's ``raw_topk_packed`` per member: slots bit-equal, order included.
+  port's ``raw_topk_packed`` per member: slots bit-equal, order included;
+  with per-member row windows from the executor's candidate estimate
+  (overlapping, disjoint, empty), which must cover every row a member's
+  mask passes; malformed windows refused; the kernel's tile table
+  (``cohort_tiles``, its member masks and item lists) against a direct
+  count.
 - ``selective_cached_scan_agg`` (B1d) against the reference's.
 - ``Executor.execute_cohort`` against the reference's on the same table
   and plans, row for row: a fused cohort, a lone member that regains the
@@ -274,6 +279,221 @@ def test_topk_cohort_signed_zeros_at_the_threshold(k):
     rng = np.random.default_rng(k)
     for desc in (True, False):
         _topk_cohort_case(rng, cols, 3, k, False, desc, ">")
+
+
+def _decoded(cols):
+    """The columns' series codes, relative timestamps and values, decoded
+    by the port (torch tensors) as a launch reads them."""
+    from horaedb_tpu_torch.ops import encoding as penc
+
+    bf = [lay[0] == "bf16" for lay in cols["value_layouts"]]
+    return penc.decode_layouts(_port_parts(cols["series"]), _port_parts(cols["ts"]),
+                               tuple(_port_parts(p, b) for p, b in zip(cols["values"], bf)),
+                               cols["series_layout"], cols["ts_layout"], cols["value_layouts"])
+
+
+def _estimate_windows(cols, sessions, dyns, n_f):
+    """Each member's windows as the executor computes them for a top-k
+    (``_raw_candidate_estimate(..., exact=False)``), over an entry whose
+    series time index is built from the columns' real rows."""
+    from types import SimpleNamespace
+
+    from horaedb_tpu_torch.query.scan_cache import SeriesTimeIndex
+
+    sc, tr, _ = _decoded(cols)
+    codes, ts = sc.numpy().astype(np.int64), tr.numpy().astype(np.int32)
+    S = cols["S"]
+    n_valid = int((codes < S).sum())
+    offsets = np.searchsorted(codes[:n_valid], np.arange(S + 1))
+    entry = SimpleNamespace(n_valid=n_valid, min_ts=0,
+                            max_ts=int(ts[:n_valid].max()) if n_valid else 0,
+                            time_index=SeriesTimeIndex(ts[:n_valid], offsets))
+    out = []
+    for b in range(len(sessions)):
+        allowed = sessions[b, :S] != 0
+        # the executor's range, clamped to the entry's timestamps
+        lo, hi = max(int(dyns[b, n_f]), entry.min_ts), min(int(dyns[b, n_f + 1]), entry.max_ts + 1)
+        if hi <= lo or not allowed.any():  # the executor launches nothing here
+            out.append(np.empty((0, 2), np.int64))
+            continue
+        out.append(port_executor.Executor._raw_candidate_estimate(
+            None, entry, allowed, lo, hi, exact=False)[1])
+    return out
+
+
+def _window_members(rng, cols, kind, B):
+    """B members' allow lists and (lo, hi): ``overlapping`` members allow
+    overlapping series sets over overlapping time ranges; ``disjoint`` one
+    series each, every member another; ``empty`` members with no series, no
+    time and a range past the data beside one that passes rows."""
+    S, ts_max = cols["S"], cols["ts_max"]
+    out = []
+    for b in range(B):
+        allow = np.zeros(S + 1, np.int32)
+        lo, hi = 0, ts_max + 1
+        if kind == "overlapping":
+            allow[:S] = rng.random(S) < 0.5
+            allow[b % S] = 1
+            lo = int(rng.integers(0, ts_max // 2 + 1))
+            hi = lo + int(rng.integers(1, ts_max + 2))
+        elif kind == "disjoint":
+            allow[b % S] = 1
+        else:
+            allow[:S] = b != 1
+            if b == 2:
+                lo = hi = 50
+            if b == 3:
+                lo, hi = ts_max + 1, ts_max + 100
+        out.append((allow, lo, hi))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["overlapping", "disjoint", "empty"])
+@pytest.mark.parametrize("key_is_ts,desc", KEYS, ids=["ts-desc", "ts-asc", "f32-desc", "f32-asc"])
+@pytest.mark.parametrize("li", range(len(LAYOUTS)), ids=lambda i: "-".join(
+    [LAYOUTS[i][0], LAYOUTS[i][1], *LAYOUTS[i][2]]))
+def test_topk_cohort_windows_from_the_candidate_estimate(li, key_is_ts, desc, kind):
+    """Per-member windows from the executor's candidate estimate cover every
+    row each member's mask passes; the windowed cohort answers as the
+    unwindowed one and the reference's; its tile table marks each tile with
+    the members whose windows meet it."""
+    rng = np.random.default_rng(_seed("windows", li, key_is_ts, desc, kind))
+    cols = _columns(rng, N, LAYOUTS[li])
+    i = li * 4 + KEYS.index((key_is_ts, desc))
+    B = {"overlapping": 5, "disjoint": 6, "empty": 4}[kind]
+    k = (16, 128, 1)[i % 3]
+    op = OPS[i % 6]
+    filters = ((1, OPS.index(op)),)
+    members = _window_members(rng, cols, kind, B)
+    sessions = np.stack([a for a, _, _ in members])
+    dyns = np.stack([ref_topk.pack_raw_dyn([cols["lits"][1]], lo, hi,
+                                           *ref_topk.topk_key_bounds(desc, key_is_ts, lo, hi))
+                     for _, lo, hi in members])
+    windows = _estimate_windows(cols, sessions, dyns, 1)
+    sc, tr, vals = _decoded(cols)
+    n = len(sc)
+    for b in range(B):
+        lits, lo, hi, _, _ = port_topk._unpack_dyn(torch.from_numpy(dyns[b]), filters)
+        m = port_topk._raw_mask(sc, tr, vals, torch.from_numpy(sessions[b] != 0), lits, lo, hi,
+                                filters).numpy()
+        inside = np.zeros(n, bool)
+        for a, e in windows[b]:
+            inside[a:e] = True
+        assert inside[m].all(), f"member {b}'s windows miss a passing row"
+    if kind == "empty":
+        assert all(len(windows[b]) == 0 for b in (1, 2, 3)) and len(windows[0])
+    layouts = dict(value_layouts=cols["value_layouts"], ts_layout=cols["ts_layout"],
+                   series_layout=cols["series_layout"])
+    kw = dict(k=k, descending=desc, key_is_ts=key_is_ts, key_field=0, numeric_filters=filters,
+              **layouts)
+    bf = [lay[0] == "bf16" for lay in cols["value_layouts"]]
+    p_args = (_port_parts(cols["series"]), _port_parts(cols["ts"]),
+              tuple(_port_parts(p, b) for p, b in zip(cols["values"], bf)))
+    r_vals = tuple((_ref_parts(p, b),) if len(p) == 1 else _ref_parts(p)
+                   for p, b in zip(cols["values"], bf))
+    if all(lay == ("raw",) for lay in cols["value_layouts"]):
+        r_vals = jnp.asarray(np.stack([p[0] for p in cols["values"]]))
+    want = np.asarray(ref_topk.raw_topk_cohort(
+        _ref_parts(cols["series"]), _ref_parts(cols["ts"]), r_vals, jnp.asarray(sessions),
+        jnp.asarray(dyns), **kw))
+    s_t, d_t = torch.from_numpy(sessions), torch.from_numpy(dyns)
+    got = port_topk.raw_topk_cohort(*p_args, s_t, d_t, windows=windows, **kw)
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(got, port_topk.raw_topk_cohort(*p_args, s_t, d_t, **kw))
+    for b in range(B):
+        solo = port_topk.raw_topk_packed(*p_args, s_t[b], d_t[b], windows=windows[b], **kw)
+        assert torch.equal(solo, got[b]), b
+    if kind == "empty":
+        assert (got[1:] == -1).all()
+    _check_cohort_tiles(windows, n)
+
+
+def _check_cohort_tiles(windows, n):
+    """``cohort_tiles`` against a direct count: the tiles cut the union of
+    the windows in row order, at most TILE rows each and inside one union
+    window; bit m of a tile's mask is set exactly where a window of member
+    m meets it; the item lists enumerate (member, tile) pairs member by
+    member, and each tile's items in bit order."""
+    tiles, tile_p, member_off, member_tiles = port_topk.cohort_tiles(windows, n)
+    B = len(windows)
+    union = np.zeros(n, bool)
+    for w in windows:
+        for a, e in w:
+            union[a:e] = True
+    covered = np.zeros(n, bool)
+    for row0, row1, _, _ in tiles:
+        assert 0 < row1 - row0 <= port_topk.TILE and union[row0:row1].all()
+        assert not covered[row0:row1].any()
+        covered[row0:row1] = True
+    assert np.array_equal(covered, union)
+    assert np.all(np.diff(tiles[:, 0]) > 0)
+    pairs = []
+    for t, (row0, row1, mask, item_off) in enumerate(tiles):
+        mask = int(np.uint32(mask))
+        for m, w in enumerate(windows):
+            meets = any(a < row1 and e > row0 for a, e in w)
+            assert bool(mask >> m & 1) == meets, (t, m)
+        bits = [m for m in range(B) if mask >> m & 1]
+        assert item_off == len(pairs)
+        pairs += [(m, t) for m in bits]
+    assert len(tile_p) == len(member_tiles) == len(pairs)
+    by_member = sorted(pairs)
+    assert np.array_equal(member_tiles, [t for _, t in by_member])
+    assert np.array_equal(member_off, np.searchsorted([m for m, _ in by_member],
+                                                      np.arange(B + 1)))
+    assert [by_member[p] for p in tile_p] == pairs
+
+
+def test_cohort_tiles_of_overlapping_windows():
+    """32 members, windows that overlap across members, touch, start inside
+    a 128-row block, span several tiles or hold one row; a member with
+    none; the scratch they need grows with their tiles, not the rows."""
+    rng = np.random.default_rng(5)
+    n = 1 << 17
+    windows = []
+    for m in range(32):
+        edges = np.unique(rng.integers(0, n + 1, 2 * int(rng.integers(1, 9))))
+        w = edges[: len(edges) // 2 * 2].reshape(-1, 2)
+        windows.append(np.empty((0, 2), np.int64) if m == 7 else w)
+    windows[3] = np.array([[100, 101], [4095, 4097], [9000, 9000], [9001, 20_000]])
+    windows[4] = np.array([[0, 4096], [4096, 8192]])  # touching: one union window
+    _check_cohort_tiles(windows, n)
+    member_off = port_topk.cohort_tiles(windows, n)[2]
+    assert member_off[8] == member_off[7]  # no items for member 7
+    small = port_topk.cohort_scratch_words(32, 3, 3)
+    assert small[1] < 64 << 10 and small[0] % 4 == 0
+    # two union windows of three members: items member by member, and each
+    # tile's in bit order
+    t, p, off, mt = port_topk.cohort_tiles(
+        [np.array([[10, 20]]), np.array([[0, 5]]), np.array([[15, 40]])], 100)
+    assert t.tolist() == [[0, 5, 0b010, 0], [10, 40, 0b101, 1]]
+    assert p.tolist() == [1, 0, 2] and off.tolist() == [0, 1, 2, 3] and mt.tolist() == [1, 0, 1]
+
+
+@pytest.mark.parametrize("bad", [
+    "unsorted", "overlapping", "past_the_rows", "negative", "reversed", "members"])
+def test_topk_cohort_refuses_malformed_windows(bad):
+    """Windows that are unsorted, overlap within a member, reach past the
+    rows or below 0, end before they start, or do not give one list a
+    member raise on the CPU, as they would before a launch."""
+    rng = np.random.default_rng(9)
+    cols = _columns(rng, N, LAYOUTS[0])
+    sessions = np.ones((2, cols["S"] + 1), np.int32)
+    dyns = np.stack([ref_topk.pack_raw_dyn([0.0], 0, cols["ts_max"] + 1,
+                                           *ref_topk.topk_key_bounds(True, True, 0,
+                                                                     cols["ts_max"] + 1))] * 2)
+    good = np.array([[0, 100], [200, N]], np.int64)
+    wrong = {"unsorted": [[200, 300], [0, 100]], "overlapping": [[0, 150], [100, 300]],
+             "past_the_rows": [[0, N + 1]], "negative": [[-1, 10]], "reversed": [[50, 40]]}
+    windows = [good] if bad == "members" else [good, np.array(wrong[bad], np.int64)]
+    p_args = (_port_parts(cols["series"]), _port_parts(cols["ts"]),
+              tuple(_port_parts(p) for p in cols["values"]))
+    with pytest.raises(ValueError):
+        port_topk.raw_topk_cohort(*p_args, torch.from_numpy(sessions), torch.from_numpy(dyns),
+                                  k=16, descending=True, key_is_ts=True, key_field=0,
+                                  numeric_filters=(), value_layouts=cols["value_layouts"],
+                                  ts_layout=cols["ts_layout"], series_layout=cols["series_layout"],
+                                  windows=windows)
 
 
 # ---- B1d: the selective cached scan-aggregate ----------------------------------

@@ -392,6 +392,112 @@ def test_launcher_tile_table_is_select_tiles(card):
         assert lib.raw_select_tiles(b.ctypes.data, len(b), 10, None) == -1
 
 
+@pytest.mark.parametrize("windows", [None, "series", "padded"], ids=["all", "series", "padded"])
+@pytest.mark.parametrize("key_is_ts,desc", chip_smoke.RAW_KEYS)
+@pytest.mark.parametrize("layout", chip_smoke.RAW_LAYOUTS,
+                         ids=lambda c: "-".join([c[0], c[1], *c[2]]))
+def test_topk_cohort_matches_plain(card, layout, key_is_ts, desc, windows):
+    """The cohort top-k (B4c) against its plain version and against each
+    member's solo top-k over its windows, bit-equal: every layout, key and
+    order, k 1/16/128, B 1/5/32/33 (33: two launch sequences), over every
+    row, over each member's series windows (member 1 allows no series and
+    member 2 no time: no windows) and over windows widened to overlap."""
+    at = chip_smoke.RAW_LAYOUTS.index(layout) * 4 + chip_smoke.RAW_KEYS.index((key_is_ts, desc))
+    rng = np.random.default_rng(at + 100 * len(windows or ""))
+    n = (1 << 16) + 3 * 128
+    cols, lay, n_series, ts_max = chip_smoke._raw_columns(torch, rng, n, layout)
+    k = (1, 16, 128)[at % 3]
+    B = (1, 5, 32, 33)[at % 4]
+    assert chip_smoke._raw_cohort_case(torch, rng, cols, lay, n_series, ts_max, B, k, key_is_ts,
+                                       desc, chip_smoke.OPS[at % 6], f"{layout}", windows) == 1
+
+
+def test_cohort_tile_builder_is_cohort_tiles(card):
+    """The cohort's tile table as its launcher builds it (in C) is the
+    spec's, ``cohort_tiles``, for overlapping, touching and empty windows
+    of up to 32 members; windows one member's list would refuse are
+    refused."""
+    import ctypes
+
+    from horaedb_tpu_torch.ops import scan_topk as T
+
+    lib = T._kernels()
+    rng = np.random.default_rng(11)
+    for _ in range(40):
+        n = int(rng.integers(1, 1 << 20))
+        windows = []
+        for _ in range(int(rng.integers(1, 33))):
+            edges = np.unique(rng.integers(0, n + 1, 2 * int(rng.integers(0, 9))))
+            windows.append(edges[: len(edges) // 2 * 2].reshape(-1, 2).astype(np.int64))
+        M = len(windows)
+        flat = np.ascontiguousarray(np.concatenate(windows), dtype=np.int64)
+        off = np.cumsum([0] + [len(w) for w in windows]).astype(np.int64)
+        want = T.cohort_tiles(windows, n)
+        items = ctypes.c_longlong(0)
+        nt = lib.raw_cohort_tiles(flat.ctypes.data, off.ctypes.data, M, n, None, None, None,
+                                  None, ctypes.byref(items))
+        assert (nt, items.value) == (len(want[0]), len(want[1]))
+        I = items.value
+        buf = np.zeros(4 * nt + 2 * I + M + 1, np.int32)
+        at = buf.ctypes.data
+        lib.raw_cohort_tiles(flat.ctypes.data, off.ctypes.data, M, n, at, at + 16 * nt,
+                             at + 4 * (4 * nt + I), at + 4 * (4 * nt + I + M + 1),
+                             ctypes.byref(items))
+        got = (buf[:4 * nt].reshape(-1, 4), buf[4 * nt:4 * nt + I],
+               buf[4 * nt + I:4 * nt + I + M + 1], buf[4 * nt + I + M + 1:])
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
+    for bad in ([[5, 9], [8, 12]], [[9, 5]], [[0, 11]], [[-1, 3]], [[6, 8], [0, 2]]):
+        b = np.ascontiguousarray(bad, dtype=np.int64)
+        off = np.array([0, len(b)], np.int64)
+        assert lib.raw_cohort_tiles(b.ctypes.data, off.ctypes.data, 1, 10, None, None, None,
+                                    None, ctypes.byref(items)) == -1
+
+
+def test_dist_merge_sorts_each_shard_on_its_own_stream(card, monkeypatch):
+    """The sharded merge over 8 logical shards of the card, three tsids:
+    the empty shards are not sorted, every other shard's sort is queued on
+    a stream of its own before any result is read, and the answer is the
+    one-device merge's, with dedup on and off."""
+    from horaedb_tpu_torch.ops import merge_dedup as md
+    from horaedb_tpu_torch.parallel import dist_merge
+    from horaedb_tpu_torch.parallel.mesh import Mesh
+
+    rng = np.random.default_rng(8)
+    n = 300_000
+    tsid = rng.integers(0, 2**63, 3, dtype=np.uint64)[rng.integers(0, 3, n)]
+    ts = rng.integers(0, 50_000, n).astype(np.int64)
+    seq = rng.integers(1, 9, n).astype(np.uint64)
+    mesh = Mesh.logical(card, 8)
+    full = sum(1 for i in dist_merge.shard_words(mesh, tsid, ts, seq)[0] if len(i))
+    streams, gets = [], []
+    sort, get = md.sort_dedup, md.MergeHandle.get
+
+    def spy_sort(*a, **k):
+        streams.append(torch.cuda.current_stream().cuda_stream)
+        return sort(*a, **k)
+
+    def spy_get(self):
+        gets.append(len(streams))
+        return get(self)
+
+    monkeypatch.setattr(md, "sort_dedup", spy_sort)
+    monkeypatch.setattr(md.MergeHandle, "get", spy_get)
+    for dedup in (True, False):
+        streams.clear()
+        gets.clear()
+        perm, keep = md.merge_dedup_permutation(tsid, ts, seq, dedup=dedup, device=card)
+        gets.clear()
+        before = md.LAUNCHES["f32"]
+        got = dist_merge.dist_merge_dedup(mesh, tsid, ts, seq, dedup=dedup)
+        assert md.LAUNCHES["f32"] - before == full < 8
+        assert np.array_equal(got, perm[keep])
+        mine = streams[1:]
+        assert len(set(mine)) == full
+        assert torch.cuda.default_stream().cuda_stream not in mine
+        assert gets == [full + 1] * full  # every sort queued before the first read
+
+
 def test_raw_kernel_traps(card):
     """+-0 at the threshold, NaN last, +-inf, ties past k, fewer passing
     rows than k, an empty allow list and an empty time range."""

@@ -697,6 +697,58 @@ def test_dist_merge_dedup_matches_reference(dedup, shards):
     assert (len(got) == n) != dedup
 
 
+@pytest.mark.parametrize("dedup", [True, False])
+def test_dist_merge_dedup_with_empty_shards_matches_reference(dedup):
+    """Three distinct tsids over eight shards: the empty shards are neither
+    staged nor sorted, and the answer is the reference's and the one-device
+    merge's."""
+    rng = np.random.default_rng(31 + dedup)
+    n = 3000
+    tsid = rng.integers(0, 2**63, 3, dtype=np.uint64)[rng.integers(0, 3, n)]
+    ts = rng.integers(0, 200, n).astype(np.int64)
+    seq = rng.integers(1, 5, n).astype(np.uint64)
+    mesh = pm.Mesh.logical("cpu", 8)
+    idxs, _, _ = dist_merge.shard_words(mesh, tsid, ts, seq)
+    full = sum(1 for i in idxs if len(i))
+    assert full <= 3
+    want = r_merge.dist_merge_dedup(_jmesh(8), tsid, ts, seq, dedup=dedup)
+    perm, keep = pM.merge_dedup_permutation(tsid, ts, seq, dedup=dedup, device="cpu")
+    f32 = pM.PLAIN_CALLS["f32"]
+    got = dist_merge.dist_merge_dedup(mesh, tsid, ts, seq, dedup=dedup)
+    assert pM.PLAIN_CALLS["f32"] == f32 + full
+    assert np.array_equal(got, np.asarray(want))
+    assert np.array_equal(got, perm[keep])
+
+
+@pytest.mark.parametrize("shards", [1, 3, 8])
+def test_shard_words_stage_exactly_each_shards_rows(shards):
+    """Each shard's staged words are its own rows and no pad: its tsid split
+    into (hi, lo) and its packed rest word, in reversed input order; the
+    shards' rows partition the input, each in input order, every key of a
+    tsid on one shard."""
+    rng = np.random.default_rng(shards)
+    n = 5000
+    tsid = rng.integers(0, 2**63, 40, dtype=np.uint64)[rng.integers(0, 40, n)]
+    ts = rng.integers(0, 900, n).astype(np.int64)
+    seq = rng.integers(1, 9, n).astype(np.uint64)
+    idxs, host, masks = dist_merge.shard_words(pm.Mesh.logical("cpu", shards), tsid, ts, seq)
+    assert len(idxs) == len(host) == shards
+    assert np.array_equal(np.sort(np.concatenate(idxs)), np.arange(n))
+    kind, (rest, mask) = pM._pack_rest(ts, seq)
+    assert kind == "f32" and masks == (0xFFFFFFFF, 0xFFFFFFFF, int(mask))
+    seen = set()
+    for idx, h in zip(idxs, host):
+        assert np.all(np.diff(idx) > 0)
+        assert h.dtype == torch.int32 and tuple(h.shape) == (3, len(idx)) and h.is_contiguous()
+        hi, lo = penc.split_u64(tsid[idx[::-1]])
+        words = h.numpy().view(np.uint32)
+        assert np.array_equal(words[0], hi) and np.array_equal(words[1], lo)
+        assert np.array_equal(words[2], rest[idx[::-1]])
+        mine = set(tsid[idx].tolist())
+        assert not mine & seen
+        seen |= mine
+
+
 def test_dist_merge_dedup_wide_spans_raise():
     tsid = np.arange(10, dtype=np.uint64)
     ts = np.array([0, 2**40] * 5, np.int64)

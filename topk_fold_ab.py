@@ -9,7 +9,7 @@ checkout's ``horaedb_tpu_torch`` (ab_turns.py).
     mkdir -p chip_proof/parent
     git archive HEAD~1 horaedb_tpu_torch | tar -x -C chip_proof/parent
     python3 topk_fold_ab.py --other chip_proof/parent [--runs 12] [--commits 120] \
-        [--arms fold,gather,raw,mesh]
+        [--arms fold,gather,raw,mesh,cohort]
 
 Each turn runs the arms named in ``--arms``:
 
@@ -42,6 +42,13 @@ Each turn runs the arms named in ``--arms``:
   last run that launched any replayed against their plain versions and
   timed on the device timeline (L2 flushed, split by kernel) and by CUDA
   events around the shards' wrappers.
+- cohort: the cohort top-k (B4c) as chip_smoke.py's phase 18 calls it: 32
+  lastpoint-host members (hosts 0-31) on the cpu table's resident columns,
+  k 16; over every row, and, where the checkout's ``raw_topk_cohort``
+  takes windows, over each member's windows as the executor computes them.
+  Each call against its plain version (bit-equal; a digest of the slots the
+  same in every turn), its device time on the profiler's timeline with L2
+  flushed, split by kernel, and by CUDA events with the wrapper.
 
 Prints every time with the card's name and power limit; writes
 chiprun_out/topk_fold_ab.json. Needs one card and nvcc.
@@ -65,7 +72,11 @@ RAW_NAMES = ("raw_init", "raw_keys", "topk_hist", "topk_pick", "raw_flags", "raw
 FOLD_NAMES = ("ring_reset", "ring_scatter", "ring_fold", "HtoD")
 # either checkout's gather kernel
 GATHER_NAMES = ("ring_gather", "ring_gather_rows")
-ARMS = ("fold", "gather", "raw", "mesh")
+# every kernel either checkout's cohort top-k launches
+COHORT_NAMES = ("cohort_init", "cohort_keys", "cohort_hist", "cohort_pick", "cohort_flags",
+                "cohort_scan", "cohort_write", "cohort_fill", "cohort_topk_keys",
+                "cohort_topk_refine", "cohort_topk_write", "Memset", "HtoD")
+ARMS = ("fold", "gather", "raw", "mesh", "cohort")
 MESH_QUERIES = ("lastpoint-host", "high-cpu-1")
 
 
@@ -268,6 +279,64 @@ def arm_mesh(torch, C, card, db, n_runs: int) -> dict:
     return out
 
 
+def arm_cohort(torch, C, card, db) -> dict:
+    import inspect
+
+    import numpy as np
+
+    from horaedb_tpu_torch.common_types.dict_column import as_values
+    from horaedb_tpu_torch.ops import encoding as E, scan_topk as T
+
+    calls, orig = [], T.raw_topk_packed
+
+    def rec(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+
+    sql = query_runs(C, 1)["lastpoint-host"][1][0]
+    T.raw_topk_packed = rec
+    try:
+        for _ in range(3):  # a miss, then the build
+            if db.execute(sql).metrics.get("path") == "raw_device":
+                break
+    finally:
+        T.raw_topk_packed = orig
+    (sp, tp, vals, session, dyn), kw = calls[-1]
+    ex = db.interpreters.executor
+    entry = ex.scan_cache._entries["cpu"]
+    names = np.asarray(as_values(entry.series_rows.columns["hostname"]), dtype=object)
+    allow = np.zeros((32, session.shape[0]), dtype=np.int32)
+    for h in range(32):
+        allow[h, int(np.flatnonzero(names == f"host_{h}")[0])] = 1
+    sess = torch.from_numpy(allow).to("cuda")
+    dyns = dyn.repeat(32, 1)
+    ckw = {**{n: v for n, v in kw.items() if n != "windows"},
+           "k": T.padded_k(E.layout_rows(sp, kw["series_layout"]), 10)}
+    n_f = len(kw["numeric_filters"])
+    lo, hi = (int(x) for x in dyn[n_f:n_f + 2].tolist())
+    want = T.raw_topk_cohort_plain(sp, tp, vals, sess, dyns, **ckw)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    forms = {"every_row": {}}
+    if "windows" in inspect.signature(T.raw_topk_cohort).parameters:
+        forms["windows"] = {"windows": [
+            ex._raw_candidate_estimate(entry, allow[h, :-1] != 0, lo, hi, exact=False)[1]
+            for h in range(32)]}
+    out = {}
+    for form, extra in forms.items():
+        fn = lambda e=extra: T.raw_topk_cohort(sp, tp, vals, sess, dyns, **e, **ckw)  # noqa: E731
+        got = fn()
+        if not torch.equal(got, want):
+            raise AssertionError(f"cohort {form}: the kernel differs from the plain version")
+        ms = C._family_device_ms(torch, fn, COHORT_NAMES, reps=10, flush=flush,
+                                 label=f"cohort {form}")
+        events = C._time_launch(torch, fn, reps=10, flush=flush)
+        out[form] = {"ms": ms, "split": last_split(C) if ms else None, "events_ms": events,
+                     "digest": hashlib.sha1(got.cpu().numpy().tobytes()).hexdigest()}
+        say(f"cohort {form} (32 lastpoint-host members, k {ckw['k']}): {ms} ms on the device "
+            f"timeline, L2 flushed, {events:.4f} ms by events with the wrapper [{card}]")
+    return out
+
+
 def gather_replay(torch, C, card, db, L, field: str, clock: int, flush) -> dict:
     """Phase 11's refresh of ``field``'s panel over the hour before
     ``clock``, served from state; its gather replayed."""
@@ -439,10 +508,12 @@ def arm(opt) -> int:
     res = {"dir": opt.arm, "card": card}
     if {"fold", "gather"} & set(arms):
         res["fold"] = arm_fold(torch, C, card, opt.commits, arms)
-    if {"raw", "mesh"} & set(arms):
+    if {"raw", "mesh", "cohort"} & set(arms):
         db = cpu_table(C)
         if "raw" in arms:
             res["raw"] = arm_raw(torch, C, card, db, opt.runs)
+        if "cohort" in arms:
+            res["cohort"] = arm_cohort(torch, C, card, db)
         if "mesh" in arms:
             res["mesh"] = arm_mesh(torch, C, card, db, opt.runs)
         db.close()
@@ -491,6 +562,16 @@ def main(argv) -> int:
             + each(lambda t: t["mesh"][q]["shards_launched"]) + "; warm execute ms "
             + each(lambda t: f"{t['mesh'][q]['warm_ms']:.3f}")
             + f"; the same rows in every turn: {equal} [{card}]")
+    for form in sorted({f for t in turns for f in t.get("cohort", {})}):
+        has = [t for t in turns if form in t["cohort"]]
+        equal = len({t["cohort"][form]["digest"] for t in has}
+                    | {t["cohort"]["every_row"]["digest"] for t in turns}) == 1
+        same &= equal
+        say(f"cohort {form}: device ms " + " / ".join(
+            f"{t['label']} {t['cohort'][form]['ms'] if form in t['cohort'] else '-'}"
+            for t in turns) + "; events ms " + " / ".join(
+            f"{t['cohort'][form]['events_ms']:.4f}" if form in t["cohort"] else "-"
+            for t in turns) + f"; the same slots in every turn and form: {equal} [{card}]")
     if "fold" in arms:
         say("fold a head-advance commit, device ms "
             + each(lambda t: f"{t['fold']['device_ms_advance_commit']:.4f}")
